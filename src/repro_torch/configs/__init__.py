@@ -1,0 +1,32 @@
+"""Architecture registry (port of `repro/configs`): one module per arch.
+
+Use `get_config(name)` / `get_reduced_config(name)` (smoke-test scale).
+`ARCHS` lists the architectures ported so far.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = [
+    "smollm-135m",
+]
+
+_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown or not yet ported arch {name!r} "
+                       f"(ported: {', '.join(ARCHS)})")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str):
+    return _module(name).CONFIG
+
+
+def get_reduced_config(name: str):
+    return _module(name).reduced()
+
+
+__all__ = ["ARCHS", "get_config", "get_reduced_config"]

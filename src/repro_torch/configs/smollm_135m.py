@@ -1,0 +1,17 @@
+"""smollm-135m [dense]: 30L d_model=576 9H (GQA kv=3) d_ff=1536 vocab=49152
+-- llama-arch small.  [hf:HuggingFaceTB/SmolLM-135M; hf]"""
+import dataclasses
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-135m", family="dense",
+    n_layers=30, d_model=576, n_heads=9, n_kv=3, d_ff=1536, vocab=49152,
+    tie_embeddings=True,
+)
+
+
+def reduced():
+    return dataclasses.replace(
+        CONFIG, name="smollm-reduced", n_layers=2, d_model=48,
+        n_heads=3, n_kv=1, d_ff=128, vocab=256)

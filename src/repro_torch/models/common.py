@@ -1,0 +1,51 @@
+"""Shared model components: RMSNorm and rotary embeddings.
+
+Port of `repro/models/common.py` (standard RoPE only; M-RoPE and
+LayerNorm arrive with the families that use them).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def rms_norm(x, weight, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * weight.to(torch.float32)).to(x.dtype)
+
+
+def norm_apply(x, params, kind: str, eps: float):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return rms_norm(x, params["w"], eps)
+
+
+def rope_freqs(head_dim: int, theta: float):
+    """[D/2] float32 inverse frequencies, computed with numpy exactly as the
+    reference does."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+@functools.cache
+def _freqs_on(head_dim: int, theta: float, device: torch.device):
+    # cached per device: a fresh host-to-device copy on every call would
+    # stall the decode loop once per layer
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: [B, S, H, D]; positions: [B, S].  Half-split (not interleaved)
+    rotation in float32, cast back to x's dtype."""
+    d = x.shape[-1]
+    freqs = _freqs_on(d, theta, x.device)                          # [D/2]
+    ang = positions[..., None].to(torch.float32) * freqs           # [B,S,D/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,141 @@
+"""Top-level language model: init / prefill / decode for the dense family.
+
+Port of `repro/models/lm.py`.  The reference stacks layer params on a
+leading axis and runs the stack under `jax.lax.scan`; the port keeps the
+same stacked layout (so params convert leaf for leaf) and runs a Python
+loop over per-layer slices.  The KV cache is stacked the same way,
+{k, v: [L, B, S_max, KV, D]}, and updated in place (see
+models/attention.py).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import blocks, common
+from repro_torch.models.config import ModelConfig
+from repro_torch.quant.qtensor import qmatmul
+
+
+def _check_family(cfg: ModelConfig):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+
+
+def _layer(tree, i: int):
+    """Layer i's slice of the stacked block params (QTensor leaves slice
+    q and scale together)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
+    """Random params with the reference's shapes and scales, drawn from a
+    seeded torch.Generator on `device` (the numbers differ from the
+    reference's jax.random draws; parity tests convert the reference's
+    params instead, see convert.py).
+
+    dense weights: N(0, 1) / sqrt(d_in) in float32, cast to cfg.dtype;
+    embed: N(0, 1) * 0.02; norm weights: ones (float32)."""
+    _check_family(cfg)
+    dev = device_lib.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    n, d = cfg.n_layers, cfg.d_model
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32) * scale).to(dt)
+
+    def dense(d_in, d_out):
+        return normal((n, d_in, d_out), 1.0 / math.sqrt(d_in))
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    p = {"embed": normal((cfg.vocab, d), 0.02)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal((d, cfg.vocab), 1.0 / math.sqrt(d))
+    p["final_norm"] = {"w": ones(d)}
+    p["blocks"] = {
+        "ln1": {"w": ones(n, d)},
+        "attn": {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
+                 "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)},
+        "ln2": {"w": ones(n, d)},
+        "mlp": {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
+                "wo": dense(cfg.d_ff, d)},
+    }
+    return p
+
+
+def _lm_head(p, x, cfg: ModelConfig):
+    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    return qmatmul(x, w).to(torch.float32)
+
+
+def _embed(p, tokens, cfg: ModelConfig):
+    return p["embed"][tokens.long()]
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device):
+    """Stacked per-layer KV cache {k, v: [L, B, S_max, KV, D]}."""
+    _check_family(cfg)
+    one = attn_mod.init_cache(cfg, batch, s_max, device=device)
+    return {k: torch.zeros((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
+                           device=t.device) for k, t in one.items()}
+
+
+def prefill(params, inputs, cfg: ModelConfig, cache_len: int,
+            positions=None, last_positions=None):
+    """Run the prompt, return (last-position logits [B,1,V] f32, cache).
+
+    inputs: [B,S] int tokens.  last_positions: optional [B] int -- per-row
+    index of the last REAL prompt token (right-padded ragged batches).
+    Default: the final column."""
+    _check_family(cfg)
+    x = _embed(params, inputs, cfg)
+    b = x.shape[0]
+    cache = init_cache(cfg, b, cache_len, device=x.device)
+    for i in range(cfg.n_layers):
+        layer_cache = {k: t[i] for k, t in cache.items()}
+        x = blocks.dense_block(_layer(params["blocks"], i), x, cfg,
+                               mode="prefill", cache=layer_cache,
+                               positions=positions)
+    x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    if last_positions is None:
+        x_last = x[:, -1:, :]
+    else:
+        rows = torch.arange(b, device=x.device)
+        x_last = x[rows, last_positions.long()][:, None, :]
+    return _lm_head(params, x_last, cfg), cache
+
+
+def decode_step(params, token_t, cache, pos, cfg: ModelConfig, active=None):
+    """token_t: [B,C] int; pos: [B] int position of the first new token per
+    row; active: optional [B] bool slot mask -- inactive rows compute but
+    do not write their cache.
+
+    Returns (logits [B,C,V] f32, cache).  The cache is updated IN PLACE
+    and returned for symmetry with the reference's functional update."""
+    _check_family(cfg)
+    x = _embed(params, token_t, cfg)
+    for i in range(cfg.n_layers):
+        layer_cache = {k: t[i] for k, t in cache.items()}
+        x = blocks.dense_block(_layer(params["blocks"], i), x, cfg,
+                               mode="decode", cache=layer_cache, pos=pos,
+                               active=active)
+    x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return _lm_head(params, x, cfg), cache

@@ -1,0 +1,115 @@
+"""QTensor: quantized weight leaves + the matmul they dispatch to.
+
+Port of `repro/quant/qtensor.py` for 2-D weights (batched expert weights
+wait for the MoE slice).  `qmatmul(x, w)` accepts a plain tensor (bf16
+path) or a QTensor (serving path).
+
+Formats:
+  w8a8  q: int8 [..., K, N],    scale: f32 [..., 1, N]
+  w4a8  q: int8 [..., K, N//2] (two int4/word), scale: f32 [..., 1, N]
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.kernels import registry
+from repro_torch.quant.quantize import pack_int4, quantize
+
+
+@dataclasses.dataclass
+class QTensor:
+    q: Any
+    scale: Any
+    fmt: str
+
+    @property
+    def logical_shape(self):
+        s = tuple(self.q.shape)
+        if self.fmt == "w4a8":
+            return s[:-1] + (2 * s[-1],)
+        return s
+
+    def __getitem__(self, i):
+        """Slice the leading (stacked-layer) axis of q and scale."""
+        return QTensor(self.q[i], self.scale[i], self.fmt)
+
+
+def quantize_weight(w, fmt: str) -> QTensor:
+    """w: [..., K, N] float -> QTensor (per-output-channel scales; leading
+    axes, e.g. stacked layers, keep independent scales)."""
+    bits = 4 if fmt == "w4a8" else 8
+    qmax = 2 ** (bits - 1) - 1
+    wf = w.to(torch.float32)
+    amax = wf.abs().amax(dim=-2, keepdim=True)                # [..., 1, N]
+    scale = (amax / qmax + 1e-8).to(torch.float32)
+    q = torch.clamp(torch.round(wf / scale), -qmax - 1, qmax).to(torch.int8)
+    if fmt == "w4a8":
+        q = pack_int4(q)
+    return QTensor(q, scale, fmt)
+
+
+def _q2d(x2, w: QTensor):
+    x_q, x_s = quantize(x2, bits=8, axis=0)
+    op = "quant_matmul" if w.fmt == "w8a8" else "packed_w4_matmul"
+    return registry.dispatch(op, x_q, w.q, x_s, w.scale)
+
+
+def qmatmul(x, w):
+    """x: [..., K]; w: tensor [K, N] | QTensor [K, N]."""
+    if not isinstance(w, QTensor):
+        return x @ w
+    if w.q.ndim != 2:
+        raise NotImplementedError(
+            f"qmatmul: {w.q.ndim}-D QTensor (batched expert weights are "
+            "not ported yet)")
+    lead = x.shape[:-1]
+    y = _q2d(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+
+
+def quantize_tree_for_serving(params, fmt: str, min_size: int = 1 << 16,
+                              skip_keys=("router", "embed", "pos", "conv",
+                                         "ln", "norm", "A_log", "dt_bias",
+                                         "D"),
+                              force: bool = False):
+    """Replace every large >=2D float weight leaf with a QTensor.
+
+    Walks the nested-dict params by path; leaves whose key path contains
+    any of `skip_keys`, 1-D leaves and small leaves stay in bf16/f32.
+    force=True drops the SIZE floors (`min_size` and the
+    min(shape[-2:]) >= 64 width check) but keeps the structural rules:
+    every weight of the reduced test configs sits under the floors, so
+    quantized smoke runs pass force=True and check the dispatch census.
+    A w4a8 leaf with an odd column count falls back to w8a8 (two int4
+    columns share a word)."""
+    if fmt == "bf16":
+        return params
+
+    def visit(path, leaf):
+        keys = "/".join(path)
+        is_float = isinstance(leaf, torch.Tensor) and leaf.dtype in (
+            torch.float32, torch.bfloat16, torch.float16)
+        if (not is_float or leaf.ndim < 2
+                or any(k in keys for k in skip_keys)):
+            return leaf
+        if not force and (leaf.numel() < min_size
+                          or min(leaf.shape[-2:]) < 64):
+            return leaf   # stacked vectors / tiny weights
+        if leaf.ndim == 2 and "lm_head" not in keys:
+            # 2-D leaves inside the stacked block tree are per-layer
+            # vectors (norms etc.) -- only the unstacked lm_head matmul
+            # weight is a real 2-D GEMM operand
+            return leaf
+        if leaf.shape[-1] % 2 and fmt == "w4a8":
+            return quantize_weight(leaf, "w8a8")
+        return quantize_weight(leaf, fmt)
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(path + (str(k),), v) for k, v in node.items()}
+        return visit(path, node)
+
+    return walk((), params)

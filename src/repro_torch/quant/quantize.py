@@ -1,0 +1,72 @@
+"""Symmetric integer quantization + int4 packing.
+
+Port of `repro/quant/quantize.py`.  int8 tensors store int8 values; int4
+tensors store values in [-8, 7] inside int8 words; scales are float32,
+shaped for broadcast against the quantized axis.  The reference tags
+int4 values with `core.prims.width_hint` for the SILVIA width analysis;
+the port has no such analysis yet, so `width_hint` is a no-op marker.
+
+The arithmetic follows the reference step for step, because activation
+quantization sits on every GEMM and one flipped int8 step moves a logit:
+`amax / qmax + eps` runs in the INPUT's dtype (bf16 on the serving path,
+with eps rounded to that dtype first, as JAX's weak typing does) before
+the cast to float32; `x / scale` then runs in float32; rounding is
+half-to-even (`torch.round`, never floor(x + 0.5)).
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import ref as kref
+
+
+def width_hint(x, bits: int):
+    """No-op marker: the value range of `x` fits in `bits` bits."""
+    del bits
+    return x
+
+
+@functools.cache
+def _eps_in(dtype: torch.dtype, eps: float) -> float:
+    # a Python float added to a bf16 tensor is applied in float32 by
+    # PyTorch; rounding it to the tensor's dtype first matches the
+    # reference's weak-typed constant exactly
+    return float(torch.tensor(eps, dtype=dtype))
+
+
+def quantize(x, bits: int = 8, axis=None, eps: float = 1e-8):
+    """Symmetric quantization: returns (q int8, scale f32).
+
+    axis=None -> per-tensor scale; axis=k -> per-slice scales along k
+    (scale shape keeps that axis, 1 elsewhere)."""
+    qmax = 2 ** (bits - 1) - 1
+    if axis is None:
+        amax = x.abs().amax()
+    else:
+        reduce_dims = tuple(i for i in range(x.ndim) if i != axis % x.ndim)
+        amax = x.abs().amax(dim=reduce_dims, keepdim=True)
+    scale = (amax / qmax + _eps_in(x.dtype, eps)).to(torch.float32)
+    # promote explicitly: PyTorch would keep a bf16 x in bf16 against a
+    # 0-dim float32 scale, where the reference divides in float32
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    q = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax).to(torch.int8)
+    if bits < 8:
+        q = width_hint(q, bits)
+    return q, scale
+
+
+def pack_int4(q4):
+    """[..., N] int4-valued int8 -> [..., N//2] packed int8 words."""
+    return kref.pack_w4(q4)
+
+
+def unpack_int4(packed):
+    """[..., N//2] packed int8 words -> [..., N] int4-valued int8."""
+    w32 = packed.to(torch.int32)
+    even = (w32 & 0xF) - 8
+    odd = w32 >> 4
+    out = torch.stack([even, odd], dim=-1).reshape(
+        *packed.shape[:-1], 2 * packed.shape[-1]).to(torch.int8)
+    return width_hint(out, 4)

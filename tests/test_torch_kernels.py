@@ -1,0 +1,338 @@
+"""Port kernels (src/repro_torch/kernels) against the JAX reference.
+
+The plain PyTorch versions must be bit-exact against `repro.kernels.ref`
+and against the Pallas TPU kernels run in interpret mode, on identical
+numpy inputs; so must quantization and int4 packing.  The Hopper kernels
+themselves only run on a card: tests/test_torch_cuda.py holds them
+against the plain versions there (and chip_smoke.py at the serving
+shapes).
+"""
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import common as jcommon  # noqa: E402
+from repro.kernels import packed_matmul as jpmm  # noqa: E402
+from repro.kernels import quant_matmul as jqmm  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.quant import qtensor as jqt  # noqa: E402
+from repro.quant.quantize import quantize as jquantize  # noqa: E402
+from repro.quant.quantize import unpack_int4 as junpack_int4  # noqa: E402
+from repro_torch.kernels import (_build, common, ops,  # noqa: E402
+                                 packed_matmul, quant_matmul, ref, registry)
+from repro_torch.quant import qtensor as tqt  # noqa: E402
+from repro_torch.quant import quantize as tquant  # noqa: E402
+
+# ragged M / K / N, including K=48 (not a multiple of 32) and the reduced
+# smollm projections K in {48, 128}, N in {16, 48, 128}
+SHAPES = [(1, 48, 16), (3, 48, 128), (17, 128, 48), (2, 100, 34),
+          (9, 7, 6)]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny tensors: one intra-op thread keeps torch from competing with
+    the other test workers for every core; restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _i8(rng, *shape):
+    return rng.integers(-128, 128, shape).astype(np.int8)
+
+
+def _operands(rng, m, k, n, packed):
+    x = _i8(rng, m, k)
+    w = _i8(rng, k, n // 2) if packed else _i8(rng, k, n)
+    xs = (rng.random((m, 1)) * 0.02 + 1e-3).astype(np.float32)
+    ws = (rng.random((1, n)) * 0.02 + 1e-3).astype(np.float32)
+    return x, w, xs, ws
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# plain GEMMs: bit-exact against the oracle and the Pallas kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_quant_matmul_plain_bit_exact(m, k, n):
+    rng = np.random.default_rng(m * 1000 + k * 10 + n)
+    x, w, xs, ws = _operands(rng, m, k, n, packed=False)
+    acc = ref.quant_matmul_acc_ref(_t(x), _t(w))
+    assert acc.dtype == torch.int32
+    want_acc = np.asarray(jqmm.quant_matmul_acc(
+        jnp.asarray(x), jnp.asarray(w), block=(8, 128, 128), interpret=True))
+    np.testing.assert_array_equal(_np(acc), want_acc)
+    got = ref.quant_matmul_ref(_t(x), _t(w), _t(xs), _t(ws))
+    want = np.asarray(jref.quant_matmul_ref(jnp.asarray(x), jnp.asarray(w),
+                                            jnp.asarray(xs), jnp.asarray(ws)))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(_np(got), want)
+    # the CPU wrapper is the plain version, and launches nothing
+    before = quant_matmul.LAUNCHES.count
+    np.testing.assert_array_equal(
+        _np(quant_matmul.quant_matmul(_t(x), _t(w), _t(xs), _t(ws))), want)
+    np.testing.assert_array_equal(
+        _np(quant_matmul.quant_matmul_acc(_t(x), _t(w))), want_acc)
+    assert quant_matmul.LAUNCHES.count == before
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_packed_w4_matmul_plain_bit_exact(m, k, n):
+    rng = np.random.default_rng(m * 1000 + k * 10 + n + 7)
+    x, wp, xs, ws = _operands(rng, m, k, n, packed=True)
+    acc = ref.packed_w4_matmul_acc_ref(_t(x), _t(wp))
+    want_acc = np.asarray(jpmm.packed_w4_matmul_acc(
+        jnp.asarray(x), jnp.asarray(wp), block=(8, 256, 128),
+        interpret=True))
+    np.testing.assert_array_equal(_np(acc), want_acc)
+    got = ref.packed_w4_matmul_ref(_t(x), _t(wp), _t(xs), _t(ws))
+    want = np.asarray(jref.packed_w4_matmul_ref(
+        jnp.asarray(x), jnp.asarray(wp), jnp.asarray(xs), jnp.asarray(ws)))
+    np.testing.assert_array_equal(_np(got), want)
+    before = packed_matmul.LAUNCHES.count
+    np.testing.assert_array_equal(_np(packed_matmul.packed_w4_matmul(
+        _t(x), _t(wp), _t(xs), _t(ws))), want)
+    np.testing.assert_array_equal(
+        _np(packed_matmul.packed_w4_matmul_acc(_t(x), _t(wp))), want_acc)
+    assert packed_matmul.LAUNCHES.count == before
+
+
+def test_plain_gemm_out_dtype_and_scalar_scales():
+    rng = np.random.default_rng(3)
+    x, w, _, _ = _operands(rng, 4, 48, 16, packed=False)
+    got = ref.quant_matmul_ref(_t(x), _t(w), torch.tensor(0.5),
+                               torch.tensor(0.25), torch.bfloat16)
+    want = np.asarray(jref.quant_matmul_ref(
+        jnp.asarray(x), jnp.asarray(w), jnp.float32(0.5), jnp.float32(0.25),
+        jnp.bfloat16)).astype(np.float32)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_plain_gemm_exact_at_int8_extremes():
+    """All -128 operands at the largest serving K: every partial sum is an
+    integer far inside float64's exact range (K * 2^14 < 2^53)."""
+    x = torch.full((2, 1536), -128, dtype=torch.int8)
+    w = torch.full((1536, 4), -128, dtype=torch.int8)
+    acc = ref.quant_matmul_acc_ref(x, w)
+    assert bool((acc == 1536 * 128 * 128).all())
+
+
+# ---------------------------------------------------------------------------
+# int4 packing and quantization
+# ---------------------------------------------------------------------------
+
+def test_pack_w4_and_unpack_bit_exact():
+    rng = np.random.default_rng(5)
+    w4 = rng.integers(-8, 8, (3, 48, 32)).astype(np.int8)
+    packed = ref.pack_w4(_t(w4))
+    np.testing.assert_array_equal(_np(packed),
+                                  np.asarray(jref.pack_w4(jnp.asarray(w4))))
+    np.testing.assert_array_equal(_np(tquant.pack_int4(_t(w4))), _np(packed))
+    words = _i8(rng, 5, 24)
+    np.testing.assert_array_equal(
+        _np(common.unpack_w4_words(_t(words))),
+        np.asarray(jcommon.unpack_w4_words(jnp.asarray(words))))
+    np.testing.assert_array_equal(
+        _np(tquant.unpack_int4(_t(words))),
+        np.asarray(junpack_int4(jnp.asarray(words))))
+    np.testing.assert_array_equal(_np(tquant.unpack_int4(packed)), w4)
+    with pytest.raises(ValueError):
+        ref.pack_w4(torch.zeros((2, 3), dtype=torch.int8))
+
+
+def _as(a, dtype):
+    """numpy float32 data -> (jax array, torch tensor) of `dtype`."""
+    j = jnp.asarray(a).astype(jnp.bfloat16 if dtype == "bf16"
+                              else jnp.float32)
+    t = _t(a).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits,axis", [(8, 0), (8, None), (8, -1), (4, 0)])
+def test_quantize_bit_exact(dtype, bits, axis):
+    rng = np.random.default_rng(bits * 10 + (axis or 0) + 2)
+    a = (rng.standard_normal((7, 48)) * 3).astype(np.float32)
+    a[2] = 0.0                     # an all-zero row: scale is eps alone
+    a[3] *= 1e-3
+    j, t = _as(a, dtype)
+    jq, js = jquantize(j, bits=bits, axis=axis)
+    tq, ts = tquant.quantize(t, bits=bits, axis=axis)
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(_np(ts), np.asarray(js))
+    np.testing.assert_array_equal(_np(tq), np.asarray(jq))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("fmt", ["w8a8", "w4a8"])
+def test_quantize_weight_bit_exact(dtype, fmt):
+    rng = np.random.default_rng(11)
+    a = (rng.standard_normal((2, 48, 16)) / 7).astype(np.float32)
+    j, t = _as(a, dtype)
+    jw = jqt.quantize_weight(j, fmt)
+    tw = tqt.quantize_weight(t, fmt)
+    assert tw.fmt == jw.fmt and tw.logical_shape == jw.logical_shape
+    np.testing.assert_array_equal(_np(tw.q), np.asarray(jw.q))
+    np.testing.assert_array_equal(_np(tw.scale), np.asarray(jw.scale))
+    layer = tw[1]
+    assert tuple(layer.q.shape) == tuple(jw.q.shape[1:])
+    np.testing.assert_array_equal(_np(layer.scale), np.asarray(jw.scale[1]))
+
+
+@pytest.mark.parametrize("fmt", ["w8a8", "w4a8"])
+def test_qmatmul_matches_reference(fmt):
+    """The quantized matmul a projection runs: activation quantization,
+    the plain GEMM, the f32 epilogue and the cast back to x's dtype."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 5, 48)).astype(np.float32)
+    w = (rng.standard_normal((48, 16)) / 7).astype(np.float32)
+    for dtype in ("f32", "bf16"):
+        jx, tx = _as(x, dtype)
+        jw, tw = _as(w, dtype)
+        want = jqt.qmatmul(jx, jqt.quantize_weight(jw, fmt))
+        got = tqt.qmatmul(tx, tqt.quantize_weight(tw, fmt))
+        assert got.dtype == tx.dtype and tuple(got.shape) == (2, 5, 16)
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+def _gemm_args(rng, fmt):
+    x, w, xs, ws = _operands(rng, 3, 48, 16, packed=fmt == "w4a8")
+    return _t(x), _t(w), _t(xs), _t(ws)
+
+
+def test_registry_resolution_and_counts(monkeypatch):
+    monkeypatch.delenv(registry.ENV_VAR, raising=False)
+    assert registry.resolve("quant_matmul", "cpu") == "ref"
+    assert registry.resolve("quant_matmul", "cuda") == "hopper-cuda"
+    assert registry.resolve("packed_w4_matmul", torch.device("cuda:0")) \
+        == "hopper-cuda"
+    with registry.force("ref"):
+        assert registry.resolve("quant_matmul", "cuda") == "ref"
+        with registry.force(packed_w4_matmul="hopper-cuda"):
+            assert registry.resolve("packed_w4_matmul", "cpu") \
+                == "hopper-cuda"
+            assert registry.resolve("quant_matmul", "cuda") == "ref"
+    assert registry.resolve("quant_matmul", "cuda") == "hopper-cuda"
+    assert registry.census_str("cpu") == \
+        "quant_matmul=ref, packed_w4_matmul=ref"
+
+    rng = np.random.default_rng(17)
+    registry.reset_dispatch_counts()
+    x, w, xs, ws = _gemm_args(rng, "w8a8")
+    want = ref.quant_matmul_ref(x, w, xs, ws)
+    for lid in registry.LOWERINGS:   # both serve a CPU tensor identically
+        with registry.force(lid):
+            assert torch.equal(ops.quant_matmul(x, w, xs, ws), want)
+    x, w, xs, ws = _gemm_args(rng, "w4a8")
+    out = ops.packed_w4_matmul(x, w, xs, ws, out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    assert registry.dispatch_counts() == {"quant_matmul": 2,
+                                          "packed_w4_matmul": 1}
+    registry.reset_dispatch_counts()
+    assert registry.dispatch_counts() == {"quant_matmul": 0,
+                                          "packed_w4_matmul": 0}
+
+
+def test_registry_env_override_and_errors(monkeypatch):
+    monkeypatch.setenv(registry.ENV_VAR, "*=ref")
+    assert registry.resolve("quant_matmul", "cuda") == "ref"
+    monkeypatch.setenv(registry.ENV_VAR, "packed_w4_matmul=ref")
+    assert registry.resolve("packed_w4_matmul", "cuda") == "ref"
+    assert registry.resolve("quant_matmul", "cuda") == "hopper-cuda"
+    with registry.force("hopper-cuda"):       # force() beats the env
+        assert registry.resolve("packed_w4_matmul", "cuda") == "hopper-cuda"
+    # the JAX registry's variable is not read by the port
+    monkeypatch.delenv(registry.ENV_VAR)
+    monkeypatch.setenv("REPRO_LOWERING", "*=tpu-pallas")
+    assert registry.resolve("quant_matmul", "cuda") == "hopper-cuda"
+    for bad in ("quant_matmul=tpu-pallas", "simd_add=ref", "ref"):
+        monkeypatch.setenv(registry.ENV_VAR, bad)
+        with pytest.raises(ValueError):
+            registry.resolve("quant_matmul", "cpu")
+    monkeypatch.delenv(registry.ENV_VAR)
+    with pytest.raises(ValueError):
+        with registry.force("gpu-pallas"):
+            pass
+    with pytest.raises(KeyError):
+        registry.resolve("mul4", "cpu")
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros((2, 48), dtype=torch.int8, device="meta")
+    w = torch.zeros((48, 16), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError):
+        quant_matmul.quant_matmul_acc(x, w)
+    with pytest.raises(ValueError):
+        packed_matmul.packed_w4_matmul_acc(x, w[:, :8])
+    # the launch helper itself never runs on a CPU tensor
+    with pytest.raises(ValueError):
+        common.launch_s8_gemm(None, quant_matmul.LAUNCHES,
+                              torch.zeros((2, 48), dtype=torch.int8),
+                              torch.zeros((48, 16), dtype=torch.int8), 16,
+                              None, None, want_acc=True, want_out=False)
+
+
+# ---------------------------------------------------------------------------
+# build: content-keyed library names, nvcc discovery
+# ---------------------------------------------------------------------------
+
+def test_build_paths_are_content_keyed():
+    p = _build.library_path("quant_matmul")
+    assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
+    assert p.name.startswith("quant_matmul-")
+    assert p == _build.library_path("quant_matmul")
+    assert (_build.CSRC / "quant_matmul.cu").exists()
+    assert (_build.CSRC / "packed_w4_matmul.cu").exists()
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    assert (_build.BUILD_DIR.parents[1] / "src" / "repro_torch").is_dir()
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc_path()
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        _build.check(1, "probe")
+    _build.check(0, "probe")
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """chip_smoke.py exits nonzero and prints no result without CUDA, and
+    alone in a directory without the rest of the repository."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    src = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(src.read_text())
+    for script in (src, lone):
+        res = subprocess.run([sys.executable, str(script)],
+                             capture_output=True, text=True, timeout=120,
+                             cwd=script.parent)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
