@@ -7,15 +7,30 @@ Phases (any failure ends the run nonzero; nothing is caught and passed
 over):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both Hopper kernels from `src/repro_torch/kernels/csrc` into the
-   git-ignored `build/` (one nvcc per source, started together), timed;
-3. each kernel against its plain PyTorch version at every main-path
+2. build all five Hopper kernels from `src/repro_torch/kernels/csrc` into
+   the git-ignored `build/` (one nvcc per source, started together),
+   timed;
+3. each GEMM kernel against its plain PyTorch version at every main-path
    (K, N) with decode M=8 and prefill M=1024, plus ragged shapes: the
    int32 accumulator and the f32 output must be bit-identical
    (`torch.equal`); then per-launch times of the kernel, the plain
    version and the library yardstick (`torch._int_mm`, after an unpack
    for w4a8) where the shape is legal for it;
-4. greedy generation with full-width smollm-135m (30 layers, d_model 576,
+4. each SWAR kernel (simd_add_packed, muladd2, mul4_full32, mul4_split)
+   against its plain version at ragged shapes: both lane widths, add and
+   sub, k = 1..lanes; chains of 1, 9 and 31; mul4 signed and unsigned;
+5. the SILVIA pass pipeline (`repro_torch.core.optimize`) over the
+   paper's programs at card size (inputs from a seeded torch.Generator):
+   each program's packed-unit count must match the reference passes',
+   one call of each optimized program must launch exactly its kernels,
+   its outputs must equal the unoptimized program's and a forced-`ref`
+   rerun's (which launches nothing); time per call optimized and
+   unoptimized.  Off the path, MobileNet-4b packed by hand on mul4_split
+   must equal the packed program.  Then each SWAR kernel is gated again
+   and timed at the operands its wrapper recorded on the path (mul4_split
+   at mul4_full32's), beside its plain version, its bound and (simd_add)
+   `torch.add` on the words viewed as int8/int16;
+6. greedy generation with full-width smollm-135m (30 layers, d_model 576,
    random weights from a seeded torch.Generator): B=8, prompt 128, 32 new
    tokens, under w4a8 and then w8a8.  The format's kernel must launch
    7 x 30 x 32 = 6720 times and the other kernel 0 times; a rerun with
@@ -28,12 +43,15 @@ repository beside it, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
 import subprocess
 import sys
 import time
+
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -52,6 +70,207 @@ BATCH, PROMPT, GEN = 8, 128, 32
 # activation's int8 rounding may flip one step, which moves a logit of
 # magnitude ~0.1 by ~1e-3
 CPU_LOGIT_ATOL = 2e-2
+
+
+# ---------------------------------------------------------------------------
+# the paper's programs (Tables 1a, 1b, 2 and the 4-bit conv pair), written
+# as plain torch over narrow integer tensors; the SILVIA passes pack them.
+# Torch copies of benchmarks/table1a.py, table1b.py and table2_cnn.py,
+# which tests/test_torch_silvia.py holds against the JAX originals.
+# Sums pass dtype=torch.int32: an int32 sum widens to int64 otherwise,
+# where the reference keeps int32.
+# ---------------------------------------------------------------------------
+
+def _f(x):
+    return x.to(torch.int32)
+
+
+def _wh(x, bits: int):
+    from repro_torch.core import width_hint
+    return width_hint(x, bits)
+
+
+def vadd_unrolled(a_lanes, b_lanes):
+    """Parallel int8 adds over the lanes (the Xilinx vadd example,
+    unrolled)."""
+    return tuple(a + b for a, b in zip(a_lanes, b_lanes))
+
+
+def snn_conv_taps(spikes, weights, accs):
+    """Spiking conv: membrane += spike ? w : 0 per tap, 3x3 taps
+    unrolled, the channels split into 4 independent accumulator lanes.
+
+    spikes: 9 bool [P] maps; weights: 9 x 4 int8 [C/4]; accs: 4 int8
+    [P, C/4] membrane accumulators."""
+    outs = list(accs)
+    for s, w4 in zip(spikes, weights):
+        for k in range(len(outs)):
+            contrib = torch.where(s[:, None], w4[k][None, :], 0
+                                  ).to(torch.int8)
+            outs[k] = outs[k] + contrib     # independent across k -> four8
+    return tuple(outs)
+
+
+def mvm(w_even, w_odd, x):
+    """int8 matrix-vector product, output-unrolled by 2: the row pair
+    shares x (paper Eq. 1 with N=1)."""
+    y_e = torch.sum(_f(w_even) * _f(x)[None, :], dim=1, dtype=torch.int32)
+    y_o = torch.sum(_f(w_odd) * _f(x)[None, :], dim=1, dtype=torch.int32)
+    return y_e, y_o
+
+
+def scal(x_even, x_odd, alpha):
+    """BLAS scal, unrolled by 2 sharing alpha."""
+    return _f(x_even) * _f(alpha), _f(x_odd) * _f(alpha)
+
+
+def axpy(x_even, x_odd, y_even, y_odd, alpha):
+    """alpha*x + y: the muls pack (shared alpha); the +y adds stay."""
+    return (_f(x_even) * _f(alpha) + _f(y_even),
+            _f(x_odd) * _f(alpha) + _f(y_odd))
+
+
+def gsm(d_even, d_odd, wt, prev):
+    """GSM long-term-predictor flavour: two lag streams share the window
+    `wt`; one unshared scaling mul stays unpacked."""
+    l0 = torch.sum(_f(d_even) * _f(wt), dtype=torch.int32)
+    l1 = torch.sum(_f(d_odd) * _f(wt), dtype=torch.int32)
+    return l0, l1, _f(prev) * _f(prev)
+
+
+def rtm(p_a, p_b, taps_a, taps_b, c_center, c_axis):
+    """RTM 7-point stencil step on two wavefield streams: the centre-tap
+    and axis muls pair across streams; the tap sums stay adds."""
+    lap_a = sum(taps_a[1:], taps_a[0])
+    lap_b = sum(taps_b[1:], taps_b[0])
+    out_a = _f(p_a) * _f(c_center) + _f(lap_a) * _f(c_axis)
+    out_b = _f(p_b) * _f(c_center) + _f(lap_b) * _f(c_axis)
+    return out_a, out_b
+
+
+def gat(h_even, h_odd, att, w_self):
+    """Graph-attention scores: neighbour feature pairs share the
+    attention vector."""
+    e0 = torch.sum(_f(h_even) * _f(att), dim=1, dtype=torch.int32)
+    e1 = torch.sum(_f(h_odd) * _f(att), dim=1, dtype=torch.int32)
+    s0 = torch.sum(_f(h_even) * _f(w_self), dim=1, dtype=torch.int32)
+    s1 = torch.sum(_f(h_odd) * _f(w_self), dim=1, dtype=torch.int32)
+    return e0, e1, s0, s1
+
+
+def shift_views(x, k: int = 3):
+    """x: [..., H, W] int8 -> k*k shifted views of the last two dims,
+    zero padded (the reference's _shift_views at [H, W], batched)."""
+    h, w = x.shape[-2:]
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    return tuple(xp[..., dy:dy + h, dx:dx + w]
+                 for dy in range(k) for dx in range(k))
+
+
+def conv3x3_pair_naive(x, w_even, w_odd):
+    """3x3 conv for two output channels sharing the input taps.
+    x: [..., H, W] int8; w_*: [9] int8 per-tap weights."""
+    taps = shift_views(x)
+    ye = _f(taps[0]) * _f(w_even[0])
+    yo = _f(taps[0]) * _f(w_odd[0])
+    for t in range(1, 9):
+        ye = ye + _f(taps[t]) * _f(w_even[t])
+        yo = yo + _f(taps[t]) * _f(w_odd[t])
+    return ye, yo
+
+
+def conv3x3_pair_4b(x, w_even, w_odd):
+    """The conv pair with 4-bit weights, each tap's weight hinted AFTER
+    indexing (width does not pass through indexing): Eq. 2 then allows a
+    single in-lane chain of all 9 taps."""
+    taps = shift_views(x)
+    we = lambda t: _f(_wh(w_even[t], 4))
+    wo = lambda t: _f(_wh(w_odd[t], 4))
+    ye = _f(taps[0]) * we(0)
+    yo = _f(taps[0]) * wo(0)
+    for t in range(1, 9):
+        ye = ye + _f(taps[t]) * we(t)
+        yo = yo + _f(taps[t]) * wo(t)
+    return ye, yo
+
+
+def pw_conv4_naive(x, w4):
+    """Pointwise 4-bit conv (MobileNet-4b): 4 output channels share the
+    input pixel.  x: [N] 4-bit-valued int8; w4: [4] 4-bit int8."""
+    xx = _f(_wh(x, 4))
+    return tuple(xx * _f(_wh(w4[i], 4)) for i in range(4))
+
+
+def pw_conv4_manual_split(x, w4):
+    """MobileNet-4b packed by hand onto the paper's Fig. 3 unit (the
+    27-bit-port layout with the Eq. 4 patch, `mul4_split`), as FINN
+    writes it at RTL level.  Off the SILVIA path: no pass or registry
+    lowering selects the split unit (the reference's pw_conv4_manual binds
+    the full 32-bit one).  Equals pw_conv4_naive."""
+    from repro_torch.kernels import mul4
+    a = torch.stack([w.expand(x.shape) for w in w4.unbind(0)])
+    return tuple(mul4.mul4_split(a, x))
+
+
+def _passes(*specs):
+    from repro_torch.core import PassConfig
+    return [PassConfig(**s) for s in specs]
+
+
+ADD_PASSES = ({"op": "add", "op_size": 8}, {"op": "add", "op_size": 16})
+MAD_PASSES = ({"op": "muladd"},)
+
+
+def program_specs(card: bool):
+    """(name, fn, make_args(i8, i4, boolean), pass specs, units before,
+    units after, {kernel: launches per call}) per program; `card` picks
+    the card sizes (benchmark sizes for the five small BLAS/kernel
+    programs either way), else the reference benchmarks' sizes."""
+    lanes, vlen = 8, (2 ** 22 if card else 24)
+    px, ch = (256 * 32 * 32, 64) if card else (24 * 24, 16)
+    mv = (4096, 4096) if card else (96, 192)
+    conv = (4096, 32, 32) if card else (16, 16)
+    pw = 2 ** 23 if card else 512
+    return [
+        ("vadd", vadd_unrolled,
+         lambda i8, i4, bl: (tuple(i8(vlen) for _ in range(lanes)),
+                             tuple(i8(vlen) for _ in range(lanes))),
+         ADD_PASSES, 8, 2, {"simd_add_packed": 2}),
+        ("SNN", snn_conv_taps,
+         lambda i8, i4, bl: (tuple(bl(px) for _ in range(9)),
+                             tuple(tuple(i8(ch // 4) for _ in range(4))
+                                   for _ in range(9)),
+                             tuple(i8(px, ch // 4) for _ in range(4))),
+         ADD_PASSES, 36, 9, {"simd_add_packed": 9}),
+        ("MVM", mvm,
+         lambda i8, i4, bl: (i8(*mv), i8(*mv), i8(mv[1])),
+         MAD_PASSES, 2, 1, {"muladd2": 1}),
+        ("scal", scal, lambda i8, i4, bl: (i8(256), i8(256), i8()),
+         MAD_PASSES, 2, 1, {"muladd2": 1}),
+        ("axpy", axpy,
+         lambda i8, i4, bl: (i8(256), i8(256), i8(256), i8(256), i8()),
+         MAD_PASSES, 4, 3, {"muladd2": 1}),
+        ("GSM", gsm, lambda i8, i4, bl: (i8(40), i8(40), i8(40), i8(40)),
+         MAD_PASSES, 3, 2, {"muladd2": 1}),
+        ("RTM", rtm,
+         lambda i8, i4, bl: (i8(16, 16, 16), i8(16, 16, 16),
+                             tuple(i8(16, 16, 16) for _ in range(6)),
+                             tuple(i8(16, 16, 16) for _ in range(6)),
+                             i8(), i8()),
+         MAD_PASSES, 16, 14, {"muladd2": 2}),
+        ("GAT", gat,
+         lambda i8, i4, bl: (i8(128, 64), i8(128, 64), i8(64), i8(64)),
+         MAD_PASSES, 4, 2, {"muladd2": 2}),
+        ("conv-pair", conv3x3_pair_naive,
+         lambda i8, i4, bl: (i8(*conv), i8(9), i8(9)),
+         MAD_PASSES, 34, 25, {"muladd2": 9}),
+        ("conv-pair-4b", conv3x3_pair_4b,
+         lambda i8, i4, bl: (i8(*conv), i4(9), i4(9)),
+         ({"op": "muladd", "m_bits": 4},), 34, 2, {"muladd2": 1}),
+        ("MobileNet-4b", pw_conv4_naive,
+         lambda i8, i4, bl: (i4(pw), i4(4)),
+         ({"op": "mul4"},), 4, 1, {"mul4_full32": 1}),
+    ]
 
 
 def log(msg: str) -> None:
@@ -90,6 +309,19 @@ def device_ms(torch, fn, n_iter: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n_iter
+
+
+def call_ms(fn, n_iter: int) -> float:
+    """Mean time per call of fn() on the host clock around n_iter calls
+    that end in a synchronize: the host's dispatch of the call's many
+    small ops counts, as it does for its caller."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_iter
 
 
 def phase_kernels(torch) -> dict:
@@ -175,6 +407,295 @@ def phase_kernels(torch) -> dict:
             f"{len(main_shapes) + len(RAGGED)} shapes")
         results[sp["name"]] = dict(spec=sp, rows=rows, max_abs_err=worst)
     return results
+
+
+# ---------------------------------------------------------------------------
+# the SWAR kernels and the SILVIA pass pipeline over the paper's programs
+# ---------------------------------------------------------------------------
+
+DEVICE = "cuda"
+# ragged element counts (the masked tail) and aligned ones (16-byte path)
+SWAR_RAGGED = [(1,), (5,), (17, 3), (1000,), (33, 65), (4096 + 7,),
+               (64, 256)]
+# the H100 SXM's CUDA-core float32 rate, the nearest published peak for
+# the kernels' 32-bit integer ALU ops (the tensor cores do none of them)
+CUDA_CORE_OPS_PER_S = 67e12
+SWAR_KERNELS = {
+    "simd_add_packed": dict(
+        source="src/repro_torch/kernels/csrc/simd_add.cu",
+        replaces="src/repro/kernels/simd_add.py:29"),
+    "muladd2": dict(
+        source="src/repro_torch/kernels/csrc/muladd2.cu",
+        replaces="src/repro/kernels/muladd2.py:36"),
+    "mul4_full32": dict(
+        source="src/repro_torch/kernels/csrc/mul4.cu",
+        replaces="src/repro/kernels/mul4.py:103"),
+    "mul4_split": dict(
+        source="src/repro_torch/kernels/csrc/mul4.cu",
+        replaces="src/repro/kernels/mul4.py:112"),
+}
+
+
+def _swar_counters():
+    from repro_torch.kernels import mul4, muladd2, simd_add
+    return {"simd_add_packed": simd_add.LAUNCHES,
+            "muladd2": muladd2.LAUNCHES, "mul4_full32": mul4.LAUNCHES,
+            "mul4_split": mul4.SPLIT_LAUNCHES}
+
+
+def _randint(gen, lo, hi, shape, dtype):
+    return torch.randint(lo, hi, shape, generator=gen, device=gen.device,
+                         dtype=torch.int64).to(dtype)
+
+
+def _outs(x) -> list:
+    return [x] if isinstance(x, torch.Tensor) else list(x)
+
+
+def _same(got, want) -> bool:
+    got, want = _outs(got), _outs(want)
+    return len(got) == len(want) and all(
+        g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def phase_swar_gates() -> int:
+    """Each SWAR kernel against its plain version at ragged shapes: every
+    lane width, add and sub, k = 1..lanes; muladd2 chains of 1, 9, 31
+    (4-bit a and b beyond 1, inside the Eq. 2 bound); mul4 full32 and
+    split, signed and unsigned.  Returns the number of checks."""
+    from repro_torch.kernels import mul4, muladd2, ref, simd_add
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    checks = 0
+    for shape in SWAR_RAGGED:
+        for lane_bits, dt in ((8, torch.int8), (16, torch.int16)):
+            lo = -(1 << (lane_bits - 1))
+            for sub in (False, True):
+                words = [_randint(gen, -2 ** 31, 2 ** 31, shape,
+                                  torch.int32) for _ in range(2)]
+                if not torch.equal(
+                        simd_add.simd_add_packed(*words, lane_bits=lane_bits,
+                                                 sub=sub),
+                        simd_add.simd_add_packed_plain(
+                            *words, lane_bits=lane_bits, sub=sub)):
+                    raise AssertionError(f"simd_add_packed {shape} lane "
+                                         f"{lane_bits} sub={sub}")
+                for k in range(1, 32 // lane_bits + 1):
+                    xs = [_randint(gen, lo, -lo, shape, dt)
+                          for _ in range(k)]
+                    ys = [_randint(gen, lo, -lo, shape, dt)
+                          for _ in range(k)]
+                    if not _same(simd_add.simd_add(xs, ys,
+                                                   lane_bits=lane_bits,
+                                                   sub=sub),
+                                 ref.simd_add_ref(xs, ys, sub=sub,
+                                                  lane_bits=lane_bits)):
+                        raise AssertionError(f"simd_add {shape} lane "
+                                             f"{lane_bits} k={k} sub={sub}")
+                    checks += 2
+        for n in (1, 9, 31):
+            lo = -128 if n == 1 else -8
+            a, b = (_randint(gen, lo, -lo, (n, *shape), torch.int8)
+                    for _ in range(2))
+            c = _randint(gen, -128, 128, (n, *shape), torch.int8)
+            if not _same(muladd2.muladd2(a, b, c),
+                         muladd2.muladd2_plain(a, b, c)):
+                raise AssertionError(f"muladd2 n={n} {shape}")
+            checks += 1
+        for signed, (lo, hi) in ((True, (-8, 8)), (False, (0, 16))):
+            a = _randint(gen, lo, hi, (4, *shape), torch.int8)
+            b = _randint(gen, lo, hi, shape, torch.int8)
+            want = mul4.mul4_plain(a, b)
+            for fn in (mul4.mul4_full32, mul4.mul4_split):
+                if not _same(fn(a, b, signed=signed), want):
+                    raise AssertionError(f"{fn.__name__} signed={signed} "
+                                         f"{shape}")
+                checks += 1
+    torch.cuda.synchronize()
+    log(f"SWAR kernels: bit-identical to their plain versions in {checks} "
+        f"ragged checks over {len(SWAR_RAGGED)} shapes")
+    return checks
+
+
+def _replay(kname: str, operands, attrs):
+    """(signature, kernel(), plain(), library() or None, bytes moved,
+    integer ops) to replay one captured launch of a SWAR kernel on the
+    operands its wrapper launched it with."""
+    from repro_torch.kernels import mul4, muladd2, simd_add
+    if kname == "simd_add_packed":
+        xw, yw = operands
+        lane = torch.int8 if attrs["lane_bits"] == 8 else torch.int16
+        lib = torch.sub if attrs["sub"] else torch.add
+        return (("words", tuple(xw.shape), attrs["lane_bits"], attrs["sub"]),
+                lambda: simd_add.simd_add_packed(xw, yw, **attrs),
+                lambda: simd_add.simd_add_packed_plain(xw, yw, **attrs),
+                lambda: lib(xw.view(lane), yw.view(lane)).view(torch.int32),
+                12 * xw.numel(), 5 * xw.numel())
+    if kname == "muladd2":
+        a, b, c = operands
+        n, e = a.shape[0], a[0].numel()
+        return (("n", n, tuple(a.shape[1:])),
+                lambda: muladd2.muladd2(a, b, c),
+                lambda: muladd2.muladd2_plain(a, b, c), None,
+                (3 * n + 8) * e, (4 * n + 6) * e)
+    a, b = operands
+    fn, ops = ((mul4.mul4_full32, 20) if kname == "mul4_full32"
+               else (mul4.mul4_split, 24))
+    return (("e", tuple(b.shape)), lambda: fn(a, b, **attrs),
+            lambda: mul4.mul4_plain(a, b), None, 21 * b.numel(),
+            ops * b.numel())
+
+
+def swar_bound_ms(nbytes: int, ops: int) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_programs() -> list:
+    """The paper's programs through the SILVIA passes at card size, then
+    the SWAR kernels gated and timed at the shapes they ran at.  Returns
+    the four SWAR kernels' entries of the `kernels` line."""
+    from repro_torch import core as silvia
+    from repro_torch.core import opcount
+    from repro_torch.kernels import registry
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    i8 = lambda *s: _randint(gen, -128, 128, s, torch.int8)
+    i4 = lambda *s: _randint(gen, -8, 8, s, torch.int8)
+    bl = lambda *s: torch.rand(s, generator=gen, device=DEVICE) > 0.7
+    counters = _swar_counters()
+    progs = []
+    for name, fn, make, pspecs, u_before, u_after, want in \
+            program_specs(card=True):
+        args = make(i8, i4, bl)
+        passes = _passes(*pspecs)
+        before = opcount.count_ops(silvia.trace(fn, *args)).units
+        after = opcount.count_ops(silvia.optimized_graph(
+            fn, *args, passes=passes))
+        if (before, after.units, after.packed_units) != \
+                (u_before, u_after, sum(want.values())):
+            raise AssertionError(f"{name}: units {before} -> {after.units} "
+                                 f"({after.packed_units} packed), expected "
+                                 f"{u_before} -> {u_after} "
+                                 f"({sum(want.values())} packed)")
+        opt = silvia.optimize(fn, passes)
+        opt(*args)            # trace + rewrite; its launches are not counted
+        progs.append((name, fn, args, opt, want))
+    torch.cuda.synchronize()
+
+    # the main path: every program's optimized version once
+    for c in counters.values():
+        c.reset()
+    outs = {}
+    for name, _, args, opt, want in progs:
+        start = {k: c.count for k, c in counters.items()}
+        outs[name] = opt(*args)
+        got = {k: c.count - start[k] for k, c in counters.items()}
+        if got != {k: want.get(k, 0) for k in counters}:
+            raise AssertionError(f"{name}: kernel launches {got}, expected "
+                                 f"{want}")
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    on_path = {k for _, _, _, _, want in progs for k in want}
+    for k in on_path:
+        if launches[k] == 0:
+            raise AssertionError(f"{k} never launched on the program path")
+    log(f"programs: kernel launches on the path {launches}")
+
+    # off the path: MobileNet-4b packed by hand onto the split unit (no
+    # pass or registry lowering selects mul4_split)
+    pw_args = next(args for name, _, args, _, _ in progs
+                   if name == "MobileNet-4b")
+    start = counters["mul4_split"].count
+    if not _same(pw_conv4_manual_split(*pw_args), outs["MobileNet-4b"]):
+        raise AssertionError("MobileNet-4b packed by hand on mul4_split "
+                             "differs from the SILVIA-packed program")
+    if counters["mul4_split"].count != start + 1:
+        raise AssertionError("MobileNet-4b packed by hand did not launch "
+                             "mul4_split once")
+
+    for name, fn, args, opt, want in progs:
+        if not _same(outs[name], fn(*args)):
+            raise AssertionError(f"{name}: optimized != unoptimized")
+        before = {k: c.count for k, c in counters.items()}
+        with registry.force("ref"):
+            forced = opt(*args)
+        if {k: c.count for k, c in counters.items()} != before:
+            raise AssertionError(f"{name}: forced-ref run launched kernels")
+        if not _same(forced, outs[name]):
+            raise AssertionError(f"{name}: forced-ref output differs")
+        t_opt = call_ms(lambda: opt(*args), 20)
+        t_base = call_ms(lambda: fn(*args), 20)
+        log(f"  {name:13s} optimized {t_opt * 1e3:10.2f} us/call  "
+            f"unoptimized {t_base * 1e3:10.2f} us/call  launches {want}; "
+            "== unoptimized == forced-ref, bit for bit")
+
+    # each kernel at the shapes the programs gave it: gate, then time;
+    # mul4_split at the operands mul4_full32 got
+    with contextlib.ExitStack() as stack:
+        seen = {k: stack.enter_context(c.capture())
+                for k, c in counters.items()}
+        for name, fn, args, opt, want in progs:
+            opt(*args)
+    torch.cuda.synchronize()
+    seen["mul4_split"] = seen["mul4_full32"]
+    rows: dict = {}
+    for kname in SWAR_KERNELS:
+        for operands, attrs in seen[kname]:
+            sig, kern, plain, lib, nbytes, ops = _replay(kname, operands,
+                                                         attrs)
+            row = rows.setdefault((kname, sig), dict(
+                kernel=kname, sig=sig, count=0, kern=kern, plain=plain,
+                lib=lib, nbytes=nbytes, ops=ops))
+            row["count"] += 1
+    per = {k: [] for k in SWAR_KERNELS}
+    for r in rows.values():
+        got, want = r["kern"](), r["plain"]()
+        if not _same(got, want):
+            raise AssertionError(f"{r['kernel']} {r['sig']}: differs from "
+                                 "its plain version at card size")
+        r["err"] = max((g.long() - w.long()).abs().max().item()
+                       for g, w in zip(_outs(got), _outs(want)))
+        if r["lib"] is not None and not torch.equal(r["lib"](), r["kern"]()):
+            raise AssertionError(f"{r['kernel']} {r['sig']}: differs from "
+                                 "its library yardstick")
+        r["ms"] = device_ms(torch, lambda i: r["kern"](), 50)
+        r["plain_ms"] = device_ms(torch, lambda i: r["plain"](), 10)
+        r["library_ms"] = device_ms(torch, lambda i: r["lib"](), 50) \
+            if r["lib"] is not None else None
+        r["bound_ms"], r["bound_by"] = swar_bound_ms(r["nbytes"], r["ops"])
+        per[r["kernel"]].append(r)
+        lib_s = (f"{r['library_ms'] * 1e3:9.2f} us" if r["library_ms"]
+                 is not None else "      n/a")
+        log(f"  {r['kernel']:15s} {str(r['sig']):32s} x{r['count']:<2d} "
+            f"kernel {r['ms'] * 1e3:9.2f} us  plain "
+            f"{r['plain_ms'] * 1e3:9.2f} us  library {lib_s}  bound "
+            f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']}); bit-identical")
+    entries = []
+    for kname, meta in SWAR_KERNELS.items():
+        rs = per[kname]
+        total = lambda key: sum(r[key] * r["count"] for r in rs)
+        libs = [r["library_ms"] for r in rs]
+        entries.append(dict(
+            name=kname, route="cuda", source=meta["source"],
+            replaces=meta["replaces"], launches=launches[kname],
+            max_abs_err=float(max(r["err"] for r in rs)), ms=total("ms"),
+            plain_ms=total("plain_ms"),
+            bound_ms=total("bound_ms"), bound_by="bytes" if all(
+                r["bound_by"] == "bytes" for r in rs) else "operations",
+            library_ms=total("library_ms") if all(
+                v is not None for v in libs) else None,
+            per="one pass over the eleven SILVIA-packed programs at card "
+                "size: sums of per-launch times x launches per shape"
+                if kname != "mul4_split" else "off the path (no pass "
+                "selects it): one launch at mul4_full32's shape",
+            library_note=None if kname == "simd_add_packed" else
+            "no single PyTorch call: int32 products of int8 operands need "
+            "a widening copy before the multiply (and a sum for muladd2)",
+            shapes=[dict(sig=str(r["sig"]), count=r["count"], ms=r["ms"],
+                         plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                         bound_ms=r["bound_ms"]) for r in rs]))
+    return entries
 
 
 def kernel_entry(name: str, res: dict, launches: int) -> dict:
@@ -352,7 +873,6 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
               "from a checkout of the repository", file=sys.stderr)
         return 2
-    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -367,7 +887,8 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    names = ("quant_matmul", "packed_w4_matmul")
+    names = ("quant_matmul", "packed_w4_matmul", "simd_add", "muladd2",
+             "mul4")
     fresh = [n for n in names if not _build.library_path(n).exists()]
     _build.build(*names)
     log(f"build: {time.perf_counter() - t0:.1f} s (compiled "
@@ -376,7 +897,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = phase_kernels(torch)
-    entries = phase_generate(torch, results)
+    phase_swar_gates()
+    swar_entries = phase_programs()
+    entries = phase_generate(torch, results) + swar_entries
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line(), flush=True)

@@ -1,11 +1,19 @@
 """Shared helpers for the kernel wrappers.
 
-Port of the pieces of `repro/kernels/common.py` the serving path needs:
-`cdiv` and `unpack_w4_words` (the inverse of `ref.pack_w4`, the same
-unpack the Hopper w4a8 kernel performs in registers).
+Port of the pieces of `repro/kernels/common.py` the port needs: `cdiv`,
+`unpack_w4_words` (the inverse of `ref.pack_w4`, the same unpack the
+Hopper w4a8 kernel performs in registers) and the SWAR lane packing
+around the simd_add kernel (`lane_mask_high`, `pack_lanes`,
+`unpack_lanes`, `simd_add_lanes`).
+
+SWAR words are int32 tensors holding the uint32 bit pattern of the
+reference's words: torch's uint32 supports few ops, and every word op
+here (and in the kernel) is a bit operation, so only the interpretation
+differs.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -28,17 +36,124 @@ def unpack_w4_words(wp):
     return inter.reshape(*wp.shape[:-1], 2 * wp.shape[-1]).to(torch.int8)
 
 
+def lane_mask_high(lane_bits: int) -> int:
+    """MSB-per-lane mask as a uint32 value, e.g. 0x80808080 for 8-bit
+    lanes."""
+    m = 0
+    for off in range(0, 32, lane_bits):
+        m |= 1 << (off + lane_bits - 1)
+    return m
+
+
+def pack_lanes(xs, lane_bits: int):
+    """Pack 32//lane_bits narrow int tensors into one int32 word tensor
+    (bit-concatenation of the two's-complement lanes, lane 0 lowest).
+
+    The top lane is placed sign-extended (x * 2^(32 - lane_bits) fits
+    int32 exactly), so no shift ever leaves the int32 range."""
+    n_lanes = 32 // lane_bits
+    if len(xs) != n_lanes:
+        raise ValueError(f"pack_lanes: {len(xs)} tensors for {n_lanes} "
+                         f"lanes of {lane_bits} bits")
+    lane_max = (1 << lane_bits) - 1
+    sign = 1 << (lane_bits - 1)
+    shape = torch.broadcast_shapes(*[x.shape for x in xs])
+    w = torch.zeros(shape, dtype=torch.int32, device=xs[0].device)
+    for i, x in enumerate(xs):
+        u = x.to(torch.int32) & lane_max
+        if i == n_lanes - 1:
+            w = w | (((u ^ sign) - sign) * (1 << (i * lane_bits)))
+        else:
+            w = w | (u << (i * lane_bits))
+    return w
+
+
+def unpack_lanes(w, lane_bits: int):
+    """Inverse of pack_lanes: the lanes of int32 words as sign-extended
+    int32 tensors."""
+    lane_max = (1 << lane_bits) - 1
+    sign = 1 << (lane_bits - 1)
+    return [(((w >> (i * lane_bits)) & lane_max) ^ sign) - sign
+            for i in range(32 // lane_bits)]
+
+
+def simd_add_lanes(packed_fn, xs, ys, lane_bits: int):
+    """Pack k narrow tensors into SWAR words (zero lanes pad a partly
+    filled unit, paper sec. 3.2), apply `packed_fn(xw, yw)`, unpack the
+    first k lanes."""
+    n_lanes = 32 // lane_bits
+    k = len(xs)
+    if not len(ys) == k <= n_lanes:
+        raise ValueError(f"simd_add: {len(xs)} + {len(ys)} operands for "
+                         f"{n_lanes} lanes")
+    zero = torch.zeros_like(xs[0])
+    xw = pack_lanes(list(xs) + [zero] * (n_lanes - k), lane_bits)
+    yw = pack_lanes(list(ys) + [zero] * (n_lanes - k), lane_bits)
+    return unpack_lanes(packed_fn(xw, yw), lane_bits)[:k]
+
+
+def bind(lib_name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The ctypes function `symbol` of csrc/<lib_name>.cu taking n_ptrs
+    pointers, n_ints ints and the stream, returning cudaError_t.  Every
+    pointer and the stream are c_void_p (a bare Python int would be
+    passed as a 32-bit int and cut the pointer)."""
+    fn = getattr(_build.load(lib_name), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_cuda_operands(counter: "LaunchCounter", **operands):
+    """Raise unless every operand is a contiguous-able CUDA tensor of the
+    dtype given with it ({name: (tensor, dtype)}), all on one device, and
+    small enough for the kernels' int32 element indexing."""
+    dev = None
+    for name, (t, dtype) in operands.items():
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{counter.name}: {name} must be a CUDA tensor "
+                             f"(got {getattr(t, 'device', type(t))})")
+        if t.dtype != dtype:
+            raise ValueError(f"{counter.name}: {name} must be {dtype}, got "
+                             f"{t.dtype}")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{counter.name}: operands on {dev} and "
+                             f"{t.device}")
+        dev = t.device
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{counter.name}: {name} has {t.numel()} "
+                             "elements, beyond the kernel's int32 indexing")
+    return dev
+
+
 class LaunchCounter:
-    """Launches of one kernel wrapper: incremented exactly where the wrapper
-    launches its kernel (never on the CPU path), so a run can show that it
-    went through the kernel."""
+    """Launches of one kernel wrapper: `launched` is called exactly where
+    the wrapper launches its kernel (never on the CPU path), so a run can
+    show that it went through the kernel.  Inside `capture()` it also
+    records each launch's operands, to replay the kernel at the shapes a
+    run gave it."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.captured: list | None = None
 
     def reset(self) -> None:
         self.count = 0
+
+    def launched(self, *operands, **attrs) -> None:
+        self.count += 1
+        if self.captured is not None:
+            self.captured.append((operands, attrs))
+
+    @contextlib.contextmanager
+    def capture(self):
+        """Record (operands, attrs) of every launch inside the block."""
+        self.captured = []
+        try:
+            yield self.captured
+        finally:
+            self.captured = None
 
 
 def on_cpu(t, counter: LaunchCounter) -> bool:
@@ -103,17 +218,6 @@ def launch_s8_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
               out.data_ptr() if out is not None else None,
               m, k, n, int(vec_x), int(vec_w),
               torch.cuda.current_stream(dev).cuda_stream)
-    counter.count += 1
+    counter.launched(x_q, w)
     _build.check(code, counter.name)
     return acc, out
-
-
-def bind_s8_gemm(lib_name: str, symbol: str):
-    """The ctypes function `symbol` of csrc/<lib_name>.cu with its argtypes
-    set: every pointer and the stream as c_void_p (a bare Python int would
-    be passed as a 32-bit int and cut the pointer)."""
-    fn = getattr(_build.load(lib_name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn

@@ -21,7 +21,8 @@ LAUNCHES = common.LaunchCounter("packed_w4_matmul")
 
 @functools.cache
 def _kernel():
-    return common.bind_s8_gemm("packed_w4_matmul", "repro_packed_w4_matmul")
+    return common.bind("packed_w4_matmul", "repro_packed_w4_matmul", 6,
+                       5)
 
 
 def packed_w4_matmul_acc(x_q, w_packed):

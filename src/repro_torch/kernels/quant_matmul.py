@@ -18,7 +18,7 @@ LAUNCHES = common.LaunchCounter("quant_matmul")
 
 @functools.cache
 def _kernel():
-    return common.bind_s8_gemm("quant_matmul", "repro_quant_matmul")
+    return common.bind("quant_matmul", "repro_quant_matmul", 6, 5)
 
 
 def quant_matmul_acc(x_q, w_q):

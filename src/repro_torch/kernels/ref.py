@@ -1,12 +1,16 @@
 """Plain PyTorch versions of the packed quantized matmuls.
 
-Port of `repro/kernels/ref.py` (the serving-path oracles only:
-`quant_matmul_ref`, `packed_w4_matmul_ref`, `pack_w4`).  These define the
-semantics the Hopper kernels (`csrc/*.cu`) must reproduce bit for bit,
-and they serve CPU tensors and the tests.  They stay an independent
+Port of `repro/kernels/ref.py`: the SWAR oracles (`simd_add_ref`,
+`muladd2_ref`, `mul4_ref`) and the serving-path GEMM oracles
+(`quant_matmul_ref`, `packed_w4_matmul_ref`, `pack_w4`).  These define
+the semantics the Hopper kernels (`csrc/*.cu`) must reproduce bit for
+bit, and they serve CPU tensors and the tests.  They stay an independent
 statement of the semantics: nothing here reuses `kernels/common.py`.
 
-Exactness on any device: an int32 matmul is not implemented on CUDA, so
+The SWAR oracles compute in int32 on the logical (unpacked) operands,
+one op per lane, like the reference.
+
+Exactness of the GEMMs on any device: an int32 matmul is not implemented on CUDA, so
 the integer GEMM runs as a float64 matmul of the int8-valued operands.
 Every product has |a*b| <= 2^14 and every partial sum is an integer of
 magnitude <= K * 2^14, which float64 represents exactly while
@@ -16,8 +20,62 @@ int32 accumulator.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
+
+def _i32(x):
+    return x.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# SILVIAAdd: SWAR SIMD additions / subtractions
+# ---------------------------------------------------------------------------
+
+def simd_add_ref(xs: Sequence, ys: Sequence, *, sub: bool = False,
+                 lane_bits: int = 8):
+    """k independent lane-wise adds (or subs): result_i == (x_i +/- y_i)
+    wrapped to `lane_bits` two's complement, as int32 tensors."""
+    outs = []
+    lo = -(2 ** (lane_bits - 1))
+    span = 2 ** lane_bits
+    for x, y in zip(xs, ys):
+        r = _i32(x) - _i32(y) if sub else _i32(x) + _i32(y)
+        outs.append(torch.remainder(r - lo, span) + lo)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# SILVIAMuladd factor-2: two shared-operand MAD chains per unit (wp486)
+# ---------------------------------------------------------------------------
+
+def muladd2_ref(a: Sequence, b: Sequence, c: Sequence):
+    """(p_a, p_b) = (sum_i a_i * c_i, sum_i b_i * c_i) in int32 (paper
+    Eq. 1); a, b, c are length-N sequences of tensors that broadcast."""
+    if not (len(a) == len(b) == len(c) and len(a) >= 1):
+        raise ValueError(f"muladd2_ref: chains of unequal or zero length "
+                         f"({len(a)}, {len(b)}, {len(c)})")
+    p_a = sum(_i32(ai) * _i32(ci) for ai, ci in zip(a, c))
+    p_b = sum(_i32(bi) * _i32(ci) for bi, ci in zip(b, c))
+    return p_a, p_b
+
+
+# ---------------------------------------------------------------------------
+# SILVIAMuladd factor-4: four 4-bit multiplications by one shared factor
+# ---------------------------------------------------------------------------
+
+def mul4_ref(a: Sequence, b):
+    """p_i = a_i * b for i in 0..3 in int32 (paper Eq. 3)."""
+    if len(a) != 4:
+        raise ValueError(f"mul4_ref needs 4 operands, got {len(a)}")
+    bb = _i32(b)
+    return [_i32(ai) * bb for ai in a]
+
+
+# ---------------------------------------------------------------------------
+# Packed quantized matmuls (serving path)
+# ---------------------------------------------------------------------------
 
 def _exact_int_matmul(a, b):
     """Exact int32 [M,K] @ [K,N] of int8-valued operands (see module

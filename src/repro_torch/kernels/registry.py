@@ -1,15 +1,27 @@
-"""Lowering registry for the port's packed GEMM ops.
+"""Lowering registry for the port's packed ops.
 
-Slim port of `repro/kernels/registry.py`: the two serving-path ops, each
-with two lowerings.
+Port of `repro/kernels/registry.py`: the five packed ops, each with two
+lowerings, and the per-op canonicalizing adapters.
 
     op                lowering     what runs
     ----------------  -----------  ---------------------------------------
+    simd_add          hopper-cuda  csrc/simd_add.cu (simd_add.py)
+    muladd2           hopper-cuda  csrc/muladd2.cu (muladd2.py)
+    mul4              hopper-cuda  csrc/mul4.cu, full32 layout (mul4.py)
     quant_matmul      hopper-cuda  csrc/quant_matmul.cu (quant_matmul.py)
-                      ref          plain PyTorch version (ref.py)
     packed_w4_matmul  hopper-cuda  csrc/packed_w4_matmul.cu
                                    (packed_matmul.py)
-                      ref          plain PyTorch version (ref.py)
+    every op          ref          plain PyTorch version (ref.py)
+
+`dispatch(op, *args, **kw)` first canonicalizes the operands through the
+op's adapter (broadcast / stack / cast), so every lowering sees one
+layout:
+
+    simd_add          xs, ys: k-tuples broadcast to one shape, lane dtype
+    muladd2           a, b, c: stacked (n, ...) int8
+    mul4              a: stacked (4, ...) int8; b: (...) int8
+    quant_matmul      x_q [M,K] int8, w_q [K,N] int8, scales f32
+    packed_w4_matmul  x_q [M,K] int8, w_packed [K,N//2] int8, scales f32
 
 Resolution, per call: a forced id wins (innermost `force()` block, then
 the ``REPRO_TORCH_LOWERING`` env var); otherwise a CUDA operand takes
@@ -31,13 +43,20 @@ from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.kernels import packed_matmul, quant_matmul, ref
+from repro_torch.kernels import (mul4, muladd2, packed_matmul, quant_matmul,
+                                 ref, simd_add)
 
-OPS = ("quant_matmul", "packed_w4_matmul")
+OPS = ("simd_add", "muladd2", "mul4", "quant_matmul", "packed_w4_matmul")
 LOWERINGS = ("hopper-cuda", "ref")
 ENV_VAR = "REPRO_TORCH_LOWERING"
 
 _TABLE = {
+    "simd_add": {"hopper-cuda": simd_add.simd_add,
+                 "ref": lambda xs, ys, *, lane_bits, sub:
+                     ref.simd_add_ref(xs, ys, sub=sub, lane_bits=lane_bits)},
+    "muladd2": {"hopper-cuda": muladd2.muladd2,
+                "ref": muladd2.muladd2_plain},
+    "mul4": {"hopper-cuda": mul4.mul4_full32, "ref": mul4.mul4_plain},
     "quant_matmul": {"hopper-cuda": quant_matmul.quant_matmul,
                      "ref": ref.quant_matmul_ref},
     "packed_w4_matmul": {"hopper-cuda": packed_matmul.packed_w4_matmul,
@@ -124,6 +143,12 @@ def census_str(device) -> str:
     return ", ".join(f"{op}={resolve(op, device)}" for op in OPS)
 
 
+def fingerprint(device) -> tuple:
+    """Hashable summary of the active resolution for operands on
+    `device`: two runs under different forced lowerings never share it."""
+    return tuple((op, resolve(op, device)) for op in OPS)
+
+
 def dispatch_counts() -> Dict[str, int]:
     """Calls per op since the last reset (eager PyTorch: one per run)."""
     return dict(_DISPATCH_COUNTS)
@@ -134,10 +159,70 @@ def reset_dispatch_counts() -> None:
         _DISPATCH_COUNTS[op] = 0
 
 
-def dispatch(op: str, x_q, w, x_scale, w_scale, *, out_dtype=torch.float32):
-    """Run `op` on its resolved lowering: x_q [M,K] int8, w the stored
-    weight ([K,N] int8 or [K,N//2] packed words), f32 scales [M,1] / [1,N];
-    returns out_dtype [M,N]."""
-    fn = _TABLE[op][resolve(op, x_q.device)]
+# ---------------------------------------------------------------------------
+# per-op canonicalization adapters (shared by every lowering)
+# ---------------------------------------------------------------------------
+
+def _device_of(operands) -> torch.device:
+    for x in operands:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    raise ValueError("a packed op needs at least one tensor operand")
+
+
+def _broadcast(operands, dtype):
+    """Every operand (tensor or Python scalar) broadcast to the common
+    shape and cast to `dtype` (wrapping, like the reference's astype)."""
+    dev = _device_of(operands)
+    ts = [x if isinstance(x, torch.Tensor) else torch.tensor(x, device=dev)
+          for x in operands]
+    shape = torch.broadcast_shapes(*[t.shape for t in ts])
+    return [t.to(dtype).expand(shape) for t in ts]
+
+
+def _adapt_simd_add(xs, ys, *, lane_bits: int = 8, sub: bool = False):
+    dt = torch.int8 if lane_bits == 8 else torch.int16
+    ops = _broadcast([*xs, *ys], dt)
+    k = len(xs)
+    return (ops[:k], ops[k:]), {"lane_bits": lane_bits, "sub": sub}
+
+
+def _adapt_muladd2(a, b, c):
+    n = len(a)
+    ops = _broadcast([*a, *b, *c], torch.int8)
+    return (torch.stack(ops[:n]), torch.stack(ops[n:2 * n]),
+            torch.stack(ops[2 * n:])), {}
+
+
+def _adapt_mul4(a, b):
+    ops = _broadcast([*a, b], torch.int8)
+    return (torch.stack(ops[:4]), ops[4].contiguous()), {}
+
+
+def _adapt_matmul(x_q, w, x_scale, w_scale, *, out_dtype=torch.float32):
+    return (x_q, w, x_scale, w_scale), {"out_dtype": out_dtype}
+
+
+_ADAPTERS = {
+    "simd_add": _adapt_simd_add,
+    "muladd2": _adapt_muladd2,
+    "mul4": _adapt_mul4,
+    "quant_matmul": _adapt_matmul,
+    "packed_w4_matmul": _adapt_matmul,
+}
+
+
+def dispatch(op: str, *args, **kwargs):
+    """Canonicalize the operands through the op's adapter, resolve the
+    lowering from their device, run it.  The single entry point every
+    packed-op call site binds through (core/prims.py, quant/qtensor.py).
+
+    simd_add returns k int32 tensors, muladd2 (p_a, p_b) int32, mul4 four
+    int32 tensors, the GEMMs out_dtype [M,N]."""
+    if op not in _ADAPTERS:
+        raise KeyError(f"unknown op {op!r} (known: {OPS})")
+    cargs, ckwargs = _ADAPTERS[op](*args, **kwargs)
+    first = cargs[0][0] if op == "simd_add" else cargs[0]
+    fn = _TABLE[op][resolve(op, first.device)]
     _DISPATCH_COUNTS[op] += 1
-    return fn(x_q, w, x_scale, w_scale, out_dtype=out_dtype)
+    return fn(*cargs, **ckwargs)

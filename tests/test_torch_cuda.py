@@ -14,7 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import packed_matmul, quant_matmul, ref  # noqa: E402
+from repro_torch.kernels import (mul4, muladd2, packed_matmul,  # noqa: E402
+                                 quant_matmul, ref, simd_add)
 
 # ragged M / K / N (K=48 is not a multiple of 32; K=100 and N=34 miss the
 # vector paths) and serving shapes of smollm-135m
@@ -94,3 +95,99 @@ def test_cuda_serve_matches_plain_forced(cuda):
                                               cache_len=13, device=cuda,
                                               return_logits=True)
         assert torch.equal(toks, toks_p) and torch.equal(logits, logits_p)
+
+
+# ragged element counts (not multiples of the 16 a thread owns, so the
+# masked tail runs) and aligned ones (the 16-byte path)
+SWAR_SHAPES = [(1,), (5,), (17, 3), (4096,), (33, 65), (2, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane_bits,k", [(8, 1), (8, 3), (8, 4), (16, 1),
+                                         (16, 2)])
+@pytest.mark.parametrize("sub", [False, True])
+def test_cuda_simd_add_bit_exact_vs_plain(cuda, lane_bits, k, sub):
+    rng = np.random.default_rng(lane_bits * 10 + k + sub)
+    dt = np.int8 if lane_bits == 8 else np.int16
+    lo = -(1 << (lane_bits - 1))
+    for shape in SWAR_SHAPES:
+        xs = [torch.from_numpy(rng.integers(lo, -lo, shape).astype(dt))
+              .to(cuda) for _ in range(k)]
+        ys = [torch.from_numpy(rng.integers(lo, -lo, shape).astype(dt))
+              .to(cuda) for _ in range(k)]
+        before = simd_add.LAUNCHES.count
+        got = simd_add.simd_add(xs, ys, lane_bits=lane_bits, sub=sub)
+        assert simd_add.LAUNCHES.count == before + 1
+        want = ref.simd_add_ref(xs, ys, sub=sub, lane_bits=lane_bits)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), shape
+        xw, yw = (torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape)
+                                   .astype(np.int32)).to(cuda)
+                  for _ in range(2))
+        assert torch.equal(
+            simd_add.simd_add_packed(xw, yw, lane_bits=lane_bits, sub=sub),
+            simd_add.simd_add_packed_plain(xw, yw, lane_bits=lane_bits,
+                                           sub=sub)), shape
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 9, 31])
+def test_cuda_muladd2_bit_exact_vs_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    lo = -128 if n == 1 else -8
+    for shape in SWAR_SHAPES:
+        a, b = (torch.from_numpy(rng.integers(lo, -lo, (n, *shape))
+                                 .astype(np.int8)).to(cuda) for _ in range(2))
+        c = torch.from_numpy(rng.integers(-128, 128, (n, *shape))
+                             .astype(np.int8)).to(cuda)
+        before = muladd2.LAUNCHES.count
+        got = muladd2.muladd2(a, b, c)
+        assert muladd2.LAUNCHES.count == before + 1
+        want = muladd2.muladd2_plain(a, b, c)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), shape
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [True, False])
+def test_cuda_mul4_bit_exact_vs_plain(cuda, signed):
+    rng = np.random.default_rng(int(signed))
+    lo, hi = (-8, 8) if signed else (0, 16)
+    for shape in SWAR_SHAPES:
+        a = torch.from_numpy(rng.integers(lo, hi, (4, *shape))
+                             .astype(np.int8)).to(cuda)
+        b = torch.from_numpy(rng.integers(lo, hi, shape)
+                             .astype(np.int8)).to(cuda)
+        want = mul4.mul4_plain(a, b)
+        for fn, counter in ((mul4.mul4_full32, mul4.LAUNCHES),
+                            (mul4.mul4_split, mul4.SPLIT_LAUNCHES)):
+            before = counter.count
+            got = fn(a, b, signed=signed)
+            assert counter.count == before + 1
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                (fn.__name__, shape)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_optimized_program_matches_unoptimized(cuda):
+    """The 4-bit conv pair through the SILVIA passes on the card: one
+    muladd2 launch per call, outputs equal to the unrewritten program."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch import core as silvia
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.integers(-128, 128, (3, 20, 20))
+                         .astype(np.int8)).to(cuda)
+    w_even, w_odd = (torch.from_numpy(rng.integers(-8, 8, (9,))
+                                      .astype(np.int8)).to(cuda)
+                     for _ in range(2))
+    opt = silvia.optimize(chip_smoke.conv3x3_pair_4b,
+                          [silvia.PassConfig(op="muladd", m_bits=4)])
+    before = muladd2.LAUNCHES.count
+    got = opt(x, w_even, w_odd)
+    assert muladd2.LAUNCHES.count == before + 1
+    want = chip_smoke.conv3x3_pair_4b(x, w_even, w_odd)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -237,8 +237,14 @@ def test_registry_resolution_and_counts(monkeypatch):
                 == "hopper-cuda"
             assert registry.resolve("quant_matmul", "cuda") == "ref"
     assert registry.resolve("quant_matmul", "cuda") == "hopper-cuda"
+    assert registry.fingerprint("cpu") == tuple(
+        (op, "ref") for op in registry.OPS)
+    assert registry.fingerprint("cuda") != registry.fingerprint("cpu")
+    with registry.force("ref"):
+        assert registry.fingerprint("cuda") == registry.fingerprint("cpu")
     assert registry.census_str("cpu") == \
-        "quant_matmul=ref, packed_w4_matmul=ref"
+        "simd_add=ref, muladd2=ref, mul4=ref, quant_matmul=ref, " \
+        "packed_w4_matmul=ref"
 
     rng = np.random.default_rng(17)
     registry.reset_dispatch_counts()
@@ -250,11 +256,11 @@ def test_registry_resolution_and_counts(monkeypatch):
     x, w, xs, ws = _gemm_args(rng, "w4a8")
     out = ops.packed_w4_matmul(x, w, xs, ws, out_dtype=torch.bfloat16)
     assert out.dtype == torch.bfloat16
-    assert registry.dispatch_counts() == {"quant_matmul": 2,
-                                          "packed_w4_matmul": 1}
+    assert registry.dispatch_counts() == {
+        "simd_add": 0, "muladd2": 0, "mul4": 0, "quant_matmul": 2,
+        "packed_w4_matmul": 1}
     registry.reset_dispatch_counts()
-    assert registry.dispatch_counts() == {"quant_matmul": 0,
-                                          "packed_w4_matmul": 0}
+    assert registry.dispatch_counts() == {op: 0 for op in registry.OPS}
 
 
 def test_registry_env_override_and_errors(monkeypatch):
@@ -269,7 +275,8 @@ def test_registry_env_override_and_errors(monkeypatch):
     monkeypatch.delenv(registry.ENV_VAR)
     monkeypatch.setenv("REPRO_LOWERING", "*=tpu-pallas")
     assert registry.resolve("quant_matmul", "cuda") == "hopper-cuda"
-    for bad in ("quant_matmul=tpu-pallas", "simd_add=ref", "ref"):
+    # mul4_split is a kernel but no registry op, as in the reference
+    for bad in ("quant_matmul=tpu-pallas", "mul4_split=ref", "ref"):
         monkeypatch.setenv(registry.ENV_VAR, bad)
         with pytest.raises(ValueError):
             registry.resolve("quant_matmul", "cpu")
@@ -278,7 +285,7 @@ def test_registry_env_override_and_errors(monkeypatch):
         with registry.force("gpu-pallas"):
             pass
     with pytest.raises(KeyError):
-        registry.resolve("mul4", "cpu")
+        registry.resolve("mul4_split", "cpu")
 
 
 def test_wrappers_refuse_other_devices():
@@ -306,7 +313,8 @@ def test_build_paths_are_content_keyed():
     assert p.name.startswith("quant_matmul-")
     assert p == _build.library_path("quant_matmul")
     assert (_build.CSRC / "quant_matmul.cu").exists()
-    assert (_build.CSRC / "packed_w4_matmul.cu").exists()
+    for name in ("packed_w4_matmul", "simd_add", "muladd2", "mul4"):
+        assert (_build.CSRC / f"{name}.cu").exists()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     assert (_build.BUILD_DIR.parents[1] / "src" / "repro_torch").is_dir()
 

@@ -161,10 +161,11 @@ def test_serve_cli_on_cpu(capsys):
                  "--gen", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "quantized weights to w8a8 (forced floors)" in out
-    assert "active lowerings: quant_matmul=ref, packed_w4_matmul=ref" in out
+    assert "active lowerings: simd_add=ref, muladd2=ref, mul4=ref, " \
+           "quant_matmul=ref, packed_w4_matmul=ref" in out
     n = 7 * tsmollm.reduced().n_layers * 3
-    assert f"dispatch counts: {{'quant_matmul': {n}, " \
-           f"'packed_w4_matmul': 0}}" in out
+    assert f"dispatch counts: {{'simd_add': 0, 'muladd2': 0, 'mul4': 0, " \
+           f"'quant_matmul': {n}, 'packed_w4_matmul': 0}}" in out
     assert "sample tokens:" in out
 
 
