@@ -11,11 +11,17 @@ over):
    the git-ignored `build/` (one nvcc per source, started together),
    timed;
 3. each GEMM kernel against its plain PyTorch version at every main-path
-   (K, N) with decode M=8 and prefill M=1024, plus ragged shapes: the
-   int32 accumulator and the f32 output must be bit-identical
+   (K, N) with decode M=8 and prefill M=1024, plus ragged shapes on both
+   sides of quant_matmul's switch (M <= 16: the small-M kernel, M > 16:
+   the 64x64 tile; each call must go through the kernel the rule picks):
+   the int32 accumulator and the f32 output must be bit-identical
    (`torch.equal`); then per-launch times of the kernel, the plain
    version and the library yardstick (`torch._int_mm`, after an unpack
-   for w4a8) where the shape is legal for it;
+   for w4a8) where the shape is legal for it.  Beside each decode row,
+   two more times from the same run: the 64x64 tile at that shape (the
+   path M = 8 took before the small-M kernel) and `torch._int_mm` on x
+   zero-padded to 32 rows (pad + one call; not `library_ms`, which is
+   one call on the same inputs);
 4. each SWAR kernel (simd_add_packed, muladd2, mul4_full32, mul4_split)
    against its plain version at ragged shapes: both lane widths, add and
    sub, k = 1..lanes; chains of 1, 9 and 31; mul4 signed and unsigned;
@@ -32,8 +38,10 @@ over):
    `torch.add` on the words viewed as int8/int16;
 6. greedy generation with full-width smollm-135m (30 layers, d_model 576,
    random weights from a seeded torch.Generator): B=8, prompt 128, 32 new
-   tokens, under w4a8 and then w8a8.  The format's kernel must launch
-   7 x 30 x 32 = 6720 times and the other kernel 0 times; a rerun with
+   tokens, under w4a8 and then w8a8.  The format's GEMM must launch
+   7 x 30 x 32 = 6720 times and the other format's 0 times; under w8a8
+   the small-M kernel takes the 7 x 30 x 31 = 6510 decode launches and the
+   tile the 210 prefill launches; a rerun with
    the plain versions forced must give identical tokens AND logits (the
    kernels are bit-exact); a reduced model must agree with its CPU run.
 
@@ -63,7 +71,11 @@ MAIN_KN = [(576, 576), (576, 192), (576, 192), (576, 576),   # q k v o
            (576, 1536), (576, 1536), (1536, 576)]            # gate up down
 DECODE_M, PREFILL_M = 8, 1024
 RAGGED = [(3, 48, 16), (5, 48, 48), (17, 128, 128), (70, 100, 34),
-          (1, 1536, 576), (129, 1000, 250)]
+          (1, 1536, 576), (129, 1000, 250),
+          # small M: ragged K and N, x rows padded to 1 / 8 / 16, K past
+          # one 1536-k round; and M = 17 just past the switch
+          (1, 7, 6), (8, 100, 34), (15, 129, 250), (16, 1000, 250),
+          (16, 2100, 70), (17, 100, 34)]
 BATCH, PROMPT, GEN = 8, 128, 32
 # the reduced model on the card against its own CPU run: bf16 roundings
 # and float32 sums differ in order between the two devices, and an
@@ -324,7 +336,24 @@ def call_ms(fn, n_iter: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / n_iter
 
 
+GEMM_KERNELS = {
+    "quant_matmul": dict(
+        source="src/repro_torch/kernels/csrc/quant_matmul.cu",
+        replaces="src/repro/kernels/quant_matmul.py:30"),
+    "quant_matmul_small_m": dict(
+        source="src/repro_torch/kernels/csrc/s8_small_m.cuh",
+        replaces="src/repro/kernels/quant_matmul.py:30"),
+    "packed_w4_matmul": dict(
+        source="src/repro_torch/kernels/csrc/packed_w4_matmul.cu",
+        replaces="src/repro/kernels/packed_matmul.py:35"),
+}
+
+
 def phase_kernels(torch) -> dict:
+    """Returns {kernel name: {"rows": per-shape timings of the main-path
+    shapes, "max_abs_err": ...}} for the three GEMM kernels."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels import common, packed_matmul, quant_matmul, ref
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -336,48 +365,67 @@ def phase_kernels(torch) -> dict:
     def scales(*shape):
         return torch.rand(shape, generator=gen, device="cuda") * 0.02 + 1e-3
 
+    def pad32(x):    # x zero-padded to the 32 rows torch._int_mm accepts
+        return F.pad(x, (0, 0, 0, 32 - x.shape[0]))
+
+    off_path = common.LaunchCounter("quant_matmul tile, timed off the path")
+
+    def tile(x, w, xs, ws):   # the 64x64 tile at any M, outside the rule
+        return common.launch_s8_gemm(
+            quant_matmul._kernel(), off_path, x, w, w.shape[1], xs, ws,
+            want_acc=False, want_out=True)[1]
+
+    small = quant_matmul.SMALL_M_LAUNCHES
     specs = [
-        dict(name="quant_matmul", route="cuda",
-             source="src/repro_torch/kernels/csrc/quant_matmul.cu",
-             replaces="src/repro/kernels/quant_matmul.py:30",
+        dict(name="quant_matmul",
+             kernel_for=lambda m: "quant_matmul_small_m"
+             if m <= quant_matmul.SMALL_M else "quant_matmul",
              acc=quant_matmul.quant_matmul_acc,
              out=quant_matmul.quant_matmul,
              acc_ref=ref.quant_matmul_acc_ref, out_ref=ref.quant_matmul_ref,
              wshape=lambda k, n: (k, n),
-             lib=lambda x, w: torch._int_mm(x, w)),
-        dict(name="packed_w4_matmul", route="cuda",
-             source="src/repro_torch/kernels/csrc/packed_w4_matmul.cu",
-             replaces="src/repro/kernels/packed_matmul.py:35",
+             lib=lambda x, w: torch._int_mm(x, w), tile=tile),
+        dict(name="packed_w4_matmul",
+             kernel_for=lambda m: "packed_w4_matmul",
              acc=packed_matmul.packed_w4_matmul_acc,
              out=packed_matmul.packed_w4_matmul,
              acc_ref=ref.packed_w4_matmul_acc_ref,
              out_ref=ref.packed_w4_matmul_ref,
              wshape=lambda k, n: (k, n // 2),
-             lib=lambda x, w: torch._int_mm(x, common.unpack_w4_words(w))),
+             lib=lambda x, w: torch._int_mm(x, common.unpack_w4_words(w)),
+             tile=None),
     ]
     main_shapes = [(m, k, n) for m in (DECODE_M, PREFILL_M)
                    for k, n in dict.fromkeys(MAIN_KN)]
-    results = {}
+    results = {name: dict(rows=[], max_abs_err=0.0, shapes=0)
+               for name in GEMM_KERNELS}
     for sp in specs:
-        worst = 0.0
-        rows = []
         for m, k, n in main_shapes + RAGGED:
+            kname = sp["kernel_for"](m)
+            res = results[kname]
             x, w = i8(m, k), i8(*sp["wshape"](k, n))
             xs, ws = scales(m, 1), scales(1, n)
+            start = small.count
             acc_k, acc_p = sp["acc"](x, w), sp["acc_ref"](x, w)
             out_k = sp["out"](x, w, xs, ws)
             out_p = sp["out_ref"](x, w, xs, ws)
             torch.cuda.synchronize()
+            if small.count - start != \
+                    (2 if kname == "quant_matmul_small_m" else 0):
+                raise AssertionError(f"{sp['name']} {(m, k, n)}: "
+                                     f"{small.count - start} small-M "
+                                     f"launches, expected {kname}")
             if not torch.equal(acc_k, acc_p):
                 bad = (acc_k != acc_p).sum().item()
-                raise AssertionError(f"{sp['name']} {(m, k, n)}: int32 "
+                raise AssertionError(f"{kname} {(m, k, n)}: int32 "
                                      f"accumulator differs in {bad} places")
             if not torch.equal(out_k, out_p):
-                raise AssertionError(f"{sp['name']} {(m, k, n)}: f32 output "
+                raise AssertionError(f"{kname} {(m, k, n)}: f32 output "
                                      "is not bit-identical to the plain "
                                      "version")
             err = (out_k - out_p).abs().max().item() if out_k.numel() else 0.
-            worst = max(worst, err)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["shapes"] += 1
             if (m, k, n) not in main_shapes:
                 continue
             # time over enough distinct weight copies to spill the 50 MB
@@ -385,27 +433,45 @@ def phase_kernels(torch) -> dict:
             w_bytes = w.numel()
             copies = [w] + [i8(*w.shape) for _ in range(
                 math.ceil(128e6 / w_bytes) - 1)]
+            wi = lambda i: copies[i % len(copies)]
             n_it = 200 if m == DECODE_M else 100
-            t_k = device_ms(torch, lambda i: sp["out"](
-                x, copies[i % len(copies)], xs, ws), n_it)
-            t_p = device_ms(torch, lambda i: sp["out_ref"](
-                x, copies[i % len(copies)], xs, ws), 20)
+            t_k = device_ms(torch, lambda i: sp["out"](x, wi(i), xs, ws),
+                            n_it)
+            t_p = device_ms(torch, lambda i: sp["out_ref"](x, wi(i), xs, ws),
+                            20)
             try:
-                t_l = device_ms(torch, lambda i: sp["lib"](
-                    x, copies[i % len(copies)]), 50)
+                t_l = device_ms(torch, lambda i: sp["lib"](x, wi(i)), 50)
             except RuntimeError:   # shape not legal for torch._int_mm
                 t_l = None
             b_ms, b_by = bound_ms(m, k, n, w_bytes)
-            rows.append(dict(m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
-                             library_ms=t_l, bound_ms=b_ms, bound_by=b_by))
+            row = dict(m=m, k=k, n=n, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                       bound_ms=b_ms, bound_by=b_by)
+            extra = ""
+            if m == DECODE_M:
+                if not torch.equal(sp["lib"](pad32(x), w)[:m], acc_p):
+                    raise AssertionError(f"{sp['name']} {(m, k, n)}: padded "
+                                         "torch._int_mm differs")
+                row["pad32_int_mm_ms"] = device_ms(
+                    torch, lambda i: sp["lib"](pad32(x), wi(i)), 50)
+                extra = (f"  pad32+_int_mm "
+                         f"{row['pad32_int_mm_ms'] * 1e3:7.2f} us")
+                if sp["tile"] is not None:
+                    if not torch.equal(sp["tile"](x, w, xs, ws), out_p):
+                        raise AssertionError(f"tile {(m, k, n)} differs")
+                    row["tile_ms"] = device_ms(
+                        torch, lambda i: sp["tile"](x, wi(i), xs, ws), n_it)
+                    extra += f"  64x64 tile {row['tile_ms'] * 1e3:7.2f} us"
+            res["rows"].append(row)
             del copies
-            log(f"  {sp['name']:16s} M={m:5d} K={k:5d} N={n:5d}  kernel "
+            log(f"  {kname:20s} M={m:5d} K={k:5d} N={n:5d}  kernel "
                 f"{t_k * 1e3:9.2f} us  plain {t_p * 1e3:9.2f} us  library "
                 + (f"{t_l * 1e3:9.2f} us" if t_l is not None else "  n/a")
-                + f"  bound {b_ms * 1e3:7.3f} us ({b_by})")
-        log(f"{sp['name']}: bit-identical to the plain version at "
-            f"{len(main_shapes) + len(RAGGED)} shapes")
-        results[sp["name"]] = dict(spec=sp, rows=rows, max_abs_err=worst)
+                + f"  bound {b_ms * 1e3:7.3f} us ({b_by})" + extra)
+    for name, res in results.items():
+        if res["shapes"] == 0:
+            raise AssertionError(f"{name}: no shape reached it")
+        log(f"{name}: bit-identical to the plain version at "
+            f"{res['shapes']} shapes")
     return results
 
 
@@ -699,36 +765,52 @@ def phase_programs() -> list:
 
 
 def kernel_entry(name: str, res: dict, launches: int) -> dict:
-    """One generate's worth of each kernel: per-launch numbers of every
-    main-path shape, weighted by how often one generate launches it
-    (per layer: one prefill launch at M=B*S, GEN-1 decode launches at
+    """One generate's worth of one GEMM kernel: per-launch numbers of each
+    main-path shape it runs, weighted by how often one generate launches
+    it (per layer: one prefill launch at M=B*S, GEN-1 decode launches at
     M=B for each of the 7 projections)."""
-    sp, rows = res["spec"], res["rows"]
-    per_gen = {(r["m"], r["k"], r["n"]): 0 for r in rows}
+    rows = res["rows"]
     n_layers = 30
+    per_gen = {}
     for k, n in MAIN_KN:
-        per_gen[(PREFILL_M, k, n)] += n_layers
-        per_gen[(DECODE_M, k, n)] += n_layers * (GEN - 1)
+        for m, times in ((PREFILL_M, n_layers), (DECODE_M,
+                                                  n_layers * (GEN - 1))):
+            per_gen[(m, k, n)] = per_gen.get((m, k, n), 0) + times
+
+    def weight(r):
+        return per_gen[(r["m"], r["k"], r["n"])]
 
     def total(key):
-        vals = [r[key] for r in rows]
+        vals = [r.get(key) for r in rows]
         if any(v is None for v in vals):
             return None
-        return sum(r[key] * per_gen[(r["m"], r["k"], r["n"])] for r in rows)
+        return sum(r[key] * weight(r) for r in rows)
 
     by = {"bytes": 0.0, "operations": 0.0}
     for r in rows:
-        by[r["bound_by"]] += r["bound_ms"] * per_gen[(r["m"], r["k"], r["n"])]
-    return dict(
-        name=name, route=sp["route"], source=sp["source"],
-        replaces=sp["replaces"], launches=launches,
+        by[r["bound_by"]] += r["bound_ms"] * weight(r)
+    meta = GEMM_KERNELS[name]
+    entry = dict(
+        name=name, route="cuda", source=meta["source"],
+        replaces=meta["replaces"], launches=launches,
         max_abs_err=res["max_abs_err"], ms=total("ms"),
         plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-        bound_by=max(by, key=by.get),
-        library_ms=total("library_ms"),
+        bound_by=max(by, key=by.get), library_ms=total("library_ms"),
         per=f"one generate: smollm-135m B={BATCH} prompt={PROMPT} "
-            f"gen={GEN}; sums of per-launch times x launches per shape",
+            f"gen={GEN}; sums of per-launch times x launches per shape "
+            f"({sum(weight(r) for r in rows)} launches)",
         shapes=rows)
+    if total("pad32_int_mm_ms") is not None:
+        entry["pad32_int_mm_ms"] = total("pad32_int_mm_ms")
+        entry["pad32_int_mm_note"] = (
+            "yardstick, not library_ms: x zero-padded to 32 rows, then one "
+            "torch._int_mm (which refuses M <= 16)")
+    if total("tile_ms") is not None:
+        entry["tile_ms"] = total("tile_ms")
+        entry["tile_note"] = ("the 64x64 tile (quant_matmul.cu) at the same "
+                              "shapes in the same run: the path these rows "
+                              "took before the small-M kernel")
+    return entry
 
 
 def phase_generate(torch, kernel_results: dict) -> list:
@@ -739,8 +821,11 @@ def phase_generate(torch, kernel_results: dict) -> list:
 
     cfg = configs.get_config("smollm-135m")
     counters = {"w8a8": quant_matmul.LAUNCHES,
-                "w4a8": packed_matmul.LAUNCHES}
+                "w4a8": packed_matmul.LAUNCHES,
+                "w8a8 small-M": quant_matmul.SMALL_M_LAUNCHES}
     expect = 7 * cfg.n_layers * GEN
+    # decode rows (M = BATCH <= 16) take the small-M kernel, prefill the tile
+    expect_small = 7 * cfg.n_layers * (GEN - 1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                             device="cuda")
@@ -760,10 +845,12 @@ def phase_generate(torch, kernel_results: dict) -> list:
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         counts = {f: c.count for f, c in counters.items()}
-        other = "w8a8" if fmt == "w4a8" else "w4a8"
-        if counts[fmt] != expect or counts[other] != 0:
+        want = {"w8a8": 0, "w4a8": 0, "w8a8 small-M": 0, fmt: expect}
+        if fmt == "w8a8":
+            want["w8a8 small-M"] = expect_small
+        if counts != want:
             raise AssertionError(f"{fmt}: kernel launches {counts}, expected "
-                                 f"{fmt}={expect} and {other}=0")
+                                 f"{want}")
         if tuple(toks.shape) != (BATCH, GEN) or \
                 not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
             raise AssertionError(f"{fmt}: bad tokens {tuple(toks.shape)}")
@@ -796,8 +883,17 @@ def phase_generate(torch, kernel_results: dict) -> list:
         log(f"{fmt}: tokens and logits identical to the plain-forced run; "
             f"sample tokens {toks[0, :16].tolist()}")
         decode_profile(torch, params, cfg, prompts, cache_len, fmt)
-        name = "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
-        entries.append(kernel_entry(name, kernel_results[name], counts[fmt]))
+        if fmt == "w8a8":
+            small = counts["w8a8 small-M"]
+            entries += [
+                kernel_entry("quant_matmul", kernel_results["quant_matmul"],
+                             counts[fmt] - small),
+                kernel_entry("quant_matmul_small_m",
+                             kernel_results["quant_matmul_small_m"], small)]
+        else:
+            entries.append(kernel_entry(
+                "packed_w4_matmul", kernel_results["packed_w4_matmul"],
+                counts[fmt]))
         del params, logits, logits_p
         torch.cuda.empty_cache()
 

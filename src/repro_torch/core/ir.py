@@ -368,8 +368,13 @@ class WidthAnalysis:
         if name == "convert_element_type":
             inw = self.width_of(it.operands[0])
             out_bits = dtype_bits(dtype_of(v))
-            if out_bits is not None and out_bits >= inw.bits:
-                # widening conversion preserves values: keep the source
+            # keep the source only where the target type holds every
+            # source value: a same-width cast that changes signedness
+            # (int8 -1 -> uint8 255) does not preserve values (C-ref4)
+            if out_bits is not None and (
+                    out_bits >= inw.signed_bits
+                    if dtype_of(v) not in _UNSIGNED
+                    else not inw.signed and out_bits >= inw.bits):
                 return Width(inw.bits, inw.signed, inw.value_src,
                              inw.match_src)
             return self._leaf(v)

@@ -167,12 +167,17 @@ def on_cpu(t, counter: LaunchCounter) -> bool:
 
 
 def launch_s8_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
-                   w_scale, *, want_acc: bool, want_out: bool):
+                   w_scale, *, want_acc: bool, want_out: bool,
+                   vec_bytes: int = 16, also: LaunchCounter | None = None):
     """Validate operands, allocate outputs and launch one of the int8 GEMM
     kernels (`csrc/quant_matmul.cu` / `csrc/packed_w4_matmul.cu`, bound as
     `fn`) on the current stream.  `w` is the stored weight ([K,N] int8 or
-    [K,N//2] packed words), `n` the logical column count.  Returns
-    (acc int32 [M,n] or None, out f32 [M,n] or None)."""
+    [K,N//2] packed words), `n` the logical column count.  The kernel's
+    vector paths load `vec_bytes` at a time: x's when K is a multiple and
+    x aligned to it, w's likewise for its row length.  A launch counts on
+    `counter` and, if given, on `also` (a counter of this one kernel among
+    several behind `counter`).  Returns (acc int32 [M,n] or None, out f32
+    [M,n] or None)."""
     dev = x_q.device
     if dev.type != "cuda":
         raise ValueError(f"{counter.name}: kernel launch needs CUDA tensors "
@@ -209,8 +214,8 @@ def launch_s8_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
             if t is not None:
                 t.zero_()
         return acc, out
-    vec_x = k % 16 == 0 and x_q.data_ptr() % 16 == 0
-    vec_w = w.shape[1] % 16 == 0 and w.data_ptr() % 16 == 0
+    vec_x = k % vec_bytes == 0 and x_q.data_ptr() % vec_bytes == 0
+    vec_w = w.shape[1] % vec_bytes == 0 and w.data_ptr() % vec_bytes == 0
     code = fn(x_q.data_ptr(), w.data_ptr(),
               xs.data_ptr() if xs is not None else None,
               ws.data_ptr() if ws is not None else None,
@@ -218,6 +223,8 @@ def launch_s8_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
               out.data_ptr() if out is not None else None,
               m, k, n, int(vec_x), int(vec_w),
               torch.cuda.current_stream(dev).cuda_stream)
-    counter.launched(x_q, w)
+    for c in (counter, also):
+        if c is not None:
+            c.launched(x_q, w)
     _build.check(code, counter.name)
     return acc, out

@@ -1,9 +1,21 @@
-"""w8a8 GEMM: wrapper of the Hopper kernel `csrc/quant_matmul.cu`.
+"""w8a8 GEMM: wrapper of the Hopper kernels in `csrc/quant_matmul.cu`.
 
 Port of `repro/kernels/quant_matmul.py` (`quant_matmul_acc`, the Pallas
 TPU kernel, and its dequantizing wrapper `quant_matmul`).  On a CUDA
-tensor these launch the kernel (or raise); on a CPU tensor they run the
+tensor these launch a kernel (or raise); on a CPU tensor they run the
 plain version `kernels/ref.py`, and only then.
+
+Two kernels, by a fixed rule on M (the rows of x):
+
+- M <= SMALL_M (16): the small-M kernel (`csrc/s8_small_m.cuh`, entry
+  `repro_quant_matmul_small_m`), a column-split dp4a kernel for decode.
+  `torch._int_mm` refuses these rows, and the 64x64 tensor-core tile
+  would pad them to 64 rows and give a decode launch 3-24 blocks.
+- M > 16: the 64x64 tensor-core tile (`csrc/s8_gemm.cuh`, entry
+  `repro_quant_matmul`).
+
+`LAUNCHES` counts the launches of both, `SMALL_M_LAUNCHES` those of the
+small-M kernel alone.
 """
 from __future__ import annotations
 
@@ -14,6 +26,11 @@ import torch
 from repro_torch.kernels import common, ref
 
 LAUNCHES = common.LaunchCounter("quant_matmul")
+SMALL_M_LAUNCHES = common.LaunchCounter("quant_matmul_small_m")
+
+SMALL_M = 16
+# the small-M kernel sums in int32: exact while K * 2^14 < 2^31
+SMALL_M_MAX_K = 2 ** 17 - 1
 
 
 @functools.cache
@@ -21,13 +38,32 @@ def _kernel():
     return common.bind("quant_matmul", "repro_quant_matmul", 6, 5)
 
 
+@functools.cache
+def _small_m_kernel():
+    return common.bind("quant_matmul", "repro_quant_matmul_small_m", 6, 5)
+
+
+def _launch(x_q, w_q, x_scale, w_scale, *, want_acc: bool, want_out: bool):
+    """Launch the kernel the rule picks for x_q's rows (module doc)."""
+    if x_q.ndim == 2 and x_q.shape[0] <= SMALL_M:
+        if x_q.shape[1] > SMALL_M_MAX_K:
+            raise ValueError(f"{SMALL_M_LAUNCHES.name}: K={x_q.shape[1]} "
+                             f"> {SMALL_M_MAX_K}, beyond the kernel's exact "
+                             "int32 sums")
+        return common.launch_s8_gemm(
+            _small_m_kernel(), LAUNCHES, x_q, w_q, w_q.shape[-1], x_scale,
+            w_scale, want_acc=want_acc, want_out=want_out, vec_bytes=4,
+            also=SMALL_M_LAUNCHES)
+    return common.launch_s8_gemm(_kernel(), LAUNCHES, x_q, w_q,
+                                 w_q.shape[-1], x_scale, w_scale,
+                                 want_acc=want_acc, want_out=want_out)
+
+
 def quant_matmul_acc(x_q, w_q):
     """int8 [M,K] @ int8 [K,N] -> int32 [M,N] accumulator."""
     if common.on_cpu(x_q, LAUNCHES):
         return ref.quant_matmul_acc_ref(x_q, w_q)
-    acc, _ = common.launch_s8_gemm(_kernel(), LAUNCHES, x_q, w_q,
-                                   w_q.shape[1], None, None,
-                                   want_acc=True, want_out=False)
+    acc, _ = _launch(x_q, w_q, None, None, want_acc=True, want_out=False)
     return acc
 
 
@@ -36,7 +72,6 @@ def quant_matmul(x_q, w_q, x_scale, w_scale, *, out_dtype=torch.float32):
     epilogue fused into the kernel (bit-identical to the plain version)."""
     if common.on_cpu(x_q, LAUNCHES):
         return ref.quant_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)
-    _, out = common.launch_s8_gemm(_kernel(), LAUNCHES, x_q, w_q,
-                                   w_q.shape[1], x_scale, w_scale,
-                                   want_acc=False, want_out=True)
+    _, out = _launch(x_q, w_q, x_scale, w_scale, want_acc=False,
+                     want_out=True)
     return out.to(out_dtype)

@@ -18,9 +18,16 @@ from repro_torch.kernels import (mul4, muladd2, packed_matmul,  # noqa: E402
                                  quant_matmul, ref, simd_add)
 
 # ragged M / K / N (K=48 is not a multiple of 32; K=100 and N=34 miss the
-# vector paths) and serving shapes of smollm-135m
+# vector paths) and serving shapes of smollm-135m; then the ragged K and N
+# at M on both sides of quant_matmul's switch (M <= 16: the small-M
+# kernel, M > 16: the tile), the four decode (K, N) pairs at M = 8, and
+# K past one of the small-M kernel's 1536-k rounds
+RAGGED_KN = [(48, 16), (48, 128), (128, 48), (100, 34), (7, 6)]
 SHAPES = [(1, 48, 16), (3, 48, 128), (17, 128, 48), (2, 100, 34),
-          (9, 7, 6), (8, 576, 192), (64, 1536, 576), (130, 576, 1536)]
+          (9, 7, 6), (8, 576, 192), (64, 1536, 576), (130, 576, 1536)] + \
+    [(m, k, n) for m in (1, 8, 15, 16, 17) for k, n in RAGGED_KN] + \
+    [(8, k, n) for k, n in ((576, 576), (576, 192), (576, 1536),
+                            (1536, 576))] + [(16, 2100, 70)]
 
 
 @pytest.fixture
@@ -49,13 +56,39 @@ def test_cuda_kernels_bit_exact_vs_plain(cuda, packed):
     acc_ref = ref.packed_w4_matmul_acc_ref if packed \
         else ref.quant_matmul_acc_ref
     out_ref = ref.packed_w4_matmul_ref if packed else ref.quant_matmul_ref
+    small = quant_matmul.SMALL_M_LAUNCHES
     for m, k, n in SHAPES:
         x, w, xs, ws = _operands(rng, m, k, n, packed, cuda)
-        before = mod.LAUNCHES.count
+        before, before_small = mod.LAUNCHES.count, small.count
         assert torch.equal(acc_fn(x, w), acc_ref(x, w)), (m, k, n)
         assert torch.equal(out_fn(x, w, xs, ws), out_ref(x, w, xs, ws)), \
             (m, k, n)
         assert mod.LAUNCHES.count == before + 2
+        # w8a8 rows M <= 16 go through the small-M kernel, others the tile
+        want_small = 2 if not packed and m <= quant_matmul.SMALL_M else 0
+        assert small.count == before_small + want_small, (m, k, n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_cuda_small_m_unaligned_operands(cuda, m):
+    """x and w one byte off 4-byte alignment: the byte-load paths."""
+    rng = np.random.default_rng(m)
+    for k, n in ((576, 192), (100, 36)):
+        x, w, xs, ws = _operands(rng, m, k, n, False, cuda)
+        xu = torch.empty(m * k + 1, dtype=torch.int8, device=cuda)[1:]
+        wu = torch.empty(k * n + 1, dtype=torch.int8, device=cuda)[1:]
+        xu, wu = xu.view(m, k), wu.view(k, n)
+        xu.copy_(x)
+        wu.copy_(w)
+        assert xu.data_ptr() % 4 and wu.data_ptr() % 4
+        before = quant_matmul.SMALL_M_LAUNCHES.count
+        assert torch.equal(quant_matmul.quant_matmul_acc(xu, wu),
+                           ref.quant_matmul_acc_ref(x, w)), (m, k, n)
+        assert torch.equal(quant_matmul.quant_matmul(xu, wu, xs, ws),
+                           ref.quant_matmul_ref(x, w, xs, ws)), (m, k, n)
+        assert quant_matmul.SMALL_M_LAUNCHES.count == before + 2
     torch.cuda.synchronize()
 
 

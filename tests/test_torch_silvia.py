@@ -393,6 +393,13 @@ def adds_masked(x0, y0, x1, y1):
     return I32(x0 & 127) + I32(y0 & 127), I32(x1 & 127) + I32(y1 & 127)
 
 
+def fig1_via_uint8(a0, a1, b):
+    """Fig. 1 behind a same-width cast that changes signedness (C-ref4):
+    int8 -1 becomes uint8 255, so the cast is not value-preserving."""
+    return (I32(a0.to(torch.uint8)) * I32(b),
+            I32(a1.to(torch.uint8)) * I32(b))
+
+
 def _unsigned_cases():
     r = np.random.default_rng(7)
     u8 = lambda: r.integers(128, 256, (16,)).astype(np.uint8)
@@ -400,6 +407,8 @@ def _unsigned_cases():
     return [
         # name, fn, args, passes, packed census
         ("fig1_uint8", fig1, [u8() for _ in range(3)], MUL, []),
+        ("fig1_int8_to_uint8", fig1_via_uint8,
+         [i8(r, (16,), -128, 0) for _ in range(3)], MUL, []),
         ("mul4_and15", mul4_masked, [tuple(hi4() for _ in range(4)), hi4()],
          [{"op": "mul4"}], []),
         ("adds_and127_four8", adds_masked, [i8(r, (16,)) for _ in range(4)],

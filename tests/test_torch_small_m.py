@@ -1,0 +1,231 @@
+"""The small-M quant_matmul kernel's lane arithmetic, on the CPU.
+
+`csrc/s8_small_m.cuh` runs only on the card.  This file emulates it in
+numpy, thread for thread: the weight words each thread loads (masked K
+and N tails), the 4x4 `__byte_perm` transpose with the selector values
+read from the header, `dp4a` on signed bytes, the lane-group shuffle, the
+warp-order reduction through shared memory and the f32 epilogue.  The
+emulation is held bit for bit against the plain PyTorch version
+(`kernels/ref.py`).  No JAX here.
+"""
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import common, quant_matmul, ref
+
+HEADER = pathlib.Path(quant_matmul.__file__).parent / "csrc" / \
+    "s8_small_m.cuh"
+
+
+def _consts() -> dict:
+    """The header's literal constants (`constexpr T NAME = literal;`)."""
+    text = HEADER.read_text()
+    found = re.findall(r"constexpr\s+(?:int|uint32_t)\s+(\w+)\s*=\s*"
+                       r"(0x[0-9a-fA-F]+|\d+)\s*;", text)
+    return {name: int(v, 0) for name, v in found}
+
+
+C = _consts()
+WARPS, GROUPS, RQ = C["WARPS"], C["GROUPS"], C["RQ"]
+LANES_PER_GROUP = 32 // GROUPS
+COLS = LANES_PER_GROUP * C["COLS_PER_LANE"]
+STREAMS = WARPS * GROUPS
+QR = STREAMS * RQ
+
+
+def byte_perm(x, y, sel: int):
+    """CUDA's __byte_perm on uint32 arrays: byte i of the result is byte
+    (sel >> 4i) & 7 of {x: bytes 0-3, y: bytes 4-7}."""
+    src = [(x >> (8 * b)) & 0xFF for b in range(4)] + \
+          [(y >> (8 * b)) & 0xFF for b in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        nib = (sel >> (4 * i)) & 0xF
+        assert nib < 8, "sign-replicating selectors are not emulated"
+        out |= src[nib] << (8 * i)
+    return out
+
+
+def transpose4x4(r):
+    """The header's transpose4x4 on arrays of row words r[0..3]."""
+    t0 = byte_perm(r[0], r[1], C["PERM_PAIR_LO"])
+    t1 = byte_perm(r[0], r[1], C["PERM_PAIR_HI"])
+    t2 = byte_perm(r[2], r[3], C["PERM_PAIR_LO"])
+    t3 = byte_perm(r[2], r[3], C["PERM_PAIR_HI"])
+    return [byte_perm(t0, t2, C["PERM_HALF_LO"]),
+            byte_perm(t0, t2, C["PERM_HALF_HI"]),
+            byte_perm(t1, t3, C["PERM_HALF_LO"]),
+            byte_perm(t1, t3, C["PERM_HALF_HI"])]
+
+
+def _wrap32(v):
+    return ((v + 2 ** 31) % 2 ** 32) - 2 ** 31
+
+
+def dp4a(a, b, c):
+    """__dp4a(a, b, c): the signed bytes of a and b, multiplied pairwise
+    and summed into c (int32)."""
+    sb = lambda v, i: ((v >> (8 * i)) & 0xFF).astype(np.int64) - \
+        (((v >> (8 * i)) & 0x80) << 1).astype(np.int64)
+    return _wrap32(c + sum(sb(a, i) * sb(b, i) for i in range(4)))
+
+
+def _bytes_word(a, rows, cols, nrows, ncols):
+    """Words of a 2-D int8 array: bytes a[rows, cols + b] for b in 0..3,
+    zeros outside [nrows, ncols) -- load_bytes / the vector loads."""
+    word = np.zeros(np.broadcast(rows, cols).shape, dtype=np.uint64)
+    u = a.view(np.uint8)
+    for b in range(4):
+        ok = (rows < nrows) & (cols + b < ncols)
+        v = u[np.where(ok, rows, 0), np.where(ok, cols + b, 0)]
+        word |= np.where(ok, v, 0).astype(np.uint64) << np.uint64(8 * b)
+    return word
+
+
+def emulate(x, w, xs=None, ws=None):
+    """The kernel, every block and thread at once: (acc int32, f32 or
+    None) for int8 x [M,K] @ int8 w [K,N]."""
+    m_rows, k_dim = x.shape
+    n_dim = w.shape[1]
+    assert 1 <= m_rows <= C["MAX_M"]
+    mt = next(t for t in (1, 2, 4, 8, 16) if t >= m_rows)
+    nb = -(-n_dim // COLS)
+    tid = np.arange(32 * WARPS)
+    warp, lane = tid >> 5, tid & 31
+    g, cl = lane // LANES_PER_GROUP, lane % LANES_PER_GROUP
+    s = warp * GROUPS + g                                  # [T]
+    n0 = np.arange(nb)[:, None] * COLS                     # [B, 1]
+    col = n0 + cl[None, :] * C["COLS_PER_LANE"]            # [B, T]
+    kq = -(-k_dim // 4)
+    acc = np.zeros((nb, tid.size, mt, 4), dtype=np.int64)
+    for q0 in range(0, kq, QR):
+        wr = [[_bytes_word(w, np.broadcast_to(4 * (q0 + s + i * STREAMS) + j,
+                                              col.shape), col, k_dim, n_dim)
+               for j in range(4)] for i in range(RQ)]
+        nq = min(QR, kq - q0)
+        xw = np.zeros((mt, nq), dtype=np.uint64)           # shared memory
+        mm, qq = np.meshgrid(np.arange(mt), np.arange(nq), indexing="ij")
+        xw[:] = _bytes_word(x, mm, 4 * (q0 + qq), m_rows, k_dim)
+        for i in range(RQ):
+            ql = s + i * STREAMS                           # [T]
+            live = ql < nq
+            wc = transpose4x4(wr[i])
+            for m in range(mt):
+                xv = xw[m, np.where(live, ql, 0)][None, :]
+                for c in range(4):
+                    acc[:, :, m, c] = np.where(
+                        live, dp4a(wc[c], xv, acc[:, :, m, c]),
+                        acc[:, :, m, c])
+    # __shfl_xor_sync over the lane groups: xor 8, then xor 16
+    acc = acc.reshape(nb, WARPS, 32, mt, 4)
+    for off in (LANES_PER_GROUP, 2 * LANES_PER_GROUP):
+        acc = _wrap32(acc + acc[:, :, np.arange(32) ^ off])
+    red = np.zeros((nb, WARPS, mt, COLS), dtype=np.int64)
+    for m in range(mt):
+        lanes = np.flatnonzero(np.arange(32) // LANES_PER_GROUP
+                               == m % GROUPS)
+        for ln in lanes:
+            c0 = (ln % LANES_PER_GROUP) * C["COLS_PER_LANE"]
+            red[:, :, m, c0:c0 + 4] = acc[:, :, ln, m, :]
+    total = np.zeros((nb, mt, COLS), dtype=np.int64)
+    for v in range(WARPS):                                 # warp order
+        total = _wrap32(total + red[:, v])
+    out = total.transpose(1, 0, 2).reshape(mt, nb * COLS)[:m_rows, :n_dim]
+    acc32 = out.astype(np.int32)
+    if xs is None:
+        return acc32, None
+    f = (acc32.astype(np.float32) * xs.reshape(-1, 1)[:m_rows]) \
+        * ws.reshape(1, -1)
+    return acc32, f.astype(np.float32)
+
+
+def _operands(rng, m, k, n):
+    x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    xs = (rng.random((m, 1)) * 0.02 + 1e-3).astype(np.float32)
+    ws = (rng.random((1, n)) * 0.02 + 1e-3).astype(np.float32)
+    return x, w, xs, ws
+
+
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("k,n", [(7, 6), (100, 34), (1536, 576),
+                                 (7, 576), (1536, 6)])
+def test_emulated_kernel_matches_plain(m, k, n):
+    rng = np.random.default_rng(1000 * m + k + n)
+    x, w, xs, ws = _operands(rng, m, k, n)
+    acc, f = emulate(x, w, xs, ws)
+    t = [torch.from_numpy(a) for a in (x, w, xs, ws)]
+    assert np.array_equal(acc, ref.quant_matmul_acc_ref(*t[:2]).numpy())
+    assert np.array_equal(f, ref.quant_matmul_ref(*t).numpy())
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 48, 16), (8, 576, 192),
+                                   (5, 1537, 33), (15, 3100, 70)])
+def test_emulated_kernel_rounds_and_padding(m, k, n):
+    """Rows padded to MT (3 -> 4, 5 -> 8, 15 -> 16), K past one round
+    of 4 * QR k (two and three rounds), ragged N tails."""
+    rng = np.random.default_rng(m + k + n)
+    x, w, _, _ = _operands(rng, m, k, n)
+    acc, _ = emulate(x, w)
+    want = ref.quant_matmul_acc_ref(torch.from_numpy(x), torch.from_numpy(w))
+    assert np.array_equal(acc, want.numpy())
+
+
+def test_extreme_bytes_sum_exactly():
+    """All -128 (the most negative products and the largest sums)."""
+    x = np.full((16, 1536), -128, dtype=np.int8)
+    w = np.full((1536, 40), -128, dtype=np.int8)
+    acc, _ = emulate(x, w)
+    assert (acc == 1536 * 128 * 128).all()
+
+
+def test_transpose_selectors():
+    rows = [np.array([0x03020100 + 0x10101010 * j], dtype=np.uint64)
+            for j in range(4)]
+    cols = transpose4x4(rows)
+    for c in range(4):   # column c holds byte c of rows 0..3
+        want = sum(((0x10 * j + c) << (8 * j)) for j in range(4))
+        assert int(cols[c][0]) == want
+
+
+def _recorded_launches(monkeypatch):
+    calls = []
+
+    def fake_launch(fn, counter, x_q, w, n, x_scale, w_scale, **kw):
+        calls.append((fn, kw.get("vec_bytes", 16), kw.get("also")))
+        return None, torch.zeros((x_q.shape[0], n))
+
+    monkeypatch.setattr(common, "launch_s8_gemm", fake_launch)
+    monkeypatch.setattr(quant_matmul, "_kernel", lambda: "tile")
+    monkeypatch.setattr(quant_matmul, "_small_m_kernel", lambda: "small_m")
+    return calls
+
+
+@pytest.mark.parametrize("m,kernel", [(1, "small_m"), (16, "small_m"),
+                                      (17, "tile"), (1024, "tile")])
+def test_rule_picks_kernel_by_rows(monkeypatch, m, kernel):
+    """M <= 16 goes to the small-M kernel with 4-byte vector loads and its
+    own counter, M > 16 to the tile (only the rule runs here: the launch
+    itself needs the card)."""
+    calls = _recorded_launches(monkeypatch)
+    x = torch.zeros((m, 32), dtype=torch.int8)
+    w = torch.zeros((32, 8), dtype=torch.int8)
+    quant_matmul._launch(x, w, None, None, want_acc=False, want_out=True)
+    fn, vec, also = calls[0]
+    assert fn == kernel
+    if kernel == "small_m":
+        assert (vec, also) == (4, quant_matmul.SMALL_M_LAUNCHES)
+    else:
+        assert (vec, also) == (16, None)
+
+
+def test_small_m_refuses_inexact_k(monkeypatch):
+    _recorded_launches(monkeypatch)
+    x = torch.zeros((8, quant_matmul.SMALL_M_MAX_K + 1), dtype=torch.int8)
+    with pytest.raises(ValueError, match="exact"):
+        quant_matmul._launch(x, x.T, None, None, want_acc=True,
+                             want_out=False)
