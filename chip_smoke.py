@@ -12,7 +12,8 @@ over):
    timed;
 3. each GEMM kernel against its plain PyTorch version at every main-path
    (K, N) with decode M=8 and prefill M=1024, plus ragged shapes on both
-   sides of quant_matmul's switch (M <= 16: the small-M kernel, M > 16:
+   sides of the switch that quant_matmul and packed_w4_matmul share
+   (M <= 16: the small-M kernel, with int8 or packed-int4 weights; M > 16:
    the 64x64 tile; each call must go through the kernel the rule picks):
    the int32 accumulator and the f32 output must be bit-identical
    (`torch.equal`); then per-launch times of the kernel, the plain
@@ -39,9 +40,9 @@ over):
 6. greedy generation with full-width smollm-135m (30 layers, d_model 576,
    random weights from a seeded torch.Generator): B=8, prompt 128, 32 new
    tokens, under w4a8 and then w8a8.  The format's GEMM must launch
-   7 x 30 x 32 = 6720 times and the other format's 0 times; under w8a8
-   the small-M kernel takes the 7 x 30 x 31 = 6510 decode launches and the
-   tile the 210 prefill launches; a rerun with
+   7 x 30 x 32 = 6720 times and the other format's 0 times; under each
+   format its small-M kernel takes the 7 x 30 x 31 = 6510 decode launches
+   and its tile the 210 prefill launches; a rerun with
    the plain versions forced must give identical tokens AND logits (the
    kernels are bit-exact); a reduced model must agree with its CPU run.
 
@@ -342,16 +343,22 @@ GEMM_KERNELS = {
         replaces="src/repro/kernels/quant_matmul.py:30"),
     "quant_matmul_small_m": dict(
         source="src/repro_torch/kernels/csrc/s8_small_m.cuh",
-        replaces="src/repro/kernels/quant_matmul.py:30"),
+        replaces="src/repro/kernels/quant_matmul.py:30",
+        entry="quant_matmul.cu::repro_quant_matmul_small_m (LoadW8Word)"),
     "packed_w4_matmul": dict(
         source="src/repro_torch/kernels/csrc/packed_w4_matmul.cu",
         replaces="src/repro/kernels/packed_matmul.py:35"),
+    "packed_w4_matmul_small_m": dict(
+        source="src/repro_torch/kernels/csrc/s8_small_m.cuh",
+        replaces="src/repro/kernels/packed_matmul.py:35",
+        entry="packed_w4_matmul.cu::repro_packed_w4_matmul_small_m "
+              "(LoadW4Word)"),
 }
 
 
 def phase_kernels(torch) -> dict:
     """Returns {kernel name: {"rows": per-shape timings of the main-path
-    shapes, "max_abs_err": ...}} for the three GEMM kernels."""
+    shapes, "max_abs_err": ...}} for the four GEMM kernels."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import common, packed_matmul, quant_matmul, ref
@@ -368,38 +375,44 @@ def phase_kernels(torch) -> dict:
     def pad32(x):    # x zero-padded to the 32 rows torch._int_mm accepts
         return F.pad(x, (0, 0, 0, 32 - x.shape[0]))
 
-    off_path = common.LaunchCounter("quant_matmul tile, timed off the path")
+    off_path = common.LaunchCounter("GEMM tile, timed off the path")
 
-    def tile(x, w, xs, ws):   # the 64x64 tile at any M, outside the rule
-        return common.launch_s8_gemm(
-            quant_matmul._kernel(), off_path, x, w, w.shape[1], xs, ws,
-            want_acc=False, want_out=True)[1]
+    def tile_of(mod, cols_per_word):
+        def tile(x, w, xs, ws):   # the 64x64 tile at any M, outside the rule
+            return common.launch_s8_gemm(
+                mod._kernel(), off_path, x, w, cols_per_word * w.shape[1],
+                xs, ws, want_acc=False, want_out=True)[1]
+        return tile
 
-    small = quant_matmul.SMALL_M_LAUNCHES
+    def rule(name):   # the kernel the wrappers' rule picks for M rows
+        return lambda m: (f"{name}_small_m" if m <= quant_matmul.SMALL_M
+                          else name)
+
     specs = [
-        dict(name="quant_matmul",
-             kernel_for=lambda m: "quant_matmul_small_m"
-             if m <= quant_matmul.SMALL_M else "quant_matmul",
+        dict(name="quant_matmul", kernel_for=rule("quant_matmul"),
+             small=quant_matmul.SMALL_M_LAUNCHES,
              acc=quant_matmul.quant_matmul_acc,
              out=quant_matmul.quant_matmul,
              acc_ref=ref.quant_matmul_acc_ref, out_ref=ref.quant_matmul_ref,
              wshape=lambda k, n: (k, n),
-             lib=lambda x, w: torch._int_mm(x, w), tile=tile),
-        dict(name="packed_w4_matmul",
-             kernel_for=lambda m: "packed_w4_matmul",
+             lib=lambda x, w: torch._int_mm(x, w),
+             tile=tile_of(quant_matmul, 1)),
+        dict(name="packed_w4_matmul", kernel_for=rule("packed_w4_matmul"),
+             small=packed_matmul.SMALL_M_LAUNCHES,
              acc=packed_matmul.packed_w4_matmul_acc,
              out=packed_matmul.packed_w4_matmul,
              acc_ref=ref.packed_w4_matmul_acc_ref,
              out_ref=ref.packed_w4_matmul_ref,
              wshape=lambda k, n: (k, n // 2),
              lib=lambda x, w: torch._int_mm(x, common.unpack_w4_words(w)),
-             tile=None),
+             tile=tile_of(packed_matmul, 2)),
     ]
     main_shapes = [(m, k, n) for m in (DECODE_M, PREFILL_M)
                    for k, n in dict.fromkeys(MAIN_KN)]
     results = {name: dict(rows=[], max_abs_err=0.0, shapes=0)
                for name in GEMM_KERNELS}
     for sp in specs:
+        small = sp["small"]
         for m, k, n in main_shapes + RAGGED:
             kname = sp["kernel_for"](m)
             res = results[kname]
@@ -411,7 +424,7 @@ def phase_kernels(torch) -> dict:
             out_p = sp["out_ref"](x, w, xs, ws)
             torch.cuda.synchronize()
             if small.count - start != \
-                    (2 if kname == "quant_matmul_small_m" else 0):
+                    (2 if kname.endswith("_small_m") else 0):
                 raise AssertionError(f"{sp['name']} {(m, k, n)}: "
                                      f"{small.count - start} small-M "
                                      f"launches, expected {kname}")
@@ -455,15 +468,15 @@ def phase_kernels(torch) -> dict:
                     torch, lambda i: sp["lib"](pad32(x), wi(i)), 50)
                 extra = (f"  pad32+_int_mm "
                          f"{row['pad32_int_mm_ms'] * 1e3:7.2f} us")
-                if sp["tile"] is not None:
-                    if not torch.equal(sp["tile"](x, w, xs, ws), out_p):
-                        raise AssertionError(f"tile {(m, k, n)} differs")
-                    row["tile_ms"] = device_ms(
-                        torch, lambda i: sp["tile"](x, wi(i), xs, ws), n_it)
-                    extra += f"  64x64 tile {row['tile_ms'] * 1e3:7.2f} us"
+                if not torch.equal(sp["tile"](x, w, xs, ws), out_p):
+                    raise AssertionError(f"{sp['name']} tile {(m, k, n)} "
+                                         "differs")
+                row["tile_ms"] = device_ms(
+                    torch, lambda i: sp["tile"](x, wi(i), xs, ws), n_it)
+                extra += f"  64x64 tile {row['tile_ms'] * 1e3:7.2f} us"
             res["rows"].append(row)
             del copies
-            log(f"  {kname:20s} M={m:5d} K={k:5d} N={n:5d}  kernel "
+            log(f"  {kname:24s} M={m:5d} K={k:5d} N={n:5d}  kernel "
                 f"{t_k * 1e3:9.2f} us  plain {t_p * 1e3:9.2f} us  library "
                 + (f"{t_l * 1e3:9.2f} us" if t_l is not None else "  n/a")
                 + f"  bound {b_ms * 1e3:7.3f} us ({b_by})" + extra)
@@ -791,8 +804,7 @@ def kernel_entry(name: str, res: dict, launches: int) -> dict:
         by[r["bound_by"]] += r["bound_ms"] * weight(r)
     meta = GEMM_KERNELS[name]
     entry = dict(
-        name=name, route="cuda", source=meta["source"],
-        replaces=meta["replaces"], launches=launches,
+        name=name, route="cuda", **meta, launches=launches,
         max_abs_err=res["max_abs_err"], ms=total("ms"),
         plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
         bound_by=max(by, key=by.get), library_ms=total("library_ms"),
@@ -807,9 +819,9 @@ def kernel_entry(name: str, res: dict, launches: int) -> dict:
             "torch._int_mm (which refuses M <= 16)")
     if total("tile_ms") is not None:
         entry["tile_ms"] = total("tile_ms")
-        entry["tile_note"] = ("the 64x64 tile (quant_matmul.cu) at the same "
-                              "shapes in the same run: the path these rows "
-                              "took before the small-M kernel")
+        entry["tile_note"] = ("the 64x64 tile of the same format at the "
+                              "same shapes in the same run: the path these "
+                              "rows took before the small-M kernel")
     return entry
 
 
@@ -822,7 +834,8 @@ def phase_generate(torch, kernel_results: dict) -> list:
     cfg = configs.get_config("smollm-135m")
     counters = {"w8a8": quant_matmul.LAUNCHES,
                 "w4a8": packed_matmul.LAUNCHES,
-                "w8a8 small-M": quant_matmul.SMALL_M_LAUNCHES}
+                "w8a8 small-M": quant_matmul.SMALL_M_LAUNCHES,
+                "w4a8 small-M": packed_matmul.SMALL_M_LAUNCHES}
     expect = 7 * cfg.n_layers * GEN
     # decode rows (M = BATCH <= 16) take the small-M kernel, prefill the tile
     expect_small = 7 * cfg.n_layers * (GEN - 1)
@@ -845,15 +858,15 @@ def phase_generate(torch, kernel_results: dict) -> list:
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         counts = {f: c.count for f, c in counters.items()}
-        want = {"w8a8": 0, "w4a8": 0, "w8a8 small-M": 0, fmt: expect}
-        if fmt == "w8a8":
-            want["w8a8 small-M"] = expect_small
+        want = {f: 0 for f in counters}
+        want[fmt], want[f"{fmt} small-M"] = expect, expect_small
         if counts != want:
             raise AssertionError(f"{fmt}: kernel launches {counts}, expected "
                                  f"{want}")
-        if tuple(toks.shape) != (BATCH, GEN) or \
-                not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
-            raise AssertionError(f"{fmt}: bad tokens {tuple(toks.shape)}")
+        if tuple(toks.shape) != (BATCH, GEN) or toks.dtype != torch.int32 \
+                or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"{fmt}: bad tokens {tuple(toks.shape)} "
+                                 f"{toks.dtype}")
         if tuple(logits.shape) != (BATCH, GEN, cfg.vocab) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{fmt}: logits not finite / misshapen")
@@ -883,17 +896,12 @@ def phase_generate(torch, kernel_results: dict) -> list:
         log(f"{fmt}: tokens and logits identical to the plain-forced run; "
             f"sample tokens {toks[0, :16].tolist()}")
         decode_profile(torch, params, cfg, prompts, cache_len, fmt)
-        if fmt == "w8a8":
-            small = counts["w8a8 small-M"]
-            entries += [
-                kernel_entry("quant_matmul", kernel_results["quant_matmul"],
-                             counts[fmt] - small),
-                kernel_entry("quant_matmul_small_m",
-                             kernel_results["quant_matmul_small_m"], small)]
-        else:
-            entries.append(kernel_entry(
-                "packed_w4_matmul", kernel_results["packed_w4_matmul"],
-                counts[fmt]))
+        name = "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
+        small = counts[f"{fmt} small-M"]
+        entries += [
+            kernel_entry(name, kernel_results[name], counts[fmt] - small),
+            kernel_entry(f"{name}_small_m",
+                         kernel_results[f"{name}_small_m"], small)]
         del params, logits, logits_p
         torch.cuda.empty_cache()
 

@@ -23,7 +23,14 @@
 // (0, 0); a zero byte would decode to -8.  Here out-of-range words are
 // staged as 0x08 too, but correctness does not rest on it: the K tail of
 // x is staged as zeros (s8_gemm.cuh) and columns >= N are never stored.
+//
+// For M <= 16 (decode rows) the wrapper launches the second entry point,
+// repro_packed_w4_matmul_small_m: the column-split dp4a kernel of
+// s8_small_m.cuh (whose note gives its bound and design) with the
+// LoadW4Word loader, which reads each row's 2 packed bytes of 4 columns
+// and unpacks them in registers, in place of the 64-row tensor-core tile.
 #include "s8_gemm.cuh"
+#include "s8_small_m.cuh"
 
 namespace {
 
@@ -94,4 +101,18 @@ extern "C" int repro_packed_w4_matmul(const void* x, const void* w,
       static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K, N,
       vec_x != 0, vec_w != 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for 1 <= M <= s8small::MAX_M (cudaErrorInvalidValue
+// otherwise, nothing launched); vec_x means 4-byte x words (K % 4 == 0, x
+// 4-byte aligned), vec_w 2-byte packed words (N % 4 == 0, w 2-byte
+// aligned).
+extern "C" int repro_packed_w4_matmul_small_m(const void* x, const void* w,
+                                              const void* xs,
+                                              const void* ws, void* acc_out,
+                                              void* f_out, int M, int K,
+                                              int N, int vec_x, int vec_w,
+                                              void* stream) {
+  return s8small::launch_small_m<s8small::LoadW4Word>(
+      x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w, stream);
 }

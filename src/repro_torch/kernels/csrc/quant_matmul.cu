@@ -67,33 +67,6 @@ __global__ void __launch_bounds__(s8gemm::THREADS)
                             vec_w);
 }
 
-template <int MT>
-__global__ void __launch_bounds__(s8small::THREADS)
-    quant_matmul_small_m_kernel(const int8_t* __restrict__ x,
-                                const int8_t* __restrict__ w,
-                                const float* __restrict__ xs,
-                                const float* __restrict__ ws,
-                                int32_t* __restrict__ acc_out,
-                                float* __restrict__ f_out, int M, int K,
-                                int N, bool vec_x, bool vec_w) {
-  s8small::gemm_small_m<MT, s8small::LoadW8Word>(
-      x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w);
-}
-
-// x rows padded to MT, the next of 1, 2, 4, 8, 16 at or above M.
-template <int MT>
-void launch_small_m(const void* x, const void* w, const void* xs,
-                    const void* ws, void* acc_out, void* f_out, int M, int K,
-                    int N, int vec_x, int vec_w, void* stream) {
-  quant_matmul_small_m_kernel<MT>
-      <<<s8small::grid_for(N), s8small::THREADS, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-          static_cast<const float*>(xs), static_cast<const float*>(ws),
-          static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K,
-          N, vec_x != 0, vec_w != 0);
-}
-
 }  // namespace
 
 // acc_out and f_out may each be null (then not written); xs/ws may be null
@@ -120,22 +93,6 @@ extern "C" int repro_quant_matmul_small_m(const void* x, const void* w,
                                           void* acc_out, void* f_out, int M,
                                           int K, int N, int vec_x,
                                           int vec_w, void* stream) {
-  if (M < 1 || M > s8small::MAX_M)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 1)
-    launch_small_m<1>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
-                      stream);
-  else if (M <= 2)
-    launch_small_m<2>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
-                      stream);
-  else if (M <= 4)
-    launch_small_m<4>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
-                      stream);
-  else if (M <= 8)
-    launch_small_m<8>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
-                      stream);
-  else
-    launch_small_m<16>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
-                       stream);
-  return static_cast<int>(cudaGetLastError());
+  return s8small::launch_small_m<s8small::LoadW8Word>(
+      x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w, stream);
 }

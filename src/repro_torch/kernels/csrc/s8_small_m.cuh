@@ -1,19 +1,24 @@
 // Small-M int8 x int8 -> int32 GEMM on Hopper's CUDA cores (dp4a), for
 // the decode rows of a quantized matmul: M <= MAX_M = 16 rows of x.
-// quant_matmul.cu instantiates it with int8 weights
-// (repro_quant_matmul_small_m); the 64x64 tensor-core tile of
-// s8_gemm.cuh keeps M > 16.
+// Two entry points instantiate it through launch_small_m<LoadW>:
+// quant_matmul.cu with int8 weights (LoadW8Word,
+// repro_quant_matmul_small_m) and packed_w4_matmul.cu with packed int4
+// weights unpacked in registers (LoadW4Word,
+// repro_packed_w4_matmul_small_m).  The 64x64 tensor-core tile of
+// s8_gemm.cuh keeps M > 16 for both.
 //
-// Replaces, for M <= 16, the TPU kernel
+// Replaces, for M <= 16, the TPU kernels
 // repro/kernels/quant_matmul.py::quant_matmul_acc (body _qmm_kernel,
-// pallas_call at :52).
+// pallas_call at :52) and repro/kernels/packed_matmul.py::
+// packed_w4_matmul_acc (body _pmm_kernel, pallas_call at :61).
 //
 // Bound on an H100 SXM (3.35 TB/s HBM): bytes.  A launch must read the
-// K*N weight bytes, the M*K bytes of x and the scales, and write the f32
-// output, 4*M*N bytes: at decode (M = 8) 0.11 us for a 576x576
-// projection, 0.28 us for 576x1536; its 2*M*K*N operations are far
-// below any compute peak.  So a launch is bound by launch latency and by
-// how many memory round trips it waits out.
+// weight bytes (K*N int8, or K*N/2 packed int4), the M*K bytes of x and
+// the scales, and write the f32 output, 4*M*N bytes: at decode (M = 8)
+// 0.11 us for a 576x576 int8 projection, 0.28 us for 576x1536, about
+// half that packed; its 2*M*K*N operations are far below any compute
+// peak.  So a launch is bound by launch latency and by how many memory
+// round trips it waits out.
 //
 // What the design does about the three things that held the 64x64 tile
 // back at M = 8:
@@ -27,19 +32,24 @@
 //    thread issues every weight load of a round (RQ quads of 4 k rows,
 //    1536 k per round: one round for K <= 1536) into registers before
 //    it computes on any of them, and transposes the 4x4 byte blocks in
-//    registers (__byte_perm): no shared-memory transpose, no conflicts.
+//    registers (__byte_perm; packed int4: a 2x4 byte gather, then the
+//    nibbles unpacked 4 rows at a time): no shared-memory transpose, no
+//    conflicts.
 //    A warp's load instruction covers 4 rows x 32 contiguous bytes,
-//    whole 32-byte sectors.
+//    whole 32-byte sectors (packed int4: 4 rows x 16 bytes, half a
+//    sector each).
 // 3. M padded to 64.  x is staged in shared memory once per block, as
 //    int32 words of 4 consecutive k, padded only to MT, the next of 1,
 //    2, 4, 8, 16 at or above M; the products run on the CUDA cores
 //    (dp4a), so there is no tensor-core tile to fill.
 //
 // Ragged M, K and N are masked in the kernel: x words past K or for rows
-// m >= M are staged as zeros, weight words outside [K, N) load as zeros,
-// and only m < M, n < N are written.  The vector paths (one 4-byte load
-// per word) need K % 4 == 0 and a 4-byte aligned x, N % 4 == 0 and a
-// 4-byte aligned w; the wrapper chooses them, else each byte loads alone.
+// m >= M are staged as zeros, weight words outside [K, N) load as
+// (decoded) zeros, and only m < M, n < N are written.  The vector paths
+// need K % 4 == 0 and a 4-byte aligned x (one 4-byte load per x word);
+// for w, N % 4 == 0 and a 4-byte aligned int8 w (one 4-byte load per
+// word), or N % 4 == 0 and a 2-byte aligned packed w (one 2-byte load);
+// the wrapper chooses them, else each byte loads alone.
 //
 // Sums are int32 and exact while K * 2^14 < 2^31, i.e. K < 2^17; the
 // wrapper refuses a larger K on this path.  The order is fixed: each
@@ -115,6 +125,13 @@ __device__ __forceinline__ int load_x_word(const int8_t* __restrict__ x,
   return static_cast<int>(load_bytes(p, K - k));
 }
 
+// A weight loader has two steps.  load(w, K, N, k, col, vec) reads the
+// stored bits of row k, columns col..col+3, and is issued for a whole
+// round before any result is used, so all of a round's loads are in
+// flight together.  columns(r, c) turns the bits of rows k..k+3 (r[j]:
+// row k+j) into c[i]: column col+i's int8 values of rows k..k+3 (byte j
+// = row k+j), the operand of dp4a; zeros outside [K, N).
+
 // w[k, col..col+3] as one word; zeros outside [K, N).  vec: N % 4 == 0
 // and w 4-byte aligned, so a word lies wholly inside or outside N.
 struct LoadW8Word {
@@ -126,10 +143,66 @@ struct LoadW8Word {
     if (vec) return *reinterpret_cast<const uint32_t*>(p);
     return load_bytes(p, N - col);
   }
+  __device__ __forceinline__ static void columns(const uint32_t (&r)[4],
+                                                 uint32_t (&c)[4]) {
+    transpose4x4(r, c);
+  }
 };
 
-// One block: out[:, n0:n0+COLS] = x[:M] @ W[:, n0:n0+COLS], with each
-// weight word (row k, 4 columns from col) from LoadW::load.
+// Packed int4 weights: w holds K x N/2 bytes, byte j of a row holding
+// columns 2j and 2j+1 as (w_even + 8) | (w_odd << 4) (N even).  A row's
+// columns col..col+3 (col % 4 == 0, so col/2 is even) are its 2 bytes
+// b0 (columns col, col+1) and b1 (col+2, col+3).  columns():
+// 1. 4 __byte_perm gather b0 of the 4 rows into one word and b1 into
+//    another (byte j = row k+j);
+// 2. each column word is one nibble of every byte: the low nibbles by a
+//    mask, the high ones by a shift and a mask;
+// 3. each byte to its value in [-8, 7].  A 4-bit field u sign-extends
+//    as u | (u & 8) * 0x1E (bit 3 copied into bits 4-7; no carry leaves
+//    a byte).  A high nibble is w_odd's field (u = n); a low nibble
+//    holds w_even + 8, so w_even = n - 8, the sign extension of
+//    u = n ^ 8: the low nibbles' words are xored with W4_BIAS.
+// A zero byte decodes to (-8, 0), so bytes outside [K, N) load as the
+// padding byte W4_PAD, which decodes to (0, 0), as the TPU wrapper pads.
+constexpr uint32_t W4_NIBBLES = 0x0F0F0F0F;  // one nibble of each byte
+constexpr uint32_t W4_BIAS = 0x08080808;     // bit 3 of each byte
+constexpr uint32_t W4_SEXT = 0x1E;           // (u & 8) * 0x1E = 0xF0
+constexpr uint32_t W4_PAD = 0x08;            // packed (0, 0)
+
+__device__ __forceinline__ uint32_t sext4(uint32_t u) {
+  return u | (u & W4_BIAS) * W4_SEXT;
+}
+
+// load: the 2 packed bytes of w[k, col..col+3], W4_PAD outside [K, N).
+// vec: N % 4 == 0 and w 2-byte aligned, so the 2 bytes are one aligned
+// 16-bit word wholly inside or outside N.
+struct LoadW4Word {
+  __device__ __forceinline__ static uint32_t load(
+      const int8_t* __restrict__ w, int K, int N, int k, int col,
+      bool vec) {
+    constexpr uint32_t PAD_PAIR = W4_PAD | W4_PAD << 8;
+    if (k >= K || col >= N) return PAD_PAIR;
+    const int8_t* p = w + static_cast<size_t>(k) * (N / 2) + col / 2;
+    if (vec) return *reinterpret_cast<const uint16_t*>(p);
+    if (col + 2 < N) return load_bytes(p, 2);
+    return load_bytes(p, 1) | (PAD_PAIR & 0xFF00u);
+  }
+  __device__ __forceinline__ static void columns(const uint32_t (&r)[4],
+                                                 uint32_t (&c)[4]) {
+    const uint32_t t0 = __byte_perm(r[0], r[1], PERM_PAIR_LO);
+    const uint32_t t1 = __byte_perm(r[2], r[3], PERM_PAIR_LO);
+    const uint32_t b0 = __byte_perm(t0, t1, PERM_HALF_LO);
+    const uint32_t b1 = __byte_perm(t0, t1, PERM_HALF_HI);
+    c[0] = sext4((b0 & W4_NIBBLES) ^ W4_BIAS);
+    c[1] = sext4((b0 >> 4) & W4_NIBBLES);
+    c[2] = sext4((b1 & W4_NIBBLES) ^ W4_BIAS);
+    c[3] = sext4((b1 >> 4) & W4_NIBBLES);
+  }
+};
+
+// One block: out[:, n0:n0+COLS] = x[:M] @ W[:, n0:n0+COLS], with the
+// weight bits of each row k, 4 columns from col, from LoadW::load, and
+// each quad's column words from LoadW::columns in the compute loop.
 template <int MT, class LoadW>
 __device__ __forceinline__ void gemm_small_m(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
@@ -175,7 +248,7 @@ __device__ __forceinline__ void gemm_small_m(
       const int ql = s + i * STREAMS;
       if (ql < nq) {
         uint32_t wc[4];
-        transpose4x4(wr[i], wc);
+        LoadW::columns(wr[i], wc);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           const int xv = xw[m][ql];
@@ -218,5 +291,55 @@ __device__ __forceinline__ void gemm_small_m(
 }
 
 inline dim3 grid_for(int N) { return dim3((N + COLS - 1) / COLS); }
+
+template <int MT, class LoadW>
+__global__ void __launch_bounds__(THREADS)
+    small_m_kernel(const int8_t* __restrict__ x,
+                   const int8_t* __restrict__ w,
+                   const float* __restrict__ xs,
+                   const float* __restrict__ ws,
+                   int32_t* __restrict__ acc_out, float* __restrict__ f_out,
+                   int M, int K, int N, bool vec_x, bool vec_w) {
+  gemm_small_m<MT, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x,
+                          vec_w);
+}
+
+template <int MT, class LoadW>
+void launch_mt(const void* x, const void* w, const void* xs, const void* ws,
+               void* acc_out, void* f_out, int M, int K, int N, int vec_x,
+               int vec_w, void* stream) {
+  small_m_kernel<MT, LoadW>
+      <<<grid_for(N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+          static_cast<const float*>(xs), static_cast<const float*>(ws),
+          static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K,
+          N, vec_x != 0, vec_w != 0);
+}
+
+// The C entry points' body: x rows padded to MT, the next of 1, 2, 4, 8,
+// 16 at or above M.  Returns cudaErrorInvalidValue (nothing launched) for
+// M outside 1..MAX_M, else cudaGetLastError() after the launch.
+template <class LoadW>
+int launch_small_m(const void* x, const void* w, const void* xs,
+                   const void* ws, void* acc_out, void* f_out, int M, int K,
+                   int N, int vec_x, int vec_w, void* stream) {
+  if (M < 1 || M > MAX_M) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 1)
+    launch_mt<1, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
+                        stream);
+  else if (M <= 2)
+    launch_mt<2, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
+                        stream);
+  else if (M <= 4)
+    launch_mt<4, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
+                        stream);
+  else if (M <= 8)
+    launch_mt<8, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
+                        stream);
+  else
+    launch_mt<16, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x,
+                         vec_w, stream);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace s8small

@@ -1,12 +1,24 @@
-"""w4a8 packed-weight GEMM: wrapper of the Hopper kernel
+"""w4a8 packed-weight GEMM: wrapper of the Hopper kernels in
 `csrc/packed_w4_matmul.cu`.
 
 Port of `repro/kernels/packed_matmul.py` (`packed_w4_matmul_acc`, the
 Pallas TPU kernel, and its dequantizing wrapper `packed_w4_matmul`).  Two
 int4 weights live in each int8 word (`ref.pack_w4` layout), halving the
-weight bytes that decode has to move; the kernel unpacks them in
-registers.  On a CUDA tensor these launch the kernel (or raise); on a CPU
+weight bytes that decode has to move; the kernels unpack them in
+registers.  On a CUDA tensor these launch a kernel (or raise); on a CPU
 tensor they run the plain version `kernels/ref.py`, and only then.
+
+Two kernels, by the rule of `quant_matmul` on M (the rows of x):
+
+- M <= quant_matmul.SMALL_M (16): the small-M kernel
+  (`csrc/s8_small_m.cuh` with its packed-int4 loader `LoadW4Word`, entry
+  `repro_packed_w4_matmul_small_m`), the column-split dp4a kernel that
+  w8a8 decode runs on.
+- M > 16: the 64x64 tensor-core tile (`csrc/s8_gemm.cuh`, entry
+  `repro_packed_w4_matmul`).
+
+`LAUNCHES` counts the launches of both, `SMALL_M_LAUNCHES` those of the
+small-M kernel alone.
 """
 from __future__ import annotations
 
@@ -14,9 +26,10 @@ import functools
 
 import torch
 
-from repro_torch.kernels import common, ref
+from repro_torch.kernels import common, quant_matmul, ref
 
 LAUNCHES = common.LaunchCounter("packed_w4_matmul")
+SMALL_M_LAUNCHES = common.LaunchCounter("packed_w4_matmul_small_m")
 
 
 @functools.cache
@@ -25,13 +38,39 @@ def _kernel():
                        5)
 
 
+@functools.cache
+def _small_m_kernel():
+    return common.bind("packed_w4_matmul", "repro_packed_w4_matmul_small_m",
+                       6, 5)
+
+
+def _launch(x_q, w_packed, x_scale, w_scale, *, want_acc: bool,
+            want_out: bool):
+    """Launch the kernel the rule picks for x_q's rows (module doc)."""
+    n = 2 * w_packed.shape[-1]
+    if x_q.ndim == 2 and x_q.shape[0] <= quant_matmul.SMALL_M:
+        if x_q.shape[1] > quant_matmul.SMALL_M_MAX_K:
+            raise ValueError(f"{SMALL_M_LAUNCHES.name}: K={x_q.shape[1]} "
+                             f"> {quant_matmul.SMALL_M_MAX_K}, beyond the "
+                             "kernel's exact int32 sums")
+        # the kernel's 2-byte packed-w loads need only N/2 even and a
+        # 2-byte aligned w; asking 4 of both operands takes the byte path
+        # more often (never on the serving shapes) with one rule for both
+        return common.launch_s8_gemm(
+            _small_m_kernel(), LAUNCHES, x_q, w_packed, n, x_scale, w_scale,
+            want_acc=want_acc, want_out=want_out, vec_bytes=4,
+            also=SMALL_M_LAUNCHES)
+    return common.launch_s8_gemm(_kernel(), LAUNCHES, x_q, w_packed, n,
+                                 x_scale, w_scale, want_acc=want_acc,
+                                 want_out=want_out)
+
+
 def packed_w4_matmul_acc(x_q, w_packed):
     """int8 [M,K] @ packed int4 [K,N] (stored int8 [K,N//2]) -> int32."""
     if common.on_cpu(x_q, LAUNCHES):
         return ref.packed_w4_matmul_acc_ref(x_q, w_packed)
-    acc, _ = common.launch_s8_gemm(_kernel(), LAUNCHES, x_q, w_packed,
-                                   2 * w_packed.shape[1], None, None,
-                                   want_acc=True, want_out=False)
+    acc, _ = _launch(x_q, w_packed, None, None, want_acc=True,
+                     want_out=False)
     return acc
 
 
@@ -42,7 +81,6 @@ def packed_w4_matmul(x_q, w_packed, x_scale, w_scale, *,
     if common.on_cpu(x_q, LAUNCHES):
         return ref.packed_w4_matmul_ref(x_q, w_packed, x_scale, w_scale,
                                         out_dtype)
-    _, out = common.launch_s8_gemm(_kernel(), LAUNCHES, x_q, w_packed,
-                                   2 * w_packed.shape[1], x_scale, w_scale,
-                                   want_acc=False, want_out=True)
+    _, out = _launch(x_q, w_packed, x_scale, w_scale, want_acc=False,
+                     want_out=True)
     return out.to(out_dtype)

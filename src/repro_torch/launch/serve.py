@@ -35,8 +35,9 @@ def generate(params, prompts, cfg, *, gen: int, cache_len: int,
     """Greedy generation: prefill, its argmax, then gen-1 decode steps.
 
     prompts: [B,S] int tokens (tensor or numpy).  Returns the generated
-    tokens [B, gen] int64 on `device`; with return_logits=True also the
-    float32 logits each token was chosen from, [B, gen, V]."""
+    tokens [B, gen] int32 on `device`, the reference's dtype; with
+    return_logits=True also the float32 logits each token was chosen
+    from, [B, gen, V]."""
     dev = device_lib.resolve(device)
     prompts = torch.as_tensor(prompts, device=dev)
     b, s = prompts.shape
@@ -53,7 +54,7 @@ def generate(params, prompts, cfg, *, gen: int, cache_len: int,
         tok = logits[:, -1, :].argmax(dim=-1)[:, None]
         out.append(tok)
         seen.append(logits[:, -1, :])
-    toks = torch.cat(out, dim=1)
+    toks = torch.cat(out, dim=1).to(torch.int32)
     if return_logits:
         return toks, torch.stack(seen, dim=1)
     return toks

@@ -56,7 +56,7 @@ def test_cuda_kernels_bit_exact_vs_plain(cuda, packed):
     acc_ref = ref.packed_w4_matmul_acc_ref if packed \
         else ref.quant_matmul_acc_ref
     out_ref = ref.packed_w4_matmul_ref if packed else ref.quant_matmul_ref
-    small = quant_matmul.SMALL_M_LAUNCHES
+    small = mod.SMALL_M_LAUNCHES
     for m, k, n in SHAPES:
         x, w, xs, ws = _operands(rng, m, k, n, packed, cuda)
         before, before_small = mod.LAUNCHES.count, small.count
@@ -64,31 +64,41 @@ def test_cuda_kernels_bit_exact_vs_plain(cuda, packed):
         assert torch.equal(out_fn(x, w, xs, ws), out_ref(x, w, xs, ws)), \
             (m, k, n)
         assert mod.LAUNCHES.count == before + 2
-        # w8a8 rows M <= 16 go through the small-M kernel, others the tile
-        want_small = 2 if not packed and m <= quant_matmul.SMALL_M else 0
+        # rows M <= 16 go through the small-M kernel, others the tile
+        want_small = 2 if m <= quant_matmul.SMALL_M else 0
         assert small.count == before_small + want_small, (m, k, n)
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("m", [1, 8, 16])
-def test_cuda_small_m_unaligned_operands(cuda, m):
-    """x and w one byte off 4-byte alignment: the byte-load paths."""
+def test_cuda_small_m_unaligned_operands(cuda, m, packed):
+    """x one byte off 4-byte alignment, w one byte off (packed w also two
+    bytes off: 2- but not 4-byte aligned): the byte-load paths."""
     rng = np.random.default_rng(m)
+    mod = packed_matmul if packed else quant_matmul
+    acc_fn = mod.packed_w4_matmul_acc if packed else mod.quant_matmul_acc
+    out_fn = mod.packed_w4_matmul if packed else mod.quant_matmul
+    acc_ref = ref.packed_w4_matmul_acc_ref if packed \
+        else ref.quant_matmul_acc_ref
+    out_ref = ref.packed_w4_matmul_ref if packed else ref.quant_matmul_ref
     for k, n in ((576, 192), (100, 36)):
-        x, w, xs, ws = _operands(rng, m, k, n, False, cuda)
-        xu = torch.empty(m * k + 1, dtype=torch.int8, device=cuda)[1:]
-        wu = torch.empty(k * n + 1, dtype=torch.int8, device=cuda)[1:]
-        xu, wu = xu.view(m, k), wu.view(k, n)
-        xu.copy_(x)
-        wu.copy_(w)
-        assert xu.data_ptr() % 4 and wu.data_ptr() % 4
-        before = quant_matmul.SMALL_M_LAUNCHES.count
-        assert torch.equal(quant_matmul.quant_matmul_acc(xu, wu),
-                           ref.quant_matmul_acc_ref(x, w)), (m, k, n)
-        assert torch.equal(quant_matmul.quant_matmul(xu, wu, xs, ws),
-                           ref.quant_matmul_ref(x, w, xs, ws)), (m, k, n)
-        assert quant_matmul.SMALL_M_LAUNCHES.count == before + 2
+        x, w, xs, ws = _operands(rng, m, k, n, packed, cuda)
+        for off in ((1, 2) if packed else (1,)):
+            xu = torch.empty(m * k + 1, dtype=torch.int8, device=cuda)[1:]
+            wu = torch.empty(w.numel() + off, dtype=torch.int8,
+                             device=cuda)[off:]
+            xu, wu = xu.view(m, k), wu.view(w.shape)
+            xu.copy_(x)
+            wu.copy_(w)
+            assert xu.data_ptr() % 4 and wu.data_ptr() % 4
+            assert wu.data_ptr() % 2 == off % 2
+            before = mod.SMALL_M_LAUNCHES.count
+            assert torch.equal(acc_fn(xu, wu), acc_ref(x, w)), (m, k, n)
+            assert torch.equal(out_fn(xu, wu, xs, ws),
+                               out_ref(x, w, xs, ws)), (m, k, n)
+            assert mod.SMALL_M_LAUNCHES.count == before + 2
     torch.cuda.synchronize()
 
 

@@ -117,6 +117,7 @@ def test_generate_matches_reference(dtype, fmt):
     n_q = sum(registry.dispatch_counts().values())
     assert n_q == (0 if fmt == "bf16" else 7 * tcfg.n_layers * G)
     assert got.shape == (B, G)
+    assert got.dtype == want.dtype == np.int32
     np.testing.assert_array_equal(logits.argmax(-1), got)
 
     compared = 0

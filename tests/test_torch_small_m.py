@@ -1,12 +1,14 @@
-"""The small-M quant_matmul kernel's lane arithmetic, on the CPU.
+"""The small-M GEMM kernel's lane arithmetic, on the CPU.
 
 `csrc/s8_small_m.cuh` runs only on the card.  This file emulates it in
 numpy, thread for thread: the weight words each thread loads (masked K
-and N tails), the 4x4 `__byte_perm` transpose with the selector values
+and N tails; int8 words, or packed int4 pairs decoded by the header's
+`LoadW4Word`), the 4x4 `__byte_perm` transpose with the selector values
 read from the header, `dp4a` on signed bytes, the lane-group shuffle, the
 warp-order reduction through shared memory and the f32 epilogue.  The
-emulation is held bit for bit against the plain PyTorch version
-(`kernels/ref.py`).  No JAX here.
+emulation is held bit for bit against the plain PyTorch versions
+(`kernels/ref.py`) of both `quant_matmul` and `packed_w4_matmul`.  No
+JAX here.
 """
 import pathlib
 import re
@@ -15,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import common, quant_matmul, ref
+from repro_torch.kernels import common, packed_matmul, quant_matmul, ref
 
 HEADER = pathlib.Path(quant_matmul.__file__).parent / "csrc" / \
     "s8_small_m.cuh"
@@ -86,11 +88,47 @@ def _bytes_word(a, rows, cols, nrows, ncols):
     return word
 
 
-def emulate(x, w, xs=None, ws=None):
+def columns_w4(r):
+    """LoadW4Word::columns on arrays of the 4 rows' packed pairs r[0..3]:
+    the 2x4 byte gather, the nibbles of 4 rows at a time and the 4-bit
+    sign extension u | (u & 8) * 0x1E, with the header's constants."""
+    nib, bias = np.uint64(C["W4_NIBBLES"]), np.uint64(C["W4_BIAS"])
+    t0 = byte_perm(r[0], r[1], C["PERM_PAIR_LO"])
+    t1 = byte_perm(r[2], r[3], C["PERM_PAIR_LO"])
+    b0 = byte_perm(t0, t1, C["PERM_HALF_LO"])
+    b1 = byte_perm(t0, t1, C["PERM_HALF_HI"])
+
+    def sext4(u):
+        return (u | (u & bias) * np.uint64(C["W4_SEXT"])) & \
+            np.uint64(0xFFFFFFFF)
+    four = np.uint64(4)
+    return [sext4((b0 & nib) ^ bias), sext4((b0 >> four) & nib),
+            sext4((b1 & nib) ^ bias), sext4((b1 >> four) & nib)]
+
+
+def _w4_pair(wp, rows, cols, nrows, ncols):
+    """LoadW4Word::load over arrays: the 2 packed bytes of columns
+    cols..cols+3 of the logical [nrows, ncols] int4 matrix stored as
+    wp [nrows, ncols // 2]; the padding byte W4_PAD outside [nrows,
+    ncols)."""
+    pad = np.uint64(C["W4_PAD"])
+    p = _bytes_word(wp, rows, cols // 2, nrows, ncols // 2) & \
+        np.uint64(0xFFFF)
+    for b in range(2):      # bytes of columns >= ncols (or rows >= nrows)
+        live = (rows < nrows) & (cols + 2 * b < ncols)
+        p = np.where(live, p, p | pad << np.uint64(8 * b))
+    return p
+
+
+def emulate(x, w, xs=None, ws=None, *, packed=False):
     """The kernel, every block and thread at once: (acc int32, f32 or
-    None) for int8 x [M,K] @ int8 w [K,N]."""
+    None) for int8 x [M,K] @ int8 w [K,N], or with packed=True @ packed
+    int4 w [K, N//2] through the LoadW4Word loader (load, then unpack
+    each quad at use)."""
     m_rows, k_dim = x.shape
-    n_dim = w.shape[1]
+    n_dim = 2 * w.shape[1] if packed else w.shape[1]
+    load_w = _w4_pair if packed else _bytes_word
+    columns = columns_w4 if packed else transpose4x4
     assert 1 <= m_rows <= C["MAX_M"]
     mt = next(t for t in (1, 2, 4, 8, 16) if t >= m_rows)
     nb = -(-n_dim // COLS)
@@ -103,8 +141,8 @@ def emulate(x, w, xs=None, ws=None):
     kq = -(-k_dim // 4)
     acc = np.zeros((nb, tid.size, mt, 4), dtype=np.int64)
     for q0 in range(0, kq, QR):
-        wr = [[_bytes_word(w, np.broadcast_to(4 * (q0 + s + i * STREAMS) + j,
-                                              col.shape), col, k_dim, n_dim)
+        wr = [[load_w(w, np.broadcast_to(4 * (q0 + s + i * STREAMS) + j,
+                                         col.shape), col, k_dim, n_dim)
                for j in range(4)] for i in range(RQ)]
         nq = min(QR, kq - q0)
         xw = np.zeros((mt, nq), dtype=np.uint64)           # shared memory
@@ -113,7 +151,7 @@ def emulate(x, w, xs=None, ws=None):
         for i in range(RQ):
             ql = s + i * STREAMS                           # [T]
             live = ql < nq
-            wc = transpose4x4(wr[i])
+            wc = columns(wr[i])
             for m in range(mt):
                 xv = xw[m, np.where(live, ql, 0)][None, :]
                 for c in range(4):
@@ -183,6 +221,55 @@ def test_extreme_bytes_sum_exactly():
     assert (acc == 1536 * 128 * 128).all()
 
 
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("k,n", [(7, 6), (100, 34), (1536, 6), (1536, 576)])
+def test_emulated_packed_kernel_matches_plain(m, k, n):
+    """The LoadW4Word loader: N % 4 == 2 leaves a last word of 2 live
+    columns (the masked half), N % 4 == 0 none."""
+    rng = np.random.default_rng(1000 * m + k + n + 7)
+    x, _, xs, ws = _operands(rng, m, k, n)
+    wp = rng.integers(-128, 128, (k, n // 2)).astype(np.int8)
+    acc, f = emulate(x, wp, xs, ws, packed=True)
+    t = [torch.from_numpy(a) for a in (x, wp, xs, ws)]
+    assert np.array_equal(acc, ref.packed_w4_matmul_acc_ref(*t[:2]).numpy())
+    assert np.array_equal(f, ref.packed_w4_matmul_ref(*t).numpy())
+
+
+@pytest.mark.parametrize("byte,pair", [(0x08, (0, 0)), (0x00, (-8, 0)),
+                                       (0x77, (-1, 7)), (0x88, (0, -8))])
+def test_packed_nibble_extremes(byte, pair):
+    """Every word one byte: the padding word 0x08 decodes to (0, 0), the
+    zero word to (-8, 0), and the nibble extremes 0x77 / 0x88 to the ends
+    of [-8, 7] on each side."""
+    word = np.array([byte | byte << 8], dtype=np.uint64)
+    cols = columns_w4([word] * 4)           # 4 rows, columns col..col+3
+    for c, v in enumerate([pair[0], pair[1], pair[0], pair[1]]):
+        assert int(cols[c][0]) == (v & 0xFF) * 0x01010101, (c, v)
+    rng = np.random.default_rng(byte)
+    for m, k, n in ((16, 1536, 576), (1, 100, 34)):
+        x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+        wp = np.full((k, n // 2), np.uint8(byte).view(np.int8))
+        acc, _ = emulate(x, wp, packed=True)
+        want = ref.packed_w4_matmul_acc_ref(torch.from_numpy(x),
+                                            torch.from_numpy(wp))
+        assert np.array_equal(acc, want.numpy())
+
+
+def test_packed_loader_zeros_outside_the_matrix():
+    """Columns >= N and rows >= K unpack to zeros, never to a decoded
+    zero byte (-8, 0): with N = 6 the word at column 4 keeps its 2 live
+    columns only, and of rows 1..4 with K = 3 only rows 1 and 2 load."""
+    wp = np.zeros((3, 3), dtype=np.int8)            # every column -8 / 0
+    cols = np.array([0, 4, 8])
+    got = columns_w4([_w4_pair(wp, np.full(3, k), cols, 3, 6)
+                      for k in range(1, 5)])        # rows 1..4 of K = 3
+    neg8 = 0xF8 | 0xF8 << 8                         # rows 1, 2; not 3, 4
+    assert [int(v) for v in got[0]] == [neg8, neg8, 0]
+    assert [int(v) for v in got[1]] == [0, 0, 0]
+    assert [int(v) for v in got[2]] == [neg8, 0, 0]
+    assert [int(v) for v in got[3]] == [0, 0, 0]
+
+
 def test_transpose_selectors():
     rows = [np.array([0x03020100 + 0x10101010 * j], dtype=np.uint64)
             for j in range(4)]
@@ -196,12 +283,13 @@ def _recorded_launches(monkeypatch):
     calls = []
 
     def fake_launch(fn, counter, x_q, w, n, x_scale, w_scale, **kw):
-        calls.append((fn, kw.get("vec_bytes", 16), kw.get("also")))
+        calls.append((fn, n, kw.get("vec_bytes", 16), kw.get("also")))
         return None, torch.zeros((x_q.shape[0], n))
 
     monkeypatch.setattr(common, "launch_s8_gemm", fake_launch)
-    monkeypatch.setattr(quant_matmul, "_kernel", lambda: "tile")
-    monkeypatch.setattr(quant_matmul, "_small_m_kernel", lambda: "small_m")
+    for mod in (quant_matmul, packed_matmul):
+        monkeypatch.setattr(mod, "_kernel", lambda: "tile")
+        monkeypatch.setattr(mod, "_small_m_kernel", lambda: "small_m")
     return calls
 
 
@@ -215,10 +303,28 @@ def test_rule_picks_kernel_by_rows(monkeypatch, m, kernel):
     x = torch.zeros((m, 32), dtype=torch.int8)
     w = torch.zeros((32, 8), dtype=torch.int8)
     quant_matmul._launch(x, w, None, None, want_acc=False, want_out=True)
-    fn, vec, also = calls[0]
-    assert fn == kernel
+    fn, n, vec, also = calls[0]
+    assert (fn, n) == (kernel, 8)
     if kernel == "small_m":
         assert (vec, also) == (4, quant_matmul.SMALL_M_LAUNCHES)
+    else:
+        assert (vec, also) == (16, None)
+
+
+@pytest.mark.parametrize("m,kernel", [(1, "small_m"), (16, "small_m"),
+                                      (17, "tile"), (1024, "tile")])
+def test_packed_rule_picks_kernel_by_rows(monkeypatch, m, kernel):
+    """packed_w4_matmul takes quant_matmul's rule (the same SMALL_M): the
+    small-M kernel with 4-byte vector loads and its own counter, or the
+    tile; N is the logical column count, twice the stored words."""
+    calls = _recorded_launches(monkeypatch)
+    x = torch.zeros((m, 32), dtype=torch.int8)
+    wp = torch.zeros((32, 6), dtype=torch.int8)
+    packed_matmul._launch(x, wp, None, None, want_acc=True, want_out=False)
+    fn, n, vec, also = calls[0]
+    assert (fn, n) == (kernel, 12)
+    if kernel == "small_m":
+        assert (vec, also) == (4, packed_matmul.SMALL_M_LAUNCHES)
     else:
         assert (vec, also) == (16, None)
 
@@ -229,3 +335,18 @@ def test_small_m_refuses_inexact_k(monkeypatch):
     with pytest.raises(ValueError, match="exact"):
         quant_matmul._launch(x, x.T, None, None, want_acc=True,
                              want_out=False)
+
+
+def test_packed_small_m_refuses_inexact_k(monkeypatch):
+    calls = _recorded_launches(monkeypatch)
+    k = quant_matmul.SMALL_M_MAX_K + 1
+    x = torch.zeros((8, k), dtype=torch.int8)
+    with pytest.raises(ValueError, match="packed_w4_matmul_small_m.*exact"):
+        packed_matmul._launch(x, torch.zeros((k, 4), dtype=torch.int8),
+                              None, None, want_acc=True, want_out=False)
+    assert calls == []
+    # the same K on the tile (M > 16) is not refused by the rule
+    packed_matmul._launch(torch.zeros((17, k), dtype=torch.int8),
+                          torch.zeros((k, 4), dtype=torch.int8), None, None,
+                          want_acc=True, want_out=False)
+    assert calls[0][0] == "tile"
