@@ -9,12 +9,14 @@ over):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build all five Hopper kernels from `src/repro_torch/kernels/csrc` into
    the git-ignored `build/` (one nvcc per source, started together),
-   timed;
+   timed, beside `nvcc -Xptxas -v` of quant_matmul.cu (registers, shared
+   memory and spills per kernel);
 3. each GEMM kernel against its plain PyTorch version at every main-path
    (K, N) with decode M=8 and prefill M=1024, plus ragged shapes on both
    sides of the switch that quant_matmul and packed_w4_matmul share
    (M <= 16: the small-M kernel, with int8 or packed-int4 weights; M > 16:
-   the 64x64 tile; each call must go through the kernel the rule picks):
+   w8a8 on the tile of s8_tile.cuh, w4a8 on the 64x64 tile of
+   s8_gemm.cuh; each call must go through the kernel the rule picks):
    the int32 accumulator and the f32 output must be bit-identical
    (`torch.equal`); then per-launch times of the kernel, the plain
    version and the library yardstick (`torch._int_mm`, after an unpack
@@ -22,7 +24,11 @@ over):
    two more times from the same run: the 64x64 tile at that shape (the
    path M = 8 took before the small-M kernel) and `torch._int_mm` on x
    zero-padded to 32 rows (pad + one call; not `library_ms`, which is
-   one call on the same inputs);
+   one call on the same inputs).  Beside each w8a8 prefill row: the
+   64x64 tile the new tile replaced (`repro_quant_matmul_tile64`, gated
+   bit for bit too; `was_ms`) and, in the log only, the grid its
+   launcher reports (`repro_quant_matmul_grid`) and the share of the
+   bound;
 4. each SWAR kernel (simd_add_packed, muladd2, mul4_full32, mul4_split)
    against its plain version at ragged shapes: both lane widths, add and
    sub, k = 1..lanes; chains of 1, 9 and 31; mul4 signed and unsigned;
@@ -73,6 +79,9 @@ MAIN_KN = [(576, 576), (576, 192), (576, 192), (576, 576),   # q k v o
 DECODE_M, PREFILL_M = 8, 1024
 RAGGED = [(3, 48, 16), (5, 48, 48), (17, 128, 128), (70, 100, 34),
           (1, 1536, 576), (129, 1000, 250),
+          # M > 16: K and N off the tile's 64 (and 16-byte vector paths),
+          # M off its 64 rows
+          (17, 576, 1536), (1027, 2100, 70), (65, 48, 200), (1024, 1536, 34),
           # small M: ragged K and N, x rows padded to 1 / 8 / 16, K past
           # one 1536-k round; and M = 17 just past the switch
           (1, 7, 6), (8, 100, 34), (15, 129, 250), (16, 1000, 250),
@@ -307,6 +316,21 @@ def bound_ms(m: int, k: int, n: int, w_bytes: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_report(_build, name: str) -> subprocess.Popen:
+    """Start `nvcc -Xptxas -v` on csrc/<name>.cu with the build's flags
+    (to a cubin in the build directory, then unused): its output lists
+    each kernel's registers, shared memory and spills."""
+    flags = list(_build.NVCC_FLAGS)
+    flags.remove("-shared")
+    del flags[flags.index("-Xcompiler"):flags.index("-Xcompiler") + 2]
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+           str(_build.BUILD_DIR / f"{name}.ptxas.cubin"),
+           str(_build.CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def device_ms(torch, fn, n_iter: int) -> float:
     """Mean device time of fn(i) over n_iter calls, by CUDA events.  A
     sleep kernel queued first holds the stream while the host enqueues
@@ -361,9 +385,19 @@ def phase_kernels(torch) -> dict:
     shapes, "max_abs_err": ...}} for the four GEMM kernels."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import common, packed_matmul, quant_matmul, ref
+    import ctypes
+
+    from repro_torch.kernels import (_build, common, packed_matmul,
+                                     quant_matmul, ref)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    # the 64x64 tile of s8_gemm.cuh that took w8a8's M > 16 rows before
+    # s8_tile.cuh (the wrapper never binds it), and the new tile's grid
+    # as its launcher computes it
+    tile64 = common.bind("quant_matmul", "repro_quant_matmul_tile64", 6, 5)
+    grid_of = _build.load("quant_matmul").repro_quant_matmul_grid
+    grid_of.argtypes = [ctypes.c_int, ctypes.c_int]
+    grid_of.restype = ctypes.c_int
 
     def i8(*shape):
         return torch.randint(-128, 128, shape, generator=gen, device="cuda",
@@ -377,10 +411,10 @@ def phase_kernels(torch) -> dict:
 
     off_path = common.LaunchCounter("GEMM tile, timed off the path")
 
-    def tile_of(mod, cols_per_word):
+    def tile_of(kernel, cols_per_word):
         def tile(x, w, xs, ws):   # the 64x64 tile at any M, outside the rule
             return common.launch_s8_gemm(
-                mod._kernel(), off_path, x, w, cols_per_word * w.shape[1],
+                kernel, off_path, x, w, cols_per_word * w.shape[1],
                 xs, ws, want_acc=False, want_out=True)[1]
         return tile
 
@@ -396,7 +430,8 @@ def phase_kernels(torch) -> dict:
              acc_ref=ref.quant_matmul_acc_ref, out_ref=ref.quant_matmul_ref,
              wshape=lambda k, n: (k, n),
              lib=lambda x, w: torch._int_mm(x, w),
-             tile=tile_of(quant_matmul, 1)),
+             # the 64x64 tile, also the prefill tile replaced by s8_tile.cuh
+             tile=tile_of(tile64, 1), was=True),
         dict(name="packed_w4_matmul", kernel_for=rule("packed_w4_matmul"),
              small=packed_matmul.SMALL_M_LAUNCHES,
              acc=packed_matmul.packed_w4_matmul_acc,
@@ -405,7 +440,7 @@ def phase_kernels(torch) -> dict:
              out_ref=ref.packed_w4_matmul_ref,
              wshape=lambda k, n: (k, n // 2),
              lib=lambda x, w: torch._int_mm(x, common.unpack_w4_words(w)),
-             tile=tile_of(packed_matmul, 2)),
+             tile=tile_of(packed_matmul._kernel(), 2), was=False),
     ]
     main_shapes = [(m, k, n) for m in (DECODE_M, PREFILL_M)
                    for k, n in dict.fromkeys(MAIN_KN)]
@@ -474,6 +509,15 @@ def phase_kernels(torch) -> dict:
                 row["tile_ms"] = device_ms(
                     torch, lambda i: sp["tile"](x, wi(i), xs, ws), n_it)
                 extra += f"  64x64 tile {row['tile_ms'] * 1e3:7.2f} us"
+            elif sp["was"]:
+                if not torch.equal(sp["tile"](x, w, xs, ws), out_p):
+                    raise AssertionError(f"{sp['name']} 64x64 tile "
+                                         f"{(m, k, n)} differs")
+                row["was_ms"] = device_ms(
+                    torch, lambda i: sp["tile"](x, wi(i), xs, ws), n_it)
+                extra = (f"  was (64x64 tile) {row['was_ms'] * 1e3:7.2f} us"
+                         f"  grid {grid_of(m, n)} blocks  bound share "
+                         f"{100 * b_ms / t_k:.1f}%")
             res["rows"].append(row)
             del copies
             log(f"  {kname:24s} M={m:5d} K={k:5d} N={n:5d}  kernel "
@@ -822,6 +866,11 @@ def kernel_entry(name: str, res: dict, launches: int) -> dict:
         entry["tile_note"] = ("the 64x64 tile of the same format at the "
                               "same shapes in the same run: the path these "
                               "rows took before the small-M kernel")
+    if total("was_ms") is not None:
+        entry["was_ms"] = total("was_ms")
+        entry["was_note"] = ("repro_quant_matmul_tile64, the 64x64 tile that "
+                             "took these prefill rows before s8_tile.cuh, at "
+                             "the same shapes in the same run")
     return entry
 
 
@@ -994,9 +1043,16 @@ def main() -> int:
     names = ("quant_matmul", "packed_w4_matmul", "simd_add", "muladd2",
              "mul4")
     fresh = [n for n in names if not _build.library_path(n).exists()]
+    ptxas = ptxas_report(_build, "quant_matmul")
     _build.build(*names)
     log(f"build: {time.perf_counter() - t0:.1f} s (compiled "
         f"{fresh or 'nothing: cached'}) into {_build.BUILD_DIR}")
+    out, _ = ptxas.communicate()
+    if ptxas.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}")
+    log("ptxas, quant_matmul.cu:\n" + "\n".join(
+        "  " + ln.strip() for ln in out.splitlines()
+        if "Compiling entry" in ln or "Used" in ln or "spill" in ln))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

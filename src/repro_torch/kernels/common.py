@@ -97,7 +97,13 @@ def bind(lib_name: str, symbol: str, n_ptrs: int, n_ints: int):
     pointers, n_ints ints and the stream, returning cudaError_t.  Every
     pointer and the stream are c_void_p (a bare Python int would be
     passed as a 32-bit int and cut the pointer)."""
-    fn = getattr(_build.load(lib_name), symbol)
+    return bind_in(_build.load(lib_name), symbol, n_ptrs, n_ints)
+
+
+def bind_in(lib: ctypes.CDLL, symbol: str, n_ptrs: int, n_ints: int):
+    """`bind` on a library already loaded (a build of csrc with other
+    -D settings, as scripts/tile_sweep.py makes)."""
+    fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -4,31 +4,26 @@
 // Replaces the TPU kernel repro/kernels/quant_matmul.py::quant_matmul_acc
 // (body _qmm_kernel, pallas_call at :52; wrapper quant_matmul :64).
 //
-// Bound on an H100 SXM (3.35 TB/s HBM, 1,979 TOP/s dense int8): at decode
-// (M = batch, e.g. 8) the weight bytes dominate -- K*N bytes, 0.10 us for
-// a 576x576 projection -- so the kernel is bound by memory and, at these
-// tiny sizes, by launch and load latency.  At prefill (M = B*S, e.g.
-// 1024) the f32 output's 4*M*N bytes (1.9 us for 1024x576x1536) outweigh
-// the 2*M*K*N int8 operations (0.91 us).  What the design does about it:
-// int8 operands go straight to the tensor cores (mma.sync m16n8k32 s8,
-// int32 accumulation, exact), each weight byte is read from device memory
-// once per 64-row block of x, deep 256-k steps keep many loads in flight
-// per round trip, and the dequant epilogue is fused so the int32
-// accumulator never leaves registers.  Multi-stage copies (cp.async /
-// TMA), wgmma, split-K for the few-block decode grid and a bf16 output
-// are left to a later tuning pass.
-//
-// For M <= 16 (decode rows, which torch._int_mm refuses) the wrapper
-// launches the second entry point, repro_quant_matmul_small_m: a
-// column-split dp4a kernel (s8_small_m.cuh, whose note gives its bound
-// and design) in place of the 64-row tensor-core tile.
+// Two kernels, by the wrapper's rule on M (kernels/quant_matmul.py):
+// - M > 16 (prefill): repro_quant_matmul, the tensor-core tile of
+//   s8_tile.cuh (mma.sync m16n8k32 s8, a cp.async ring of raw x and w
+//   tiles, the weights transposed in registers at the fragment reads);
+//   its note gives the bound per prefill shape and the design.
+// - M <= 16 (decode rows, which torch._int_mm refuses):
+//   repro_quant_matmul_small_m, a column-split dp4a kernel
+//   (s8_small_m.cuh, whose note gives its bound and design).
+// The third entry, repro_quant_matmul_tile64, launches the 64x64 tile of
+// s8_gemm.cuh that took M > 16 before s8_tile.cuh; the wrapper never
+// binds it: chip_smoke.py times it beside the new tile in one run.
+// repro_quant_matmul_grid reports the new tile's grid for a shape.
 #include "s8_gemm.cuh"
 #include "s8_small_m.cuh"
+#include "s8_tile.cuh"
 
 namespace {
 
-// Stage w[k0:k0+BK, n0:n0+BN] transposed into Bs[n][k]; zeros outside
-// [K, N).  vec: N % 16 == 0 and w 16-byte aligned.
+// The 64x64 tile's loader: stage w[k0:k0+BK, n0:n0+BN] transposed into
+// Bs[n][k]; zeros outside [K, N).  vec: N % 16 == 0 and w 16-byte aligned.
 struct LoadW8 {
   __device__ __forceinline__ static void load(int8_t* Bs, const int8_t* w,
                                               int K, int N, int n0, int k0,
@@ -55,14 +50,40 @@ struct LoadW8 {
   }
 };
 
+template <bool VX, bool VW>
+__global__ void __launch_bounds__(s8tile::THREADS)
+    quant_matmul_tile_kernel(const int8_t* __restrict__ x,
+                             const int8_t* __restrict__ w,
+                             const float* __restrict__ xs,
+                             const float* __restrict__ ws,
+                             int32_t* __restrict__ acc_out,
+                             float* __restrict__ f_out, int M, int K,
+                             int N) {
+  s8tile::gemm_tile<s8small::LoadW8Word, VX, VW>(x, w, xs, ws, acc_out,
+                                                 f_out, M, K, N);
+}
+
+template <bool VX, bool VW>
+void launch_tile(const void* x, const void* w, const void* xs,
+                 const void* ws, void* acc_out, void* f_out, int M, int K,
+                 int N, void* stream) {
+  quant_matmul_tile_kernel<VX, VW>
+      <<<s8tile::grid_for(M, N), s8tile::THREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+          static_cast<const float*>(xs), static_cast<const float*>(ws),
+          static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K,
+          N);
+}
+
 __global__ void __launch_bounds__(s8gemm::THREADS)
-    quant_matmul_kernel(const int8_t* __restrict__ x,
-                        const int8_t* __restrict__ w,
-                        const float* __restrict__ xs,
-                        const float* __restrict__ ws,
-                        int32_t* __restrict__ acc_out,
-                        float* __restrict__ f_out, int M, int K, int N,
-                        bool vec_x, bool vec_w) {
+    quant_matmul_tile64_kernel(const int8_t* __restrict__ x,
+                               const int8_t* __restrict__ w,
+                               const float* __restrict__ xs,
+                               const float* __restrict__ ws,
+                               int32_t* __restrict__ acc_out,
+                               float* __restrict__ f_out, int M, int K,
+                               int N, bool vec_x, bool vec_w) {
   s8gemm::gemm_tile<LoadW8>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x,
                             vec_w);
 }
@@ -70,14 +91,40 @@ __global__ void __launch_bounds__(s8gemm::THREADS)
 }  // namespace
 
 // acc_out and f_out may each be null (then not written); xs/ws may be null
-// when f_out is.  Returns cudaGetLastError() after the launch.
+// when f_out is.  vec_x: K % 16 == 0 and x 16-byte aligned; vec_w:
+// N % 16 == 0 and w 16-byte aligned.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int repro_quant_matmul(const void* x, const void* w,
                                   const void* xs, const void* ws,
                                   void* acc_out, void* f_out, int M, int K,
                                   int N, int vec_x, int vec_w,
                                   void* stream) {
-  quant_matmul_kernel<<<s8gemm::grid_for(M, N), s8gemm::THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  if (vec_x && vec_w)
+    launch_tile<true, true>(x, w, xs, ws, acc_out, f_out, M, K, N, stream);
+  else if (vec_x)
+    launch_tile<true, false>(x, w, xs, ws, acc_out, f_out, M, K, N, stream);
+  else if (vec_w)
+    launch_tile<false, true>(x, w, xs, ws, acc_out, f_out, M, K, N, stream);
+  else
+    launch_tile<false, false>(x, w, xs, ws, acc_out, f_out, M, K, N,
+                              stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The number of blocks repro_quant_matmul launches for an M x N output
+// (s8tile::grid_for; a host function, nothing runs on the card).
+extern "C" int repro_quant_matmul_grid(int M, int N) {
+  return static_cast<int>(s8tile::grid_for(M, N).x);
+}
+
+// The same contract on the 64x64 tile of s8_gemm.cuh (any M >= 1).
+extern "C" int repro_quant_matmul_tile64(const void* x, const void* w,
+                                         const void* xs, const void* ws,
+                                         void* acc_out, void* f_out, int M,
+                                         int K, int N, int vec_x, int vec_w,
+                                         void* stream) {
+  quant_matmul_tile64_kernel<<<s8gemm::grid_for(M, N), s8gemm::THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(xs), static_cast<const float*>(ws),
       static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K, N,

@@ -9,10 +9,11 @@ Two kernels, by a fixed rule on M (the rows of x):
 
 - M <= SMALL_M (16): the small-M kernel (`csrc/s8_small_m.cuh`, entry
   `repro_quant_matmul_small_m`), a column-split dp4a kernel for decode.
-  `torch._int_mm` refuses these rows, and the 64x64 tensor-core tile
+  `torch._int_mm` refuses these rows, and a 64-row tensor-core tile
   would pad them to 64 rows and give a decode launch 3-24 blocks.
-- M > 16: the 64x64 tensor-core tile (`csrc/s8_gemm.cuh`, entry
-  `repro_quant_matmul`).
+- M > 16: the prefill tile (`csrc/s8_tile.cuh`, entry
+  `repro_quant_matmul`): mma.sync s8 on a cp.async ring of raw x and
+  weight tiles, the weights transposed in registers.
 
 `LAUNCHES` counts the launches of both, `SMALL_M_LAUNCHES` those of the
 small-M kernel alone.

@@ -21,13 +21,18 @@ from repro_torch.kernels import (mul4, muladd2, packed_matmul,  # noqa: E402
 # vector paths) and serving shapes of smollm-135m; then the ragged K and N
 # at M on both sides of quant_matmul's switch (M <= 16: the small-M
 # kernel, M > 16: the tile), the four decode (K, N) pairs at M = 8, and
-# K past one of the small-M kernel's 1536-k rounds
+# K past one of the small-M kernel's 1536-k rounds; then the prefill
+# tile (M > 16) at the four main (K, N) with M on and off its 64 rows,
+# and K / N off its 64 and off the 16-byte vector paths
 RAGGED_KN = [(48, 16), (48, 128), (128, 48), (100, 34), (7, 6)]
+MAIN_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
 SHAPES = [(1, 48, 16), (3, 48, 128), (17, 128, 48), (2, 100, 34),
           (9, 7, 6), (8, 576, 192), (64, 1536, 576), (130, 576, 1536)] + \
     [(m, k, n) for m in (1, 8, 15, 16, 17) for k, n in RAGGED_KN] + \
     [(8, k, n) for k, n in ((576, 576), (576, 192), (576, 1536),
-                            (1536, 576))] + [(16, 2100, 70)]
+                            (1536, 576))] + [(16, 2100, 70)] + \
+    [(m, k, n) for m in (17, 64, 1024, 1027) for k, n in MAIN_KN] + \
+    [(100, 1000, 250), (1027, 2100, 70), (65, 48, 200), (300, 1600, 96)]
 
 
 @pytest.fixture
@@ -100,6 +105,68 @@ def test_cuda_small_m_unaligned_operands(cuda, m, packed):
                                out_ref(x, w, xs, ws)), (m, k, n)
             assert mod.SMALL_M_LAUNCHES.count == before + 2
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1024, 576, 192), (70, 100, 34),
+                                   (17, 1536, 576)])
+def test_cuda_tile_unaligned_operands(cuda, m, k, n):
+    """x and w one byte off 16-byte alignment: the prefill tile gathers
+    every chunk byte by byte (its cp.async path needs 16-byte chunks)."""
+    rng = np.random.default_rng(m + k + n)
+    x, w, xs, ws = _operands(rng, m, k, n, False, cuda)
+    xu = torch.empty(m * k + 1, dtype=torch.int8, device=cuda)[1:]
+    wu = torch.empty(k * n + 1, dtype=torch.int8, device=cuda)[1:]
+    xu, wu = xu.view(m, k), wu.view(k, n)
+    xu.copy_(x)
+    wu.copy_(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+    before = quant_matmul.LAUNCHES.count, quant_matmul.SMALL_M_LAUNCHES.count
+    assert torch.equal(quant_matmul.quant_matmul_acc(xu, wu),
+                       ref.quant_matmul_acc_ref(x, w)), (m, k, n)
+    assert torch.equal(quant_matmul.quant_matmul(xu, wu, xs, ws),
+                       ref.quant_matmul_ref(x, w, xs, ws)), (m, k, n)
+    assert (quant_matmul.LAUNCHES.count,
+            quant_matmul.SMALL_M_LAUNCHES.count) == (before[0] + 2,
+                                                     before[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tile_matches_tile64(cuda):
+    """The prefill tile (repro_quant_matmul) and the 64x64 tile it
+    replaced (repro_quant_matmul_tile64) agree bit for bit, int32 and
+    f32, on the four prefill shapes and ragged ones."""
+    from repro_torch.kernels import common
+    rng = np.random.default_rng(64)
+    counter = common.LaunchCounter("tile64 vs tile")
+    tile64 = common.bind("quant_matmul", "repro_quant_matmul_tile64", 6, 5)
+    shapes = [(1024, k, n) for k, n in MAIN_KN] + \
+        [(17, 48, 16), (1027, 2100, 70), (65, 100, 34)]
+    for m, k, n in shapes:
+        x, w, xs, ws = _operands(rng, m, k, n, False, cuda)
+        got = [common.launch_s8_gemm(fn, counter, x, w, n, xs, ws,
+                                     want_acc=True, want_out=True)
+               for fn in (quant_matmul._kernel(), tile64)]
+        assert torch.equal(got[0][0], got[1][0]), (m, k, n)
+        assert torch.equal(got[0][1], got[1][1]), (m, k, n)
+    assert counter.count == 2 * len(shapes)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tile_grid(cuda):
+    """The grid the prefill tile's launcher computes
+    (repro_quant_matmul_grid): one block per 64x64 output tile, 144 / 48
+    / 384 / 144 blocks at the four prefill shapes."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    grid = _build.load("quant_matmul").repro_quant_matmul_grid
+    grid.argtypes, grid.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    assert [grid(1024, n) for _, n in MAIN_KN] == [144, 48, 384, 144]
+    assert [grid(m, n) for m, n in ((17, 34), (65, 70), (1027, 70))] == \
+        [1, 4, 34]
 
 
 @pytest.mark.cuda
