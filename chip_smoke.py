@@ -9,26 +9,24 @@ over):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build all five Hopper kernels from `src/repro_torch/kernels/csrc` into
    the git-ignored `build/` (one nvcc per source, started together),
-   timed, beside `nvcc -Xptxas -v` of quant_matmul.cu (registers, shared
-   memory and spills per kernel);
+   timed, beside `nvcc -Xptxas -v` of quant_matmul.cu and
+   packed_w4_matmul.cu (registers, shared memory and spills per kernel);
 3. each GEMM kernel against its plain PyTorch version at every main-path
    (K, N) with decode M=8 and prefill M=1024, plus ragged shapes on both
    sides of the switch that quant_matmul and packed_w4_matmul share
    (M <= 16: the small-M kernel, with int8 or packed-int4 weights; M > 16:
-   w8a8 on the tile of s8_tile.cuh, w4a8 on the 64x64 tile of
-   s8_gemm.cuh; each call must go through the kernel the rule picks):
-   the int32 accumulator and the f32 output must be bit-identical
+   the tile of s8_tile.cuh, with int8 or packed-int4 weights -- N/2 odd
+   among the ragged shapes; each call must go through the kernel the rule
+   picks): the int32 accumulator and the f32 output must be bit-identical
    (`torch.equal`); then per-launch times of the kernel, the plain
-   version and the library yardstick (`torch._int_mm`, after an unpack
-   for w4a8) where the shape is legal for it.  Beside each decode row,
-   two more times from the same run: the 64x64 tile at that shape (the
-   path M = 8 took before the small-M kernel) and `torch._int_mm` on x
-   zero-padded to 32 rows (pad + one call; not `library_ms`, which is
-   one call on the same inputs).  Beside each w8a8 prefill row: the
-   64x64 tile the new tile replaced (`repro_quant_matmul_tile64`, gated
-   bit for bit too; `was_ms`) and, in the log only, the grid its
-   launcher reports (`repro_quant_matmul_grid`) and the share of the
-   bound;
+   version and `torch._int_mm` where the shape is legal for it (w8a8:
+   `library_ms`; w4a8, after an unpack: `yardstick_ms`, since no one
+   PyTorch call takes packed int4).  Beside each decode row,
+   `torch._int_mm` on x zero-padded to 32 rows (pad + one call; not
+   `library_ms`, which is one call on the same inputs); beside each
+   prefill row, in the log only, the grid the tile's launcher reports
+   (`repro_quant_matmul_grid`, `repro_packed_w4_matmul_grid`) and the
+   share of the bound;
 4. each SWAR kernel (simd_add_packed, muladd2, mul4_full32, mul4_split)
    against its plain version at ragged shapes: both lane widths, add and
    sub, k = 1..lanes; chains of 1, 9 and 31; mul4 signed and unsigned;
@@ -85,7 +83,10 @@ RAGGED = [(3, 48, 16), (5, 48, 48), (17, 128, 128), (70, 100, 34),
           # small M: ragged K and N, x rows padded to 1 / 8 / 16, K past
           # one 1536-k round; and M = 17 just past the switch
           (1, 7, 6), (8, 100, 34), (15, 129, 250), (16, 1000, 250),
-          (16, 2100, 70), (17, 100, 34)]
+          (16, 2100, 70), (17, 100, 34),
+          # M > 16, N = 96: packed rows of 48 bytes on the vector path,
+          # the last tile's second chunk past N
+          (300, 576, 96)]
 BATCH, PROMPT, GEN = 8, 128, 32
 # the reduced model on the card against its own CPU run: bf16 roundings
 # and float32 sums differ in order between the two devices, and an
@@ -391,13 +392,12 @@ def phase_kernels(torch) -> dict:
                                      quant_matmul, ref)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    # the 64x64 tile of s8_gemm.cuh that took w8a8's M > 16 rows before
-    # s8_tile.cuh (the wrapper never binds it), and the new tile's grid
-    # as its launcher computes it
-    tile64 = common.bind("quant_matmul", "repro_quant_matmul_tile64", 6, 5)
-    grid_of = _build.load("quant_matmul").repro_quant_matmul_grid
-    grid_of.argtypes = [ctypes.c_int, ctypes.c_int]
-    grid_of.restype = ctypes.c_int
+    # the tiles' grids as their launchers compute them (host functions)
+    grids = {}
+    for name in ("quant_matmul", "packed_w4_matmul"):
+        fn = getattr(_build.load(name), f"repro_{name}_grid")
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        grids[name] = fn
 
     def i8(*shape):
         return torch.randint(-128, 128, shape, generator=gen, device="cuda",
@@ -408,15 +408,6 @@ def phase_kernels(torch) -> dict:
 
     def pad32(x):    # x zero-padded to the 32 rows torch._int_mm accepts
         return F.pad(x, (0, 0, 0, 32 - x.shape[0]))
-
-    off_path = common.LaunchCounter("GEMM tile, timed off the path")
-
-    def tile_of(kernel, cols_per_word):
-        def tile(x, w, xs, ws):   # the 64x64 tile at any M, outside the rule
-            return common.launch_s8_gemm(
-                kernel, off_path, x, w, cols_per_word * w.shape[1],
-                xs, ws, want_acc=False, want_out=True)[1]
-        return tile
 
     def rule(name):   # the kernel the wrappers' rule picks for M rows
         return lambda m: (f"{name}_small_m" if m <= quant_matmul.SMALL_M
@@ -429,9 +420,7 @@ def phase_kernels(torch) -> dict:
              out=quant_matmul.quant_matmul,
              acc_ref=ref.quant_matmul_acc_ref, out_ref=ref.quant_matmul_ref,
              wshape=lambda k, n: (k, n),
-             lib=lambda x, w: torch._int_mm(x, w),
-             # the 64x64 tile, also the prefill tile replaced by s8_tile.cuh
-             tile=tile_of(tile64, 1), was=True),
+             lib=lambda x, w: torch._int_mm(x, w), one_call=True),
         dict(name="packed_w4_matmul", kernel_for=rule("packed_w4_matmul"),
              small=packed_matmul.SMALL_M_LAUNCHES,
              acc=packed_matmul.packed_w4_matmul_acc,
@@ -439,8 +428,9 @@ def phase_kernels(torch) -> dict:
              acc_ref=ref.packed_w4_matmul_acc_ref,
              out_ref=ref.packed_w4_matmul_ref,
              wshape=lambda k, n: (k, n // 2),
+             # no one PyTorch call takes packed int4: a yardstick
              lib=lambda x, w: torch._int_mm(x, common.unpack_w4_words(w)),
-             tile=tile_of(packed_matmul._kernel(), 2), was=False),
+             one_call=False),
     ]
     main_shapes = [(m, k, n) for m in (DECODE_M, PREFILL_M)
                    for k, n in dict.fromkeys(MAIN_KN)]
@@ -492,8 +482,11 @@ def phase_kernels(torch) -> dict:
             except RuntimeError:   # shape not legal for torch._int_mm
                 t_l = None
             b_ms, b_by = bound_ms(m, k, n, w_bytes)
-            row = dict(m=m, k=k, n=n, ms=t_k, plain_ms=t_p, library_ms=t_l,
+            row = dict(m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
+                       library_ms=t_l if sp["one_call"] else None,
                        bound_ms=b_ms, bound_by=b_by)
+            if not sp["one_call"]:
+                row["yardstick_ms"] = t_l
             extra = ""
             if m == DECODE_M:
                 if not torch.equal(sp["lib"](pad32(x), w)[:m], acc_p):
@@ -503,25 +496,14 @@ def phase_kernels(torch) -> dict:
                     torch, lambda i: sp["lib"](pad32(x), wi(i)), 50)
                 extra = (f"  pad32+_int_mm "
                          f"{row['pad32_int_mm_ms'] * 1e3:7.2f} us")
-                if not torch.equal(sp["tile"](x, w, xs, ws), out_p):
-                    raise AssertionError(f"{sp['name']} tile {(m, k, n)} "
-                                         "differs")
-                row["tile_ms"] = device_ms(
-                    torch, lambda i: sp["tile"](x, wi(i), xs, ws), n_it)
-                extra += f"  64x64 tile {row['tile_ms'] * 1e3:7.2f} us"
-            elif sp["was"]:
-                if not torch.equal(sp["tile"](x, w, xs, ws), out_p):
-                    raise AssertionError(f"{sp['name']} 64x64 tile "
-                                         f"{(m, k, n)} differs")
-                row["was_ms"] = device_ms(
-                    torch, lambda i: sp["tile"](x, wi(i), xs, ws), n_it)
-                extra = (f"  was (64x64 tile) {row['was_ms'] * 1e3:7.2f} us"
-                         f"  grid {grid_of(m, n)} blocks  bound share "
-                         f"{100 * b_ms / t_k:.1f}%")
+            else:
+                extra = (f"  grid {grids[sp['name']](m, n)} blocks  bound "
+                         f"share {100 * b_ms / t_k:.1f}%")
             res["rows"].append(row)
             del copies
             log(f"  {kname:24s} M={m:5d} K={k:5d} N={n:5d}  kernel "
-                f"{t_k * 1e3:9.2f} us  plain {t_p * 1e3:9.2f} us  library "
+                f"{t_k * 1e3:9.2f} us  plain {t_p * 1e3:9.2f} us  "
+                + ("library " if sp["one_call"] else "unpack+_int_mm ")
                 + (f"{t_l * 1e3:9.2f} us" if t_l is not None else "  n/a")
                 + f"  bound {b_ms * 1e3:7.3f} us ({b_by})" + extra)
     for name, res in results.items():
@@ -856,21 +838,16 @@ def kernel_entry(name: str, res: dict, launches: int) -> dict:
             f"gen={GEN}; sums of per-launch times x launches per shape "
             f"({sum(weight(r) for r in rows)} launches)",
         shapes=rows)
+    if total("yardstick_ms") is not None:
+        entry["yardstick_ms"] = total("yardstick_ms")
+        entry["yardstick_note"] = (
+            "not library_ms: no one PyTorch call takes packed int4; "
+            "common.unpack_w4_words, then one torch._int_mm")
     if total("pad32_int_mm_ms") is not None:
         entry["pad32_int_mm_ms"] = total("pad32_int_mm_ms")
         entry["pad32_int_mm_note"] = (
             "yardstick, not library_ms: x zero-padded to 32 rows, then one "
             "torch._int_mm (which refuses M <= 16)")
-    if total("tile_ms") is not None:
-        entry["tile_ms"] = total("tile_ms")
-        entry["tile_note"] = ("the 64x64 tile of the same format at the "
-                              "same shapes in the same run: the path these "
-                              "rows took before the small-M kernel")
-    if total("was_ms") is not None:
-        entry["was_ms"] = total("was_ms")
-        entry["was_note"] = ("repro_quant_matmul_tile64, the 64x64 tile that "
-                             "took these prefill rows before s8_tile.cuh, at "
-                             "the same shapes in the same run")
     return entry
 
 
@@ -1043,16 +1020,18 @@ def main() -> int:
     names = ("quant_matmul", "packed_w4_matmul", "simd_add", "muladd2",
              "mul4")
     fresh = [n for n in names if not _build.library_path(n).exists()]
-    ptxas = ptxas_report(_build, "quant_matmul")
+    ptxas = {n: ptxas_report(_build, n)
+             for n in ("quant_matmul", "packed_w4_matmul")}
     _build.build(*names)
     log(f"build: {time.perf_counter() - t0:.1f} s (compiled "
         f"{fresh or 'nothing: cached'}) into {_build.BUILD_DIR}")
-    out, _ = ptxas.communicate()
-    if ptxas.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}")
-    log("ptxas, quant_matmul.cu:\n" + "\n".join(
-        "  " + ln.strip() for ln in out.splitlines()
-        if "Compiling entry" in ln or "Used" in ln or "spill" in ln))
+    for n, proc in ptxas.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for {n}.cu:\n{out}")
+        log(f"ptxas, {n}.cu:\n" + "\n".join(
+            "  " + ln.strip() for ln in out.splitlines()
+            if "Compiling entry" in ln or "Used" in ln or "spill" in ln))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

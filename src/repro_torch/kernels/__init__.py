@@ -7,8 +7,8 @@ muladd2         factor-2 MAD wrapper   -> csrc/muladd2.cu
 mul4            factor-4 mul wrappers  -> csrc/mul4.cu (full32, split)
 quant_matmul    w8a8 GEMM wrapper      -> csrc/quant_matmul.cu
 packed_matmul   w4a8 GEMM wrapper      -> csrc/packed_w4_matmul.cu
-                (both: M <= 16 on csrc/s8_small_m.cuh; M > 16 on a
-                tile: w8a8 csrc/s8_tile.cuh, w4a8 csrc/s8_gemm.cuh)
+                (both: M <= 16 on csrc/s8_small_m.cuh, M > 16 on
+                csrc/s8_tile.cuh, each with its weight loader)
 ref             plain PyTorch versions (the semantics; CPU path)
 common          shared launch / lane packing / unpack helpers
 _build          nvcc build + ctypes load of csrc/*.cu at first use

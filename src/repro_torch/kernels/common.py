@@ -172,7 +172,7 @@ def on_cpu(t, counter: LaunchCounter) -> bool:
     return False
 
 
-def launch_s8_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
+def launch_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
                    w_scale, *, want_acc: bool, want_out: bool,
                    vec_bytes: int = 16, also: LaunchCounter | None = None):
     """Validate operands, allocate outputs and launch one of the int8 GEMM

@@ -7,100 +7,85 @@
 // packed_w4_matmul_acc (body _pmm_kernel, pallas_call at :61; wrapper
 // packed_w4_matmul :73).
 //
-// Bound on an H100 SXM: at decode (M = batch) the weight bytes dominate,
-// and they are HALF those of w8a8 -- K*N/2 bytes over 3.35 TB/s, 0.05 us
-// for a 576x576 projection.  That is the paper's DSP packing (two narrow
-// multiplies per wide unit) moved to the scarce resource of this card,
-// memory bandwidth (DESIGN.md sec. 2).  At prefill the f32 output's
-// 4*M*N bytes and the 2*M*K*N int8 operations (1,979 TOP/s peak) bound it,
-// the same as w8a8.
-// What the design does about it: weights cross device memory packed and
-// are unpacked in registers (column 2j = (w & 0xF) - 8, column 2j+1 =
-// w >> 4 on the signed byte) while being staged into shared memory, then
-// feed the same int8 tensor-core tile as quant_matmul.cu.
+// Two kernels, by the wrapper's rule on M (kernels/packed_matmul.py, the
+// rule of quant_matmul):
+// - M > 16 (prefill): repro_packed_w4_matmul, the tensor-core tile of
+//   s8_tile.cuh with the packed loader TileW4 (below);
+// - M <= 16 (decode rows): repro_packed_w4_matmul_small_m, the
+//   column-split dp4a kernel of s8_small_m.cuh (whose note gives its
+//   bound and design) with the LoadW4Word loader, which reads each row's
+//   2 packed bytes of 4 columns and unpacks them in registers.
+// repro_packed_w4_matmul_grid reports the tile's grid for a shape.
 //
-// Padding: the TPU wrapper pads packed words with 0x08, which decodes to
-// (0, 0); a zero byte would decode to -8.  Here out-of-range words are
-// staged as 0x08 too, but correctness does not rest on it: the K tail of
-// x is staged as zeros (s8_gemm.cuh) and columns >= N are never stored.
+// Bound on an H100 SXM (3.35 TB/s HBM, 1,979 TOP/s dense int8): at
+// decode (M = batch) the weight bytes dominate, and they are HALF those
+// of w8a8 -- K*N/2 bytes, 0.05 us for a 576x576 projection.  That is the
+// paper's DSP packing (two narrow multiplies per wide unit) moved to the
+// scarce resource of this card, memory bandwidth (DESIGN.md sec. 2).  At
+// prefill (M = 1024) a launch reads x (M*K), the packed weights (K*N/2)
+// and the scales and writes the f32 output (4*M*N), bytes again: 0.93 /
+// 0.43 / 2.19 / 1.31 us for (K, N) = 576x576 / 576x192 / 576x1536 /
+// 1536x576 (w8a8: 0.98 / 0.45 / 2.32 / 1.44), where the 2*M*K*N int8
+// operations take 0.34 / 0.11 / 0.92 / 0.92 us.
 //
-// For M <= 16 (decode rows) the wrapper launches the second entry point,
-// repro_packed_w4_matmul_small_m: the column-split dp4a kernel of
-// s8_small_m.cuh (whose note gives its bound and design) with the
-// LoadW4Word loader, which reads each row's 2 packed bytes of 4 columns
-// and unpacks them in registers, in place of the 64-row tensor-core tile.
-#include "s8_gemm.cuh"
+// The prefill tile.  What held the first 64x64 tile that took these rows
+// back, and what the packed loader of s8_tile.cuh does about each:
+// 1. It unpacked each packed byte while staging it, into two int8 values
+//    stored transposed ([n][k]) one byte at a time: two shared-memory
+//    stores per byte, each with a 4-way bank conflict.  Here the packed
+//    bytes are staged raw ([k][N/2] as they lie in device memory, 32
+//    bytes per k row of a 64-column block: 2 KB per step against 4 KB of
+//    int8) by 16-byte cp.async copies, issued by the first 128 threads,
+//    and unpacked in registers at the fragment reads: thread (g, t) reads
+//    one 16-bit half-word (the 4 columns 4g..4g+3) of each of 4
+//    consecutive k rows, and LoadW4Word::columns -- the small-M kernel's
+//    unpacking, 4 __byte_perm, nibble masks and a 4-bit sign extension
+//    per byte -- gives its B fragments for all 4 n8 tiles.
+// 2. Four 32-byte rows share a 128-byte line, so the fragment read's
+//    rows 4 apart (t = 0..3) would sit at the same offset of consecutive
+//    lines, a 4-way conflict.  The swizzle swz4 of s8_tile.cuh moves
+//    them to 4 distinct chunks; every staging store and fragment read is
+//    conflict free (checked in tests/test_torch_tile.py's emulation).
+// 3. Its serial load -> barrier -> mma chain had nothing in flight; its
+//    256-deep K step left the last step of K = 576 75% zeros; it stored
+//    single floats.  The tile's ring of STAGES cp.async stages, its two
+//    K groups of 4 warps, BK = 64 and its 16-byte epilogue serve both
+//    loaders alike (s8_tile.cuh's note).
+// What paces it (scripts/tile_sweep.py, a lone block, K = 64 -> 1536):
+// a packed block-step copies 6 KB (4 KB of x, 2 KB of w) against int8's
+// 8 KB, yet costs ~0.31 us against ~0.26: the unpacking's ALU work
+// (per thread and k16 half of a substep, 4 __byte_perm and ~20 mask,
+// shift and sign-extension instructions, against the int8 transpose's 8
+// __byte_perm), not the bytes, sets the pace.
+//
+// Padding: a zero packed byte (what cp.async's zero fill and the byte
+// path stage outside [K, N)) decodes to (-8, 0), not (0, 0); the TPU
+// wrapper pads with 0x08 instead.  The tile does not rest on either: in
+// rows >= K the x tile holds zeros at the same k, and columns >= N are
+// never stored.  The vector path of w needs N/2 % 16 == 0 (N % 32 == 0)
+// and a 16-byte aligned w; otherwise (N = 34: 17 bytes per row) each
+// chunk is gathered byte by byte.
 #include "s8_small_m.cuh"
+#include "s8_tile.cuh"
 
-namespace {
-
-// Stage packed words w[k0:k0+BK, n0/2 : (n0+BN)/2] into Bs[n][k] as int8
-// values.  NH = N / 2 words per row; vec: NH % 16 == 0 and w 16-byte
-// aligned.
-struct LoadW4 {
-  __device__ __forceinline__ static void load(int8_t* Bs, const int8_t* w,
-                                              int K, int N, int n0, int k0,
-                                              bool vec) {
-    using namespace s8gemm;
-    constexpr int WORDS = BN / 2;                  // words per tile row
-    constexpr int CHUNKS = BK * WORDS / 16;
-    const int NH = N / 2;
-#pragma unroll
-    for (int it = 0; it < CHUNKS / THREADS; ++it) {
-      const int c = threadIdx.x + it * THREADS;
-      const int kr = c / (WORDS / 16), wc = (c % (WORDS / 16)) * 16;
-      const int gk = k0 + kr, gw = n0 / 2 + wc;
-      alignas(16) int8_t v[16];
-      if (vec && gk < K && gw + 16 <= NH) {
-        *reinterpret_cast<int4*>(v) =
-            *reinterpret_cast<const int4*>(w + (size_t)gk * NH + gw);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          v[j] = (gk < K && gw + j < NH) ? w[(size_t)gk * NH + gw + j]
-                                         : int8_t(0x08);
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int b = v[j];                        // sign-extended byte
-        Bs[(2 * (wc + j)) * LDS + kr] = int8_t((b & 0xF) - 8);
-        Bs[(2 * (wc + j) + 1) * LDS + kr] = int8_t(b >> 4);
-      }
-    }
-  }
-};
-static_assert(s8gemm::BK * s8gemm::BN / 2 / 16 % s8gemm::THREADS == 0,
-              "packed tile must split evenly over the block");
-
-__global__ void __launch_bounds__(s8gemm::THREADS)
-    packed_w4_matmul_kernel(const int8_t* __restrict__ x,
-                            const int8_t* __restrict__ w,
-                            const float* __restrict__ xs,
-                            const float* __restrict__ ws,
-                            int32_t* __restrict__ acc_out,
-                            float* __restrict__ f_out, int M, int K, int N,
-                            bool vec_x, bool vec_w) {
-  s8gemm::gemm_tile<LoadW4>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x,
-                            vec_w);
-}
-
-}  // namespace
-
-// N is the LOGICAL column count (even); w holds K x N/2 words.  acc_out and
-// f_out may each be null (then not written); xs/ws may be null when f_out
-// is.  Returns cudaGetLastError() after the launch.
+// N is the LOGICAL column count (even); w holds K x N/2 bytes.  acc_out
+// and f_out may each be null (then not written); xs/ws may be null when
+// f_out is.  vec_x: K % 16 == 0 and x 16-byte aligned; vec_w:
+// N/2 % 16 == 0 and w 16-byte aligned.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int repro_packed_w4_matmul(const void* x, const void* w,
                                       const void* xs, const void* ws,
                                       void* acc_out, void* f_out, int M,
                                       int K, int N, int vec_x, int vec_w,
                                       void* stream) {
-  packed_w4_matmul_kernel<<<s8gemm::grid_for(M, N), s8gemm::THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K, N,
-      vec_x != 0, vec_w != 0);
-  return static_cast<int>(cudaGetLastError());
+  return s8tile::launch_tile<s8tile::TileW4>(x, w, xs, ws, acc_out, f_out,
+                                             M, K, N, vec_x, vec_w, stream);
+}
+
+// The number of blocks repro_packed_w4_matmul launches for an M x N
+// output (s8tile::grid_for; a host function, nothing runs on the card).
+extern "C" int repro_packed_w4_matmul_grid(int M, int N) {
+  return static_cast<int>(s8tile::grid_for(M, N).x);
 }
 
 // The same contract for 1 <= M <= s8small::MAX_M (cudaErrorInvalidValue

@@ -4,8 +4,8 @@
 // quant_matmul.cu with int8 weights (LoadW8Word,
 // repro_quant_matmul_small_m) and packed_w4_matmul.cu with packed int4
 // weights unpacked in registers (LoadW4Word,
-// repro_packed_w4_matmul_small_m).  The 64x64 tensor-core tile of
-// s8_gemm.cuh keeps M > 16 for both.
+// repro_packed_w4_matmul_small_m).  The tensor-core tile of
+// s8_tile.cuh takes M > 16 for both.
 //
 // Replaces, for M <= 16, the TPU kernels
 // repro/kernels/quant_matmul.py::quant_matmul_acc (body _qmm_kernel,
@@ -20,8 +20,8 @@
 // peak.  So a launch is bound by launch latency and by how many memory
 // round trips it waits out.
 //
-// What the design does about the three things that held the 64x64 tile
-// back at M = 8:
+// What the design does about the three things that held the first 64x64
+// tensor-core tile back at M = 8:
 // 1. Too few blocks (3, 9 or 24 on 132 SMs).  The grid runs over output
 //    columns only, COLS = 32 per block, and no block reduces across
 //    blocks: 6 / 18 / 48 blocks for N = 192 / 576 / 1536.  Inside a
@@ -54,7 +54,7 @@
 // Sums are int32 and exact while K * 2^14 < 2^31, i.e. K < 2^17; the
 // wrapper refuses a larger K on this path.  The order is fixed: each
 // stream in k order, then the lane groups (xor 8, then xor 16), then the
-// warps in order.  Epilogue as s8_gemm.cuh: acc (int32) and/or
+// warps in order.  Epilogue as s8_tile.cuh: acc (int32) and/or
 // f = ((float)acc * x_scale[m]) * w_scale[n], each product rounded to
 // nearest: bit-identical to the plain PyTorch version.
 //

@@ -1,23 +1,26 @@
 // Tiled int8 x int8 -> int32 GEMM on Hopper tensor cores (mma.sync
 // m16n8k32 s8) for the prefill rows of a quantized matmul, M > 16.
-// quant_matmul.cu instantiates it with int8 weights (the loader
-// s8small::LoadW8Word, entry repro_quant_matmul); the 64x64 tile of
-// s8_gemm.cuh stays behind packed_w4_matmul.cu and behind the second
-// entry repro_quant_matmul_tile64, which only chip_smoke.py's timing and
-// the card-only tests call.
+// Two weight loaders instantiate it through launch_tile<W>:
+// quant_matmul.cu with int8 weights (TileW8, entry repro_quant_matmul)
+// and packed_w4_matmul.cu with packed int4 weights (TileW4, entry
+// repro_packed_w4_matmul; that file's note gives the packed bound and
+// what the loader does).
 //
-// Replaces, for M > 16, the TPU kernel
+// Replaces, for M > 16, the TPU kernels
 // repro/kernels/quant_matmul.py::quant_matmul_acc (body _qmm_kernel,
-// pallas_call at :52).
+// pallas_call at :52) and repro/kernels/packed_matmul.py::
+// packed_w4_matmul_acc (body _pmm_kernel, pallas_call at :61).
 //
-// Bound on an H100 SXM (3.35 TB/s HBM, 1,979 TOP/s dense int8): bytes.
-// At prefill (M = B*S = 1024) a launch reads x (M*K), the weights (K*N)
-// and the scales, and writes the f32 output (4*M*N): 0.98 / 0.44 / 2.32
-// / 1.44 us for (K, N) = 576x576 / 576x192 / 576x1536 / 1536x576, where
-// the 2*M*K*N operations take 0.34 / 0.11 / 0.92 / 0.92 us.  The f32
-// output is most of the bytes (6.29 of the 7.77 MB at 576x1536).
+// Bound on an H100 SXM (3.35 TB/s HBM, 1,979 TOP/s dense int8), int8
+// weights: bytes.  At prefill (M = B*S = 1024) a launch reads x (M*K),
+// the weights (K*N) and the scales, and writes the f32 output
+// (4*M*N): 0.98 / 0.44 / 2.32 / 1.44 us for (K, N) = 576x576 / 576x192
+// / 576x1536 / 1536x576, where the 2*M*K*N operations take 0.34 / 0.11
+// / 0.92 / 0.92 us.  The f32 output is most of the bytes (6.29 of the
+// 7.77 MB at 576x1536).
 //
-// What held the 64x64 tile of s8_gemm.cuh back, and what this one does:
+// What held the first 64x64 tile back (one 256-deep K step per barrier,
+// the weights transposed into shared memory), and what this one does:
 // 1. Its transposing weight store wrote each staged byte alone, with a
 //    4-way bank conflict on every store.  Here nothing is transposed in
 //    shared memory: the weights are staged raw, [k][n] as they lie in
@@ -26,7 +29,7 @@
 //    fragment column g of n8 tile c is the real column 4g + c: thread
 //    (g, t) reads one 32-bit word (columns 4g..4g+3) of each of 4
 //    consecutive k rows and one 4x4 __byte_perm transpose (the small-M
-//    kernel's, LoadW::columns) yields its B fragments for all 4 n8 tiles.
+//    kernel's, W::columns) yields its B fragments for all 4 n8 tiles.
 //    The C fragments then hold 8 consecutive real columns per thread.
 // 2. Nothing was in flight while the tensor cores worked (load, barrier,
 //    mma, barrier per step, one buffer).  Here x and the weights both go
@@ -37,12 +40,13 @@
 //    the 2x2 grid of 32x32 warp tiles, so two warps share each scheduler
 //    and each runs half a step's chain (with one warp per scheduler a
 //    step cost ~0.32 us, whatever the ring depth; two brought ~0.26).  Each
-//    thread issues one 16-byte copy of x and one of w per step from a
-//    running pointer; the vector and byte paths are template parameters,
-//    and the step loop is unrolled by STAGES so every shared-memory
-//    address is a register plus an immediate.  At the end each group
-//    hands the other the sums of one m16 row block through shared memory
-//    (int32, exact) and writes the other half of the tile.
+//    thread issues one 16-byte copy of x and (int8 weights; packed, the
+//    first half of the threads) one of w per step from a running
+//    pointer; the vector and byte paths are template parameters, and the
+//    step loop is unrolled by STAGES so every shared-memory address is a
+//    register plus an immediate.  At the end each group hands the other
+//    the sums of one m16 row block through shared memory (int32, exact)
+//    and writes the other half of the tile.
 // 3. BK = 256 did not divide K = 576 (the last step 75% zeros).  BK = 64
 //    divides 576 and 1536.  The K tail is staged as zeros on both sides.
 // 4. The grid did not fill the 132 SMs.  The block tile stays 64x64
@@ -58,33 +62,37 @@
 //    columns leave as two 16-byte stores per row (int4 / float4) when
 //    N % 4 == 0.
 //
-// Shared memory: each stage holds the x tile [BM][BK] and the weight tile
-// [BK][BN], 64-byte rows, two rows per 128-byte line of the 32 banks.
-// The 16-byte chunk c (0..3) of row r sits at line r >> 1, chunk
+// Shared memory: each stage holds the x tile [BM][BK] (64-byte rows)
+// and the weight tile [BK][...] (a staged k row: W::ROW bytes, 64
+// of int8 or 32 of packed int4), the rows swizzled in 16-byte chunks
+// over the 128-byte lines of the 32 banks.  64-byte rows (x, TileW8):
+// chunk c (0..3) of row r sits at line r >> 1, chunk
 // ((r & 1) << 2 | c) ^ ((r >> 1) & 3) ^ (((r >> 3) & 1) << 2) of the line
-// (swz below): a bijection per line, so 8 lanes that stage one line's 8
-// chunks hit 32 distinct banks, and so do the fragment reads -- the A
-// words of 8 consecutive rows, one chunk, and the B words of rows 4t + j
-// (t = 0..3) at columns 4g (two chunks).
+// (swz); 32-byte rows (TileW4): chunk c (0..1) of row r at line r >> 2,
+// chunk ((r & 3) << 1 | c) ^ (((r >> 2) & 3) << 1) (swz4).  Each is a
+// bijection per line, so 8 lanes that stage one line's 8 chunks hit 32
+// distinct banks, and so do the fragment reads -- the A words of 8
+// consecutive rows, one chunk; the B words of rows 4t + j (t = 0..3) at
+// columns 4g: int8, two chunks of each row; packed, the half-words of
+// one chunk of each row, and rows 4 apart lie on consecutive lines,
+// where swz4's term ((r >> 2) & 3) << 1 sends them to 4 distinct chunks.
 //
 // Ragged M, N and K are masked in the kernel: bytes of rows >= M (x),
 // >= K (w) or columns past K (x) / N (w) are staged as zeros (cp.async's
 // source size 0, or the byte path), and only m < M, n < N are written.
-// The vector path of x needs K % 16 == 0 and a 16-byte aligned x, that of
-// w N % 16 == 0 and a 16-byte aligned w (the wrapper chooses them; else
-// each chunk is gathered byte by byte).  The outputs are the wrapper's
-// fresh allocations, 16-byte aligned; with N % 4 == 0 they are written
-// 16 bytes at a time.
+// A zero packed byte decodes to (-8, 0), not (0, 0), and that is safe:
+// in rows >= K the x tile holds zeros at the same k, and columns >= N
+// are never stored.  The vector path of x needs K % 16 == 0 and a
+// 16-byte aligned x, that of w a stored row of a multiple of 16 bytes
+// (N % 16 == 0 int8, N % 32 == 0 packed) and a 16-byte aligned w (the
+// wrapper chooses them; else each chunk is gathered byte by byte).  The
+// outputs are the wrapper's fresh allocations, 16-byte aligned; with
+// N % 4 == 0 they are written 16 bytes at a time.
 //
-// Sums are int32 and exact while K * 2^14 < 2^31.  Epilogue as
-// s8_gemm.cuh: acc (int32) and/or f = ((float)acc * x_scale[m]) *
-// w_scale[n], each product rounded to nearest: bit-identical to the
-// plain PyTorch version.
-//
-// A weight loader here is LoadW::columns, which turns the stored bits of
-// 4 k rows (r[j]: row k+j, one 32-bit word) into 4 column words of int8
-// values (byte j = row k+j): s8small::LoadW8Word transposes.  A packed
-// int4 loader would stage N/2 bytes per row and read 2 bytes per row.
+// Sums are int32 and exact while K * 2^14 < 2^31.  Epilogue: acc (int32)
+// and/or f = ((float)acc * x_scale[m]) * w_scale[n], each product
+// rounded to nearest (no add, so nothing contracts into an FMA):
+// bit-identical to the plain PyTorch version.
 //
 // The constants below are read by tests/test_torch_tile.py, whose numpy
 // emulation of this kernel runs on the CPU against the plain version:
@@ -109,28 +117,32 @@ constexpr int BK = 64;            // k per step
 constexpr int STAGES = S8TILE_STAGES;  // shared-memory ring depth
 constexpr int KGROUPS = 2;        // warp groups, one k32 substep each
 constexpr int THREADS = 256;      // KGROUPS x 2 x 2 warps of 32 x 32
-constexpr int ROW_BYTES = 64;     // a staged row: BK bytes of x, BN of w
-constexpr int LINE_BYTES = 128;   // two staged rows per line of 32 banks
+constexpr int ROW_BYTES = 64;     // a staged row of x (BK) or int8 w (BN)
+constexpr int W4_ROW_BYTES = 32;  // a staged row of packed w (BN / 2)
+constexpr int LINE_BYTES = 128;   // one line of the 32 banks
 constexpr int CHUNK = 16;         // bytes per cp.async copy
 
-constexpr int TILE_BYTES = 64 * ROW_BYTES;     // [BM][BK] or [BK][BN]
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;    // x tile, then w tile
-constexpr int CHUNKS_PER_ROW = ROW_BYTES / CHUNK;
+constexpr int TILE_BYTES = 64 * ROW_BYTES;     // [BM][BK] x tile
+constexpr int RED_BYTES = 16384;  // the hand-over: 2 x 4 x 4 x 32 int4
 static_assert(BM == 64 && BN == 64 && BK == 64 && ROW_BYTES == BK &&
-                  ROW_BYTES == BN,
-              "64-byte staged rows of x and w; 64 rows per tile");
+                  ROW_BYTES == BN && 2 * W4_ROW_BYTES == BN,
+              "64-byte staged rows of x and int8 w, 32 of packed w");
 static_assert(THREADS == 32 * 4 * KGROUPS && KGROUPS * 32 == BK &&
-                  TILE_BYTES / CHUNK == THREADS,
-              "one k32 substep per group; one chunk per tile per thread");
-static_assert(STAGES >= 2 && STAGES * STAGE_BYTES <= 48 * 1024 &&
-                  2 * 4 * 4 * 32 * 16 <= STAGES * STAGE_BYTES,
-              "static shared memory; the hand-over reuses the ring");
+                  TILE_BYTES / CHUNK == THREADS &&
+                  RED_BYTES == 2 * 4 * 4 * 32 * 16,
+              "one k32 substep per group; one x chunk per thread");
 
-// Byte offset of 16-byte chunk c of staged row r within a tile.
+// Byte offset of 16-byte chunk c (0..3) of staged 64-byte row r.
 __device__ __forceinline__ int swz(int r, int c) {
   const int chunk = (((r & 1) << 2) | c) ^ ((r >> 1) & 3) ^
                     (((r >> 3) & 1) << 2);
   return (r >> 1) * LINE_BYTES + chunk * CHUNK;
+}
+
+// Byte offset of 16-byte chunk c (0..1) of staged 32-byte row r.
+__device__ __forceinline__ int swz4(int r, int c) {
+  const int chunk = (((r & 3) << 1) | c) ^ (((r >> 2) & 3) << 1);
+  return (r >> 2) * LINE_BYTES + chunk * CHUNK;
 }
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
@@ -163,6 +175,41 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// A weight loader of the tile: the staged k row (ROW bytes, stored
+// COLS_PER_BYTE columns per byte), its swizzle (chunk), the byte offset of
+// the fragment word of columns col..col+3 (col % 4 == 0) of k row r
+// (frag), the word read there (read: the 4 columns' stored bits in its
+// low bytes) and columns(), which turns the words of 4 k rows (r[j]: row
+// k+j) into 4 column words of int8 values (byte j = row k+j): the small-M
+// kernel's loaders' own.
+struct TileW8 : s8small::LoadW8Word {    // int8 weights, transposed
+  static constexpr int COLS_PER_BYTE = 1;
+  static constexpr int ROW = ROW_BYTES;
+  __device__ __forceinline__ static int chunk(int r, int c) {
+    return swz(r, c);
+  }
+  __device__ __forceinline__ static int frag(int r, int col) {
+    return swz(r, col >> 4) + (col & 15);
+  }
+  __device__ __forceinline__ static uint32_t read(const int8_t* p) {
+    return lds32(p);
+  }
+};
+
+struct TileW4 : s8small::LoadW4Word {    // packed int4: 2 bytes per word
+  static constexpr int COLS_PER_BYTE = 2;
+  static constexpr int ROW = W4_ROW_BYTES;
+  __device__ __forceinline__ static int chunk(int r, int c) {
+    return swz4(r, c);
+  }
+  __device__ __forceinline__ static int frag(int r, int col) {
+    return swz4(r, col >> 5) + ((col & 31) >> 1);
+  }
+  __device__ __forceinline__ static uint32_t read(const int8_t* p) {
+    return *reinterpret_cast<const uint16_t*>(p);
+  }
+};
+
 // Stage the 16 bytes at p, of which the first n (0..16) are live, into
 // dst; zeros for the rest.  VEC: n is 0 or 16 and p 16-byte aligned (a
 // copy of size 0 reads nothing: base stands in for p).
@@ -182,16 +229,26 @@ __device__ __forceinline__ void stage_chunk(int8_t* dst, const int8_t* p,
 
 __device__ __forceinline__ int clamp16(int n) { return max(0, min(16, n)); }
 
-// The block's 64x64 tile: C[m0:, n0:] = x[m0:, :] @ W[:, n0:].
-// VX / VW: the vector paths of x (K % 16 == 0, x 16-byte aligned) and w
-// (N % 16 == 0, w 16-byte aligned).
-template <class LoadW, bool VX, bool VW>
+// The block's 64x64 tile: C[m0:, n0:] = x[m0:, :] @ W[:, n0:], the weight
+// tile staged and read by the loader W (TileW8 / TileW4).  VX / VW: the
+// vector paths of x (K % 16 == 0, x 16-byte aligned) and w (a stored row
+// of a multiple of 16 bytes, w 16-byte aligned).
+template <class W, bool VX, bool VW>
 __device__ __forceinline__ void gemm_tile(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ xs, const float* __restrict__ ws,
     int32_t* __restrict__ acc_out, float* __restrict__ f_out, int M, int K,
     int N) {
-  __shared__ __align__(128) int8_t smem[STAGES * STAGE_BYTES];
+  constexpr int W_TILE = BK * W::ROW;            // [BK][W::ROW] w tile
+  constexpr int STAGE_BYTES = TILE_BYTES + W_TILE;
+  constexpr int W_CHUNKS_PER_ROW = W::ROW / CHUNK;
+  constexpr int W_COPIES = W_TILE / CHUNK;       // threads that copy w
+  constexpr int RING = STAGES * STAGE_BYTES;
+  static_assert(W_COPIES <= THREADS && W_COPIES % 32 == 0 && STAGES >= 2 &&
+                    RING <= 48 * 1024,
+                "whole warps copy w; static shared memory");
+  // the hand-over reuses the ring
+  __shared__ __align__(128) int8_t smem[RING > RED_BYTES ? RING : RED_BYTES];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;           // mma group / thread
@@ -202,22 +259,30 @@ __device__ __forceinline__ void gemm_tile(
   const int n0 = static_cast<int>(blockIdx.x % tiles_n) * BN;
   const int steps = (K + BK - 1) / BK;
 
-  // this thread's copies: chunk c of row r of the x tile and of the w
-  // tile, from running pointers at the next step to issue (k_next)
+  // this thread's copies from running pointers at the next step to issue
+  // (k_next): chunk c of row r of the x tile, and (threads < W_COPIES)
+  // chunk cw of k row rw of the w tile, whose stored rows are NB bytes
+  constexpr int CHUNKS_PER_ROW = ROW_BYTES / CHUNK;
   const int r = threadIdx.x / CHUNKS_PER_ROW, c = threadIdx.x % CHUNKS_PER_ROW;
   const int dst = swz(r, c);
   const bool x_row = m0 + r < M;
-  const int w_cols = clamp16(N - n0 - c * CHUNK);
   const int8_t* px = x + (x_row ? static_cast<size_t>(m0 + r) * K : 0) +
                      c * CHUNK;
-  const int8_t* pw = w + static_cast<size_t>(r) * N + n0 + c * CHUNK;
-  const size_t w_step = static_cast<size_t>(BK) * N;
+  const bool w_copy = W_COPIES == THREADS || threadIdx.x < W_COPIES;
+  const int rw = w_copy ? threadIdx.x / W_CHUNKS_PER_ROW : 0;
+  const int cw = threadIdx.x % W_CHUNKS_PER_ROW;
+  const int w_dst = TILE_BYTES + W::chunk(rw, cw);
+  const int NB = N / W::COLS_PER_BYTE;
+  const int w_col0 = n0 / W::COLS_PER_BYTE + cw * CHUNK;
+  const int w_live = clamp16(NB - w_col0);
+  const int8_t* pw = w + static_cast<size_t>(rw) * NB + w_col0;
+  const size_t w_step = static_cast<size_t>(BK) * NB;
   int k_next = 0;
   auto issue = [&](int8_t* stage) {
     stage_chunk<VX>(stage + dst, px, x,
                     x_row ? clamp16(K - k_next - c * CHUNK) : 0);
-    stage_chunk<VW>(stage + TILE_BYTES + dst, pw, w,
-                    k_next + r < K ? w_cols : 0);
+    if (w_copy)
+      stage_chunk<VW>(stage + w_dst, pw, w, k_next + rw < K ? w_live : 0);
     px += BK;
     pw += w_step;
     k_next += BK;
@@ -238,8 +303,7 @@ __device__ __forceinline__ void gemm_tile(
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      b_off[h][j] = TILE_BYTES + swz(kk + 16 * h + 4 * t + j,
-                                     (wn >> 4) + (g >> 2)) + 4 * (g & 3);
+      b_off[h][j] = TILE_BYTES + W::frag(kk + 16 * h + 4 * t + j, wn + 4 * g);
 
   int acc[2][4][4];
 #pragma unroll
@@ -276,8 +340,8 @@ __device__ __forceinline__ void gemm_tile(
       for (int h = 0; h < 2; ++h) {
         uint32_t rows[4], cols[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) rows[j] = lds32(st + b_off[h][j]);
-        LoadW::columns(rows, cols);
+        for (int j = 0; j < 4; ++j) rows[j] = W::read(st + b_off[h][j]);
+        W::columns(rows, cols);
 #pragma unroll
         for (int n = 0; n < 4; ++n) b[n][h] = cols[n];
       }
@@ -366,6 +430,48 @@ __device__ __forceinline__ void gemm_tile(
 inline dim3 grid_for(int M, int N) {
   return dim3(static_cast<unsigned>(((M + BM - 1) / BM) *
                                     ((N + BN - 1) / BN)));
+}
+
+template <class W, bool VX, bool VW>
+__global__ void __launch_bounds__(THREADS)
+    tile_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ xs, const float* __restrict__ ws,
+                int32_t* __restrict__ acc_out, float* __restrict__ f_out,
+                int M, int K, int N) {
+  gemm_tile<W, VX, VW>(x, w, xs, ws, acc_out, f_out, M, K, N);
+}
+
+template <class W, bool VX, bool VW>
+void launch_vec(const void* x, const void* w, const void* xs,
+                const void* ws, void* acc_out, void* f_out, int M, int K,
+                int N, void* stream) {
+  tile_kernel<W, VX, VW><<<grid_for(M, N), THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(xs), static_cast<const float*>(ws),
+      static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K, N);
+}
+
+// The C entry points' body: the vector paths chosen by the wrapper
+// (vec_x: K % 16 == 0 and x 16-byte aligned; vec_w: a stored w row of a
+// multiple of 16 bytes and w 16-byte aligned).  Returns
+// cudaGetLastError() after the launch.
+template <class W>
+int launch_tile(const void* x, const void* w, const void* xs,
+                const void* ws, void* acc_out, void* f_out, int M, int K,
+                int N, int vec_x, int vec_w, void* stream) {
+  if (vec_x && vec_w)
+    launch_vec<W, true, true>(x, w, xs, ws, acc_out, f_out, M, K, N, stream);
+  else if (vec_x)
+    launch_vec<W, true, false>(x, w, xs, ws, acc_out, f_out, M, K, N,
+                               stream);
+  else if (vec_w)
+    launch_vec<W, false, true>(x, w, xs, ws, acc_out, f_out, M, K, N,
+                               stream);
+  else
+    launch_vec<W, false, false>(x, w, xs, ws, acc_out, f_out, M, K, N,
+                                stream);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace s8tile

@@ -14,8 +14,10 @@ Two kernels, by the rule of `quant_matmul` on M (the rows of x):
   (`csrc/s8_small_m.cuh` with its packed-int4 loader `LoadW4Word`, entry
   `repro_packed_w4_matmul_small_m`), the column-split dp4a kernel that
   w8a8 decode runs on.
-- M > 16: the 64x64 tensor-core tile (`csrc/s8_gemm.cuh`, entry
-  `repro_packed_w4_matmul`).
+- M > 16: the prefill tile of w8a8 (`csrc/s8_tile.cuh`, entry
+  `repro_packed_w4_matmul`) with its packed loader `TileW4`: the packed
+  bytes staged raw through the cp.async ring and unpacked in registers
+  at the fragment reads.
 
 `LAUNCHES` counts the launches of both, `SMALL_M_LAUNCHES` those of the
 small-M kernel alone.
@@ -56,11 +58,11 @@ def _launch(x_q, w_packed, x_scale, w_scale, *, want_acc: bool,
         # the kernel's 2-byte packed-w loads need only N/2 even and a
         # 2-byte aligned w; asking 4 of both operands takes the byte path
         # more often (never on the serving shapes) with one rule for both
-        return common.launch_s8_gemm(
+        return common.launch_gemm(
             _small_m_kernel(), LAUNCHES, x_q, w_packed, n, x_scale, w_scale,
             want_acc=want_acc, want_out=want_out, vec_bytes=4,
             also=SMALL_M_LAUNCHES)
-    return common.launch_s8_gemm(_kernel(), LAUNCHES, x_q, w_packed, n,
+    return common.launch_gemm(_kernel(), LAUNCHES, x_q, w_packed, n,
                                  x_scale, w_scale, want_acc=want_acc,
                                  want_out=want_out)
 

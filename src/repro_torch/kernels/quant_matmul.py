@@ -51,11 +51,11 @@ def _launch(x_q, w_q, x_scale, w_scale, *, want_acc: bool, want_out: bool):
             raise ValueError(f"{SMALL_M_LAUNCHES.name}: K={x_q.shape[1]} "
                              f"> {SMALL_M_MAX_K}, beyond the kernel's exact "
                              "int32 sums")
-        return common.launch_s8_gemm(
+        return common.launch_gemm(
             _small_m_kernel(), LAUNCHES, x_q, w_q, w_q.shape[-1], x_scale,
             w_scale, want_acc=want_acc, want_out=want_out, vec_bytes=4,
             also=SMALL_M_LAUNCHES)
-    return common.launch_s8_gemm(_kernel(), LAUNCHES, x_q, w_q,
+    return common.launch_gemm(_kernel(), LAUNCHES, x_q, w_q,
                                  w_q.shape[-1], x_scale, w_scale,
                                  want_acc=want_acc, want_out=want_out)
 

@@ -133,40 +133,55 @@ def test_cuda_tile_unaligned_operands(cuda, m, k, n):
 
 
 @pytest.mark.cuda
-def test_cuda_tile_matches_tile64(cuda):
-    """The prefill tile (repro_quant_matmul) and the 64x64 tile it
-    replaced (repro_quant_matmul_tile64) agree bit for bit, int32 and
-    f32, on the four prefill shapes and ragged ones."""
-    from repro_torch.kernels import common
-    rng = np.random.default_rng(64)
-    counter = common.LaunchCounter("tile64 vs tile")
-    tile64 = common.bind("quant_matmul", "repro_quant_matmul_tile64", 6, 5)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_packed_tile_matches_plain(cuda, aligned):
+    """The packed prefill tile (repro_packed_w4_matmul: s8_tile.cuh with
+    the TileW4 loader) against the plain version, int32 and f32, at the
+    four prefill shapes and ragged M > 16 ones (N/2 odd: N = 34, 70, 250;
+    N = 96: a half tile on the vector path); unaligned, x and w one byte
+    off 16-byte alignment, every chunk gathered byte by byte."""
+    rng = np.random.default_rng(20 + aligned)
     shapes = [(1024, k, n) for k, n in MAIN_KN] + \
-        [(17, 48, 16), (1027, 2100, 70), (65, 100, 34)]
+        [(17, 48, 16), (1027, 2100, 70), (65, 100, 34), (129, 1000, 250),
+         (300, 576, 96)]
+    small = packed_matmul.SMALL_M_LAUNCHES.count
     for m, k, n in shapes:
-        x, w, xs, ws = _operands(rng, m, k, n, False, cuda)
-        got = [common.launch_s8_gemm(fn, counter, x, w, n, xs, ws,
-                                     want_acc=True, want_out=True)
-               for fn in (quant_matmul._kernel(), tile64)]
-        assert torch.equal(got[0][0], got[1][0]), (m, k, n)
-        assert torch.equal(got[0][1], got[1][1]), (m, k, n)
-    assert counter.count == 2 * len(shapes)
+        x, w, xs, ws = _operands(rng, m, k, n, True, cuda)
+        xu, wu = x, w
+        if not aligned:
+            xu = torch.empty(m * k + 1, dtype=torch.int8,
+                             device=cuda)[1:].view(m, k)
+            wu = torch.empty(w.numel() + 1, dtype=torch.int8,
+                             device=cuda)[1:].view(w.shape)
+            xu.copy_(x)
+            wu.copy_(w)
+            assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+        before = packed_matmul.LAUNCHES.count
+        assert torch.equal(packed_matmul.packed_w4_matmul_acc(xu, wu),
+                           ref.packed_w4_matmul_acc_ref(x, w)), (m, k, n)
+        assert torch.equal(packed_matmul.packed_w4_matmul(xu, wu, xs, ws),
+                           ref.packed_w4_matmul_ref(x, w, xs, ws)), (m, k, n)
+        assert packed_matmul.LAUNCHES.count == before + 2
+    assert packed_matmul.SMALL_M_LAUNCHES.count == small
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 def test_cuda_tile_grid(cuda):
-    """The grid the prefill tile's launcher computes
-    (repro_quant_matmul_grid): one block per 64x64 output tile, 144 / 48
-    / 384 / 144 blocks at the four prefill shapes."""
+    """The grid the prefill tile's launchers compute
+    (repro_quant_matmul_grid, repro_packed_w4_matmul_grid): one block per
+    64x64 output tile, 144 / 48 / 384 / 144 blocks at the four prefill
+    shapes, for either weight format."""
     import ctypes
 
     from repro_torch.kernels import _build
-    grid = _build.load("quant_matmul").repro_quant_matmul_grid
-    grid.argtypes, grid.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    assert [grid(1024, n) for _, n in MAIN_KN] == [144, 48, 384, 144]
-    assert [grid(m, n) for m, n in ((17, 34), (65, 70), (1027, 70))] == \
-        [1, 4, 34]
+    for name in ("quant_matmul", "packed_w4_matmul"):
+        grid = getattr(_build.load(name), f"repro_{name}_grid")
+        grid.argtypes = [ctypes.c_int, ctypes.c_int]
+        grid.restype = ctypes.c_int
+        assert [grid(1024, n) for _, n in MAIN_KN] == [144, 48, 384, 144]
+        assert [grid(m, n) for m, n in ((17, 34), (65, 70), (1027, 70))] \
+            == [1, 4, 34]
 
 
 @pytest.mark.cuda

@@ -297,7 +297,7 @@ def test_wrappers_refuse_other_devices():
         packed_matmul.packed_w4_matmul_acc(x, w[:, :8])
     # the launch helper itself never runs on a CPU tensor
     with pytest.raises(ValueError):
-        common.launch_s8_gemm(None, quant_matmul.LAUNCHES,
+        common.launch_gemm(None, quant_matmul.LAUNCHES,
                               torch.zeros((2, 48), dtype=torch.int8),
                               torch.zeros((48, 16), dtype=torch.int8), 16,
                               None, None, want_acc=True, want_out=False)

@@ -286,7 +286,7 @@ def _recorded_launches(monkeypatch):
         calls.append((fn, n, kw.get("vec_bytes", 16), kw.get("also")))
         return None, torch.zeros((x_q.shape[0], n))
 
-    monkeypatch.setattr(common, "launch_s8_gemm", fake_launch)
+    monkeypatch.setattr(common, "launch_gemm", fake_launch)
     for mod in (quant_matmul, packed_matmul):
         monkeypatch.setattr(mod, "_kernel", lambda: "tile")
         monkeypatch.setattr(mod, "_small_m_kernel", lambda: "small_m")
