@@ -43,12 +43,28 @@ over):
    `torch.add` on the words viewed as int8/int16;
 6. greedy generation with full-width smollm-135m (30 layers, d_model 576,
    random weights from a seeded torch.Generator): B=8, prompt 128, 32 new
-   tokens, under w4a8 and then w8a8.  The format's GEMM must launch
-   7 x 30 x 32 = 6720 times and the other format's 0 times; under each
-   format its small-M kernel takes the 7 x 30 x 31 = 6510 decode launches
-   and its tile the 210 prefill launches; a rerun with
-   the plain versions forced must give identical tokens AND logits (the
-   kernels are bit-exact); a reduced model must agree with its CPU run.
+   tokens, under w4a8 and then w8a8, by the per-step loop
+   (`fused=False`) and by the captured CUDA-graph decode step
+   (`fused=True`, the default and the main path: its counts are set to 0
+   just before it and read just after).  In each, the format's GEMM must
+   launch 7 x 30 x 32 = 6720 times and the other format's 0 times; its
+   small-M kernel takes the 7 x 30 x 31 = 6510 decode launches and its
+   tile the 210 prefill launches.  The per-step loop's launches are its
+   wrappers' counts.  A replay of the captured graph launches without
+   the wrappers, so the main path runs under the profiler and its
+   launches are the device kernels it saw, by symbol
+   (`registry.profiled_launches`; a run the profiler counts short, and
+   never over, is driven again, at most three times); its wrappers must
+   count the prefill's 210 tile launches and nothing else (no decode
+   step ran eagerly), and the first fused call's the capture's warm-up
+   step and capture on top.
+   The fused tokens and logits must equal the per-step loop's, and a rerun with the plain versions forced must give
+   identical tokens AND logits (the kernels are bit-exact); `--silvia
+   all` must give the tokens of off.  Logged: prefill ms, decode ms/step
+   of both loops, the capture time, and profiles of an eager and a
+   replayed decode step (host and device ms/step, busy share, top
+   kernels, the small-M kernel's per-launch time against its back-to-back
+   time); a reduced model must agree with its CPU run.
 
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
@@ -851,68 +867,180 @@ def kernel_entry(name: str, res: dict, launches: int) -> dict:
     return entry
 
 
+def _timed_generate(serve, params, prompts, cfg, **kw):
+    """(tokens, logits, launch counts, seconds) of one generate call on
+    the host clock, ending in a synchronize."""
+    from repro_torch.kernels import registry
+    before = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
+    t0 = time.perf_counter()
+    toks, logits = serve.generate(params, prompts, cfg, gen=GEN,
+                                  cache_len=PROMPT + GEN, return_logits=True,
+                                  **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return toks, logits, {c.name: c.count - before[c.name]
+                          for c in registry.LAUNCH_COUNTERS}, secs
+
+
+def _profiled_generate(serve, params, prompts, cfg, **kw):
+    """(tokens, logits, the wrappers' launch counts, launches per wrapper
+    counter on the device) of one generate under the profiler: the device
+    counts are the kernels the run launched, graph replays included, by
+    symbol (`registry.profiled_launches`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import registry
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        toks, logits, counts, _ = _timed_generate(serve, params, prompts,
+                                                  cfg, **kw)
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")}
+    return toks, logits, counts, registry.profiled_launches(kernels)
+
+
 def phase_generate(torch, kernel_results: dict) -> list:
+    """Full-width greedy generation under w4a8 and w8a8: the per-step
+    loop (fused=False) and the captured CUDA-graph decode (fused=True,
+    the default: the main path), each gated on its launch counts; fused
+    == per-step == plain-forced in tokens and logits, bit for bit;
+    --silvia all == off in tokens; decode ms/step of both loops, the
+    capture time, and profiles of an eager and a replayed decode step."""
     from repro_torch import configs
-    from repro_torch.kernels import packed_matmul, quant_matmul, registry
+    from repro_torch.kernels import registry
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
     cfg = configs.get_config("smollm-135m")
-    counters = {"w8a8": quant_matmul.LAUNCHES,
-                "w4a8": packed_matmul.LAUNCHES,
-                "w8a8 small-M": quant_matmul.SMALL_M_LAUNCHES,
-                "w4a8 small-M": packed_matmul.SMALL_M_LAUNCHES}
-    expect = 7 * cfg.n_layers * GEN
+    per_step = 7 * cfg.n_layers
+    expect = per_step * GEN
     # decode rows (M = BATCH <= 16) take the small-M kernel, prefill the tile
-    expect_small = 7 * cfg.n_layers * (GEN - 1)
+    expect_small = per_step * (GEN - 1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                             device="cuda")
     cache_len = PROMPT + GEN
     entries = []
     for fmt in ("w4a8", "w8a8"):
+        name = "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
+
+        def launches(tile, small):
+            want = {c.name: 0 for c in registry.LAUNCH_COUNTERS}
+            want[name], want[f"{name}_small_m"] = tile + small, small
+            return want
+
+        want = launches(per_step, expect_small)
         params = serve.build_params(cfg, fmt, seed=0, device="cuda")
-        serve.generate(params, prompts[:, :8], cfg, gen=2, cache_len=16)
+        serve.generate(params, prompts[:, :8], cfg, gen=2, cache_len=16,
+                       fused=False)
         torch.cuda.synchronize()
 
-        for c in counters.values():
-            c.reset()
+        def check(toks, logits, counts, what, want=want):
+            if counts != want:
+                raise AssertionError(f"{fmt} {what}: kernel launches "
+                                     f"{counts}, expected {want}")
+            if tuple(toks.shape) != (BATCH, GEN) or \
+                    toks.dtype != torch.int32 or \
+                    not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+                raise AssertionError(f"{fmt} {what}: bad tokens "
+                                     f"{tuple(toks.shape)} {toks.dtype}")
+            if tuple(logits.shape) != (BATCH, GEN, cfg.vocab) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{fmt} {what}: logits not finite / "
+                                     "misshapen")
+
+        def same_as_per_step(toks, logits, what):
+            if not torch.equal(toks, toks_s) or not torch.equal(logits,
+                                                                logits_s):
+                raise AssertionError(
+                    f"{fmt}: {what} differs from the per-step loop (tokens "
+                    f"equal: {torch.equal(toks, toks_s)}, max logit diff "
+                    f"{(logits - logits_s).abs().max().item()})")
+
+        def prefill_ms():     # the median of 3, host clock
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                lm.prefill(params, prompts, cfg, cache_len=cache_len)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return sorted(times)[1]
+
+        # the per-step loop
+        toks_s, logits_s, counts_s, step_s = _timed_generate(
+            serve, params, prompts, cfg, fused=False)
+        check(toks_s, logits_s, counts_s, "per-step")
+        prefill_before = prefill_ms()
+        # the first fused call: the prefill, one eager warm-up step and the
+        # capture (its wrappers launch into the graph), then the replays
+        toks_1, logits_1, counts_1, first_s = _timed_generate(
+            serve, params, prompts, cfg)
+        check(toks_1, logits_1, counts_1, "first fused call (wrappers)",
+              launches(per_step, 2 * per_step))
+        same_as_per_step(toks_1, logits_1, "the first fused call")
+        bundle = serve._decode_bundle(cfg, "off", "cuda")
+        captured = bundle.step
+        # the main path: every count from 0, the captured graph replayed
+        # under the profiler, which counts what the replays launch.  The
+        # profiler has been seen to drop ~1% of one profile's kernel
+        # events: a run that falls short of the counts (and exceeds none)
+        # is driven again, at most three times in all
+        for attempt in range(1, 4):
+            for c in registry.LAUNCH_COUNTERS:
+                c.reset()
+            toks, logits, counts, launched = _profiled_generate(
+                serve, params, prompts, cfg)
+            short = [k for k, n in launched.items() if n < want[k]]
+            if not short or attempt == 3 or \
+                    any(n > want[k] for k, n in launched.items()):
+                break
+            log(f"{fmt} fused (profiled), run {attempt}: launches "
+                f"{launched} short of {want}; driven again")
+        check(toks, logits, launched, "fused (profiled)")
+        check(toks, logits, counts, "fused (wrappers: no eager decode step)",
+              launches(per_step, 0))
+        same_as_per_step(toks, logits, "fused decode")
+        # its time, unprofiled
+        toks_t, logits_t, _, total_s = _timed_generate(serve, params,
+                                                       prompts, cfg)
+        same_as_per_step(toks_t, logits_t, "fused decode")
+        if bundle.captures != 1:
+            raise AssertionError(f"{fmt}: {bundle.captures} captures, "
+                                 "expected 1")
+
+        prefill_after = prefill_ms()
+        prefill_s = (prefill_before + prefill_after) / 2e3
+        # the replays alone: GEN-1 decode steps after a prefill
+        lg, kv = lm.prefill(params, prompts, cfg, cache_len=cache_len)
+        tok0 = lg[:, -1].argmax(dim=-1)[:, None]
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks, logits = serve.generate(params, prompts, cfg, gen=GEN,
-                                      cache_len=cache_len,
-                                      return_logits=True)
+        captured.run(tok0, kv, PROMPT, GEN - 1)
         torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
-        counts = {f: c.count for f, c in counters.items()}
-        want = {f: 0 for f in counters}
-        want[fmt], want[f"{fmt} small-M"] = expect, expect_small
-        if counts != want:
-            raise AssertionError(f"{fmt}: kernel launches {counts}, expected "
-                                 f"{want}")
-        if tuple(toks.shape) != (BATCH, GEN) or toks.dtype != torch.int32 \
-                or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
-            raise AssertionError(f"{fmt}: bad tokens {tuple(toks.shape)} "
-                                 f"{toks.dtype}")
-        if tuple(logits.shape) != (BATCH, GEN, cfg.vocab) or \
-                not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"{fmt}: logits not finite / misshapen")
+        replay_ms = (time.perf_counter() - t0) * 1e3 / (GEN - 1)
+        del lg, kv
+        step_ms = (step_s - prefill_s) / (GEN - 1) * 1e3
+        fused_ms = (total_s - prefill_s) / (GEN - 1) * 1e3
+        log(f"{fmt}: prefill {prefill_before:.1f} ms before the capture, "
+            f"{prefill_after:.1f} ms after it (medians of 3); decode "
+            "per-step "
+            f"{step_ms:.2f} ms/step (generate {step_s * 1e3:.1f} ms, "
+            f"{BATCH * GEN / step_s:.1f} tok/s), fused {fused_ms:.2f} "
+            f"ms/step (replays alone {replay_ms:.2f} ms/step; generate "
+            f"{total_s * 1e3:.1f} ms, "
+            f"{BATCH * GEN / total_s:.1f} tok/s); first fused call "
+            f"{first_s * 1e3:.1f} ms, capture {captured.capture_ms:.1f} "
+            f"ms; kernel launches per generate, profiled {launched}, "
+            f"counted by the wrappers {counts}; fused tokens and logits "
+            "identical to the per-step loop's")
 
-        t0 = time.perf_counter()
-        lm.prefill(params, prompts, cfg, cache_len=cache_len)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        decode_ms = (total_s - prefill_s) / (GEN - 1) * 1e3
-        log(f"{fmt}: generate {total_s * 1e3:.1f} ms, prefill "
-            f"{prefill_s * 1e3:.1f} ms, decode {decode_ms:.2f} ms/step, "
-            f"{BATCH * GEN / total_s:.1f} tok/s; kernel launches {counts}")
-
-        before = {f: c.count for f, c in counters.items()}
+        before = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
         with registry.force("ref"):
             toks_p, logits_p = serve.generate(params, prompts, cfg, gen=GEN,
                                               cache_len=cache_len,
                                               return_logits=True)
         torch.cuda.synchronize()
-        if {f: c.count for f, c in counters.items()} != before:
+        if {c.name: c.count for c in registry.LAUNCH_COUNTERS} != before:
             raise AssertionError(f"{fmt}: forced plain run launched kernels")
         if not torch.equal(toks, toks_p) or not torch.equal(logits, logits_p):
             raise AssertionError(
@@ -921,14 +1049,39 @@ def phase_generate(torch, kernel_results: dict) -> list:
                 f"diff {(logits - logits_p).abs().max().item()})")
         log(f"{fmt}: tokens and logits identical to the plain-forced run; "
             f"sample tokens {toks[0, :16].tolist()}")
-        decode_profile(torch, params, cfg, prompts, cache_len, fmt)
-        name = "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
-        small = counts[f"{fmt} small-M"]
+
+        first_a = _timed_generate(serve, params, prompts, cfg,
+                                  silvia_passes="all")[3]
+        silvia_s = _timed_generate(serve, params, prompts, cfg,
+                                   silvia_passes="all")[3]
+        toks_a, logits_a, _, launched_a = _profiled_generate(
+            serve, params, prompts, cfg, silvia_passes="all")
+        if not torch.equal(toks_a, toks):
+            raise AssertionError(f"{fmt}: --silvia all tokens differ from "
+                                 "off")
+        swar = {k: n for k, n in launched_a.items()
+                if k not in (name, f"{name}_small_m") and n}
+        log(f"{fmt} --silvia all: tokens identical to off, logits "
+            f"{'identical' if torch.equal(logits_a, logits) else 'DIFFER'}"
+            f"; first call (trace + capture) {first_a * 1e3:.1f} ms, fused "
+            f"decode {(silvia_s - prefill_s) / (GEN - 1) * 1e3:.2f} "
+            f"ms/step; SWAR launches (profiled) {swar or 'none'}; passes "
+            f"{serve.get_decode_step(cfg, 'all').cache_info()}")
+
+        small_b2b = _small_m_back_to_back_us(kernel_results[
+            f"{name}_small_m"])
+        decode_profile(torch, params, cfg, prompts, cache_len, fmt,
+                       small_b2b)
+        replay_profile(torch, captured, params, cfg, prompts, cache_len,
+                       fmt, small_b2b)
+        small = launched[f"{name}_small_m"]
         entries += [
-            kernel_entry(name, kernel_results[name], counts[fmt] - small),
+            kernel_entry(name, kernel_results[name], launched[name] - small),
             kernel_entry(f"{name}_small_m",
                          kernel_results[f"{name}_small_m"], small)]
-        del params, logits, logits_p
+        del params, logits, logits_p, logits_s, logits_a, logits_1, \
+            logits_t, captured, bundle
+        serve.decode_cache_clear()
         torch.cuda.empty_cache()
 
     # a small input against its CPU run (plain versions there)
@@ -949,44 +1102,95 @@ def phase_generate(torch, kernel_results: dict) -> list:
     return entries
 
 
-def decode_profile(torch, params, cfg, prompts, cache_len, fmt,
-                   steps: int = 4) -> None:
-    """Where a decode step's time goes: device kernel time (profiler)
-    against the host clock over a few steps, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
+def _small_m_back_to_back_us(res: dict) -> float:
+    """The small-M kernel's mean time per decode launch, back to back
+    (phase_kernels' CUDA-event timing, L2 spilled), weighted as one
+    decode step launches it (the seven projections of a layer)."""
+    per = {(r["k"], r["n"]): r["ms"] for r in res["rows"]
+           if r["m"] == DECODE_M}
+    return sum(per[kn] for kn in MAIN_KN) / len(MAIN_KN) * 1e3
 
+
+def _profiled(torch, run, steps: int):
+    """Profile run() (which makes `steps` decode steps and synchronizes):
+    (host ms/step, device ms/step, [(key, device ms/step, calls/step,
+    us/call)] of the device kernels, by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    # device-side kernel events only: a host op's own entry repeats the
+    # device time of the kernels it launched
+    events = sorted((e for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA") and dev(e) > 0),
+                    key=dev, reverse=True)
+    rows = [(e.key, dev(e) / 1e3 / steps, e.count / steps,
+             dev(e) / e.count) for e in events]
+    return wall_ms, sum(r[1] for r in rows), rows
+
+
+def _log_profile(what: str, wall_ms: float, dev_ms: float, rows,
+                 steps: int, small_b2b: float) -> None:
+    if dev_ms <= 0:
+        log(f"{what}: device time not measured (profiler saw no device "
+            f"events); host {wall_ms:.2f} ms/step")
+        return
+    log(f"{what} (profiled, {steps} steps): host {wall_ms:.2f} ms/step, "
+        f"device kernels {dev_ms:.3f} ms/step in "
+        f"{sum(r[2] for r in rows):.0f} launches, device busy "
+        f"{100 * dev_ms / wall_ms:.1f}%")
+    for key, ms, calls, us in rows[:8]:
+        log(f"    {ms:8.3f} ms/step  {calls:7.1f} calls/step  {us:7.2f} "
+            f"us/call  {key[:70]}")
+    small = [(ms, calls) for key, ms, calls, _ in rows if "small_m" in key]
+    if small:
+        ms, calls = sum(m for m, _ in small), sum(c for _, c in small)
+        log(f"    small-M kernel: {ms / calls * 1e3:.2f} us per launch "
+            f"(profiled kernel duration, {calls:.0f} launches/step) against "
+            f"{small_b2b:.2f} us back to back (CUDA events, L2 spilled)")
+
+
+def decode_profile(torch, params, cfg, prompts, cache_len, fmt, small_b2b,
+                   steps: int = 4) -> None:
+    """Where an eager (per-step) decode step's time goes: device kernel
+    time (profiler) against the host clock, and the top kernels."""
     from repro_torch.models import lm
     logits, cache = lm.prefill(params, prompts, cfg, cache_len=cache_len)
     tok = logits[:, -1].argmax(dim=-1)[:, None]
     pos = torch.full((BATCH,), PROMPT, dtype=torch.int64, device="cuda")
     lm.decode_step(params, tok, cache, pos, cfg)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
+        t = tok
         for i in range(steps):
-            logits, cache = lm.decode_step(params, tok, cache, pos + 1 + i,
-                                           cfg)
-            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            lg, _ = lm.decode_step(params, t, cache, pos + 1 + i, cfg)
+            t = lg[:, -1].argmax(dim=-1)[:, None]
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    # device-side kernel events only: a host op's own entry repeats the
-    # device time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev(e) > 0]
-    dev_ms = sum(dev(e) for e in events) / 1e3 / steps
-    if dev_ms <= 0:
-        log(f"{fmt} decode profile: device time not measured (profiler "
-            f"saw no device events); host {wall_ms:.2f} ms/step")
-        return
-    log(f"{fmt} decode profile (profiled, {steps} steps): host "
-        f"{wall_ms:.2f} ms/step, device kernels {dev_ms:.3f} ms/step, "
-        f"device busy {100 * dev_ms / wall_ms:.1f}%")
-    for e in sorted(events, key=dev, reverse=True)[:8]:
-        log(f"    {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:5d} "
-            f"calls/step  {e.key[:70]}")
+
+    _log_profile(f"{fmt} decode profile, per-step loop",
+                 *_profiled(torch, run, steps), steps, small_b2b)
+
+
+def replay_profile(torch, captured, params, cfg, prompts, cache_len, fmt,
+                   small_b2b, steps: int = 8) -> None:
+    """The same for replays of the captured decode step (fused=True)."""
+    from repro_torch.models import lm
+    logits, cache = lm.prefill(params, prompts, cfg, cache_len=cache_len)
+    tok = logits[:, -1].argmax(dim=-1)[:, None]
+    captured.run(tok, cache, PROMPT, 1)
+    torch.cuda.synchronize()
+
+    def run():
+        captured.run(tok, cache, PROMPT, steps)
+        torch.cuda.synchronize()
+
+    _log_profile(f"{fmt} decode profile, captured graph replays",
+                 *_profiled(torch, run, steps), steps, small_b2b)
 
 
 def _to_cpu(tree):

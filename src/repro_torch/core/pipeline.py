@@ -86,8 +86,17 @@ def optimize_graph(gm: fx.GraphModule,
 
 def trace(fn: Callable, *example_args) -> fx.GraphModule:
     """The ATen-level graph of fn on example tensors (fake tensors stand
-    in for them: nothing is computed while tracing)."""
-    return make_fx(fn, tracing_mode="fake")(*example_args)
+    in for them: nothing is computed while tracing).
+
+    The trace is functionalized: an in-place update of an input (the KV
+    cache a decode step writes) becomes a pure op whose result later
+    reads use, and the graph writes the input back once, at its end.
+    So the graph is data flow only, like the reference's jaxpr, and a
+    pass that reorders it cannot move a read across the write it must
+    follow.  A real tensor the function closes over (a cached constant)
+    enters the graph as a constant."""
+    return make_fx(torch.func.functionalize(fn), tracing_mode="fake",
+                   _allow_non_fake_inputs=True)(*example_args)
 
 
 def optimized_graph(fn, *example_args,

@@ -17,6 +17,7 @@ import contextlib
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 
@@ -135,12 +136,18 @@ def check_cuda_operands(counter: "LaunchCounter", **operands):
 class LaunchCounter:
     """Launches of one kernel wrapper: `launched` is called exactly where
     the wrapper launches its kernel (never on the CPU path), so a run can
-    show that it went through the kernel.  Inside `capture()` it also
-    records each launch's operands, to replay the kernel at the shapes a
-    run gave it."""
+    show that it went through the kernel.  Under CUDA-graph capture the
+    wrapper launches into the graph and counts; a replay launches without
+    it and counts nowhere.  `symbol` is a regex that the device kernels
+    counted here match, and no other kernel, as the profiler names them
+    (`registry.profiled_launches` counts a replayed run with it; every
+    wrapper's counter has one).  Inside
+    `capture()` it also records each launch's operands, to replay the
+    kernel at the shapes a run gave it."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, symbol: str | None = None):
         self.name = name
+        self.symbol = symbol
         self.count = 0
         self.captured: list | None = None
 
@@ -160,6 +167,17 @@ class LaunchCounter:
             yield self.captured
         finally:
             self.captured = None
+
+
+def tracing(t) -> bool:
+    """True while `t` may be traced (a fake tensor, or any dispatch mode
+    active: `make_fx`, `FakeTensorMode`): a kernel wrapper must then go
+    through its custom op, one opaque graph node that reaches no data
+    pointer (and the op is right under any mode).  Run eagerly it
+    launches directly: the custom op's dispatch would add host time to
+    every call (PERF.md, scripts/prefill_ab.py)."""
+    return torch._C._len_torch_dispatch_stack() > 0 or \
+        isinstance(t, FakeTensor)
 
 
 def on_cpu(t, counter: LaunchCounter) -> bool:

@@ -52,7 +52,10 @@
 // the wrapper chooses them, else each byte loads alone.
 //
 // Sums are int32 and exact while K * 2^14 < 2^31, i.e. K < 2^17; the
-// wrapper refuses a larger K on this path.  The order is fixed: each
+// wrapper refuses a larger K on this path (deliberately: the shuffle and
+// warp sums below are signed C++ adds, defined only without overflow,
+// where the reference's accumulator wraps; the tile of s8_tile.cuh, for
+// M > 16, wraps as the reference does).  The order is fixed: each
 // stream in k order, then the lane groups (xor 8, then xor 16), then the
 // warps in order.  Epilogue as s8_tile.cuh: acc (int32) and/or
 // f = ((float)acc * x_scale[m]) * w_scale[n], each product rounded to

@@ -45,8 +45,8 @@
 //    pointer; the vector and byte paths are template parameters, and the
 //    step loop is unrolled by STAGES so every shared-memory address is a
 //    register plus an immediate.  At the end each group hands the other
-//    the sums of one m16 row block through shared memory (int32, exact)
-//    and writes the other half of the tile.
+//    the sums of one m16 row block through shared memory (int32) and
+//    writes the other half of the tile.
 // 3. BK = 256 did not divide K = 576 (the last step 75% zeros).  BK = 64
 //    divides 576 and 1536.  The K tail is staged as zeros on both sides.
 // 4. The grid did not fill the 132 SMs.  The block tile stays 64x64
@@ -89,7 +89,10 @@
 // outputs are the wrapper's fresh allocations, 16-byte aligned; with
 // N % 4 == 0 they are written 16 bytes at a time.
 //
-// Sums are int32 and exact while K * 2^14 < 2^31.  Epilogue: acc (int32)
+// Sums are int32 modulo 2^32, as the reference's accumulator is: the mma
+// accumulates with wrap-around, and the hand-over adds in uint32_t
+// (wrap_add), where a C++ signed add could overflow into undefined
+// behaviour; exact while K * 2^14 < 2^31.  Epilogue: acc (int32)
 // and/or f = ((float)acc * x_scale[m]) * w_scale[n], each product
 // rounded to nearest (no add, so nothing contracts into an FMA):
 // bit-identical to the plain PyTorch version.
@@ -143,6 +146,13 @@ __device__ __forceinline__ int swz(int r, int c) {
 __device__ __forceinline__ int swz4(int r, int c) {
   const int chunk = (((r & 3) << 1) | c) ^ (((r >> 2) & 3) << 1);
   return (r >> 2) * LINE_BYTES + chunk * CHUNK;
+}
+
+// a + b modulo 2^32: the add in uint32_t, back through the
+// two's-complement reading (defined for every bit pattern)
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  const uint32_t u = static_cast<uint32_t>(a) + static_cast<uint32_t>(b);
+  return u <= 0x7FFFFFFFu ? static_cast<int>(u) : -static_cast<int>(~u) - 1;
 }
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
@@ -376,10 +386,10 @@ __device__ __forceinline__ void gemm_tile(
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
     const int4 o = red[(((kg * 4 + wq) * 4) + n) * 32 + lane];
-    sum[n][0] = keep[n][0] + o.x;
-    sum[n][1] = keep[n][1] + o.y;
-    sum[n][2] = keep[n][2] + o.z;
-    sum[n][3] = keep[n][3] + o.w;
+    sum[n][0] = wrap_add(keep[n][0], o.x);
+    sum[n][1] = wrap_add(keep[n][1], o.y);
+    sum[n][2] = wrap_add(keep[n][2], o.z);
+    sum[n][3] = wrap_add(keep[n][3], o.w);
   }
 
   // C fragment of n8 tile n: e = 0,1 at row g, e = 2,3 at row g+8;

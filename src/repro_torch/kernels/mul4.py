@@ -25,8 +25,8 @@ import torch
 
 from repro_torch.kernels import _build, common, ref
 
-LAUNCHES = common.LaunchCounter("mul4_full32")
-SPLIT_LAUNCHES = common.LaunchCounter("mul4_split")
+LAUNCHES = common.LaunchCounter("mul4_full32", r"\bmul4_kernel<false\b")
+SPLIT_LAUNCHES = common.LaunchCounter("mul4_split", r"\bmul4_kernel<true\b")
 
 
 @functools.cache

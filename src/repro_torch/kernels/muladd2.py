@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build, common, ref
 
-LAUNCHES = common.LaunchCounter("muladd2")
+LAUNCHES = common.LaunchCounter("muladd2", r"\bmuladd2_kernel\b")
 
 
 @functools.cache

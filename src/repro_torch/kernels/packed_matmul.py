@@ -20,7 +20,10 @@ Two kernels, by the rule of `quant_matmul` on M (the rows of x):
   at the fragment reads.
 
 `LAUNCHES` counts the launches of both, `SMALL_M_LAUNCHES` those of the
-small-M kernel alone.
+small-M kernel alone.  On CUDA, while traced, `packed_w4_matmul`
+launches through the custom op `repro_torch::packed_w4_matmul` (fake
+implementation: one opaque node in a traced graph), and eagerly it
+launches directly, as `quant_matmul` does.
 """
 from __future__ import annotations
 
@@ -30,8 +33,12 @@ import torch
 
 from repro_torch.kernels import common, quant_matmul, ref
 
-LAUNCHES = common.LaunchCounter("packed_w4_matmul")
-SMALL_M_LAUNCHES = common.LaunchCounter("packed_w4_matmul_small_m")
+# the kernels as the profiler names them (common.LaunchCounter)
+_SMALL_M_SYMBOL = r"\bsmall_m_kernel<[^>]*LoadW4Word>"
+LAUNCHES = common.LaunchCounter(
+    "packed_w4_matmul", _SMALL_M_SYMBOL + r"|\btile_kernel<[\w:]*TileW4,")
+SMALL_M_LAUNCHES = common.LaunchCounter("packed_w4_matmul_small_m",
+                                        _SMALL_M_SYMBOL)
 
 
 @functools.cache
@@ -76,6 +83,21 @@ def packed_w4_matmul_acc(x_q, w_packed):
     return acc
 
 
+@torch.library.custom_op("repro_torch::packed_w4_matmul", mutates_args=())
+def _packed_w4_matmul_op(x_q: torch.Tensor, w_packed: torch.Tensor,
+                         x_scale: torch.Tensor,
+                         w_scale: torch.Tensor) -> torch.Tensor:
+    _, out = _launch(x_q, w_packed, x_scale, w_scale, want_acc=False,
+                     want_out=True)
+    return out
+
+
+@_packed_w4_matmul_op.register_fake
+def _packed_w4_matmul_fake(x_q, w_packed, x_scale, w_scale):
+    return x_q.new_empty((x_q.shape[0], 2 * w_packed.shape[-1]),
+                         dtype=torch.float32)
+
+
 def packed_w4_matmul(x_q, w_packed, x_scale, w_scale, *,
                      out_dtype=torch.float32):
     """((acc.float() * x_scale) * w_scale).to(out_dtype), the dequant
@@ -83,6 +105,9 @@ def packed_w4_matmul(x_q, w_packed, x_scale, w_scale, *,
     if common.on_cpu(x_q, LAUNCHES):
         return ref.packed_w4_matmul_ref(x_q, w_packed, x_scale, w_scale,
                                         out_dtype)
+    if common.tracing(x_q):
+        return _packed_w4_matmul_op(x_q, w_packed, x_scale,
+                                    w_scale).to(out_dtype)
     _, out = _launch(x_q, w_packed, x_scale, w_scale, want_acc=False,
                      want_out=True)
     return out.to(out_dtype)

@@ -17,6 +17,14 @@ Two kernels, by a fixed rule on M (the rows of x):
 
 `LAUNCHES` counts the launches of both, `SMALL_M_LAUNCHES` those of the
 small-M kernel alone.
+
+On CUDA, while traced (`core.optimize`, fake tensors), `quant_matmul`
+launches through the custom op `repro_torch::quant_matmul`, which has a
+fake implementation: the graph holds each launch as one opaque node, as
+the reference's jaxpr holds one `pallas_call`, and nothing reaches a
+data pointer while tracing.  Run eagerly, it launches directly
+(`common.tracing`).  The plain version on the CPU is plain torch ops and
+traces through.
 """
 from __future__ import annotations
 
@@ -26,8 +34,12 @@ import torch
 
 from repro_torch.kernels import common, ref
 
-LAUNCHES = common.LaunchCounter("quant_matmul")
-SMALL_M_LAUNCHES = common.LaunchCounter("quant_matmul_small_m")
+# the kernels as the profiler names them (common.LaunchCounter)
+_SMALL_M_SYMBOL = r"\bsmall_m_kernel<[^>]*LoadW8Word>"
+LAUNCHES = common.LaunchCounter(
+    "quant_matmul", _SMALL_M_SYMBOL + r"|\btile_kernel<[\w:]*TileW8,")
+SMALL_M_LAUNCHES = common.LaunchCounter("quant_matmul_small_m",
+                                        _SMALL_M_SYMBOL)
 
 SMALL_M = 16
 # the small-M kernel sums in int32: exact while K * 2^14 < 2^31
@@ -68,11 +80,27 @@ def quant_matmul_acc(x_q, w_q):
     return acc
 
 
+@torch.library.custom_op("repro_torch::quant_matmul", mutates_args=())
+def _quant_matmul_op(x_q: torch.Tensor, w_q: torch.Tensor,
+                     x_scale: torch.Tensor,
+                     w_scale: torch.Tensor) -> torch.Tensor:
+    _, out = _launch(x_q, w_q, x_scale, w_scale, want_acc=False,
+                     want_out=True)
+    return out
+
+
+@_quant_matmul_op.register_fake
+def _quant_matmul_fake(x_q, w_q, x_scale, w_scale):
+    return x_q.new_empty((x_q.shape[0], w_q.shape[-1]), dtype=torch.float32)
+
+
 def quant_matmul(x_q, w_q, x_scale, w_scale, *, out_dtype=torch.float32):
     """((acc.float() * x_scale) * w_scale).to(out_dtype), the dequant
     epilogue fused into the kernel (bit-identical to the plain version)."""
     if common.on_cpu(x_q, LAUNCHES):
         return ref.quant_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)
+    if common.tracing(x_q):
+        return _quant_matmul_op(x_q, w_q, x_scale, w_scale).to(out_dtype)
     _, out = _launch(x_q, w_q, x_scale, w_scale, want_acc=False,
                      want_out=True)
     return out.to(out_dtype)

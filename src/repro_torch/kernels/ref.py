@@ -10,13 +10,16 @@ statement of the semantics: nothing here reuses `kernels/common.py`.
 The SWAR oracles compute in int32 on the logical (unpacked) operands,
 one op per lane, like the reference.
 
-Exactness of the GEMMs on any device: an int32 matmul is not implemented on CUDA, so
-the integer GEMM runs as a float64 matmul of the int8-valued operands.
-Every product has |a*b| <= 2^14 and every partial sum is an integer of
-magnitude <= K * 2^14, which float64 represents exactly while
+Exactness of the GEMMs on any device: an int32 matmul is not implemented
+on CUDA, so the integer GEMM runs as a float64 matmul of the int8-valued
+operands.  Every product has |a*b| <= 2^14 and every partial sum is an
+integer of magnitude <= K * 2^14, which float64 represents exactly while
 K * 2^14 < 2^53, i.e. K < 2^39 -- far above any model width.  So the
 float64 result, in whatever order the backend sums it, is the exact
-int32 accumulator.
+integer sum; it goes to int64 exactly and then to int32 modulo 2^32.
+That is the reference's int32 accumulator, which wraps once the sum
+leaves the int32 range (from K = 2^17 + 1 with x = w = -128): a direct
+float64 -> int32 cast would saturate there instead.
 """
 from __future__ import annotations
 
@@ -78,9 +81,11 @@ def mul4_ref(a: Sequence, b):
 # ---------------------------------------------------------------------------
 
 def _exact_int_matmul(a, b):
-    """Exact int32 [M,K] @ [K,N] of int8-valued operands (see module
+    """int32 [M,K] @ [K,N] of int8-valued operands, summed exactly and
+    wrapped to int32 as the reference's accumulator is (see module
     docstring for the float64 bound)."""
-    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+    exact = a.to(torch.float64) @ b.to(torch.float64)
+    return exact.to(torch.int64).to(torch.int32)
 
 
 def _dequant(acc, x_scale, w_scale, out_dtype):

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import threading
 from typing import Dict, List, Optional
 
@@ -157,6 +158,24 @@ def dispatch_counts() -> Dict[str, int]:
 def reset_dispatch_counts() -> None:
     for op in OPS:
         _DISPATCH_COUNTS[op] = 0
+
+
+# every kernel wrapper's launch counter
+LAUNCH_COUNTERS = (simd_add.LAUNCHES, muladd2.LAUNCHES, mul4.LAUNCHES,
+                   mul4.SPLIT_LAUNCHES, quant_matmul.LAUNCHES,
+                   quant_matmul.SMALL_M_LAUNCHES, packed_matmul.LAUNCHES,
+                   packed_matmul.SMALL_M_LAUNCHES)
+
+
+def profiled_launches(kernels: Dict[str, int]) -> Dict[str, int]:
+    """Launches per wrapper counter among device kernels a profile saw,
+    {kernel name as the profiler gives it: launches} (say, from
+    `torch.profiler`'s `key_averages()`).  A replay of a captured CUDA
+    graph launches its kernels without their wrappers, so this, and not
+    the wrappers' counters, is what counts a replayed run's launches."""
+    return {c.name: sum(n for key, n in kernels.items()
+                        if re.search(c.symbol, key))
+            for c in LAUNCH_COUNTERS}
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.kernels import _build, common, ref
 
-LAUNCHES = common.LaunchCounter("simd_add_packed")
+LAUNCHES = common.LaunchCounter("simd_add_packed",
+                                 r"\bsimd_add_kernel\b")
 
 
 @functools.cache

@@ -5,10 +5,9 @@ LayerNorm arrive with the families that use them).
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 
 def rms_norm(x, weight, eps: float = 1e-5):
@@ -31,11 +30,22 @@ def rope_freqs(head_dim: int, theta: float):
                             / head_dim))
 
 
-@functools.cache
+_FREQS: dict = {}
+
+
 def _freqs_on(head_dim: int, theta: float, device: torch.device):
-    # cached per device: a fresh host-to-device copy on every call would
-    # stall the decode loop once per layer
-    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+    """rope_freqs on `device`, cached per device: a fresh host-to-device
+    copy on every call would stall the decode loop once per layer, and
+    is illegal while a CUDA graph captures.  Only a real tensor is
+    cached: called first under fake tracing (`core.optimize`), the copy
+    yields a fake tensor, which later real calls must not be served."""
+    key = (head_dim, theta, torch.device(device))
+    t = _FREQS.get(key)
+    if t is None:
+        t = torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+        if not is_fake(t):
+            _FREQS[key] = t
+    return t
 
 
 def apply_rope(x, positions, theta: float = 10000.0):

@@ -4,6 +4,11 @@ Port of `repro/quant/qtensor.py` for 2-D weights (batched expert weights
 wait for the MoE slice).  `qmatmul(x, w)` accepts a plain tensor (bf16
 path) or a QTensor (serving path).
 
+A QTensor is a pytree node, as the reference's is: `q` and `scale` are
+its children, `fmt` its context.  So `torch.utils._pytree` flattens a
+params tree down to tensors, and a function traced over it
+(`core.optimize`) takes the weights as graph inputs, not as constants.
+
 Formats:
   w8a8  q: int8 [..., K, N],    scale: f32 [..., 1, N]
   w4a8  q: int8 [..., K, N//2] (two int4/word), scale: f32 [..., 1, N]
@@ -14,6 +19,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import registry
 from repro_torch.quant.quantize import pack_int4, quantize
@@ -35,6 +41,16 @@ class QTensor:
     def __getitem__(self, i):
         """Slice the leading (stacked-layer) axis of q and scale."""
         return QTensor(self.q[i], self.scale[i], self.fmt)
+
+
+pytree.register_pytree_node(
+    QTensor,
+    lambda t: ([t.q, t.scale], t.fmt),
+    lambda children, fmt: QTensor(*children, fmt),
+    serialized_type_name="repro_torch.quant.qtensor.QTensor",
+    flatten_with_keys_fn=lambda t: ([(pytree.GetAttrKey("q"), t.q),
+                                     (pytree.GetAttrKey("scale"), t.scale)],
+                                    t.fmt))
 
 
 def quantize_weight(w, fmt: str) -> QTensor:

@@ -222,6 +222,179 @@ def test_cuda_serve_matches_plain_forced(cuda):
         assert torch.equal(toks, toks_p) and torch.equal(logits, logits_p)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_tile_wraps_like_plain(cuda, packed):
+    """ROADMAP C5: at K = 131073 an int8 sum of all -128 operands leaves
+    the int32 range; the tile (M = 17) wraps it as the plain version and
+    the reference do (a packed sum stays inside the range there: checked
+    all the same).  Random operands at the same K too.  The small-M
+    kernel refuses such a K (deliberately, see s8_small_m.cuh)."""
+    k = 131073
+    mod = packed_matmul if packed else quant_matmul
+    acc_fn = mod.packed_w4_matmul_acc if packed else mod.quant_matmul_acc
+    out_fn = mod.packed_w4_matmul if packed else mod.quant_matmul
+    acc_ref = ref.packed_w4_matmul_acc_ref if packed \
+        else ref.quant_matmul_acc_ref
+    out_ref = ref.packed_w4_matmul_ref if packed else ref.quant_matmul_ref
+    n = 34
+    x = torch.full((17, k), -128, dtype=torch.int8, device=cuda)
+    w = torch.full((k, n // 2 if packed else n), -128, dtype=torch.int8,
+                   device=cuda)
+    xs = torch.full((17, 1), 0.5, device=cuda)
+    ws = torch.full((1, n), 0.25, device=cuda)
+    for xx, ww in ((x, w), tuple(_operands(np.random.default_rng(5), 17, k,
+                                           n, packed, cuda))[:2]):
+        before = mod.SMALL_M_LAUNCHES.count
+        acc = acc_fn(xx, ww)
+        assert torch.equal(acc, acc_ref(xx, ww))
+        assert torch.equal(out_fn(xx, ww, xs, ws), out_ref(xx, ww, xs, ws))
+        assert mod.SMALL_M_LAUNCHES.count == before
+    if not packed:
+        assert bool((acc_ref(x, w) == -2147467264).all())
+    with pytest.raises(ValueError, match="exact"):
+        acc_fn(x[:8], w)
+    torch.cuda.synchronize()
+
+
+def _counts():
+    from repro_torch.kernels import registry
+    return {c.name: c.count for c in registry.LAUNCH_COUNTERS}
+
+
+def _served(cuda, fmt, seed=0):
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    cfg = configs.get_reduced_config("smollm-135m")
+    return cfg, serve.build_params(cfg, fmt, seed=seed, quant_force=True,
+                                   device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_eager_gemm_bypasses_custom_op(cuda, packed, monkeypatch):
+    """Run eagerly, each GEMM wrapper launches its kernel directly: the
+    custom op (for traced graphs only) is never dispatched."""
+    from repro_torch.kernels import packed_matmul, quant_matmul
+    mod, fn, op = (packed_matmul, packed_matmul.packed_w4_matmul,
+                   "_packed_w4_matmul_op") if packed else \
+        (quant_matmul, quant_matmul.quant_matmul, "_quant_matmul_op")
+
+    def refuse(*args):
+        raise AssertionError("custom op dispatched eagerly")
+
+    monkeypatch.setattr(mod, op, refuse)
+    for m in (8, 64):
+        x, w, xs, ws = _operands(np.random.default_rng(m), m, 576, 192,
+                                 packed, cuda)
+        before = mod.LAUNCHES.count
+        fn(x, w, xs, ws)
+        assert mod.LAUNCHES.count == before + 1
+    torch.cuda.synchronize()
+
+
+def _profiled_launches(run):
+    """run()'s launches per wrapper counter as the profiler saw them on
+    the device (a graph replay launches without the wrappers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import registry
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return registry.profiled_launches({
+        e.key: e.count for e in prof.key_averages()
+        if str(e.device_type).endswith("CUDA")})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silvia_passes", ["off", "all"])
+@pytest.mark.parametrize("fmt", ["w4a8", "w8a8"])
+def test_cuda_fused_decode_matches_stepwise(cuda, fmt, silvia_passes):
+    """generate(fused=True) replays one captured decode step: tokens and
+    logits equal the per-step loop's bit for bit, at the first call (the
+    capture) and at a replay of the same graph.  The wrappers count the
+    prefill, the warm-up step and the capture, never a replay; the
+    profiler sees a replayed run launch what the per-step run launched."""
+    from repro_torch.launch import serve
+    serve.decode_cache_clear()       # graphs of earlier tests' params
+    cfg, params = _served(cuda, fmt)
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab, (3, 8))
+    out = []
+
+    def run(fused):
+        before = _counts()
+        out.append(serve.generate(params, prompts, cfg, gen=6, cache_len=14,
+                                  silvia_passes=silvia_passes, fused=fused,
+                                  device=cuda, return_logits=True))
+        torch.cuda.synchronize()
+        return {k: n - before[k] for k, n in _counts().items()}
+
+    name = "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
+    per_step = 7 * cfg.n_layers
+    launches = run(False)
+    assert launches[name] == per_step * 6
+    assert launches[f"{name}_small_m"] == per_step * 5
+    bundle = serve._decode_bundle(cfg, silvia_passes, cuda)
+    first = run(True)
+    assert first[f"{name}_small_m"] == 2 * per_step     # warm-up, capture
+    assert first[name] == 3 * per_step
+    # the profiler can drop a share of a profile's events: a run it
+    # counts short (and never over) is driven again, three runs at most
+    for _ in range(3):
+        profiled = _profiled_launches(lambda: run(True))
+        if all(n >= launches[k] for k, n in profiled.items()) or \
+                any(n > launches[k] for k, n in profiled.items()):
+            break
+    assert profiled == launches
+    assert bundle.captures == 1
+    toks, logits = out[0]
+    for toks_f, logits_f in out[1:]:
+        assert torch.equal(toks_f, toks) and torch.equal(logits_f, logits)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_decode_two_params_trees(cuda):
+    """Two params trees of one config share a bundle, which re-captures
+    its one step for each tree in turn: each replays its own weights."""
+    from repro_torch.launch import serve
+    serve.decode_cache_clear()
+    cfg, p0 = _served(cuda, "w4a8", seed=0)
+    _, p1 = _served(cuda, "w4a8", seed=1)
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab, (2, 8))
+
+    def gen(p, fused):
+        return serve.generate(p, prompts, cfg, gen=5, cache_len=12,
+                              fused=fused, device=cuda, return_logits=True)
+
+    want = [gen(p, False) for p in (p0, p1)]
+    assert not torch.equal(want[0][1], want[1][1])
+    for p, w in ((p0, want[0]), (p1, want[1]), (p0, want[0])):
+        got = gen(p, True)
+        assert torch.equal(got[0], w[0]) and torch.equal(got[1], w[1])
+    assert serve._decode_bundle(cfg, "off", cuda).captures == 3
+
+
+@pytest.mark.cuda
+def test_cuda_fused_decode_forced_plain_launches_nothing(cuda):
+    """Under registry.force("ref") the captured step runs the plain
+    versions: no kernel launches, the same tokens and logits."""
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    cfg, params = _served(cuda, "w8a8")
+    prompts = np.random.default_rng(9).integers(0, cfg.vocab, (2, 8))
+    want = serve.generate(params, prompts, cfg, gen=5, cache_len=12,
+                          device=cuda, return_logits=True)
+    before = _counts()
+    with registry.force("ref"):
+        got = serve.generate(params, prompts, cfg, gen=5, cache_len=12,
+                             device=cuda, return_logits=True)
+    torch.cuda.synchronize()
+    assert _counts() == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # ragged element counts (not multiples of the 16 a thread owns, so the
 # masked tail runs) and aligned ones (the 16-byte path)
 SWAR_SHAPES = [(1,), (5,), (17, 3), (4096,), (33, 65), (2, 1024)]

@@ -8,6 +8,7 @@ against the plain versions there (and chip_smoke.py at the serving
 shapes).
 """
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -136,6 +137,37 @@ def test_plain_gemm_exact_at_int8_extremes():
     assert bool((acc == 1536 * 128 * 128).all())
 
 
+@pytest.mark.parametrize("k,packed", [(131073, False), (131073, True),
+                                      (2 ** 21 + 1, True)])
+def test_plain_gemm_wraps_like_reference(k, packed):
+    """x and w all at their most negative value (-128; -8 in both nibbles
+    of a packed word): at K = 131073 the int8 sum is 2^31 + 2^14 and
+    wraps to -2147467264 in the reference's int32 accumulator; a packed
+    sum (products of 2^10) first wraps at K = 2^21 + 1.  The plain
+    versions equal `repro.kernels.ref` bit for bit, accumulator and
+    dequantized output."""
+    x = np.full((1, k), -128, np.int8)
+    w = np.full((k, 1), -128, np.int8)
+    xs = np.full((1, 1), 0.5, np.float32)
+    ws = np.full((1, 2 if packed else 1), 0.25, np.float32)
+    acc_fn = ref.packed_w4_matmul_acc_ref if packed \
+        else ref.quant_matmul_acc_ref
+    out_fn = ref.packed_w4_matmul_ref if packed else ref.quant_matmul_ref
+    jout_fn = jref.packed_w4_matmul_ref if packed else jref.quant_matmul_ref
+    acc = _np(acc_fn(_t(x), _t(w)))
+    exact = k * 128 * (8 if packed else 128)
+    wrapped = (exact + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert (wrapped != exact) == (k > 2 ** 21 or not packed)
+    np.testing.assert_array_equal(acc, np.full((1, 2 if packed else 1),
+                                               wrapped, np.int32))
+    # the reference's dequantized output is its wrapped accumulator x 1/8
+    want = np.asarray(jout_fn(jnp.asarray(x), jnp.asarray(w),
+                              jnp.asarray(xs), jnp.asarray(ws)))
+    np.testing.assert_array_equal(want, acc.astype(np.float32) / 8)
+    np.testing.assert_array_equal(
+        _np(out_fn(_t(x), _t(w), _t(xs), _t(ws))), want)
+
+
 # ---------------------------------------------------------------------------
 # int4 packing and quantization
 # ---------------------------------------------------------------------------
@@ -261,6 +293,88 @@ def test_registry_resolution_and_counts(monkeypatch):
         "packed_w4_matmul": 1}
     registry.reset_dispatch_counts()
     assert registry.dispatch_counts() == {op: 0 for op in registry.OPS}
+
+
+# device kernels as the profiler names them (as read on the card), with
+# the wrapper counters each one counts on
+PROFILED = [
+    ("void s8small::small_m_kernel<8, s8small::LoadW8Word>(signed char "
+     "const*, signed char const*, float const*, float const*, int*, float*, "
+     "int, int, int)", ("quant_matmul", "quant_matmul_small_m")),
+    ("void s8small::small_m_kernel<2, s8small::LoadW4Word>(signed char "
+     "const*, signed char const*, float const*, float const*, int*, float*, "
+     "int, int, int)", ("packed_w4_matmul", "packed_w4_matmul_small_m")),
+    ("void s8tile::tile_kernel<s8tile::TileW8, true, false>(signed char "
+     "const*, signed char const*, float const*, float const*, int*, float*, "
+     "int, int, int)", ("quant_matmul",)),
+    ("void s8tile::tile_kernel<s8tile::TileW4, false, true>(signed char "
+     "const*, signed char const*, float const*, float const*, int*, float*, "
+     "int, int, int)", ("packed_w4_matmul",)),
+    ("(anonymous namespace)::simd_add_kernel(unsigned int const*, unsigned "
+     "int const*, unsigned int*, long, unsigned int, bool, bool)",
+     ("simd_add_packed",)),
+    ("(anonymous namespace)::muladd2_kernel(signed char const*, signed char "
+     "const*, signed char const*, int*, int*, int, long, bool)",
+     ("muladd2",)),
+    ("void (anonymous namespace)::mul4_kernel<false, true>(signed char "
+     "const*, signed char const*, int*, long, bool)", ("mul4_full32",)),
+    ("void (anonymous namespace)::mul4_kernel<true, false>(signed char "
+     "const*, signed char const*, int*, long, bool)", ("mul4_split",)),
+    ("void at::native::unrolled_elementwise_kernel<at::native::"
+     "direct_copy_kernel_cuda(at::TensorIteratorBase&)>(int)", ()),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize32x32x8_stage3", ()),
+]
+
+
+@pytest.mark.parametrize("kernel,counters", PROFILED,
+                         ids=[str(i) for i in range(len(PROFILED))])
+def test_profiled_launches_by_symbol(kernel, counters):
+    """A profile's kernel counts land on the wrapper counters that count
+    that kernel, and on no other (a replayed CUDA graph is counted so)."""
+    got = registry.profiled_launches({kernel: 210, "cudaLaunchKernel": 7})
+    assert got == {c.name: 210 if c.name in counters else 0
+                   for c in registry.LAUNCH_COUNTERS}
+
+
+def test_launch_symbols_name_the_sources_kernels():
+    """Every `__global__` function in kernels/csrc is one a counter's
+    symbol names, and each symbol's identifiers are defined there."""
+    csrc = pathlib.Path(common.__file__).parent / "csrc"
+    text = "".join(p.read_text() for p in sorted(csrc.iterdir()))
+    kernels = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+        text))
+    assert kernels == {"small_m_kernel", "tile_kernel", "simd_add_kernel",
+                       "muladd2_kernel", "mul4_kernel"}
+    for c in registry.LAUNCH_COUNTERS:
+        # the identifiers of the regex, its escapes (\b, \w) taken out
+        for word in re.findall(r"[A-Za-z_]\w{3,}",
+                               re.sub(r"\\\w", " ", c.symbol)):
+            assert re.search(rf"\b{word}\b", text), (c.name, word)
+    for name in kernels:
+        assert any(name in c.symbol for c in registry.LAUNCH_COUNTERS), name
+
+
+def test_tracing_seen_by_fake_tensors_and_make_fx():
+    """`common.tracing`: a real tensor run eagerly is not traced (the GEMM
+    wrappers then launch directly); a fake tensor, or any tensor inside a
+    make_fx trace, is (they then go through their custom ops)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    real = torch.zeros(2, 3)
+    assert not common.tracing(real)
+    with FakeTensorMode():
+        assert common.tracing(torch.empty(2, 3))
+    seen = []
+
+    def fn(t):
+        seen.append(common.tracing(t))
+        return t + 1
+
+    make_fx(fn)(real)
+    assert seen == [True]
+    assert not common.tracing(real)
 
 
 def test_registry_env_override_and_errors(monkeypatch):

@@ -120,9 +120,16 @@ def test_generate_matches_reference(dtype, fmt):
     assert got.dtype == want.dtype == np.int32
     np.testing.assert_array_equal(logits.argmax(-1), got)
 
+    assert_tokens_match(got, logits, want, ref_logits, tol)
+
+
+def assert_tokens_match(got, logits, want, ref_logits, tol):
+    """The rule of the module docstring (ROADMAP C2): the port's tokens
+    `got` and logits against the reference's tokens `want` and its
+    teacher-forced logits `ref_logits`, [B, G(, V)] numpy."""
     compared = 0
-    for b in range(B):
-        for t in range(G):
+    for b in range(got.shape[0]):
+        for t in range(got.shape[1]):
             ref = ref_logits[b, t]
             np.testing.assert_allclose(logits[b, t], ref, rtol=0, atol=tol,
                                        err_msg=f"row {b} step {t}")

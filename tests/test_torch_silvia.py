@@ -461,6 +461,36 @@ def test_trace_cache_counters():
     assert scaled.cache_info()["traces"] == 2
 
 
+def _adds_and_a_write(a0, a1, b0, b1, buf):
+    """Two packable int8 adds, and an input written in place between a
+    read that must see it before the write and one that must see it
+    after (the shape of a decode step's KV-cache update)."""
+    s0, s1 = a0 + b0, a1 + b1
+    old = buf * 1
+    buf.add_(s0.to(buf.dtype))
+    return s1, old, buf * 1
+
+
+def test_packed_graph_keeps_an_input_write_in_order():
+    """A pass packs the adds, so the graph is re-emitted in its own
+    schedule; the write of `buf` must still come after the read before it
+    and before the read after it, and the input must be written."""
+    rng = np.random.default_rng(8)
+    args = _torch_args([i8(rng, (16,)) for _ in range(4)])
+    passes = [tsil.PassConfig(op="add", op_size=8)]
+    gm = tsil.optimized_graph(_adds_and_a_write, *args,
+                              torch.zeros(16, dtype=torch.int32),
+                              passes=passes)
+    assert _torch_packed(gm) == ["silvia_packed_add"]
+    buf0 = torch.from_numpy(rng.integers(-9, 9, (16,)).astype(np.int32))
+    buf_want, buf_got = buf0.clone(), buf0.clone()
+    want = _adds_and_a_write(*args, buf_want)
+    got = tsil.optimize(_adds_and_a_write, passes)(*args, buf_got)
+    _assert_same_leaves(got, want)
+    assert torch.equal(buf_got, buf_want)
+    assert not torch.equal(want[1], want[2])
+
+
 def test_bounds_match_reference():
     for m in range(1, 9):
         for n in range(1, 9):
