@@ -7,6 +7,10 @@ Phases (any failure ends the run nonzero; nothing is caught and passed
 over):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+   then the scan gate: `make_fx` on this torch must keep a scan body as
+   a sub-GraphModule that feeds one `torch.ops.higher_order.scan` node
+   (the pass pipeline recurses into it; there is no fallback to an
+   unrolled loop);
 2. build all five Hopper kernels from `src/repro_torch/kernels/csrc` into
    the git-ignored `build/` (one nvcc per source, started together),
    timed, beside `nvcc -Xptxas -v` of quant_matmul.cu and
@@ -26,7 +30,9 @@ over):
    `library_ms`, which is one call on the same inputs); beside each
    prefill row, in the log only, the grid the tile's launcher reports
    (`repro_quant_matmul_grid`, `repro_packed_w4_matmul_grid`) and the
-   share of the bound;
+   share of the bound.  Then both small-M kernels at M=8, K=2^17+1 with
+   x = w = -128: the int8 sums leave the int32 range and must wrap as
+   the plain version's do (ROADMAP C5);
 4. each SWAR kernel (simd_add_packed, muladd2, mul4_full32, mul4_split)
    against its plain version at ragged shapes: both lane widths, add and
    sub, k = 1..lanes; chains of 1, 9 and 31; mul4 signed and unsigned;
@@ -36,7 +42,12 @@ over):
    one call of each optimized program must launch exactly its kernels,
    its outputs must equal the unoptimized program's and a forced-`ref`
    rerun's (which launches nothing); time per call optimized and
-   unoptimized.  Off the path, MobileNet-4b packed by hand on mul4_split
+   unoptimized.  MMM and MMM-4b pack inside a scan body, so one call
+   launches muladd2 / mul4_full32 once per body call (K times, plus
+   one more on torch 2.11, whose eager scan calls the body once first
+   to infer shapes: `scan_extra_calls`); one
+   optimized call of each runs under the profiler, beside its host
+   time: the body kernels' launches and device time.  Off the path, MobileNet-4b packed by hand on mul4_split
    must equal the packed program.  Then each SWAR kernel is gated again
    and timed at the operands its wrapper recorded on the path (mul4_split
    at mul4_full32's), beside its plain version, its bound and (simd_add)
@@ -73,6 +84,7 @@ repository beside it, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import pathlib
@@ -197,6 +209,62 @@ def gat(h_even, h_odd, att, w_self):
     return e0, e1, s0, s1
 
 
+def _scan(body, init, xs):
+    from torch._higher_order_ops.scan import scan
+    return scan(body, init, xs)
+
+
+@functools.cache
+def scan_extra_calls() -> int:
+    """Calls of its body that this torch's eager scan makes beyond one
+    per iteration: torch 2.11 calls the body once more first, only to
+    infer the per-step outputs' shapes (the result is dropped), so a
+    packed unit in a body launches K + 1 times; later versions fold
+    that call into the first iteration."""
+    from torch._higher_order_ops.scan import scan_op
+    calls = []
+
+    def body(c, x):
+        calls.append(x)
+        return [c + x, x.clone()]
+
+    scan_op(body, [torch.zeros(2)], [torch.ones(3, 2)], ())
+    return len(calls) - 3
+
+
+def mmm(a_even, a_odd, b):
+    """int8 matmul, row-unrolled by 2, the k loop a torch scan: the body
+    holds two muls sharing b_k.  a_*: [M, K]; b: [K, N].  The body
+    returns no per-step outputs ([]: a scan body may not return None)."""
+    def body(acc, inp):
+        a_e, a_o, b_k = inp
+        ce = acc[0] + _f(a_e)[:, None] * _f(b_k)[None, :]
+        co = acc[1] + _f(a_o)[:, None] * _f(b_k)[None, :]
+        return (ce, co), []
+
+    zeros = lambda a: torch.zeros((a.shape[0], b.shape[1]),
+                                  dtype=torch.int32, device=b.device)
+    (ce, co), _ = _scan(body, (zeros(a_even), zeros(a_odd)),
+                        (a_even.T, a_odd.T, b))
+    return ce, co
+
+
+def mmm_4b(a0, a1, a2, a3, b):
+    """4-bit MMM: four row streams share b_k (factor-4 packing in the
+    scan body).  a*: [M, K] 4-bit-valued int8; b: [K, N]."""
+    def body(acc, inp):
+        a_s, b_k = inp[:4], inp[4]
+        bk = _f(_wh(b_k, 4))
+        outs = tuple(acc[i] + _f(_wh(a_s[i], 4))[:, None] * bk[None, :]
+                     for i in range(4))
+        return outs, []
+
+    acc0 = tuple(torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int32,
+                             device=b.device) for a in (a0, a1, a2, a3))
+    outs, _ = _scan(body, acc0, (a0.T, a1.T, a2.T, a3.T, b))
+    return tuple(outs)
+
+
 def shift_views(x, k: int = 3):
     """x: [..., H, W] int8 -> k*k shifted views of the last two dims,
     zero padded (the reference's _shift_views at [H, W], batched)."""
@@ -262,53 +330,66 @@ MAD_PASSES = ({"op": "muladd"},)
 
 def program_specs(card: bool):
     """(name, fn, make_args(i8, i4, boolean), pass specs, units before,
-    units after, {kernel: launches per call}) per program; `card` picks
-    the card sizes (benchmark sizes for the five small BLAS/kernel
-    programs either way), else the reference benchmarks' sizes."""
+    units after, packed units, {kernel: launches per call}) per program;
+    `card` picks the card sizes (benchmark sizes for the five small
+    BLAS/kernel programs either way), else the reference benchmarks'
+    sizes.  A scan body's units count once; its packed unit launches
+    once per call of the body: K times for MMM and MMM-4b, plus
+    `scan_extra_calls()`."""
     lanes, vlen = 8, (2 ** 22 if card else 24)
     px, ch = (256 * 32 * 32, 64) if card else (24 * 24, 16)
     mv = (4096, 4096) if card else (96, 192)
     conv = (4096, 32, 32) if card else (16, 16)
     pw = 2 ** 23 if card else 512
+    # MMM: a_* [M, K], b [K, N]; MMM-4b: four [M4, K] streams
+    mm, mm4 = ((1024, 512, 2048), 512) if card else ((96, 192, 192), 48)
+    m, k, n = mm
     return [
         ("vadd", vadd_unrolled,
          lambda i8, i4, bl: (tuple(i8(vlen) for _ in range(lanes)),
                              tuple(i8(vlen) for _ in range(lanes))),
-         ADD_PASSES, 8, 2, {"simd_add_packed": 2}),
+         ADD_PASSES, 8, 2, 2, {"simd_add_packed": 2}),
         ("SNN", snn_conv_taps,
          lambda i8, i4, bl: (tuple(bl(px) for _ in range(9)),
                              tuple(tuple(i8(ch // 4) for _ in range(4))
                                    for _ in range(9)),
                              tuple(i8(px, ch // 4) for _ in range(4))),
-         ADD_PASSES, 36, 9, {"simd_add_packed": 9}),
+         ADD_PASSES, 36, 9, 9, {"simd_add_packed": 9}),
         ("MVM", mvm,
          lambda i8, i4, bl: (i8(*mv), i8(*mv), i8(mv[1])),
-         MAD_PASSES, 2, 1, {"muladd2": 1}),
+         MAD_PASSES, 2, 1, 1, {"muladd2": 1}),
+        ("MMM", mmm,
+         lambda i8, i4, bl: (i8(m, k), i8(m, k), i8(k, n)),
+         MAD_PASSES, 4, 3, 1, {"muladd2": k + scan_extra_calls()}),
+        ("MMM-4b", mmm_4b,
+         lambda i8, i4, bl: (*(i4(mm4, k) for _ in range(4)), i4(k, n)),
+         ({"op": "mul4"},), 8, 5, 1,
+         {"mul4_full32": k + scan_extra_calls()}),
         ("scal", scal, lambda i8, i4, bl: (i8(256), i8(256), i8()),
-         MAD_PASSES, 2, 1, {"muladd2": 1}),
+         MAD_PASSES, 2, 1, 1, {"muladd2": 1}),
         ("axpy", axpy,
          lambda i8, i4, bl: (i8(256), i8(256), i8(256), i8(256), i8()),
-         MAD_PASSES, 4, 3, {"muladd2": 1}),
+         MAD_PASSES, 4, 3, 1, {"muladd2": 1}),
         ("GSM", gsm, lambda i8, i4, bl: (i8(40), i8(40), i8(40), i8(40)),
-         MAD_PASSES, 3, 2, {"muladd2": 1}),
+         MAD_PASSES, 3, 2, 1, {"muladd2": 1}),
         ("RTM", rtm,
          lambda i8, i4, bl: (i8(16, 16, 16), i8(16, 16, 16),
                              tuple(i8(16, 16, 16) for _ in range(6)),
                              tuple(i8(16, 16, 16) for _ in range(6)),
                              i8(), i8()),
-         MAD_PASSES, 16, 14, {"muladd2": 2}),
+         MAD_PASSES, 16, 14, 2, {"muladd2": 2}),
         ("GAT", gat,
          lambda i8, i4, bl: (i8(128, 64), i8(128, 64), i8(64), i8(64)),
-         MAD_PASSES, 4, 2, {"muladd2": 2}),
+         MAD_PASSES, 4, 2, 2, {"muladd2": 2}),
         ("conv-pair", conv3x3_pair_naive,
          lambda i8, i4, bl: (i8(*conv), i8(9), i8(9)),
-         MAD_PASSES, 34, 25, {"muladd2": 9}),
+         MAD_PASSES, 34, 25, 9, {"muladd2": 9}),
         ("conv-pair-4b", conv3x3_pair_4b,
          lambda i8, i4, bl: (i8(*conv), i4(9), i4(9)),
-         ({"op": "muladd", "m_bits": 4},), 34, 2, {"muladd2": 1}),
+         ({"op": "muladd", "m_bits": 4},), 34, 2, 1, {"muladd2": 1}),
         ("MobileNet-4b", pw_conv4_naive,
          lambda i8, i4, bl: (i4(pw), i4(4)),
-         ({"op": "mul4"},), 4, 1, {"mul4_full32": 1}),
+         ({"op": "mul4"},), 4, 1, 1, {"mul4_full32": 1}),
     ]
 
 
@@ -522,12 +603,61 @@ def phase_kernels(torch) -> dict:
                 + ("library " if sp["one_call"] else "unpack+_int_mm ")
                 + (f"{t_l * 1e3:9.2f} us" if t_l is not None else "  n/a")
                 + f"  bound {b_ms * 1e3:7.3f} us ({b_by})" + extra)
+    # ROADMAP C5: past K = 2^17 the int8 sums of -128 * -128 leave the
+    # int32 range; the small-M kernel wraps them as the plain version
+    k_wrap, n_wrap = 2 ** 17 + 1, 34
+    for sp in specs:
+        x = torch.full((DECODE_M, k_wrap), -128, dtype=torch.int8,
+                       device="cuda")
+        w = torch.full(sp["wshape"](k_wrap, n_wrap), -128, dtype=torch.int8,
+                       device="cuda")
+        start = sp["small"].count
+        acc_k, acc_p = sp["acc"](x, w), sp["acc_ref"](x, w)
+        torch.cuda.synchronize()
+        if sp["small"].count != start + 1 or not torch.equal(acc_k, acc_p):
+            raise AssertionError(f"{sp['name']}_small_m M={DECODE_M} "
+                                 f"K={k_wrap}: differs from the plain "
+                                 "version past the int32 range")
+        log(f"{sp['name']}_small_m M={DECODE_M} K={k_wrap} N={n_wrap}, x = w "
+            f"= -128: bit-identical to the plain version (acc "
+            f"{acc_k[0, 0].item()})")
     for name, res in results.items():
         if res["shapes"] == 0:
             raise AssertionError(f"{name}: no shape reached it")
         log(f"{name}: bit-identical to the plain version at "
             f"{res['shapes']} shapes")
     return results
+
+
+def phase_scan_gate() -> None:
+    """`make_fx` on this torch keeps MMM's scan body as a sub-GraphModule
+    (a `get_attr` node) that feeds one `higher_order.scan` node, the
+    body's two multiplies inside it: the structure the pass pipeline
+    recurses into.  Raises otherwise."""
+    from repro_torch import core as silvia
+    a = torch.ones((4, 3), dtype=torch.int8, device=DEVICE)
+    gm = silvia.trace(mmm, a, a, torch.ones((3, 5), dtype=torch.int8,
+                                            device=DEVICE))
+    scans = [n for n in gm.graph.nodes if n.op == "call_function"
+             and n.target is getattr(torch.ops.higher_order, "scan", None)]
+    bodies = [n for n in gm.graph.nodes if n.op == "get_attr" and
+              isinstance(getattr(gm, n.target), torch.fx.GraphModule)]
+    if len(scans) != 1 or len(bodies) != 1 or scans[0].args[0] is not \
+            bodies[0]:
+        raise AssertionError(f"scan gate: make_fx on torch "
+                             f"{torch.__version__} traced MMM without one "
+                             f"scan node over one body sub-GraphModule:\n"
+                             f"{gm.graph}")
+    body = getattr(gm, bodies[0].target)
+    muls = [n for n in body.graph.nodes
+            if n.target is torch.ops.aten.mul.Tensor]
+    if len(muls) != 2:
+        raise AssertionError(f"scan gate: MMM's body holds {len(muls)} "
+                             f"multiplies, expected 2:\n{body.graph}")
+    log(f"scan gate: make_fx keeps MMM's body as `{bodies[0].target}` "
+        f"under one {scans[0].target} node ({len(body.graph.nodes)} body "
+        f"nodes, 2 multiplies); the eager scan calls a body K + "
+        f"{scan_extra_calls()} times for K iterations")
 
 
 # ---------------------------------------------------------------------------
@@ -638,32 +768,45 @@ def phase_swar_gates() -> int:
 
 
 def _replay(kname: str, operands, attrs):
-    """(signature, kernel(), plain(), library() or None, bytes moved,
-    integer ops) to replay one captured launch of a SWAR kernel on the
-    operands its wrapper launched it with."""
+    """(signature, kernel(ops), plain(ops), library(ops) or None, bytes
+    moved, integer ops) to replay one captured launch of a SWAR kernel on
+    operands shaped as its wrapper launched it with (`ops`: those
+    operands, or a copy of them)."""
     from repro_torch.kernels import mul4, muladd2, simd_add
     if kname == "simd_add_packed":
-        xw, yw = operands
+        xw, _ = operands
         lane = torch.int8 if attrs["lane_bits"] == 8 else torch.int16
         lib = torch.sub if attrs["sub"] else torch.add
         return (("words", tuple(xw.shape), attrs["lane_bits"], attrs["sub"]),
-                lambda: simd_add.simd_add_packed(xw, yw, **attrs),
-                lambda: simd_add.simd_add_packed_plain(xw, yw, **attrs),
-                lambda: lib(xw.view(lane), yw.view(lane)).view(torch.int32),
+                lambda ops: simd_add.simd_add_packed(*ops, **attrs),
+                lambda ops: simd_add.simd_add_packed_plain(*ops, **attrs),
+                lambda ops: lib(ops[0].view(lane),
+                                ops[1].view(lane)).view(torch.int32),
                 12 * xw.numel(), 5 * xw.numel())
     if kname == "muladd2":
-        a, b, c = operands
+        a = operands[0]
         n, e = a.shape[0], a[0].numel()
         return (("n", n, tuple(a.shape[1:])),
-                lambda: muladd2.muladd2(a, b, c),
-                lambda: muladd2.muladd2_plain(a, b, c), None,
+                lambda ops: muladd2.muladd2(*ops),
+                lambda ops: muladd2.muladd2_plain(*ops), None,
                 (3 * n + 8) * e, (4 * n + 6) * e)
-    a, b = operands
+    b = operands[1]
     fn, ops = ((mul4.mul4_full32, 20) if kname == "mul4_full32"
                else (mul4.mul4_split, 24))
-    return (("e", tuple(b.shape)), lambda: fn(a, b, **attrs),
-            lambda: mul4.mul4_plain(a, b), None, 21 * b.numel(),
+    return (("e", tuple(b.shape)), lambda o: fn(*o, **attrs),
+            lambda o: mul4.mul4_plain(*o), None, 21 * b.numel(),
             ops * b.numel())
+
+
+def spill_copies(operands, n_iter: int) -> list:
+    """The operands and distinct copies of them, enough that n_iter
+    launches cycling through them read their operands from HBM: 128 MB
+    of them, past the 50 MB L2, where n_iter copies reach that (a launch
+    on less is bound by its launch, not its bytes)."""
+    n_in = sum(t.numel() * t.element_size() for t in operands)
+    n = min(n_iter, math.ceil(128e6 / max(n_in, 1)))
+    return [operands] + [tuple(t.clone() for t in operands)
+                         for _ in range(n - 1)]
 
 
 def swar_bound_ms(nbytes: int, ops: int) -> tuple:
@@ -685,22 +828,26 @@ def phase_programs() -> list:
     i4 = lambda *s: _randint(gen, -8, 8, s, torch.int8)
     bl = lambda *s: torch.rand(s, generator=gen, device=DEVICE) > 0.7
     counters = _swar_counters()
-    progs = []
-    for name, fn, make, pspecs, u_before, u_after, want in \
+    progs, scans = [], set()     # scans: programs with a scan body
+    for name, fn, make, pspecs, u_before, u_after, packed, want in \
             program_specs(card=True):
         args = make(i8, i4, bl)
         passes = _passes(*pspecs)
-        before = opcount.count_ops(silvia.trace(fn, *args)).units
+        traced = silvia.trace(fn, *args)
+        before = opcount.count_ops(traced).units
         after = opcount.count_ops(silvia.optimized_graph(
             fn, *args, passes=passes))
         if (before, after.units, after.packed_units) != \
-                (u_before, u_after, sum(want.values())):
+                (u_before, u_after, packed):
             raise AssertionError(f"{name}: units {before} -> {after.units} "
                                  f"({after.packed_units} packed), expected "
-                                 f"{u_before} -> {u_after} "
-                                 f"({sum(want.values())} packed)")
+                                 f"{u_before} -> {u_after} ({packed} "
+                                 "packed)")
         opt = silvia.optimize(fn, passes)
         opt(*args)            # trace + rewrite; its launches are not counted
+        if any(isinstance(sub, torch.fx.GraphModule)
+               for sub in traced.children()):
+            scans.add(name)
         progs.append((name, fn, args, opt, want))
     torch.cuda.synchronize()
 
@@ -750,6 +897,8 @@ def phase_programs() -> list:
         log(f"  {name:13s} optimized {t_opt * 1e3:10.2f} us/call  "
             f"unoptimized {t_base * 1e3:10.2f} us/call  launches {want}; "
             "== unoptimized == forced-ref, bit for bit")
+        if name in scans:
+            scan_profile(name, opt, args, want, t_opt)
 
     # each kernel at the shapes the programs gave it: gate, then time;
     # mul4_split at the operands mul4_full32 got
@@ -767,23 +916,30 @@ def phase_programs() -> list:
                                                          attrs)
             row = rows.setdefault((kname, sig), dict(
                 kernel=kname, sig=sig, count=0, kern=kern, plain=plain,
-                lib=lib, nbytes=nbytes, ops=ops))
+                lib=lib, nbytes=nbytes, ops=ops, operands=operands))
             row["count"] += 1
     per = {k: [] for k in SWAR_KERNELS}
     for r in rows.values():
-        got, want = r["kern"](), r["plain"]()
+        got, want = r["kern"](r["operands"]), r["plain"](r["operands"])
         if not _same(got, want):
             raise AssertionError(f"{r['kernel']} {r['sig']}: differs from "
                                  "its plain version at card size")
         r["err"] = max((g.long() - w.long()).abs().max().item()
                        for g, w in zip(_outs(got), _outs(want)))
-        if r["lib"] is not None and not torch.equal(r["lib"](), r["kern"]()):
+        if r["lib"] is not None and not torch.equal(
+                r["lib"](r["operands"]), r["kern"](r["operands"])):
             raise AssertionError(f"{r['kernel']} {r['sig']}: differs from "
                                  "its library yardstick")
-        r["ms"] = device_ms(torch, lambda i: r["kern"](), 50)
-        r["plain_ms"] = device_ms(torch, lambda i: r["plain"](), 10)
-        r["library_ms"] = device_ms(torch, lambda i: r["lib"](), 50) \
+        # timed over distinct operand copies, from HBM as the bound
+        # assumes (in MMM's scan a launch reads what the adapter has
+        # just written, from L2: scan_profile times that)
+        copies = spill_copies(r["operands"], 50)
+        op = lambda i: copies[i % len(copies)]
+        r["ms"] = device_ms(torch, lambda i: r["kern"](op(i)), 50)
+        r["plain_ms"] = device_ms(torch, lambda i: r["plain"](op(i)), 10)
+        r["library_ms"] = device_ms(torch, lambda i: r["lib"](op(i)), 50) \
             if r["lib"] is not None else None
+        del copies
         r["bound_ms"], r["bound_by"] = swar_bound_ms(r["nbytes"], r["ops"])
         per[r["kernel"]].append(r)
         lib_s = (f"{r['library_ms'] * 1e3:9.2f} us" if r["library_ms"]
@@ -806,10 +962,13 @@ def phase_programs() -> list:
                 r["bound_by"] == "bytes" for r in rs) else "operations",
             library_ms=total("library_ms") if all(
                 v is not None for v in libs) else None,
-            per="one pass over the eleven SILVIA-packed programs at card "
-                "size: sums of per-launch times x launches per shape"
+            per="one pass over the thirteen SILVIA-packed programs at "
+                "card size (MMM and MMM-4b launch once per call of "
+                "their scan body): sums of per-launch times x launches "
+                "per shape"
                 if kname != "mul4_split" else "off the path (no pass "
-                "selects it): one launch at mul4_full32's shape",
+                "selects it): at mul4_full32's shapes, as often as it "
+                "launched",
             library_note=None if kname == "simd_add_packed" else
             "no single PyTorch call: int32 products of int8 operands need "
             "a widening copy before the multiply (and a sum for muladd2)",
@@ -817,6 +976,42 @@ def phase_programs() -> list:
                          plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                          bound_ms=r["bound_ms"]) for r in rs]))
     return entries
+
+
+def scan_profile(name: str, opt, args, want: dict, t_call: float) -> None:
+    """One optimized call of a scan program under the profiler: the
+    launches and device time of its body's kernel against the call's
+    host time (`t_call` ms, unprofiled; the profiled call's beside it),
+    so the log shows whether the eager scan's per-iteration host dispatch
+    or the kernel sets the pace."""
+    import re
+
+    from repro_torch.kernels import registry
+    counters = {c.name: c for c in registry.LAUNCH_COUNTERS}
+    for kname, n in want.items():
+        sym = counters[kname].symbol
+        # a profile may drop a few kernel events (never add one): a call
+        # counted short is profiled again, three times at most
+        for _ in range(3):
+            wall_ms, dev_ms, rows = _profiled(torch, lambda: (
+                opt(*args), torch.cuda.synchronize()), 1)
+            mine = [r for r in rows if re.search(sym, r[0])]
+            seen = sum(r[2] for r in mine)
+            if seen >= n:
+                break
+        if seen != n:
+            raise AssertionError(f"{name}: the profiler saw {seen:.0f} "
+                                 f"{kname} launches in one call, expected "
+                                 f"{n}")
+        k_ms = sum(r[1] for r in mine)
+        log(f"    {name} profiled: device kernels {dev_ms:.3f} ms/call, "
+            f"{100 * dev_ms / t_call:.1f}% of the unprofiled call's "
+            f"{t_call:.2f} ms (the profiled call: {wall_ms:.2f} ms); "
+            f"{kname} {seen:.0f} launches {k_ms:.3f} ms "
+            f"({k_ms / seen * 1e3:.2f} us each)")
+        for key, ms, calls, us in rows[:4]:
+            log(f"      {ms:8.3f} ms  {calls:6.0f} calls  {us:8.2f} us/call"
+                f"  {key[:60]}")
 
 
 def kernel_entry(name: str, res: dict, launches: int) -> dict:
@@ -1239,6 +1434,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_scan_gate()
     results = phase_kernels(torch)
     phase_swar_gates()
     swar_entries = phase_programs()

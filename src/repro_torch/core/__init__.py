@@ -13,7 +13,7 @@ the rewritten graph eagerly; each packed call binds through the lowering
 registry to a Hopper kernel on CUDA operands, to its plain version on
 CPU ones.
 """
-from repro_torch.core import bounds, dce, ir, opcount, prims
+from repro_torch.core import bounds, ddg, dce, ir, opcount, prims
 from repro_torch.core.pipeline import (DEFAULT_PASSES, PassConfig, optimize,
                                        optimize_graph, optimized_graph,
                                        trace)
@@ -24,6 +24,6 @@ from repro_torch.core.silvia_muladd import SILVIAMul4, SILVIAMuladd
 
 __all__ = [
     "DEFAULT_PASSES", "PassConfig", "SILVIA", "SILVIAAdd", "SILVIAMul4",
-    "SILVIAMuladd", "bounds", "dce", "ir", "opcount", "optimize",
+    "SILVIAMuladd", "bounds", "ddg", "dce", "ir", "opcount", "optimize",
     "optimize_graph", "optimized_graph", "prims", "trace", "width_hint",
 ]

@@ -19,13 +19,19 @@ a basic block.  This module provides what Algorithm 1 needs on it:
 * `emit_graph`, which rebuilds a GraphModule from a transformed item
   schedule (the paper's BB -> BB* rewrite).
 
+A control-flow higher-order op (`torch.ops.higher_order.scan`, `cond`,
+`while_loop`) keeps each body as a sub-GraphModule that a `get_attr`
+node names; the pass pipeline treats every body as a BB of its own.
+
 ATen node -> jaxpr primitive (`prim_name`):
 
     aten._to_copy                  convert_element_type
     aten.mul / add / sub           mul / add / sub (add/sub only alpha=1)
     aten.unsqueeze / expand, and   broadcast_in_dim
       a view that only adds or
-      drops unit dims
+      drops unit dims (and their
+      functionalized `_copy` forms,
+      which a HOP body holds)
     aten.bitwise_and               and
     repro_torch::silvia_width_hint silvia_width_hint
     aten.scalar_tensor             a literal (constant node)
@@ -72,6 +78,8 @@ _PRIMS = {
     aten.sub.Tensor: "sub", aten.sub.Scalar: "sub",
     aten.unsqueeze.default: "broadcast_in_dim",
     aten.expand.default: "broadcast_in_dim",
+    aten.unsqueeze_copy.default: "broadcast_in_dim",
+    aten.expand_copy.default: "broadcast_in_dim",
     aten.bitwise_and.Scalar: "and", aten.bitwise_and.Tensor: "and",
     prims.WIDTH_HINT: "silvia_width_hint",
     aten.scalar_tensor.default: "scalar_tensor",
@@ -98,11 +106,17 @@ def _unit_dims_only(node: fx.Node) -> bool:
     return strip(shape_of(src)) == strip(shape_of(node))
 
 
+# views that are a broadcast when they only add or drop unit dims; under
+# `torch.func.functionalize` a HOP body holds the `_copy` form.  A squeeze
+# stops width, as the reference's does, at the top level and in a body.
+_UNIT_VIEWS = {aten.view.default, aten.view_copy.default}
+
+
 def prim_name(node: fx.Node) -> str:
     name = _PRIMS.get(node.target)
     if name in ("add", "sub") and node.kwargs.get("alpha", 1) != 1:
         return str(node.target)
-    if name is None and node.target is aten.view.default \
+    if name is None and node.target in _UNIT_VIEWS \
             and _unit_dims_only(node):
         return "broadcast_in_dim"
     return name if name is not None else str(node.target)
@@ -179,11 +193,35 @@ def inputs_of(gm: fx.GraphModule) -> list:
     return [n for n in gm.graph.nodes if n.op in ("placeholder", "get_attr")]
 
 
+def attr_of(gm: fx.GraphModule, target: str):
+    """The attribute a `get_attr` node names (a dotted path)."""
+    obj = gm
+    for part in target.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def output_node(gm: fx.GraphModule) -> fx.Node:
+    return next(n for n in reversed(gm.graph.nodes) if n.op == "output")
+
+
 def outvars_of(gm: fx.GraphModule) -> list:
-    out = next(n for n in reversed(gm.graph.nodes) if n.op == "output")
     found: list = []
-    fx.node.map_arg(out.args, found.append)
+    fx.node.map_arg(output_node(gm).args, found.append)
     return found
+
+
+def output_leaves(gm: fx.GraphModule) -> list:
+    """The graph's outputs in order, one per returned value (a Node, or a
+    Python value the graph returns as is)."""
+    leaves: list = []
+    for a in output_node(gm).args:
+        leaves.extend(a if isinstance(a, (list, tuple)) else [a])
+    return leaves
+
+
+def placeholders_of(gm: fx.GraphModule) -> list:
+    return [n for n in gm.graph.nodes if n.op == "placeholder"]
 
 
 def call(graph: fx.Graph, target, args, kwargs=None, *, like=None):
@@ -418,7 +456,9 @@ def dce_items(items: list, outvars: Sequence) -> list:
 
 def emit_graph(gm: fx.GraphModule, items: list) -> fx.GraphModule:
     """Rebuild a GraphModule from a transformed item schedule (BB -> BB*):
-    the inputs and the output of `gm`, the items in schedule order."""
+    the inputs and the output of `gm`, the items in schedule order.  Every
+    `get_attr` node is an input, so each attribute it names (a HOP body,
+    rewritten or not, or a constant) is carried into the new module."""
     graph = fx.Graph()
     env: dict = {}
     copy = lambda n: graph.node_copy(n, lambda a: env[a])
@@ -432,5 +472,5 @@ def emit_graph(gm: fx.GraphModule, items: list) -> fx.GraphModule:
                       for v in it.in_vars]
             for ov, o in zip(it.out_vars, it.emit(graph, invals)):
                 env[ov] = o
-    copy(next(n for n in reversed(gm.graph.nodes) if n.op == "output"))
+    copy(output_node(gm))
     return fx.GraphModule(gm, graph)

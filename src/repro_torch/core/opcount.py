@@ -5,7 +5,9 @@ defined as the ratio between the number of arithmetic operations and the
 number of functional units computing them, at the IR level."  Here an
 IR-level operation is an ATen `mul` / `add` / `sub` node of the traced
 graph; a packed call (`prims.PACKED_PRIMS`) is ONE functional unit
-computing k logical narrow ops.
+computing k logical narrow ops.  Counting recurses into the bodies that
+`get_attr` nodes name (a rolled scan body counts once, like a rolled loop
+in LLVM IR), once per body node that uses one.
 """
 from __future__ import annotations
 
@@ -42,10 +44,21 @@ class OpCount:
     def units(self) -> int:
         return self.mul_units + self.add_units + self.madd_units
 
+    def merged(self, other: "OpCount") -> "OpCount":
+        return OpCount(*[a + b for a, b in
+                         zip(dataclasses.astuple(self),
+                             dataclasses.astuple(other))])
+
 
 def count_ops(gm: fx.GraphModule, int_only: bool = True) -> OpCount:
     c = OpCount()
     for node in gm.graph.nodes:
+        if node.op == "get_attr":
+            sub = ir.attr_of(gm, node.target)
+            if isinstance(sub, fx.GraphModule):
+                for _ in node.users:
+                    c = c.merged(count_ops(sub, int_only))
+            continue
         if node.op != "call_function":
             continue
         if node.target in prims.PACKED_PRIMS:

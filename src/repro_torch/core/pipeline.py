@@ -1,11 +1,11 @@
 """SILVIA pass manager -- the analogue of the paper's
 `SILVIA::csynth_design` Tcl drop-in (Fig. 6): an ordered list of pass
 configs applied between the "frontend" (`make_fx` tracing) and the
-"backend" (the rewritten GraphModule, run eagerly).
+"backend" (the rewritten GraphModule, run eagerly), with recursion into
+the bodies of control-flow higher-order ops (each body is its own basic
+block).
 
-Port of `repro/core/pipeline.py`, for straight-line programs: a traced
-graph is one basic block (recursion into sub-graphs and loop bodies is
-not ported yet).
+Port of `repro/core/pipeline.py`.
 
     passes = [PassConfig(op="muladd"), PassConfig(op="add", op_size=8)]
     fast_fn = optimize(fn, passes)          # same signature as fn
@@ -16,13 +16,21 @@ mirrors the paper's
                              [dict create OP "add" OP_SIZE 12]]
     SILVIA::csynth_design
 
+Recursion: `make_fx` keeps the body of `torch.ops.higher_order.scan`,
+`cond` and `while_loop` as a sub-GraphModule named by a `get_attr` node
+(the counterparts of the reference's scan / cond / while sub-jaxprs).
+The reference also enters `pjit`, `closed_call`, `remat` and
+`custom_vjp_call`; their torch counterparts (nested functions,
+`torch.utils.checkpoint` off autograd) leave no node under `make_fx`:
+their ops are inlined into the graph around them.
+
 The paper's headline property is that SILVIA is a zero-cost drop-in: the
 passes run once at synthesis time.  Here that is a trace cache in
 `optimize()`: tracing and the rewrite happen once per input signature
 (pytree structure + each tensor's shape, dtype and device); later calls
 run the cached GraphModule.  All passes share one analysis context per
-graph (`BBContext`): a packing rewrite patches it in place and the
-rewritten graph is emitted once, after the whole pipeline.
+BB (`BBContext`): a packing rewrite patches it in place and the
+rewritten BB is emitted once, after the whole pipeline.
 """
 from __future__ import annotations
 
@@ -48,16 +56,24 @@ class PassConfig:
     op: str                       # "add" | "muladd" | "mul4"
     op_size: int | None = None    # SILVIAAdd lane operand size (8 | 16)
     inst: str = "both"            # SILVIAAdd: "add" | "sub" | "both"
+    max_chain_len: int | None = None   # SILVIAMuladd MAX_CHAIN_LEN
     m_bits: int = 8               # SILVIAMuladd packed-lane operand size
+    c_bits: int = 8               # SILVIAMuladd shared operand size
+    # paper 3.5.1 future work: drop tuples that raise II_min in loop bodies
+    filter_ii: bool = False
 
     def instantiate(self) -> SILVIA:
         if self.op == "add":
-            return SILVIAAdd(op_size=self.op_size or 8, inst=self.inst)
-        if self.op == "muladd":
-            return SILVIAMuladd(m_bits=self.m_bits)
-        if self.op == "mul4":
-            return SILVIAMul4()
-        raise ValueError(f"unknown SILVIA pass op: {self.op}")
+            p = SILVIAAdd(op_size=self.op_size or 8, inst=self.inst)
+        elif self.op == "muladd":
+            p = SILVIAMuladd(m_bits=self.m_bits, c_bits=self.c_bits,
+                             max_chain_len=self.max_chain_len)
+        elif self.op == "mul4":
+            p = SILVIAMul4()
+        else:
+            raise ValueError(f"unknown SILVIA pass op: {self.op}")
+        p.filter_ii = self.filter_ii
+        return p
 
 
 DEFAULT_PASSES = (
@@ -73,14 +89,90 @@ def _pass_objs(passes) -> list[SILVIA]:
             for p in passes]
 
 
-def optimize_graph(gm: fx.GraphModule,
-                   passes: Sequence[SILVIA]) -> fx.GraphModule:
-    """Apply the pass list to a traced graph, all passes against ONE
-    analysis context; the rewritten graph is emitted once at the end (the
-    same object comes back when nothing packed)."""
+# Higher-order ops whose bodies are optimized as separate BBs.
+_RECURSE_HOPS = {"scan", "cond", "while_loop"}
+
+
+def _hop_name(node: fx.Node) -> str | None:
+    if node.op == "call_function" and isinstance(
+            node.target, torch._ops.HigherOrderOperator):
+        return node.target.name()
+    return None
+
+
+def _bodies(gm: fx.GraphModule, node: fx.Node) -> list:
+    """(argument position, sub-GraphModule) of every body a recursed HOP
+    node takes (scan: its combine graph; cond: both branches;
+    while_loop: its cond and body graphs)."""
+    if _hop_name(node) not in _RECURSE_HOPS:
+        return []
+    subs = [(i, ir.attr_of(gm, a.target)) for i, a in enumerate(node.args)
+            if isinstance(a, fx.Node) and a.op == "get_attr"]
+    return [(i, sub) for i, sub in subs if isinstance(sub, fx.GraphModule)]
+
+
+def _loop_info(node: fx.Node):
+    """(num_carry, num_xs, num_additional) of a `scan` node (its args are
+    combine graph, init, xs, additional_inputs); None for other ops."""
+    if _hop_name(node) != "scan":
+        return None
+    _, init, xs, extra = node.args[:4]
+    return (len(init), len(xs), len(extra))
+
+
+def _with_bodies(gm: fx.GraphModule, bodies: dict) -> fx.GraphModule:
+    """A copy of gm whose HOP nodes take the given bodies
+    ({(node, argument position): GraphModule}).  HOP nodes that name one
+    body take its one rewrite; two different rewrites of one body -- two scans splitting its
+    inputs into carry, xs and additional inputs differently -- raise."""
+    root = {n.target: ir.attr_of(gm, n.target) for n in gm.graph.nodes
+            if n.op == "get_attr"}
+    new_bodies: dict = {}
+    for (node, i), body in bodies.items():
+        target = node.args[i].target
+        if new_bodies.setdefault(target, body) is not body:
+            raise ValueError(f"body {target} is rewritten two ways by the "
+                             "HOP nodes that share it")
+    root.update(new_bodies)
+    graph, env = fx.Graph(), {}
+    for node in gm.graph.nodes:
+        env[node] = graph.node_copy(node, lambda a: env[a])
+    return fx.GraphModule(root, graph)
+
+
+def optimize_graph(gm: fx.GraphModule, passes: Sequence[SILVIA],
+                   stats: list | None = None,
+                   loop_info=None) -> fx.GraphModule:
+    """Apply the pass list to a traced graph, recursing into HOP bodies.
+
+    The bodies are rewritten first (a body that two HOP nodes name, once),
+    then every pass runs on this graph against ONE analysis context, and
+    the rewritten graph is emitted once at the end (the same object comes
+    back when nothing packed here or below).
+
+    loop_info: (num_carry, num_xs, num_additional) when `gm` is a scan
+    body -- unlocks the II-aware tuple filter of passes with
+    filter_ii=True.  stats: a list each pass appends its stats dict to."""
+    # 1. the inner BBs first
+    bodies, done, changed = {}, {}, False
+    for node in gm.graph.nodes:
+        inner = _loop_info(node)
+        for i, sub in _bodies(gm, node):
+            key = (id(sub), inner)
+            if key not in done:
+                done[key] = optimize_graph(sub, passes, stats, inner)
+            bodies[(node, i)] = done[key]
+            changed |= done[key] is not sub
+    if changed:
+        gm = _with_bodies(gm, bodies)
+    # 2. each pass on this BB against ONE shared analysis context,
+    #    patched in place by a packing rewrite; emitted once at the end
     ctx = BBContext(gm)
     for p in passes:
-        p.run_ctx(ctx)
+        st = p.run_ctx(ctx, loop_info=loop_info)
+        if stats is not None:
+            st["pass"] = p.name
+            stats.append(st)
     return ir.emit_graph(gm, ctx.eqns) if ctx.dirty else gm
 
 
@@ -99,11 +191,12 @@ def trace(fn: Callable, *example_args) -> fx.GraphModule:
                    _allow_non_fake_inputs=True)(*example_args)
 
 
-def optimized_graph(fn, *example_args,
-                    passes=DEFAULT_PASSES) -> fx.GraphModule:
+def optimized_graph(fn, *example_args, passes=DEFAULT_PASSES,
+                    stats: list | None = None) -> fx.GraphModule:
     """Trace fn on example tensors and return its SILVIA-optimized graph
     (for inspection, op counting and tests)."""
-    return optimize_graph(trace(fn, *example_args), _pass_objs(passes))
+    return optimize_graph(trace(fn, *example_args), _pass_objs(passes),
+                          stats)
 
 
 def _leaf_key(x) -> Any:

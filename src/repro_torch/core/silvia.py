@@ -26,7 +26,7 @@ from typing import Any, Sequence
 
 from torch import fx
 
-from repro_torch.core import ir
+from repro_torch.core import ddg, ir
 
 
 @dataclasses.dataclass
@@ -160,6 +160,11 @@ class SILVIA:
     """Base pass.  run() applies Algorithm 1 to one traced graph."""
 
     name = "silvia"
+    # paper sec. 3.5.1 leaves II-aware tuple filtering to future work;
+    # filter_ii=True drops tuples whose super-node would create a new
+    # critical cycle in a loop body (needs the enclosing scan's
+    # loop_info, which the pass pipeline supplies)
+    filter_ii = False
 
     # -- hooks for derived passes (paper sec. 3: blue functions) ------------
     def get_candidates(self, ctx: BBContext) -> list[Candidate]:
@@ -245,16 +250,26 @@ class SILVIA:
         closed.extend(t for t in open_tuples if self.tuple_viable(t))
         return closed
 
-    def run_ctx(self, ctx: BBContext) -> None:
+    def run_ctx(self, ctx: BBContext, loop_info=None) -> dict:
         """Apply Algorithm 1 against a shared BBContext, rewriting IN
         PLACE via ctx.patch(); the caller checks ctx.dirty to decide
-        whether to emit."""
+        whether to emit.  Returns the stats dict.
+
+        loop_info: (num_carry, num_xs, num_additional) when this BB is a
+        scan body -- enables the II-aware tuple filter (sec. 3.5.1)."""
         cands = self.get_candidates(ctx)
+        stats = {"candidates": len(cands), "tuples": 0, "packed_ops": 0,
+                 "ii_dropped": 0}
         if not cands:
-            return
+            return stats
         tuples = self.get_tuples(cands, ctx)
+        if tuples and self.filter_ii and loop_info is not None:
+            tuples, stats["ii_dropped"] = self._filter_ii_tuples(
+                tuples, ctx, loop_info)
         if not tuples:
-            return
+            return stats
+        stats["tuples"] = len(tuples)
+        stats["packed_ops"] = sum(len(t.cands) for t in tuples)
         # replaceTuple: splice packed items in at a valid insertion point,
         # drop covered items, then DCE.
         consumed: set[int] = set()
@@ -273,3 +288,24 @@ class SILVIA:
                 items.append(it)
         items.extend(inserts.get(len(ctx.eqns), []))
         ctx.patch(ir.dce_items(items, ctx.outvars))
+        return stats
+
+    def _filter_ii_tuples(self, tuples, ctx: BBContext, loop_info):
+        """Drop tuples whose packed super-node raises II_min (Fig. 5).
+
+        The DDG is built over the ALAP schedule (ctx.eqns), unit
+        latencies, with distance-1 edges from each carry output to the
+        uses of its carry input."""
+        num_carry = loop_info[0]
+        g = ddg.DDG([1] * len(ctx.eqns),
+                    ddg.loop_edges(ctx.eqns, ctx.def_idx, ctx.use_idxs,
+                                   ctx.gm, num_carry))
+        base_ii = g.ii_min()
+        kept, dropped = [], 0
+        for tup in tuples:
+            group = sorted(set().union(*[c.covered for c in tup.cands]))
+            if g.with_merged(group).ii_min() > base_ii:
+                dropped += 1
+            else:
+                kept.append(tup)
+        return kept, dropped

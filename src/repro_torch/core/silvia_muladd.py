@@ -164,11 +164,13 @@ class SILVIAMuladd(SILVIA):
 
     name = "silvia_muladd"
 
-    c_bits = 8      # the shared operand is an int8 lane
-
-    def __init__(self, m_bits: int = 8):
+    def __init__(self, m_bits: int = 8, c_bits: int = 8,
+                 max_chain_len: int | None = None):
         self.m_bits = m_bits
-        self.n_max = bounds.muladd2_max_chain(m_bits, self.c_bits)
+        self.c_bits = c_bits
+        self.n_max = bounds.muladd2_max_chain(m_bits, c_bits)
+        if max_chain_len is not None:      # the paper's MAX_CHAIN_LEN
+            self.n_max = min(self.n_max, max_chain_len)
 
     def get_candidates(self, ctx: BBContext):
         cands = []

@@ -51,13 +51,14 @@
 // word), or N % 4 == 0 and a 2-byte aligned packed w (one 2-byte load);
 // the wrapper chooses them, else each byte loads alone.
 //
-// Sums are int32 and exact while K * 2^14 < 2^31, i.e. K < 2^17; the
-// wrapper refuses a larger K on this path (deliberately: the shuffle and
-// warp sums below are signed C++ adds, defined only without overflow,
-// where the reference's accumulator wraps; the tile of s8_tile.cuh, for
-// M > 16, wraps as the reference does).  The order is fixed: each
-// stream in k order, then the lane groups (xor 8, then xor 16), then the
-// warps in order.  Epilogue as s8_tile.cuh: acc (int32) and/or
+// Sums are int32 modulo 2^32, as the reference's accumulator is (and
+// the tile's of s8_tile.cuh): dp4a accumulates with wrap-around, and the
+// lane-group and warp sums add in uint32_t, read back as int32 by
+// as_int, where a C++ signed add could overflow into undefined
+// behaviour; exact while K * 2^14 < 2^31, i.e. K < 2^17, and wrapped as
+// the plain version wraps past it.  The order is fixed: each stream in
+// k order, then the lane groups (xor 8, then xor 16), then the warps in
+// order.  Epilogue as s8_tile.cuh: acc (int32) and/or
 // f = ((float)acc * x_scale[m]) * w_scale[n], each product rounded to
 // nearest: bit-identical to the plain PyTorch version.
 //
@@ -92,6 +93,12 @@ constexpr uint32_t PERM_PAIR_LO = 0x5140;   // x.b0 y.b0 x.b1 y.b1
 constexpr uint32_t PERM_PAIR_HI = 0x7362;   // x.b2 y.b2 x.b3 y.b3
 constexpr uint32_t PERM_HALF_LO = 0x5410;   // x.b0 x.b1 y.b0 y.b1
 constexpr uint32_t PERM_HALF_HI = 0x7632;   // x.b2 x.b3 y.b2 y.b3
+
+// The two's-complement reading of a uint32_t sum (defined for every bit
+// pattern, where a cast above INT_MAX is not before C++20).
+__device__ __forceinline__ int as_int(uint32_t u) {
+  return u <= 0x7FFFFFFFu ? static_cast<int>(u) : -static_cast<int>(~u) - 1;
+}
 
 // r[j]: row k+j's bytes of 4 columns (byte c = column c).  Returns
 // c[i]: column i's bytes of rows k..k+3 (byte j = row k+j).
@@ -268,10 +275,10 @@ __device__ __forceinline__ void gemm_small_m(
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      int v = acc[m][c];
+      uint32_t v = static_cast<uint32_t>(acc[m][c]);
       v += __shfl_xor_sync(0xffffffffu, v, LANES_PER_GROUP);
       v += __shfl_xor_sync(0xffffffffu, v, 2 * LANES_PER_GROUP);
-      acc[m][c] = v;
+      acc[m][c] = as_int(v);
     }
 #pragma unroll
   for (int m = 0; m < MT; ++m)
@@ -282,9 +289,11 @@ __device__ __forceinline__ void gemm_small_m(
   for (int t = threadIdx.x; t < MT * COLS; t += THREADS) {
     const int m = t / COLS, c = t % COLS, n = n0 + c;
     if (m < M && n < N) {
-      int sum = 0;
+      uint32_t total = 0;
 #pragma unroll
-      for (int v = 0; v < WARPS; ++v) sum += red[v][m][c];
+      for (int v = 0; v < WARPS; ++v)
+        total += static_cast<uint32_t>(red[v][m][c]);
+      const int sum = as_int(total);
       const size_t o = static_cast<size_t>(m) * N + n;
       if (acc_out) acc_out[o] = sum;
       if (f_out)

@@ -58,10 +58,6 @@ def _launch(x_q, w_packed, x_scale, w_scale, *, want_acc: bool,
     """Launch the kernel the rule picks for x_q's rows (module doc)."""
     n = 2 * w_packed.shape[-1]
     if x_q.ndim == 2 and x_q.shape[0] <= quant_matmul.SMALL_M:
-        if x_q.shape[1] > quant_matmul.SMALL_M_MAX_K:
-            raise ValueError(f"{SMALL_M_LAUNCHES.name}: K={x_q.shape[1]} "
-                             f"> {quant_matmul.SMALL_M_MAX_K}, beyond the "
-                             "kernel's exact int32 sums")
         # the kernel's 2-byte packed-w loads need only N/2 even and a
         # 2-byte aligned w; asking 4 of both operands takes the byte path
         # more often (never on the serving shapes) with one rule for both

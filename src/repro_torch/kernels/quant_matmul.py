@@ -42,8 +42,6 @@ SMALL_M_LAUNCHES = common.LaunchCounter("quant_matmul_small_m",
                                         _SMALL_M_SYMBOL)
 
 SMALL_M = 16
-# the small-M kernel sums in int32: exact while K * 2^14 < 2^31
-SMALL_M_MAX_K = 2 ** 17 - 1
 
 
 @functools.cache
@@ -59,10 +57,6 @@ def _small_m_kernel():
 def _launch(x_q, w_q, x_scale, w_scale, *, want_acc: bool, want_out: bool):
     """Launch the kernel the rule picks for x_q's rows (module doc)."""
     if x_q.ndim == 2 and x_q.shape[0] <= SMALL_M:
-        if x_q.shape[1] > SMALL_M_MAX_K:
-            raise ValueError(f"{SMALL_M_LAUNCHES.name}: K={x_q.shape[1]} "
-                             f"> {SMALL_M_MAX_K}, beyond the kernel's exact "
-                             "int32 sums")
         return common.launch_gemm(
             _small_m_kernel(), LAUNCHES, x_q, w_q, w_q.shape[-1], x_scale,
             w_scale, want_acc=want_acc, want_out=want_out, vec_bytes=4,

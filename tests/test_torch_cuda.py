@@ -229,7 +229,7 @@ def test_cuda_tile_wraps_like_plain(cuda, packed):
     the int32 range; the tile (M = 17) wraps it as the plain version and
     the reference do (a packed sum stays inside the range there: checked
     all the same).  Random operands at the same K too.  The small-M
-    kernel refuses such a K (deliberately, see s8_small_m.cuh)."""
+    kernel wraps too: test_cuda_small_m_wraps_like_plain."""
     k = 131073
     mod = packed_matmul if packed else quant_matmul
     acc_fn = mod.packed_w4_matmul_acc if packed else mod.quant_matmul_acc
@@ -252,8 +252,37 @@ def test_cuda_tile_wraps_like_plain(cuda, packed):
         assert mod.SMALL_M_LAUNCHES.count == before
     if not packed:
         assert bool((acc_ref(x, w) == -2147467264).all())
-    with pytest.raises(ValueError, match="exact"):
-        acc_fn(x[:8], w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_small_m_wraps_like_plain(cuda, packed):
+    """ROADMAP C5, the small-M kernel: at M = 8, K = 131073 its lane and
+    warp sums wrap modulo 2^32 as the plain version and the reference
+    do (x = w = -128: every int8 sum leaves the int32 range; packed int4
+    sums stay inside it), bit for bit; random operands at the same K
+    too."""
+    k, n = 131073, 34
+    mod = packed_matmul if packed else quant_matmul
+    acc_fn = mod.packed_w4_matmul_acc if packed else mod.quant_matmul_acc
+    out_fn = mod.packed_w4_matmul if packed else mod.quant_matmul
+    acc_ref = ref.packed_w4_matmul_acc_ref if packed \
+        else ref.quant_matmul_acc_ref
+    out_ref = ref.packed_w4_matmul_ref if packed else ref.quant_matmul_ref
+    x = torch.full((8, k), -128, dtype=torch.int8, device=cuda)
+    w = torch.full((k, n // 2 if packed else n), -128, dtype=torch.int8,
+                   device=cuda)
+    xs = torch.full((8, 1), 0.5, device=cuda)
+    ws = torch.full((1, n), 0.25, device=cuda)
+    for xx, ww in ((x, w), tuple(_operands(np.random.default_rng(6), 8, k,
+                                           n, packed, cuda))[:2]):
+        before = mod.SMALL_M_LAUNCHES.count
+        assert torch.equal(acc_fn(xx, ww), acc_ref(xx, ww))
+        assert torch.equal(out_fn(xx, ww, xs, ws), out_ref(xx, ww, xs, ws))
+        assert mod.SMALL_M_LAUNCHES.count == before + 2
+    if not packed:
+        assert bool((acc_fn(x, w) == -2147467264).all())
     torch.cuda.synchronize()
 
 
@@ -489,3 +518,35 @@ def test_cuda_optimized_program_matches_unoptimized(cuda):
     assert muladd2.LAUNCHES.count == before + 1
     want = chip_smoke.conv3x3_pair_4b(x, w_even, w_odd)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["MMM", "MMM-4b"])
+def test_cuda_scan_program_launches_per_iteration(cuda, name):
+    """MMM / MMM-4b through the SILVIA passes on the card: the packed unit
+    sits in the scan body and launches once per call of the body
+    (muladd2 / mul4_full32: K times a call, plus the calls torch's eager
+    scan adds, chip_smoke.scan_extra_calls); outputs equal the
+    unrewritten program bit for bit."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch import core as silvia
+    _, fn, make, specs, *_, launches = next(
+        s for s in chip_smoke.program_specs(card=False) if s[0] == name)
+    rng = np.random.default_rng(10)
+    i8 = lambda *s: torch.from_numpy(rng.integers(-128, 128, s)
+                                     .astype(np.int8)).to(cuda)
+    i4 = lambda *s: torch.from_numpy(rng.integers(-8, 8, s)
+                                     .astype(np.int8)).to(cuda)
+    args = make(i8, i4, None)
+    opt = silvia.optimize(fn, [silvia.PassConfig(**p) for p in specs])
+    opt(*args)                      # trace + rewrite
+    (kname, want), = launches.items()
+    counter = {"muladd2": muladd2.LAUNCHES,
+               "mul4_full32": mul4.LAUNCHES}[kname]
+    before = counter.count
+    got = opt(*args)
+    assert counter.count == before + want
+    assert all(torch.equal(g, w) for g, w in zip(got, fn(*args)))

@@ -220,8 +220,10 @@ def _flat_decode(cfg, params, tok, cache, pos):
 def test_decode_packed_units_vs_reference(fmt, units):
     """Packed units of the optimized decode step on the same config and
     the same (plain, CPU) lowering, (port, reference).  They differ under
-    w4a8: the port's graph unrolls the layers, the reference's keeps one
-    layer in a scan body (ROADMAP C6)."""
+    w4a8: the port packs the plain GEMM's int4 de-bias pair (two units),
+    the reference sizes its literal operands as 64 bits and packs none
+    (ROADMAP C-ref5; test_torch_silvia.py::
+    test_cref5_literal_width_packs_only_in_the_port)."""
     jcfg, tcfg, jp, tp = _setup("bfloat16", fmt)
     prompts = _prompts(jcfg.vocab)[:2, :4]
     _, jcache = jlm.prefill(jp, jnp.asarray(prompts), jcfg, 8)

@@ -66,14 +66,28 @@ def _torch_args(args):
 
 
 def _jax_packed(closed):
-    return sorted(e.primitive.name for e in closed.jaxpr.eqns
-                  if e.primitive.name.startswith("silvia_packed"))
+    """Packed calls of a jaxpr and of every sub-jaxpr in it."""
+    names = []
+    for e in closed.jaxpr.eqns:
+        if e.primitive.name.startswith("silvia_packed"):
+            names.append(e.primitive.name)
+        for v in e.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else [v]):
+                if hasattr(sub, "jaxpr") and hasattr(sub, "consts"):
+                    names.extend(_jax_packed(sub))
+    return sorted(names)
 
 
 def _torch_packed(gm):
-    return sorted(f"silvia_{n.target.__name__}" for n in gm.graph.nodes
-                  if n.op == "call_function"
-                  and n.target in tprims.PACKED_PRIMS)
+    """Packed calls of a graph and of every body it names."""
+    names = []
+    for n in gm.graph.nodes:
+        if n.op == "call_function" and n.target in tprims.PACKED_PRIMS:
+            names.append(f"silvia_{n.target.__name__}")
+        elif n.op == "get_attr" and isinstance(
+                sub := getattr(gm, n.target), torch.fx.GraphModule):
+            names.extend(_torch_packed(sub))
+    return sorted(names)
 
 
 def _leaves(tree):
@@ -204,6 +218,10 @@ def _cases():
         ("default_pipeline", trees, [tuple(v(4, (32,))) for _ in range(3)],
          [dataclasses.asdict(p) for p in tsil.DEFAULT_PASSES],
          ["silvia_packed_muladd"] * 4),
+        # the paper's MAX_CHAIN_LEN: the 4-bit chain of 4 in two segments
+        ("max_chain_len", trees_4bit, [i4(), i4(), tuple(v(4))],
+         [{"op": "muladd", "m_bits": 4, "max_chain_len": 2}],
+         ["silvia_packed_muladd"] * 2),
     ]
 
 
@@ -278,7 +296,8 @@ def conv3x3_pair_4b_jax(x, w_even, w_odd):
 
 JAX_PROGRAMS = {
     "vadd": table1a.vadd_unrolled, "SNN": table1a.snn_conv_taps,
-    "MVM": table1b.mvm, "scal": table1b.scal, "axpy": table1b.axpy,
+    "MVM": table1b.mvm, "MMM": table1b.mmm, "MMM-4b": table1b.mmm_4b,
+    "scal": table1b.scal, "axpy": table1b.axpy,
     "GSM": table1b.gsm, "RTM": table1b.rtm, "GAT": table1b.gat,
     "conv-pair": table2_cnn.conv3x3_pair_naive,
     "conv-pair-4b": conv3x3_pair_4b_jax,
@@ -289,7 +308,7 @@ JAX_PROGRAMS = {
 @pytest.mark.parametrize("spec", chip_smoke.program_specs(card=False),
                          ids=lambda s: s[0])
 def test_paper_program_matches_reference(spec):
-    name, fn, make_args, passes, units_before, units_after, launches = spec
+    name, fn, make_args, passes, units_before, units_after, packed, _ = spec
     rng = np.random.default_rng(sum(map(ord, name)))
     args = make_args(lambda *s: i8(rng, s), lambda *s: i8(rng, s, -8, 8),
                      lambda *s: rng.random(s) > 0.7)
@@ -298,7 +317,7 @@ def test_paper_program_matches_reference(spec):
         == units_before
     after = topcount.count_ops(gm)
     assert after.units == units_after
-    assert after.packed_units == sum(launches.values())
+    assert after.packed_units == packed
 
 
 def test_manual_split_program_matches_naive():
@@ -507,3 +526,42 @@ def test_bounds_match_reference():
     for w in (4, 8, 12, 16, 24, 32):
         assert mode(tbounds.add_mode_for_width(w)) == \
             mode(jbounds.add_mode_for_width(w))
+
+
+def debias_pair(a, b):
+    """The w4a8 unpacking's de-bias pair (common.unpack_w4_words, the
+    reference's unpack_w4): a low nibble minus 8, on two streams."""
+    return (I32(a) & 0xF) - 8, (I32(b) & 0xF) - 8
+
+
+def test_cref5_literal_width_packs_only_in_the_port():
+    """ROADMAP C-ref5: the de-bias pair packs 1 unit in the port and 0 in
+    the reference.  Under JAX 0.9 a jaxpr literal's `.val` is a
+    `TypedNdArray`, which the reference's `_literal_width` sizes as 64
+    bits and its `and`-with-constant rule never narrows; the port's
+    literals are Python ints, sized by value as the reference's code
+    intends.  This holds the reason: it fails if a JAX upgrade makes the
+    literal an int / np.integer / np.ndarray again, and then the two
+    agree.  The outputs agree either way."""
+    rng = np.random.default_rng(6)
+    args = [i8(rng, (16,)), i8(rng, (16,))]
+    jargs, targs = _jax_args(args), _torch_args(args)
+    passes = [{"op": "add", "op_size": 8}]
+    j_after = jsil.optimized_jaxpr(debias_pair, *jargs,
+                                   passes=[jsil.PassConfig(**p)
+                                           for p in passes])
+    t_after = tsil.optimized_graph(debias_pair, *targs,
+                                   passes=[tsil.PassConfig(**p)
+                                           for p in passes])
+    assert (_torch_packed(t_after), _jax_packed(j_after)) == \
+        (["silvia_packed_add"], [])
+    closed = jax.make_jaxpr(debias_pair)(*jargs)
+    lits = [v.val for e in closed.jaxpr.eqns for v in e.invars
+            if e.primitive.name == "and" and hasattr(v, "val")]
+    assert len(lits) == 2
+    assert not any(isinstance(v, (int, np.integer, np.ndarray))
+                   for v in lits), "reference literals are sized again"
+    want = debias_pair(*jargs)
+    _assert_same_leaves(t_after(*targs), want)
+    _assert_same_leaves(jsil.optimize(
+        debias_pair, [jsil.PassConfig(**p) for p in passes])(*jargs), want)

@@ -329,24 +329,48 @@ def test_packed_rule_picks_kernel_by_rows(monkeypatch, m, kernel):
         assert (vec, also) == (16, None)
 
 
-def test_small_m_refuses_inexact_k(monkeypatch):
-    _recorded_launches(monkeypatch)
-    x = torch.zeros((8, quant_matmul.SMALL_M_MAX_K + 1), dtype=torch.int8)
-    with pytest.raises(ValueError, match="exact"):
-        quant_matmul._launch(x, x.T, None, None, want_acc=True,
-                             want_out=False)
-
-
-def test_packed_small_m_refuses_inexact_k(monkeypatch):
+def test_small_m_takes_k_past_2_17(monkeypatch):
+    """No K is refused any more: the small-M kernel's sums wrap modulo
+    2^32 as the reference's accumulator does (and the plain version), so
+    K = 2^17 + 1 takes the small-M kernel like any other K."""
     calls = _recorded_launches(monkeypatch)
-    k = quant_matmul.SMALL_M_MAX_K + 1
-    x = torch.zeros((8, k), dtype=torch.int8)
-    with pytest.raises(ValueError, match="packed_w4_matmul_small_m.*exact"):
-        packed_matmul._launch(x, torch.zeros((k, 4), dtype=torch.int8),
-                              None, None, want_acc=True, want_out=False)
-    assert calls == []
-    # the same K on the tile (M > 16) is not refused by the rule
-    packed_matmul._launch(torch.zeros((17, k), dtype=torch.int8),
-                          torch.zeros((k, 4), dtype=torch.int8), None, None,
-                          want_acc=True, want_out=False)
-    assert calls[0][0] == "tile"
+    x = torch.zeros((8, 2 ** 17 + 1), dtype=torch.int8)
+    quant_matmul._launch(x, x.T, None, None, want_acc=True, want_out=False)
+    assert calls[0][0] == "small_m"
+
+
+def test_packed_small_m_takes_k_past_2_17(monkeypatch):
+    """packed_w4_matmul likewise: K = 2^17 + 1 on the small-M kernel for
+    M <= 16, on the tile for M > 16."""
+    calls = _recorded_launches(monkeypatch)
+    k = 2 ** 17 + 1
+    for m in (8, 17):
+        packed_matmul._launch(torch.zeros((m, k), dtype=torch.int8),
+                              torch.zeros((k, 4), dtype=torch.int8), None,
+                              None, want_acc=True, want_out=False)
+    assert [c[0] for c in calls] == ["small_m", "tile"]
+
+
+@pytest.mark.parametrize("packed,fill", [(False, -128), (False, None),
+                                         (True, -128)])
+def test_emulated_kernel_wraps_past_2_17(packed, fill):
+    """K = 2^17 + 1 = 131073, M = 8: with x = w = -128 the int8 sums leave
+    the int32 range and wrap modulo 2^32 in the shuffle and warp adds, to
+    what the plain version gives; random bytes and packed int4 weights
+    (-8 in every nibble: no wrap at this K) at the same K sum exactly."""
+    k, n = 2 ** 17 + 1, 6
+    rng = np.random.default_rng(k + int(packed))
+    wn = n // 2 if packed else n
+    if fill is None:
+        x = rng.integers(-128, 128, (8, k)).astype(np.int8)
+        w = rng.integers(-128, 128, (k, wn)).astype(np.int8)
+    else:
+        x = np.full((8, k), fill, dtype=np.int8)
+        w = np.full((k, wn), fill, dtype=np.int8)
+    acc, _ = emulate(x, w, packed=packed)
+    plain = ref.packed_w4_matmul_acc_ref if packed \
+        else ref.quant_matmul_acc_ref
+    want = plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    assert np.array_equal(acc, want)
+    if fill is not None and not packed:
+        assert (acc == k * 2 ** 14 - 2 ** 32).all()
