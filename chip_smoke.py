@@ -13,8 +13,9 @@ over):
    unrolled loop);
 2. build all five Hopper kernels from `src/repro_torch/kernels/csrc` into
    the git-ignored `build/` (one nvcc per source, started together),
-   timed, beside `nvcc -Xptxas -v` of quant_matmul.cu and
-   packed_w4_matmul.cu (registers, shared memory and spills per kernel);
+   timed, beside `nvcc -Xptxas -v` of quant_matmul.cu,
+   packed_w4_matmul.cu and mul4.cu (registers, shared memory and spills
+   per kernel);
 3. each GEMM kernel against its plain PyTorch version at every main-path
    (K, N) with decode M=8 and prefill M=1024, plus ragged shapes on both
    sides of the switch that quant_matmul and packed_w4_matmul share
@@ -35,7 +36,8 @@ over):
    the plain version's do (ROADMAP C5);
 4. each SWAR kernel (simd_add_packed, muladd2, mul4_full32, mul4_split)
    against its plain version at ragged shapes: both lane widths, add and
-   sub, k = 1..lanes; chains of 1, 9 and 31; mul4 signed and unsigned;
+   sub, k = 1..lanes; chains of 1, 9 and 31; mul4 signed and unsigned,
+   with b aligned and b one byte off (no vector path);
 5. the SILVIA pass pipeline (`repro_torch.core.optimize`) over the
    paper's programs at card size (inputs from a seeded torch.Generator):
    each program's packed-unit count must match the reference passes',
@@ -713,7 +715,8 @@ def phase_swar_gates() -> int:
     """Each SWAR kernel against its plain version at ragged shapes: every
     lane width, add and sub, k = 1..lanes; muladd2 chains of 1, 9, 31
     (4-bit a and b beyond 1, inside the Eq. 2 bound); mul4 full32 and
-    split, signed and unsigned.  Returns the number of checks."""
+    split, signed and unsigned, with b aligned and b one byte into its
+    storage (no vector path).  Returns the number of checks."""
     from repro_torch.kernels import mul4, muladd2, ref, simd_add
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     checks = 0
@@ -755,12 +758,17 @@ def phase_swar_gates() -> int:
         for signed, (lo, hi) in ((True, (-8, 8)), (False, (0, 16))):
             a = _randint(gen, lo, hi, (4, *shape), torch.int8)
             b = _randint(gen, lo, hi, shape, torch.int8)
+            b_off = torch.empty(b.numel() + 1, dtype=torch.int8,
+                                device=DEVICE)[1:].view(shape)
+            b_off.copy_(b)
             want = mul4.mul4_plain(a, b)
             for fn in (mul4.mul4_full32, mul4.mul4_split):
-                if not _same(fn(a, b, signed=signed), want):
-                    raise AssertionError(f"{fn.__name__} signed={signed} "
-                                         f"{shape}")
-                checks += 1
+                for bb in (b, b_off):
+                    if not _same(fn(a, bb, signed=signed), want):
+                        raise AssertionError(
+                            f"{fn.__name__} signed={signed} {shape} b at "
+                            f"{bb.data_ptr() % 16} mod 16")
+                    checks += 1
     torch.cuda.synchronize()
     log(f"SWAR kernels: bit-identical to their plain versions in {checks} "
         f"ragged checks over {len(SWAR_RAGGED)} shapes")
@@ -1420,7 +1428,7 @@ def main() -> int:
              "mul4")
     fresh = [n for n in names if not _build.library_path(n).exists()]
     ptxas = {n: ptxas_report(_build, n)
-             for n in ("quant_matmul", "packed_w4_matmul")}
+             for n in ("quant_matmul", "packed_w4_matmul", "mul4")}
     _build.build(*names)
     log(f"build: {time.perf_counter() - t0:.1f} s (compiled "
         f"{fresh or 'nothing: cached'}) into {_build.BUILD_DIR}")

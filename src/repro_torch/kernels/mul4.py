@@ -26,7 +26,11 @@ import torch
 from repro_torch.kernels import _build, common, ref
 
 LAUNCHES = common.LaunchCounter("mul4_full32", r"\bmul4_kernel<false\b")
-SPLIT_LAUNCHES = common.LaunchCounter("mul4_split", r"\bmul4_kernel<true\b")
+SPLIT_LAUNCHES = common.LaunchCounter("mul4_split",
+                                     r"\bmul4_split_kernel<")
+# elements of one vector step of each kernel (csrc/mul4.cu: full32's
+# swar::PER_THREAD, split's GROUP)
+VEC_ELEMS = {"repro_mul4_full32": 16, "repro_mul4_split": 4}
 
 
 @functools.cache
@@ -37,6 +41,12 @@ def _kernel(symbol: str):
 def mul4_plain(a, b):
     """The plain version: the oracle over the four stacked a rows."""
     return ref.mul4_ref(a.unbind(0), b)
+
+
+def vector_path(symbol: str, e: int, ptrs) -> bool:
+    """The kernel's `vec` flag: e a multiple of its vector step and every
+    pointer (a, b, out) 16-byte aligned."""
+    return e % VEC_ELEMS[symbol] == 0 and all(p % 16 == 0 for p in ptrs)
 
 
 def _run(symbol, counter, a, b, signed):
@@ -52,8 +62,7 @@ def _run(symbol, counter, a, b, signed):
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty((4, *b.shape), dtype=torch.int32, device=dev)
     if e > 0:
-        vec = e % 16 == 0 and all(t.data_ptr() % 16 == 0
-                                  for t in (a, b, out))
+        vec = vector_path(symbol, e, (t.data_ptr() for t in (a, b, out)))
         code = _kernel(symbol)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                e, int(signed), int(vec),
                                torch.cuda.current_stream(dev).cuda_stream)

@@ -485,14 +485,20 @@ def test_cuda_mul4_bit_exact_vs_plain(cuda, signed):
                              .astype(np.int8)).to(cuda)
         b = torch.from_numpy(rng.integers(lo, hi, shape)
                              .astype(np.int8)).to(cuda)
+        # b also as a view one byte into its storage: no vector path
+        b_off = torch.empty(b.numel() + 1, dtype=torch.int8,
+                            device=cuda)[1:].view(shape)
+        b_off.copy_(b)
+        assert b_off.data_ptr() % 16 == 1
         want = mul4.mul4_plain(a, b)
-        for fn, counter in ((mul4.mul4_full32, mul4.LAUNCHES),
-                            (mul4.mul4_split, mul4.SPLIT_LAUNCHES)):
-            before = counter.count
-            got = fn(a, b, signed=signed)
-            assert counter.count == before + 1
-            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
-                (fn.__name__, shape)
+        for bb in (b, b_off):
+            for fn, counter in ((mul4.mul4_full32, mul4.LAUNCHES),
+                                (mul4.mul4_split, mul4.SPLIT_LAUNCHES)):
+                before = counter.count
+                got = fn(a, bb, signed=signed)
+                assert counter.count == before + 1
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                    (fn.__name__, shape, bb.data_ptr() % 16)
     torch.cuda.synchronize()
 
 

@@ -318,7 +318,9 @@ PROFILED = [
      ("muladd2",)),
     ("void (anonymous namespace)::mul4_kernel<false, true>(signed char "
      "const*, signed char const*, int*, long, bool)", ("mul4_full32",)),
-    ("void (anonymous namespace)::mul4_kernel<true, false>(signed char "
+    ("void (anonymous namespace)::mul4_split_kernel<false>(signed char "
+     "const*, signed char const*, int*, long, bool)", ("mul4_split",)),
+    ("void (anonymous namespace)::mul4_split_kernel<true>(signed char "
      "const*, signed char const*, int*, long, bool)", ("mul4_split",)),
     ("void at::native::unrolled_elementwise_kernel<at::native::"
      "direct_copy_kernel_cuda(at::TensorIteratorBase&)>(int)", ()),
@@ -345,7 +347,7 @@ def test_launch_symbols_name_the_sources_kernels():
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
         text))
     assert kernels == {"small_m_kernel", "tile_kernel", "simd_add_kernel",
-                       "muladd2_kernel", "mul4_kernel"}
+                       "muladd2_kernel", "mul4_kernel", "mul4_split_kernel"}
     for c in registry.LAUNCH_COUNTERS:
         # the identifiers of the regex, its escapes (\b, \w) taken out
         for word in re.findall(r"[A-Za-z_]\w{3,}",
