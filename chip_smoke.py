@@ -33,7 +33,11 @@ over):
    (`repro_quant_matmul_grid`, `repro_packed_w4_matmul_grid`) and the
    share of the bound.  Then both small-M kernels at M=8, K=2^17+1 with
    x = w = -128: the int8 sums leave the int32 range and must wrap as
-   the plain version's do (ROADMAP C5);
+   the plain version's do (ROADMAP C5).  Then both GEMM kernels, bit for
+   bit at decode M=8 and prefill M=1024, at every (K, N) of qwen1.5-0.5b,
+   yi-6b and command-r-35b that reaches a kernel (up to command-r's
+   lm_head, K=8192 N=256000: the plain version compared in column
+   slices), each shape's per-launch time beside its bound;
 4. each SWAR kernel (simd_add_packed, muladd2, mul4_full32, mul4_split)
    against its plain version at ragged shapes: both lane widths, add and
    sub, k = 1..lanes; chains of 1, 9 and 31; mul4 signed and unsigned,
@@ -77,7 +81,18 @@ over):
    of both loops, the capture time, and profiles of an eager and a
    replayed decode step (host and device ms/step, busy share, top
    kernels, the small-M kernel's per-launch time against its back-to-back
-   time); a reduced model must agree with its CPU run.
+   time); a reduced model must agree with its CPU run;
+7. the rest of the dense family at full width, each path through the
+   gates of 6 (`_serve_gates`; its main path's counts from 0): yi-6b
+   under w4a8 and w8a8 (7 x 32 x 32 GEMM launches plus the untied
+   lm_head's 32, counted by its weight's width), qwen1.5-0.5b under w8a8
+   with the int8 KV cache and nonzero q/k/v biases (its logits within
+   INT8_KV_REL of the largest against the bf16 cache's at the first and
+   last step, teacher-forced), each with a profile of a replayed step;
+   then yi-6b's prefill, B=2, 2048 tokens, in a float32 config (w4a8),
+   with attn_q_chunk=512 against unchunked: logits within CHUNK_REL of
+   the largest and a lower peak of allocated memory.  Each phase's
+   seconds are logged.
 
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
@@ -631,6 +646,112 @@ def phase_kernels(torch) -> dict:
     return results
 
 
+def gemm_widths(cfg) -> list:
+    """Every (K, N) of cfg that reaches a GEMM kernel: the q, k, v, o
+    projections, the MLP's gate, up and down, and an untied lm_head (a
+    tied one is the bf16 embedding, a plain matmul)."""
+    d = cfg.d_model
+    kn = [(d, cfg.q_dim), (d, cfg.kv_dim), (cfg.q_dim, d), (d, cfg.d_ff),
+          (cfg.d_ff, d)]
+    if not cfg.tie_embeddings:
+        kn.append((d, cfg.vocab))
+    return list(dict.fromkeys(kn))
+
+
+WIDE_ARCHS = ("qwen1.5-0.5b", "yi-6b", "command-r-35b")
+# the plain versions go through a float64 copy of the weights
+# (kernels/ref.py): compare in column slices of at most this many bytes
+PLAIN_SLICE_BYTES = 2 << 30
+
+
+def phase_wide_gemms(torch) -> dict:
+    """Both GEMM kernels bit for bit (`torch.equal`, acc and out) against
+    their plain versions at decode M=8 and prefill M=1024, at every
+    (K, N) of the three other dense configs that reaches a kernel (K up
+    to 22528, N up to 256000: command-r's lm_head, k * n = 2.097e9, just
+    under the kernels' 2^31 index limit).  The plain version is compared
+    in column slices against the matching columns of one full-width
+    kernel launch.  Logs each shape's per-launch time (CUDA events, L2
+    spilled) and its bound.  Returns the decode (M=8) per-launch times,
+    {(kernel, arch): {(K, N): us}}."""
+    from repro_torch import configs
+    from repro_torch.kernels import packed_matmul, quant_matmul, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device="cuda") * 0.02 + 1e-3
+
+    specs = [("quant_matmul", quant_matmul, ref.quant_matmul_acc_ref,
+              ref.quant_matmul_ref, 1),
+             ("packed_w4_matmul", packed_matmul,
+              ref.packed_w4_matmul_acc_ref, ref.packed_w4_matmul_ref, 2)]
+    t0 = time.perf_counter()
+    n_shapes = 0
+    decode_us = {}
+    for arch in WIDE_ARCHS:
+        cfg = configs.get_config(arch)
+        for k, n in gemm_widths(cfg):
+            for name, mod, acc_ref, out_ref, per_word in specs:
+                acc_fn = getattr(mod, f"{name}_acc")
+                out_fn = getattr(mod, name)
+                w = i8(k, n // per_word)
+                ws = scales(1, n)
+                cols = max(2, PLAIN_SLICE_BYTES // (8 * k)) // 2 * 2
+                for m in (DECODE_M, PREFILL_M):
+                    x, xs = i8(m, k), scales(m, 1)
+                    start = mod.SMALL_M_LAUNCHES.count
+                    acc_k, out_k = acc_fn(x, w), out_fn(x, w, xs, ws)
+                    torch.cuda.synchronize()
+                    small = m <= quant_matmul.SMALL_M
+                    kname = name + ("_small_m" if small else "")
+                    if mod.SMALL_M_LAUNCHES.count - start != \
+                            (2 if small else 0):
+                        raise AssertionError(f"{name} {(m, k, n)}: not "
+                                             f"through {kname}")
+                    for c0 in range(0, n, cols):
+                        c1 = min(n, c0 + cols)
+                        wc = w[:, c0 // per_word:c1 // per_word]
+                        if not torch.equal(acc_k[:, c0:c1], acc_ref(x, wc)):
+                            raise AssertionError(
+                                f"{kname} {arch} {(m, k, n)}: int32 "
+                                f"accumulator differs in columns "
+                                f"[{c0}, {c1})")
+                        if not torch.equal(out_k[:, c0:c1],
+                                           out_ref(x, wc, xs,
+                                                   ws[:, c0:c1])):
+                            raise AssertionError(
+                                f"{kname} {arch} {(m, k, n)}: f32 output "
+                                f"differs in columns [{c0}, {c1})")
+                    del acc_k, out_k
+                    # time over enough weight copies to spill the 50 MB L2
+                    copies = [w] + [i8(*w.shape) for _ in range(
+                        math.ceil(128e6 / w.numel()) - 1)]
+                    t_k = device_ms(torch, lambda i: out_fn(
+                        x, copies[i % len(copies)], xs, ws),
+                        100 if m == DECODE_M else 20)
+                    del copies
+                    b_ms, b_by = bound_ms(m, k, n, w.numel())
+                    if small:
+                        decode_us.setdefault((kname, arch), {})[(k, n)] = \
+                            t_k * 1e3
+                    log(f"  {kname:24s} {arch:13s} M={m:5d} K={k:5d} "
+                        f"N={n:6d}  kernel {t_k * 1e3:10.2f} us  bound "
+                        f"{b_ms * 1e3:9.2f} us ({b_by}, "
+                        f"{100 * b_ms / t_k:.1f}%)")
+                    n_shapes += 1
+                del w, ws
+                torch.cuda.empty_cache()
+    log(f"wide GEMM gates: both kernels bit-identical to the plain "
+        f"versions at {n_shapes} (kernel, M, K, N) of "
+        f"{', '.join(WIDE_ARCHS)} in {time.perf_counter() - t0:.1f} s")
+    return decode_us
+
+
 def phase_scan_gate() -> None:
     """`make_fx` on this torch keeps MMM's scan body as a sub-GraphModule
     (a `get_attr` node) that feeds one `higher_order.scan` node, the
@@ -1102,156 +1223,197 @@ def _profiled_generate(serve, params, prompts, cfg, **kw):
     return toks, logits, counts, registry.profiled_launches(kernels)
 
 
-def phase_generate(torch, kernel_results: dict) -> list:
-    """Full-width greedy generation under w4a8 and w8a8: the per-step
-    loop (fused=False) and the captured CUDA-graph decode (fused=True,
-    the default: the main path), each gated on its launch counts; fused
-    == per-step == plain-forced in tokens and logits, bit for bit;
-    --silvia all == off in tokens; decode ms/step of both loops, the
-    capture time, and profiles of an eager and a replayed decode step."""
-    from repro_torch import configs
+def _gemm_name(fmt: str) -> str:
+    return "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
+
+
+def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
+    """Drive one quantized params tree through greedy generate at B=BATCH,
+    prompt PROMPT, GEN new tokens: the per-step loop (fused=False), the
+    first fused call (prefill, warm-up step, capture), then the main path
+    (fused=True, every count set to 0 just before it, launches read from
+    the profiler just after), its time unprofiled, and a rerun with the
+    plain versions forced.  Gates: launch counts of every run (an untied
+    lm_head adds one small-M launch per token, counted by its weight's
+    width in the per-step loop); fused == per-step == forced-plain in
+    tokens and logits, bit for bit; one capture.  Returns what the caller
+    logs and gates further."""
     from repro_torch.kernels import registry
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
+    name = _gemm_name(fmt)
+    counter = {c.name: c for c in registry.LAUNCH_COUNTERS}[name]
+    head = 0 if cfg.tie_embeddings else 1
+    tile = 7 * cfg.n_layers                 # prefill rows: M = B * S > 16
+    per_step = tile + head                  # decode rows: M = B, small-M
+
+    def launches(tile, small):
+        want = {c.name: 0 for c in registry.LAUNCH_COUNTERS}
+        want[name], want[f"{name}_small_m"] = tile + small, small
+        return want
+
+    # the prefill's lm_head runs on the last position only (M = B)
+    want = launches(tile, per_step * (GEN - 1) + head)
+    cache_len = PROMPT + GEN
+    serve.generate(params, prompts[:, :8], cfg, gen=2, cache_len=16,
+                   fused=False)
+    torch.cuda.synchronize()
+
+    def check(toks, logits, counts, what, want=want):
+        if counts != want:
+            raise AssertionError(f"{tag} {what}: kernel launches "
+                                 f"{counts}, expected {want}")
+        if tuple(toks.shape) != (BATCH, GEN) or \
+                toks.dtype != torch.int32 or \
+                not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"{tag} {what}: bad tokens "
+                                 f"{tuple(toks.shape)} {toks.dtype}")
+        if tuple(logits.shape) != (BATCH, GEN, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag} {what}: logits not finite / "
+                                 "misshapen")
+
+    def same_as_per_step(toks, logits, what):
+        if not torch.equal(toks, toks_s) or not torch.equal(logits,
+                                                            logits_s):
+            raise AssertionError(
+                f"{tag}: {what} differs from the per-step loop (tokens "
+                f"equal: {torch.equal(toks, toks_s)}, max logit diff "
+                f"{(logits - logits_s).abs().max().item()})")
+
+    def prefill_ms():     # the median of 3, host clock
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            lm.prefill(params, prompts, cfg, cache_len=cache_len)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[1]
+
+    # the per-step loop; its wrappers see every launch, the lm_head's by
+    # its weight's logical width
+    with counter.capture() as rec:
+        toks_s, logits_s, counts_s, step_s = _timed_generate(
+            serve, params, prompts, cfg, fused=False)
+    heads = sum(1 for (_, w), _ in rec
+                if w.shape[-1] * (2 if fmt == "w4a8" else 1) == cfg.vocab)
+    del rec
+    check(toks_s, logits_s, counts_s, "per-step")
+    if heads != head * GEN:
+        raise AssertionError(f"{tag} per-step: {heads} lm_head launches, "
+                             f"expected {head * GEN}")
+    prefill_before = prefill_ms()
+    # the first fused call: the prefill, one eager warm-up step and the
+    # capture (its wrappers launch into the graph), then the replays
+    toks_1, logits_1, counts_1, first_s = _timed_generate(
+        serve, params, prompts, cfg)
+    check(toks_1, logits_1, counts_1, "first fused call (wrappers)",
+          launches(tile, head + 2 * per_step))
+    same_as_per_step(toks_1, logits_1, "the first fused call")
+    bundle = serve._decode_bundle(cfg, "off", "cuda")
+    captured = bundle.step
+    # the main path: every count from 0, the captured graph replayed
+    # under the profiler, which counts what the replays launch.  The
+    # profiler has been seen to drop ~1% of one profile's kernel
+    # events: a run that falls short of the counts (and exceeds none)
+    # is driven again, at most three times in all
+    for attempt in range(1, 4):
+        for c in registry.LAUNCH_COUNTERS:
+            c.reset()
+        toks, logits, counts, launched = _profiled_generate(
+            serve, params, prompts, cfg)
+        short = [k for k, n in launched.items() if n < want[k]]
+        if not short or attempt == 3 or \
+                any(n > want[k] for k, n in launched.items()):
+            break
+        log(f"{tag} fused (profiled), run {attempt}: launches "
+            f"{launched} short of {want}; driven again")
+    check(toks, logits, launched, "fused (profiled)")
+    check(toks, logits, counts, "fused (wrappers: no eager decode step)",
+          launches(tile, head))
+    same_as_per_step(toks, logits, "fused decode")
+    # its time, unprofiled
+    toks_t, logits_t, _, total_s = _timed_generate(serve, params,
+                                                   prompts, cfg)
+    same_as_per_step(toks_t, logits_t, "fused decode")
+    if bundle.captures != 1:
+        raise AssertionError(f"{tag}: {bundle.captures} captures, "
+                             "expected 1")
+
+    prefill_after = prefill_ms()
+    prefill_s = (prefill_before + prefill_after) / 2e3
+    # the replays alone: GEN-1 decode steps after a prefill
+    lg, kv = lm.prefill(params, prompts, cfg, cache_len=cache_len)
+    tok0 = lg[:, -1].argmax(dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    captured.run(tok0, kv, PROMPT, GEN - 1)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / (GEN - 1)
+    del lg, kv
+    step_ms = (step_s - prefill_s) / (GEN - 1) * 1e3
+    fused_ms = (total_s - prefill_s) / (GEN - 1) * 1e3
+    log(f"{tag}: prefill {prefill_before:.1f} ms before the capture, "
+        f"{prefill_after:.1f} ms after it (medians of 3); decode "
+        "per-step "
+        f"{step_ms:.2f} ms/step (generate {step_s * 1e3:.1f} ms, "
+        f"{BATCH * GEN / step_s:.1f} tok/s), fused {fused_ms:.2f} "
+        f"ms/step (replays alone {replay_ms:.2f} ms/step; generate "
+        f"{total_s * 1e3:.1f} ms, "
+        f"{BATCH * GEN / total_s:.1f} tok/s); first fused call "
+        f"{first_s * 1e3:.1f} ms, capture {captured.capture_ms:.1f} "
+        f"ms; kernel launches per generate, profiled {launched}, "
+        f"counted by the wrappers {counts} (lm_head {heads} per "
+        "generate); fused tokens and logits identical to the per-step "
+        "loop's")
+
+    before = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
+    with registry.force("ref"):
+        toks_p, logits_p = serve.generate(params, prompts, cfg, gen=GEN,
+                                          cache_len=cache_len,
+                                          return_logits=True)
+    torch.cuda.synchronize()
+    if {c.name: c.count for c in registry.LAUNCH_COUNTERS} != before:
+        raise AssertionError(f"{tag}: forced plain run launched kernels")
+    if not torch.equal(toks, toks_p) or not torch.equal(logits, logits_p):
+        raise AssertionError(
+            f"{tag}: kernel path differs from the plain-forced path "
+            f"(tokens equal: {torch.equal(toks, toks_p)}, max logit "
+            f"diff {(logits - logits_p).abs().max().item()})")
+    log(f"{tag}: tokens and logits identical to the plain-forced run; "
+        f"sample tokens {toks[0, :16].tolist()}")
+    return dict(toks=toks, logits=logits, launched=launched,
+                captured=captured, bundle=bundle, prefill_s=prefill_s,
+                step_ms=step_ms, fused_ms=fused_ms, replay_ms=replay_ms,
+                capture_ms=captured.capture_ms,
+                prefill_ms=(prefill_before + prefill_after) / 2)
+
+
+def phase_generate(torch, kernel_results: dict) -> list:
+    """Full-width greedy generation under w4a8 and w8a8: the per-step
+    loop (fused=False) and the captured CUDA-graph decode (fused=True,
+    the default: the main path), each gated on its launch counts; fused
+    == per-step == plain-forced in tokens and logits, bit for bit
+    (`_serve_gates`); --silvia all == off in tokens; decode ms/step of
+    both loops, the capture time, and profiles of an eager and a
+    replayed decode step."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
     cfg = configs.get_config("smollm-135m")
-    per_step = 7 * cfg.n_layers
-    expect = per_step * GEN
-    # decode rows (M = BATCH <= 16) take the small-M kernel, prefill the tile
-    expect_small = per_step * (GEN - 1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                             device="cuda")
     cache_len = PROMPT + GEN
     entries = []
     for fmt in ("w4a8", "w8a8"):
-        name = "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
-
-        def launches(tile, small):
-            want = {c.name: 0 for c in registry.LAUNCH_COUNTERS}
-            want[name], want[f"{name}_small_m"] = tile + small, small
-            return want
-
-        want = launches(per_step, expect_small)
+        name = _gemm_name(fmt)
         params = serve.build_params(cfg, fmt, seed=0, device="cuda")
-        serve.generate(params, prompts[:, :8], cfg, gen=2, cache_len=16,
-                       fused=False)
-        torch.cuda.synchronize()
-
-        def check(toks, logits, counts, what, want=want):
-            if counts != want:
-                raise AssertionError(f"{fmt} {what}: kernel launches "
-                                     f"{counts}, expected {want}")
-            if tuple(toks.shape) != (BATCH, GEN) or \
-                    toks.dtype != torch.int32 or \
-                    not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
-                raise AssertionError(f"{fmt} {what}: bad tokens "
-                                     f"{tuple(toks.shape)} {toks.dtype}")
-            if tuple(logits.shape) != (BATCH, GEN, cfg.vocab) or \
-                    not bool(torch.isfinite(logits).all()):
-                raise AssertionError(f"{fmt} {what}: logits not finite / "
-                                     "misshapen")
-
-        def same_as_per_step(toks, logits, what):
-            if not torch.equal(toks, toks_s) or not torch.equal(logits,
-                                                                logits_s):
-                raise AssertionError(
-                    f"{fmt}: {what} differs from the per-step loop (tokens "
-                    f"equal: {torch.equal(toks, toks_s)}, max logit diff "
-                    f"{(logits - logits_s).abs().max().item()})")
-
-        def prefill_ms():     # the median of 3, host clock
-            times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                lm.prefill(params, prompts, cfg, cache_len=cache_len)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            return sorted(times)[1]
-
-        # the per-step loop
-        toks_s, logits_s, counts_s, step_s = _timed_generate(
-            serve, params, prompts, cfg, fused=False)
-        check(toks_s, logits_s, counts_s, "per-step")
-        prefill_before = prefill_ms()
-        # the first fused call: the prefill, one eager warm-up step and the
-        # capture (its wrappers launch into the graph), then the replays
-        toks_1, logits_1, counts_1, first_s = _timed_generate(
-            serve, params, prompts, cfg)
-        check(toks_1, logits_1, counts_1, "first fused call (wrappers)",
-              launches(per_step, 2 * per_step))
-        same_as_per_step(toks_1, logits_1, "the first fused call")
-        bundle = serve._decode_bundle(cfg, "off", "cuda")
-        captured = bundle.step
-        # the main path: every count from 0, the captured graph replayed
-        # under the profiler, which counts what the replays launch.  The
-        # profiler has been seen to drop ~1% of one profile's kernel
-        # events: a run that falls short of the counts (and exceeds none)
-        # is driven again, at most three times in all
-        for attempt in range(1, 4):
-            for c in registry.LAUNCH_COUNTERS:
-                c.reset()
-            toks, logits, counts, launched = _profiled_generate(
-                serve, params, prompts, cfg)
-            short = [k for k, n in launched.items() if n < want[k]]
-            if not short or attempt == 3 or \
-                    any(n > want[k] for k, n in launched.items()):
-                break
-            log(f"{fmt} fused (profiled), run {attempt}: launches "
-                f"{launched} short of {want}; driven again")
-        check(toks, logits, launched, "fused (profiled)")
-        check(toks, logits, counts, "fused (wrappers: no eager decode step)",
-              launches(per_step, 0))
-        same_as_per_step(toks, logits, "fused decode")
-        # its time, unprofiled
-        toks_t, logits_t, _, total_s = _timed_generate(serve, params,
-                                                       prompts, cfg)
-        same_as_per_step(toks_t, logits_t, "fused decode")
-        if bundle.captures != 1:
-            raise AssertionError(f"{fmt}: {bundle.captures} captures, "
-                                 "expected 1")
-
-        prefill_after = prefill_ms()
-        prefill_s = (prefill_before + prefill_after) / 2e3
-        # the replays alone: GEN-1 decode steps after a prefill
-        lg, kv = lm.prefill(params, prompts, cfg, cache_len=cache_len)
-        tok0 = lg[:, -1].argmax(dim=-1)[:, None]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        captured.run(tok0, kv, PROMPT, GEN - 1)
-        torch.cuda.synchronize()
-        replay_ms = (time.perf_counter() - t0) * 1e3 / (GEN - 1)
-        del lg, kv
-        step_ms = (step_s - prefill_s) / (GEN - 1) * 1e3
-        fused_ms = (total_s - prefill_s) / (GEN - 1) * 1e3
-        log(f"{fmt}: prefill {prefill_before:.1f} ms before the capture, "
-            f"{prefill_after:.1f} ms after it (medians of 3); decode "
-            "per-step "
-            f"{step_ms:.2f} ms/step (generate {step_s * 1e3:.1f} ms, "
-            f"{BATCH * GEN / step_s:.1f} tok/s), fused {fused_ms:.2f} "
-            f"ms/step (replays alone {replay_ms:.2f} ms/step; generate "
-            f"{total_s * 1e3:.1f} ms, "
-            f"{BATCH * GEN / total_s:.1f} tok/s); first fused call "
-            f"{first_s * 1e3:.1f} ms, capture {captured.capture_ms:.1f} "
-            f"ms; kernel launches per generate, profiled {launched}, "
-            f"counted by the wrappers {counts}; fused tokens and logits "
-            "identical to the per-step loop's")
-
-        before = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
-        with registry.force("ref"):
-            toks_p, logits_p = serve.generate(params, prompts, cfg, gen=GEN,
-                                              cache_len=cache_len,
-                                              return_logits=True)
-        torch.cuda.synchronize()
-        if {c.name: c.count for c in registry.LAUNCH_COUNTERS} != before:
-            raise AssertionError(f"{fmt}: forced plain run launched kernels")
-        if not torch.equal(toks, toks_p) or not torch.equal(logits, logits_p):
-            raise AssertionError(
-                f"{fmt}: kernel path differs from the plain-forced path "
-                f"(tokens equal: {torch.equal(toks, toks_p)}, max logit "
-                f"diff {(logits - logits_p).abs().max().item()})")
-        log(f"{fmt}: tokens and logits identical to the plain-forced run; "
-            f"sample tokens {toks[0, :16].tolist()}")
+        r = _serve_gates(cfg, fmt, params, prompts, fmt)
+        toks, logits, launched = r["toks"], r["logits"], r["launched"]
+        captured, prefill_s = r["captured"], r["prefill_s"]
 
         first_a = _timed_generate(serve, params, prompts, cfg,
                                   silvia_passes="all")[3]
@@ -1282,8 +1444,7 @@ def phase_generate(torch, kernel_results: dict) -> list:
             kernel_entry(name, kernel_results[name], launched[name] - small),
             kernel_entry(f"{name}_small_m",
                          kernel_results[f"{name}_small_m"], small)]
-        del params, logits, logits_p, logits_s, logits_a, logits_1, \
-            logits_t, captured, bundle
+        del params, logits, logits_a, captured, r
         serve.decode_cache_clear()
         torch.cuda.empty_cache()
 
@@ -1303,6 +1464,183 @@ def phase_generate(torch, kernel_results: dict) -> list:
                                  f"differ by {diff} > {CPU_LOGIT_ATOL}")
         log(f"reduced {fmt}: card vs CPU prefill logits max diff {diff:.3g}")
     return entries
+
+
+# phase 7: qwen's biases are drawn nonzero (the init's are zeros)
+QWEN_BIAS_STD = 0.1
+# the int8 cache against the bf16 one: the bound of the reference's
+# tests/test_perf_variants.py::test_int8_kv_decode_accuracy, relative to
+# the largest |logit|
+INT8_KV_REL = 0.05
+# yi-6b's prefill with and without attn_q_chunk, in a float32 config
+CHUNK_B, CHUNK_S, Q_CHUNK, CHUNK_REL = 2, 2048, 512, 1e-4
+
+
+def step_weight_bytes(cfg, fmt: str) -> float:
+    """Weight bytes one decode step reads, from param_count: the blocks
+    and an untied lm_head in the format's bytes per weight, a tied head
+    as the bf16 embedding (the embedding lookup reads B rows, left out);
+    scales and activations left out."""
+    emb = cfg.vocab * cfg.d_model
+    blocks = cfg.param_count() - emb * (1 if cfg.tie_embeddings else 2)
+    per = 0.5 if fmt == "w4a8" else 1.0
+    return blocks * per + (2.0 * emb if cfg.tie_embeddings else per * emb)
+
+
+def phase_dense(wide_us: dict) -> dict:
+    """Phase 7, full-width dense serving beyond smollm (random weights from
+    seeded torch.Generators): yi-6b under w4a8 and w8a8 with the bf16
+    cache, and qwen1.5-0.5b under w8a8 with the int8 cache and nonzero
+    q/k/v biases, each through `_serve_gates` (B=8, prompt 128, 32 new
+    tokens; fused == per-step == forced-plain, bit for bit; yi's untied
+    lm_head counted); qwen's int8-cache logits against the bf16 cache's
+    on the same weights, teacher-forced on the int8 run's tokens, within
+    INT8_KV_REL of the largest logit at the first step and the last; and
+    yi-6b's prefill (B=2, prompt 2048, float32 config, w4a8) with
+    attn_q_chunk=512 against the unchunked one: logits within CHUNK_REL
+    of the largest |logit| and a lower peak of allocated memory.  Each
+    served path's replayed decode step is profiled, its small-M GEMM
+    launches against their back-to-back times (`wide_us`, from
+    phase_wide_gemms).  Returns {GEMM counter: {path: launches}} of the
+    main paths it drove."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    launches = {}
+
+    def record(tag, fmt, launched):
+        name = _gemm_name(fmt)
+        small = launched[f"{name}_small_m"]
+        launches.setdefault(name, {})[tag] = launched[name] - small
+        launches.setdefault(f"{name}_small_m", {})[tag] = small
+
+    def release():
+        serve.decode_cache_clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def profile(cfg, fmt, params, prompts, r, tag):
+        d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+        kn = [(d, q), (d, kv), (d, kv), (q, d), (d, ff), (d, ff), (ff, d)]
+        if not cfg.tie_embeddings:
+            kn.append((d, cfg.vocab))
+        per = wide_us[(f"{_gemm_name(fmt)}_small_m", cfg.name)]
+        b2b = sum(per[x] for x in kn[:7]) * cfg.n_layers
+        b2b = (b2b + sum(per[x] for x in kn[7:])) / (
+            7 * cfg.n_layers + len(kn) - 7)
+        replay_profile(torch, r["captured"], params, cfg, prompts,
+                       PROMPT + GEN, tag, b2b)
+
+    def bound_note(cfg, fmt, r):
+        nbytes = step_weight_bytes(cfg, fmt)
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        return (f"decode bound {b:.3f} ms/step ({nbytes / 1e9:.2f} GB of "
+                f"weights at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): fused "
+                f"{r['fused_ms']:.2f} ms/step, {100 * b / r['fused_ms']:.1f}%"
+                f" of it; replays alone {r['replay_ms']:.2f}")
+
+    cfg = configs.get_config("yi-6b")
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                            device="cuda")
+    for fmt in ("w4a8", "w8a8"):
+        tag = f"yi-6b {fmt}"
+        t0 = time.perf_counter()
+        params = serve.build_params(cfg, fmt, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        r = _serve_gates(cfg, fmt, params, prompts, tag)
+        record(tag, fmt, r["launched"])
+        profile(cfg, fmt, params, prompts, r, tag)
+        log(f"{tag}: built and quantized in {t_build:.1f} s; "
+            f"{bound_note(cfg, fmt, r)}; phase {time.perf_counter() - t0:.1f}"
+            " s")
+        del params, r
+        release()
+
+    t0 = time.perf_counter()
+    bcfg = configs.get_config("qwen1.5-0.5b")
+    qcfg = dataclasses.replace(bcfg, serve_kv_dtype="int8")
+    tag = "qwen1.5-0.5b w8a8 int8-KV"
+    params = serve.build_params(qcfg, "w8a8", seed=0, device="cuda")
+    attn = params["blocks"]["attn"]
+    for b in ("bq", "bk", "bv"):
+        attn[b] = (torch.randn(attn[b].shape, generator=gen, device="cuda")
+                   * QWEN_BIAS_STD).to(attn[b].dtype)
+    prompts = torch.randint(0, qcfg.vocab, (BATCH, PROMPT), generator=gen,
+                            device="cuda")
+    r = _serve_gates(qcfg, "w8a8", params, prompts, tag)
+    record(tag, "w8a8", r["launched"])
+    profile(qcfg, "w8a8", params, prompts, r, tag)
+    kv = r["captured"].cache
+    if set(kv) != {"k", "v", "k_s", "v_s"} or kv["k"].dtype != torch.int8:
+        raise AssertionError(f"{tag}: the captured step's cache is "
+                             f"{ {k: t.dtype for k, t in kv.items()} }")
+    toks, logits = r["toks"], r["logits"]
+    lg, cache = lm.prefill(params, prompts, bcfg, cache_len=PROMPT + GEN)
+    ref = [lg[:, -1]]
+    pos = torch.full((BATCH,), PROMPT, dtype=torch.int64, device="cuda")
+    for i in range(GEN - 1):
+        lg, _ = lm.decode_step(params, toks[:, i:i + 1], cache, pos + i, bcfg)
+        ref.append(lg[:, -1])
+    ref = torch.stack(ref, dim=1)
+    rel = [((logits[:, i] - ref[:, i]).abs().max()
+            / ref[:, i].abs().max()).item() for i in range(GEN)]
+    for step in (0, GEN - 1):
+        if not rel[step] <= INT8_KV_REL:
+            raise AssertionError(f"{tag}: step {step} logits differ from the "
+                                 f"bf16 cache's by {rel[step]:.4g} of the "
+                                 f"largest, over {INT8_KV_REL}")
+    log(f"{tag}: against the bf16 cache on the same weights (teacher-forced "
+        f"on the int8 run's tokens), logits differ by {rel[0]:.3g} of the "
+        f"largest at the first step and {rel[GEN - 1]:.3g} at the last "
+        f"(bound {INT8_KV_REL}; over all steps {min(rel[1:]):.3g}-"
+        f"{max(rel):.3g}, mean {sum(rel[1:]) / (GEN - 1):.3g}); {bound_note(bcfg, 'w8a8', r)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, attn, r, kv, logits, ref, lg, cache
+    release()
+
+    t0 = time.perf_counter()
+    fcfg = dataclasses.replace(configs.get_config("yi-6b"), dtype="float32")
+    params = serve.build_params(fcfg, "w4a8", seed=0, device="cuda")
+    release()
+    prompts = torch.randint(0, fcfg.vocab, (CHUNK_B, CHUNK_S), generator=gen,
+                            device="cuda")
+    runs = {}
+    for label, c in (("unchunked", fcfg), ("chunked", dataclasses.replace(
+            fcfg, attn_q_chunk=Q_CHUNK))):
+        lm.prefill(params, prompts[:, :2 * Q_CHUNK], c,
+                   cache_len=2 * Q_CHUNK)        # warm-up, chunked if c is
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        lg, _ = lm.prefill(params, prompts, c, cache_len=CHUNK_S)
+        torch.cuda.synchronize()
+        runs[label] = (lg, (time.perf_counter() - t1) * 1e3,
+                       torch.cuda.max_memory_allocated(), base)
+        del _
+    (lg0, ms0, peak0, base0), (lg1, ms1, peak1, base1) = runs.values()
+    diff = ((lg1 - lg0).abs().max() / lg0.abs().max()).item()
+    if not bool(torch.isfinite(lg1).all()) or not diff <= CHUNK_REL:
+        raise AssertionError(f"yi-6b f32 prefill: chunked logits differ by "
+                             f"{diff:.3g} of the largest, over {CHUNK_REL}")
+    if not peak1 < peak0:
+        raise AssertionError(f"yi-6b f32 prefill: chunked peak {peak1} B "
+                             f"not below the unchunked {peak0} B")
+    log(f"yi-6b f32 w4a8 prefill B={CHUNK_B} S={CHUNK_S}: attn_q_chunk="
+        f"{Q_CHUNK} logits within {diff:.3g} of the largest |logit| (bound "
+        f"{CHUNK_REL}); peak allocated {peak0 / 2**30:.3f} GiB unchunked, "
+        f"{peak1 / 2**30:.3f} GiB chunked ({(peak0 - base0) / 2**30:.3f} / "
+        f"{(peak1 - base1) / 2**30:.3f} GiB above the {base0 / 2**30:.3f} "
+        f"GiB before the call); prefill {ms0:.1f} / {ms1:.1f} ms; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, runs, lg0, lg1
+    release()
+    return launches
 
 
 def _small_m_back_to_back_us(res: dict) -> float:
@@ -1442,11 +1780,27 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_scan_gate()
-    results = phase_kernels(torch)
-    phase_swar_gates()
-    swar_entries = phase_programs()
-    entries = phase_generate(torch, results) + swar_entries
+
+    def phase(label, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        log(f"== {label}: {time.perf_counter() - t1:.1f} s")
+        return out
+
+    phase("scan gate", phase_scan_gate)
+    results = phase("GEMM gates, smollm widths", phase_kernels, torch)
+    wide = phase("GEMM gates, the other dense widths", phase_wide_gemms,
+                 torch)
+    phase("SWAR gates", phase_swar_gates)
+    swar_entries = phase("programs", phase_programs)
+    entries = phase("smollm-135m serving", phase_generate, torch,
+                    results) + swar_entries
+    other = phase("dense serving: yi-6b, qwen1.5-0.5b int8 KV, "
+                  "attn_q_chunk", phase_dense, wide)
+    for e in entries:
+        if e["name"] in other:
+            e["launches_other_paths"] = other[e["name"]]
+    log(f"== total: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line(), flush=True)

@@ -9,6 +9,9 @@ import importlib
 
 ARCHS = [
     "smollm-135m",
+    "qwen1.5-0.5b",
+    "yi-6b",
+    "command-r-35b",
 ]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

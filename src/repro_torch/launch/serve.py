@@ -7,6 +7,12 @@ cache and the CLI):
         --quant w4a8 --batch 8 --prompt-len 128 --gen 32 --device cuda \\
         [--silvia {off,add,muladd,all}] [--no-fused-decode]
 
+`--arch` takes the dense family: smollm-135m, qwen1.5-0.5b, yi-6b,
+command-r-35b.  As in the reference, the int8 KV cache
+(`serve_kv_dtype="int8"`) and the chunked prefill attention
+(`attn_q_chunk`) are config fields, set with `dataclasses.replace`; the
+CLI has no flag for them.
+
 * Weights are quantized offline (w8a8, or w4a8 with two int4 per int8
   word); every weight matmul dispatches through kernels/registry.py to
   the Hopper kernels on a CUDA device (the census and per-op dispatch
@@ -146,7 +152,9 @@ class _CapturedStep:
 
     What it holds on the device: the params tree (the graph reads the
     weights at their addresses), a KV cache of `cache_len` positions
-    (29.5 MB for smollm-135m at B=8, cache_len 160), the tokens [B,
+    (29.5 MB for smollm-135m at B=8, cache_len 160; an int8 cache's
+    float32 scales are static buffers too, which the step updates in
+    place with the values), the tokens [B,
     n_steps] int32, with return_logits the logits rows [B, n_steps, V]
     float32 (48.8 MB at B=8, n_steps 31), and the graph's private pool
     of one step's intermediates."""

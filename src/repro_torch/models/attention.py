@@ -1,17 +1,20 @@
 """Grouped-query attention with RoPE and a KV cache.
 
 Port of `repro/models/attention.py` without tensor parallelism: the
-prefill path `attn_full` (no `attn_q_chunk` chunking yet) and the decode
-path `attn_decode` with the `active` slot mask, over a bf16 KV cache
-(the int8 KV cache waits).  Written as plain PyTorch mirroring the
-reference's numerics -- scores and softmax in float32, masks at -1e30,
-weights cast to v's dtype -- with no fused SDPA.
+prefill path `attn_full` (with the `attn_q_chunk` query chunking) and
+the decode path `attn_decode` with the `active` slot mask, over a bf16
+or an int8 KV cache, with the optional q/k/v biases (`qkv_bias`).
+Written as plain PyTorch mirroring the reference's numerics -- scores
+and softmax in float32, masks at -1e30, weights cast to v's dtype --
+with no fused SDPA.
 
-KV cache: {k, v: [B, S_max, KV, D]}.  Unlike the reference, which
-returns a new cache from a functional update (donated buffers under
-jit), the port writes the new rows IN PLACE at each row's position --
-a deliberate departure that keeps one static cache buffer for the whole
-generation.
+KV cache: {k, v: [B, S_max, KV, D]}, in cfg.dtype; with
+serve_kv_dtype="int8", k and v are int8 with per-position float32 scales
+{k_s, v_s: [B, S_max, KV]} (`_kv_quantize`).  Unlike the reference,
+which returns a new cache from a functional update (donated buffers
+under jit), the port writes the new rows IN PLACE at each row's
+position -- a deliberate departure that keeps one static cache buffer
+for the whole generation.
 """
 from __future__ import annotations
 
@@ -24,10 +27,16 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qtensor import qmatmul
 
 _NEG = -1e30
+# float32(1 / 127) and float32(1e-8), the constants of the reference's
+# jitted int8 KV quantization, as Python floats (float64)
+_INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+_EPS_1E8 = float(torch.tensor(1e-8, dtype=torch.float32))
 
 
 def _project_q(p, x, cfg: ModelConfig):
     q = qmatmul(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
     b, s, _ = q.shape
     return q.reshape(b, s, cfg.n_heads, cfg.head_dim)
 
@@ -35,6 +44,8 @@ def _project_q(p, x, cfg: ModelConfig):
 def _project_kv(p, x, cfg: ModelConfig):
     k = qmatmul(x, p["wk"])
     v = qmatmul(x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
     b, s, _ = k.shape
     return (k.reshape(b, s, cfg.n_kv, cfg.head_dim),
             v.reshape(b, s, cfg.n_kv, cfg.head_dim))
@@ -59,12 +70,56 @@ def _gqa_out(w, v):
     return o.reshape(b, s, kv * g * o.shape[-1]).to(v.dtype)
 
 
+def _kv_quantize(t):
+    """Per-position symmetric int8 quantization of a [B,S,KV,D] tensor
+    over D: (int8 values, [B,S,KV] float32 scales).  As the reference:
+    scale = amax / 127 + 1e-8, round half to even, no clamp (|t / scale|
+    <= 127 by construction).  The reference's serving path runs it under
+    jit, where XLA turns the division by 127 into a multiplication by
+    float32(1 / 127) and fuses the add into one FMA (one rounding); the
+    port takes the same steps in float64, where the product is exact,
+    so its scales equal the jitted reference's bit for bit (but for a
+    double rounding, at odds of ~2^-29 a position)."""
+    tf = t.to(torch.float32)
+    amax = tf.abs().amax(dim=-1).to(torch.float64)
+    scale = (amax * _INV_127 + _EPS_1E8).to(torch.float32)
+    return torch.round(tf / scale[..., None]).to(torch.int8), scale
+
+
+def _kv_dequant(q, scale, dtype):
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def _attend(q, k, v, qpos, kpos, cfg: ModelConfig, dtype):
+    """Causal GQA of q [B,S,H,D] at positions qpos [B,S] over k, v
+    [B,T,KV,D] at kpos [B,T] (key t is seen where kpos <= qpos):
+    [B,S,H*D] in v's dtype; softmax weights in `dtype`."""
+    scores = _gqa_scores(q, k) * (1.0 / math.sqrt(cfg.head_dim))
+    mask = qpos[:, None, None, :, None] >= kpos[:, None, None, None, :]
+    scores = scores.masked_fill(~mask, _NEG)
+    return _gqa_out(torch.softmax(scores, dim=-1).to(dtype), v)
+
+
+def _attn_chunked(q, k, v, positions, cfg: ModelConfig, q_chunk: int):
+    """Causal attention with the query dim cut in chunks of q_chunk: only
+    a [B, KV, G, q_chunk, T] score block is live at a time (the
+    reference scans over the chunks; a Python loop here)."""
+    return torch.cat([
+        _attend(q[:, c:c + q_chunk], k, v, positions[:, c:c + q_chunk],
+                positions, cfg, v.dtype)
+        for c in range(0, q.shape[1], q_chunk)], dim=1)
+
+
 def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None):
     """Causal self-attention over the full sequence (prefill).
 
     positions: [B,S] int (default arange).  cache: optional layer cache
-    {k, v: [B, S_max, KV, D]}; the sequence's keys and values are written
-    into its first S positions in place.  Returns [B,S,d]."""
+    (`init_cache`); the sequence's keys and values are written into its
+    first S positions in place.  The sequence attends over its own
+    unquantized keys and values: only what goes into an int8 cache is
+    quantized.  With cfg.attn_q_chunk = c, and S > c a multiple of c, the
+    queries run in chunks of c (`_attn_chunked`), as the reference's.
+    Returns [B,S,d]."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -72,16 +127,42 @@ def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None):
     k, v = _project_kv(p, x, cfg)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
-    scores = _gqa_scores(q, k) * (1.0 / math.sqrt(cfg.head_dim))
-    mask = positions[:, None, None, :, None] >= \
-        positions[:, None, None, None, :]
-    scores = scores.masked_fill(~mask, _NEG)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = qmatmul(_gqa_out(w, v), p["wo"])
+    chunk = cfg.attn_q_chunk
+    if chunk and s > chunk and s % chunk == 0:
+        o = _attn_chunked(q, k, v, positions, cfg, chunk)
+    else:
+        o = _attend(q, k, v, positions, positions, cfg, x.dtype)
+    out = qmatmul(o, p["wo"])
     if cache is not None:
+        _write_prefill(cache, k, v)
+    return out
+
+
+def _write_prefill(cache, k, v):
+    """The prompt's keys and values into positions [0, S) of the cache.
+    The reference quantizes the zero-padded [B, S_max] page, so an int8
+    cache's positions past S hold 0 (as `init_cache` leaves them) with a
+    scale of 0 / 127 + 1e-8, not 0: the port writes the same scale."""
+    s = k.shape[1]
+    if "k_s" not in cache:
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
-    return out
+        return
+    for name, t in (("k", k), ("v", v)):
+        q, scale = _kv_quantize(t)
+        cache[name][:, :s] = q
+        cache[f"{name}_s"][:, :s] = scale
+        cache[f"{name}_s"][:, s:] = 1e-8
+
+
+def _cache_insert(cache, name: str, new, at, rows):
+    """Rows `rows` of new [B,C,KV,D] into cache[name] at the indices `at`
+    (per row: positions pos..pos+C-1), in place; into an int8 cache
+    quantized per position, its scales into cache[name + "_s"]."""
+    if f"{name}_s" in cache:
+        new, scale = _kv_quantize(new)
+        cache[f"{name}_s"][at] = scale[rows]
+    cache[name][at] = new[rows]
 
 
 def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
@@ -90,7 +171,10 @@ def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
     slot mask -- inactive rows leave their cache untouched.
 
     Token c of row b is written (in place) at cache position pos[b]+c and
-    attends causally to positions <= pos[b]+c.  Returns [B, C, d]."""
+    attends causally to positions <= pos[b]+c.  An int8 cache takes the
+    new rows quantized, scales too, and is then dequantized whole for
+    the attention: a token attends over its own dequantized key, as in
+    the reference.  Returns [B, C, d]."""
     b, c = x_t.shape[:2]
     qpos = pos[:, None] + torch.arange(c, device=pos.device,
                                        dtype=pos.dtype)          # [B,C]
@@ -101,24 +185,30 @@ def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
     rows = torch.arange(b, device=x_t.device)
     if active is not None:
         rows = rows[active]
-    # per-row insert at pos..pos+C-1, active rows only
-    cache["k"][rows[:, None], qpos[rows]] = k_t[rows]
-    cache["v"][rows[:, None], qpos[rows]] = v_t[rows]
-    k, v = cache["k"], cache["v"]
-    scores = _gqa_scores(q, k) * (1.0 / math.sqrt(cfg.head_dim))
-    t = k.shape[1]
-    valid = torch.arange(t, device=x_t.device)[None, None, :] <= \
-        qpos[:, :, None]                                         # [B,C,T]
-    scores = scores.masked_fill(~valid[:, None, None, :, :], _NEG)
-    w = torch.softmax(scores, dim=-1).to(x_t.dtype)
-    return qmatmul(_gqa_out(w, v), p["wo"])
+    at = (rows[:, None], qpos[rows])
+    _cache_insert(cache, "k", k_t, at, rows)
+    _cache_insert(cache, "v", v_t, at, rows)
+    if "k_s" in cache:
+        k = _kv_dequant(cache["k"], cache["k_s"], x_t.dtype)
+        v = _kv_dequant(cache["v"], cache["v_s"], x_t.dtype)
+    else:
+        k, v = cache["k"], cache["v"]
+    kpos = torch.arange(k.shape[1], device=x_t.device).expand(b, -1)
+    return qmatmul(_attend(q, k, v, qpos, kpos, cfg, x_t.dtype), p["wo"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device):
-    if cfg.serve_kv_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"serve_kv_dtype={cfg.serve_kv_dtype!r} is not ported yet")
     shape = (batch, s_max, cfg.n_kv, cfg.head_dim)
+    if cfg.serve_kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device),
+                "v_s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device)}
+    if cfg.serve_kv_dtype != "bfloat16":
+        raise ValueError(f"unknown serve_kv_dtype {cfg.serve_kv_dtype!r} "
+                         "(bfloat16 | int8)")
     dt = getattr(torch, cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}

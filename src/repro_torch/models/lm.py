@@ -5,7 +5,8 @@ leading axis and runs the stack under `jax.lax.scan`; the port keeps the
 same stacked layout (so params convert leaf for leaf) and runs a Python
 loop over per-layer slices.  The KV cache is stacked the same way,
 {k, v: [L, B, S_max, KV, D]}, and updated in place (see
-models/attention.py).
+models/attention.py); with serve_kv_dtype="int8" it also holds the
+per-position scales {k_s, v_s: [L, B, S_max, KV]}.
 """
 from __future__ import annotations
 
@@ -45,7 +46,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     params instead, see convert.py).
 
     dense weights: N(0, 1) / sqrt(d_in) in float32, cast to cfg.dtype;
-    embed: N(0, 1) * 0.02; norm weights: ones (float32)."""
+    embed: N(0, 1) * 0.02; norm weights: ones (float32); with
+    cfg.qkv_bias the stacked q/k/v biases bq [L, q_dim], bk and bv
+    [L, kv_dim]: zeros in cfg.dtype, as the reference's."""
     _check_family(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -66,10 +69,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, cfg.vocab), 1.0 / math.sqrt(d))
     p["final_norm"] = {"w": ones(d)}
+    attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
+            "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
+    if cfg.qkv_bias:
+        for key, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                           ("bv", cfg.kv_dim)):
+            attn[key] = torch.zeros((n, width), dtype=dt, device=dev)
     p["blocks"] = {
         "ln1": {"w": ones(n, d)},
-        "attn": {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
-                 "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)},
+        "attn": attn,
         "ln2": {"w": ones(n, d)},
         "mlp": {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
                 "wo": dense(cfg.d_ff, d)},
@@ -91,7 +99,8 @@ def _embed(p, tokens, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device):
-    """Stacked per-layer KV cache {k, v: [L, B, S_max, KV, D]}."""
+    """Stacked per-layer KV cache {k, v: [L, B, S_max, KV, D]}, and the
+    scales {k_s, v_s: [L, B, S_max, KV]} of an int8 cache."""
     _check_family(cfg)
     one = attn_mod.init_cache(cfg, batch, s_max, device=device)
     return {k: torch.zeros((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,

@@ -57,6 +57,14 @@ def quantize(x, bits: int = 8, axis=None, eps: float = 1e-8):
     return q, scale
 
 
+def quantize_int4(x, axis=None):
+    return quantize(x, bits=4, axis=axis)
+
+
+def dequantize(q, scale):
+    return q.to(torch.float32) * scale
+
+
 def pack_int4(q4):
     """[..., N] int4-valued int8 -> [..., N//2] packed int8 words."""
     return kref.pack_w4(q4)

@@ -424,6 +424,65 @@ def test_cuda_fused_decode_forced_plain_launches_nothing(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["w4a8", "w8a8"])
+def test_cuda_fused_decode_int8_kv_matches_stepwise(cuda, fmt):
+    """qwen-reduced with nonzero q/k/v biases and the int8 KV cache: the
+    captured step's tokens and logits equal the per-step loop's and the
+    plain versions', bit for bit; its cache holds int8 values and float32
+    scales, updated in place."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    serve.decode_cache_clear()
+    cfg = dataclasses.replace(configs.get_reduced_config("qwen1.5-0.5b"),
+                              serve_kv_dtype="int8")
+    params = serve.build_params(cfg, fmt, quant_force=True, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    attn = params["blocks"]["attn"]
+    for b in ("bq", "bk", "bv"):
+        attn[b] = torch.randn(attn[b].shape, generator=gen, device=cuda,
+                              dtype=torch.float32).to(attn[b].dtype)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab, (3, 8))
+    kw = dict(gen=6, cache_len=14, device=cuda, return_logits=True)
+    stepwise = serve.generate(params, prompts, cfg, fused=False, **kw)
+    fused = serve.generate(params, prompts, cfg, **kw)
+    with registry.force("ref"):
+        plain = serve.generate(params, prompts, cfg, **kw)
+    for got in (fused, plain):
+        assert torch.equal(got[0], stepwise[0])
+        assert torch.equal(got[1], stepwise[1])
+    cache = serve._decode_bundle(cfg, "off", cuda).step.cache
+    assert cache["k"].dtype == torch.int8
+    assert cache["k_s"].dtype == torch.float32
+    assert bool((cache["k_s"][:, :, 8:13] > 1e-8).all())
+
+
+@pytest.mark.cuda
+def test_cuda_attn_q_chunk_prefill_matches_unchunked(cuda):
+    """yi-reduced in float32: the chunked prefill's logits equal the
+    unchunked one's within 1e-4 (the reference's bound), the caches bit
+    for bit (the chunks change only the attention's query blocks)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.get_reduced_config("yi-6b"),
+                              dtype="float32")
+    params = serve.build_params(cfg, "w4a8", quant_force=True, device=cuda)
+    prompts = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 64))).to(cuda)
+    want, want_kv = lm.prefill(params, prompts, cfg, cache_len=64)
+    got, got_kv = lm.prefill(params, prompts, dataclasses.replace(
+        cfg, attn_q_chunk=16), cache_len=64)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for k in want_kv:
+        assert torch.equal(got_kv[k], want_kv[k])
+
+
 # ragged element counts (not multiples of the 16 a thread owns, so the
 # masked tail runs) and aligned ones (the 16-byte path)
 SWAR_SHAPES = [(1,), (5,), (17, 3), (4096,), (33, 65), (2, 1024)]
