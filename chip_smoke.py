@@ -91,10 +91,27 @@ over):
    last step, teacher-forced), each with a profile of a replayed step;
    then yi-6b's prefill, B=2, 2048 tokens, in a float32 config (w4a8),
    with attn_q_chunk=512 against unchunked: logits within CHUNK_REL of
-   the largest and a lower peak of allocated memory.  Each phase's
-   seconds are logged.
+   the largest and a lower peak of allocated memory;
+8. the MoE family: both GEMM kernels on expert-stacked weights, one
+   launch per [E, K, N] weight (the experts on the grid's y axis), bit
+   for bit against the batched plain versions at granite's expert
+   widths (E = 32) and arctic's (an E = 4 slice), M = 1, 8, 16, 17,
+   1024 rows per expert, x per expert and x shared by all (expert stride
+   0), E = 1 against the 2-D entry, and one arctic-shaped stack of
+   4.46 GB (E = 128, past 2^31 bytes: size_t expert offsets), each
+   timed beside its bound (`phase_moe_gemms`); then full-width
+   granite-moe-1b-a400m (24 layers, 32 experts, vocab 49155; random
+   weights, seed 0) under w4a8 and w8a8 through the gates of 6
+   (`_serve_gates`: 169 small-M launches per replayed decode step, 168
+   tile launches per prefill; the odd vocab's head in w8a8 under both
+   formats), `--silvia all` == off, a replayed step's profile, its GEMM
+   kernels' time per generate beside their bounds and the step's
+   weight-byte bound with every expert read (`phase_moe`).  Each
+   phase's seconds are logged.
 
-Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
+Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
+launches, the MoE path's included, and the MoE path's GEMM time per
+generate), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
@@ -1210,16 +1227,14 @@ def _profiled_generate(serve, params, prompts, cfg, **kw):
     """(tokens, logits, the wrappers' launch counts, launches per wrapper
     counter on the device) of one generate under the profiler: the device
     counts are the kernels the run launched, graph replays included, by
-    symbol (`registry.profiled_launches`)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    symbol (`registry.profiled_launches`), in a `registry.profile_window`
+    (its prologue takes the profiler's loss of a session's first
+    kernels)."""
     from repro_torch.kernels import registry
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with registry.profile_window() as prof:
         toks, logits, counts, _ = _timed_generate(serve, params, prompts,
                                                   cfg, **kw)
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")}
+    kernels = {e.key: e.count for e in registry.window_events(prof)}
     return toks, logits, counts, registry.profiled_launches(kernels)
 
 
@@ -1243,18 +1258,24 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
     from repro_torch.models import lm
 
     name = _gemm_name(fmt)
-    counter = {c.name: c for c in registry.LAUNCH_COUNTERS}[name]
+    # an odd vocab has no w4a8 head: it falls back to w8a8 (granite)
+    head_fmt = "w8a8" if fmt == "w4a8" and cfg.vocab % 2 else fmt
+    hname = _gemm_name(head_fmt)
+    counter = {c.name: c for c in registry.LAUNCH_COUNTERS}[hname]
     head = 0 if cfg.tie_embeddings else 1
+    # 7 GEMMs per layer: q k v o and the MLP's three (a moe layer's three
+    # expert-stacked GEMMs, one launch each)
     tile = 7 * cfg.n_layers                 # prefill rows: M = B * S > 16
-    per_step = tile + head                  # decode rows: M = B, small-M
 
-    def launches(tile, small):
+    def launches(tile, small, heads):
         want = {c.name: 0 for c in registry.LAUNCH_COUNTERS}
         want[name], want[f"{name}_small_m"] = tile + small, small
+        want[hname] += heads                # decode rows: M = B, small-M
+        want[f"{hname}_small_m"] += heads
         return want
 
     # the prefill's lm_head runs on the last position only (M = B)
-    want = launches(tile, per_step * (GEN - 1) + head)
+    want = launches(tile, tile * (GEN - 1), head * GEN)
     cache_len = PROMPT + GEN
     serve.generate(params, prompts[:, :8], cfg, gen=2, cache_len=16,
                    fused=False)
@@ -1297,7 +1318,8 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
         toks_s, logits_s, counts_s, step_s = _timed_generate(
             serve, params, prompts, cfg, fused=False)
     heads = sum(1 for (_, w), _ in rec
-                if w.shape[-1] * (2 if fmt == "w4a8" else 1) == cfg.vocab)
+                if w.shape[-1] * (2 if head_fmt == "w4a8" else 1)
+                == cfg.vocab)
     del rec
     check(toks_s, logits_s, counts_s, "per-step")
     if heads != head * GEN:
@@ -1309,7 +1331,7 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
     toks_1, logits_1, counts_1, first_s = _timed_generate(
         serve, params, prompts, cfg)
     check(toks_1, logits_1, counts_1, "first fused call (wrappers)",
-          launches(tile, head + 2 * per_step))
+          launches(tile, 2 * tile, 3 * head))
     same_as_per_step(toks_1, logits_1, "the first fused call")
     bundle = serve._decode_bundle(cfg, "off", "cuda")
     captured = bundle.step
@@ -1331,7 +1353,7 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
             f"{launched} short of {want}; driven again")
     check(toks, logits, launched, "fused (profiled)")
     check(toks, logits, counts, "fused (wrappers: no eager decode step)",
-          launches(tile, head))
+          launches(tile, 0, head))
     same_as_per_step(toks, logits, "fused decode")
     # its time, unprofiled
     toks_t, logits_t, _, total_s = _timed_generate(serve, params,
@@ -1478,13 +1500,17 @@ CHUNK_B, CHUNK_S, Q_CHUNK, CHUNK_REL = 2, 2048, 512, 1e-4
 
 def step_weight_bytes(cfg, fmt: str) -> float:
     """Weight bytes one decode step reads, from param_count: the blocks
-    and an untied lm_head in the format's bytes per weight, a tied head
-    as the bf16 embedding (the embedding lookup reads B rows, left out);
-    scales and activations left out."""
+    and an untied lm_head in the format's bytes per weight (an odd vocab's
+    head in int8: no w4a8 there), a tied head as the bf16 embedding (the
+    embedding lookup reads B rows, left out); scales and activations left
+    out.  A moe layer reads every expert: the serving path runs all of
+    them on every token (mlp.moe); its float32 router is counted at the
+    format's bytes too (0.06% of granite's)."""
     emb = cfg.vocab * cfg.d_model
     blocks = cfg.param_count() - emb * (1 if cfg.tie_embeddings else 2)
     per = 0.5 if fmt == "w4a8" else 1.0
-    return blocks * per + (2.0 * emb if cfg.tie_embeddings else per * emb)
+    head = 1.0 if cfg.vocab % 2 else per
+    return blocks * per + (2.0 * emb if cfg.tie_embeddings else head * emb)
 
 
 def phase_dense(wide_us: dict) -> dict:
@@ -1643,6 +1669,324 @@ def phase_dense(wide_us: dict) -> dict:
     return launches
 
 
+# phase 8: the MoE family.  Expert widths (E, K, N): granite's three
+# expert GEMMs, and arctic's on a 4-expert slice of its 128
+GRANITE_EXPERT_KN = [(1024, 512), (512, 1024)]
+ARCTIC_EXPERT_KN = [(7168, 4864), (4864, 7168)]
+EXPERT_M = (1, DECODE_M, 16, 17, PREFILL_M)
+# one stacked weight past 2^31 bytes: arctic-shaped, all 128 experts
+BIG_EXPERTS = (128, 7168, 4864)
+
+
+def bound_ms_experts(e: int, m: int, k: int, n: int, w_bytes: int,
+                     shared: bool) -> tuple:
+    """bound_ms of one launch over E experts: x read once (once for all
+    experts when shared), the stacked weights, both scales, the E f32
+    outputs, against 2*E*M*K*N int8 operations."""
+    nbytes = m * k * (1 if shared else e) + w_bytes + 4 * m * (
+        1 if shared else e) + 4 * e * n + 4 * e * m * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * e * m * k * n / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def median_device_ms(fn, n_iter: int) -> float:
+    """The median of three device_ms runs: in one run of phase 8 two
+    shapes read 3.9x and 11x the per-launch time that another run read
+    (cause not measured), and one reading weighs 5208 launches in the
+    per-generate sums."""
+    return sorted(device_ms(torch, fn, n_iter) for _ in range(3))[1]
+
+
+def phase_moe_gemms() -> dict:
+    """Both GEMM kernels on expert-stacked weights, bit for bit (acc and
+    f32 out, `torch.equal`) against their batched plain versions: granite's
+    expert widths (E = 32; (K, N) = (1024, 512), (512, 1024)) and arctic's
+    on an E = 4 slice ((7168, 4864), (4864, 7168)), at M = 1, 8, 16, 17,
+    1024 rows per expert, with x per expert and x shared by every expert
+    (expert stride 0, the per-token path's wi / wg); each call ONE launch
+    (on the small-M counter for M <= 16 rows per expert); E = 1 equal to
+    the 2-D entry.  Then one stacked weight past 2^31 bytes (arctic-shaped
+    E = 128 at (7168, 4864): 4.46 GB int8, 2.23 GB packed; M = 8), the
+    plain version compared in expert slices.  Granite's attention and
+    head widths gate the 2-D entries.  Logs per-launch times (CUDA events,
+    L2 spilled; the median of three runs) beside the bounds; returns
+    {(kernel, M, K, N, E, shared x): ms} of granite's widths at M = 8 and
+    1024, for the per-generate sums."""
+    from repro_torch import configs
+    from repro_torch.kernels import packed_matmul, quant_matmul, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device="cuda") * 0.02 + 1e-3
+
+    specs = [("quant_matmul", quant_matmul, ref.quant_matmul_acc_ref,
+              ref.quant_matmul_ref, 1),
+             ("packed_w4_matmul", packed_matmul,
+              ref.packed_w4_matmul_acc_ref, ref.packed_w4_matmul_ref, 2)]
+    cfg = configs.get_config("granite-moe-1b-a400m")
+    times = {}
+    t0 = time.perf_counter()
+    n_cases = 0
+
+    def gate(name, mod, acc_ref, out_ref, x, w, xs, ws, what, plain=True):
+        acc_fn, out_fn = getattr(mod, f"{name}_acc"), getattr(mod, name)
+        m = x.shape[-2]
+        before = (mod.LAUNCHES.count, mod.SMALL_M_LAUNCHES.count)
+        acc_k, out_k = acc_fn(x, w), out_fn(x, w, xs, ws)
+        torch.cuda.synchronize()
+        small = 2 if m <= quant_matmul.SMALL_M else 0
+        if (mod.LAUNCHES.count - before[0],
+                mod.SMALL_M_LAUNCHES.count - before[1]) != (2, small):
+            raise AssertionError(f"{name} {what}: launches "
+                                 f"{mod.LAUNCHES.count - before[0]} / small-M "
+                                 f"{mod.SMALL_M_LAUNCHES.count - before[1]}, "
+                                 f"expected 2 / {small} (one per call)")
+        if plain and not (torch.equal(acc_k, acc_ref(x, w))
+                          and torch.equal(out_k, out_ref(x, w, xs, ws))):
+            raise AssertionError(f"{name} {what}: differs from the plain "
+                                 "version")
+        return acc_k, out_k
+
+    for name, mod, acc_ref, out_ref, per in specs:
+        out_fn = getattr(mod, name)
+        for e, kns in ((cfg.moe.n_experts, GRANITE_EXPERT_KN),
+                       (4, ARCTIC_EXPERT_KN)):
+            for k, n in kns:
+                w, ws = i8(e, k, n // per), scales(e, 1, n)
+                copies = [w] + [i8(*w.shape) for _ in range(
+                    math.ceil(128e6 / w.numel()) - 1)]
+                for m in EXPERT_M:
+                    for shared in (False, True):
+                        if e == 4 and shared and m not in (DECODE_M,
+                                                           PREFILL_M):
+                            continue
+                        if shared:
+                            x = i8(m, k).expand(e, m, k)
+                            xs = scales(m, 1).expand(e, m, 1)
+                        else:
+                            x, xs = i8(e, m, k), scales(e, m, 1)
+                        what = (f"E={e} M={m} K={k} N={n}"
+                                f"{' shared x' if shared else ''}")
+                        _, out_k = gate(name, mod, acc_ref, out_ref, x, w, xs,
+                                        ws, what)
+                        one = out_fn(x[:1].contiguous(), w[:1],
+                                     xs[:1].contiguous(), ws[:1])
+                        two = out_fn(x[0].contiguous(), w[0],
+                                     xs[0].contiguous(), ws[0])
+                        if not (torch.equal(one[0], two)
+                                and torch.equal(out_k[0], two)):
+                            raise AssertionError(f"{name} {what}: E = 1 "
+                                                 "differs from the 2-D entry")
+                        n_cases += 1
+                        if m not in (DECODE_M, PREFILL_M):
+                            continue
+                        t = median_device_ms(lambda i: out_fn(
+                            x, copies[i % len(copies)], xs, ws),
+                            100 if m == DECODE_M else 20)
+                        b_ms, b_by = bound_ms_experts(e, m, k, n, w.numel(),
+                                                      shared)
+                        kname = name + ("_small_m" if m <= 16 else "")
+                        if e == cfg.moe.n_experts:
+                            times[(kname, m, k, n, e, shared)] = t
+                        log(f"  {kname:24s} {what:34s} kernel "
+                            f"{t * 1e3:9.2f} us  bound {b_ms * 1e3:8.2f} us "
+                            f"({b_by}, {100 * b_ms / t:.1f}%)")
+                del w, ws, copies, x, xs
+                torch.cuda.empty_cache()
+        # granite's attention and head widths, 2-D
+        d = cfg.d_model
+        for k, n in dict.fromkeys([(d, cfg.q_dim), (d, cfg.kv_dim),
+                                   (cfg.q_dim, d), (d, cfg.vocab)]):
+            if n % per:
+                continue                 # the odd head: w8a8 only
+            w, ws = i8(k, n // per), scales(1, n)
+            copies = [w] + [i8(*w.shape) for _ in range(
+                math.ceil(128e6 / w.numel()) - 1)]
+            for m in (DECODE_M, PREFILL_M):
+                x, xs = i8(m, k), scales(m, 1)
+                gate(name, mod, acc_ref, out_ref, x, w, xs, ws,
+                     f"M={m} K={k} N={n}")
+                n_cases += 1
+                t = median_device_ms(lambda i: out_fn(
+                    x, copies[i % len(copies)], xs, ws),
+                    100 if m == DECODE_M else 20)
+                b_ms, b_by = bound_ms(m, k, n, w.numel())
+                kname = name + ("_small_m" if m <= 16 else "")
+                times[(kname, m, k, n, 1, False)] = t
+                log(f"  {kname:24s} {'M=%d K=%d N=%d (2-D)' % (m, k, n):34s} "
+                    f"kernel {t * 1e3:9.2f} us  bound {b_ms * 1e3:8.2f} us "
+                    f"({b_by}, {100 * b_ms / t:.1f}%)")
+            del w, ws, copies
+            torch.cuda.empty_cache()
+
+    # one stacked weight past 2^31 bytes: experts past the int32 offset
+    e, k, n = BIG_EXPERTS
+    for name, mod, acc_ref, out_ref, per in specs:
+        w = i8(e, k, n // per)
+        ws = scales(e, 1, n)
+        x, xs = i8(e, DECODE_M, k), scales(e, DECODE_M, 1)
+        what = f"E={e} M={DECODE_M} K={k} N={n} ({w.numel() / 1e9:.2f} GB)"
+        acc_k, out_k = gate(name, mod, acc_ref, out_ref, x, w, xs, ws, what,
+                            plain=False)
+        last = None
+        for e0 in range(0, e, 16):        # the plain version's float64 copy
+            sl = slice(e0, e0 + 16)
+            if not (torch.equal(acc_k[sl], acc_ref(x[sl], w[sl])) and
+                    torch.equal(out_k[sl], out_ref(x[sl], w[sl], xs[sl],
+                                                   ws[sl]))):
+                raise AssertionError(f"{name} {what}: experts {e0}.. differ "
+                                     "from the plain version")
+            last = e0 + 15
+        t = device_ms(torch, lambda i: getattr(mod, name)(x, w, xs, ws), 5)
+        b_ms, b_by = bound_ms_experts(e, DECODE_M, k, n, w.numel(), False)
+        log(f"  {name + '_small_m':24s} {what}: bit-identical to the plain "
+            f"version in all {last + 1} experts (expert {e - 1} at byte "
+            f"{(e - 1) * k * n // per:,}, past 2^31); kernel "
+            f"{t * 1e3:9.2f} us  bound {b_ms * 1e3:8.2f} us ({b_by}, "
+            f"{100 * b_ms / t:.1f}%)")
+        del w, ws, x, xs, acc_k, out_k
+        torch.cuda.empty_cache()
+    log(f"expert-stacked GEMM gates: both kernels bit-identical to the plain "
+        f"versions at {n_cases} cases (one launch per call; E = 1 equal to "
+        f"the 2-D entry) in {time.perf_counter() - t0:.1f} s")
+    return times
+
+
+def moe_per_generate(cfg, fmt: str, times: dict) -> dict:
+    """One generate's worth (B=BATCH, prompt PROMPT, GEN new tokens) of
+    each GEMM kernel on granite's path, from phase_moe_gemms' per-launch
+    times: per layer the prefill's 7 tile launches (4 attention, 3
+    expert-stacked) and 7 small-M launches per decode step; the head's
+    small-M launch per token.  {kernel: (launches, ms, bound_ms)}."""
+    name = _gemm_name(fmt)
+    hname = _gemm_name("w8a8" if fmt == "w4a8" and cfg.vocab % 2 else fmt)
+    per = 2 if fmt == "w4a8" else 1
+    d, e, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+    layer = [(d, cfg.q_dim, 1, False), (d, cfg.kv_dim, 1, False),
+             (d, cfg.kv_dim, 1, False), (cfg.q_dim, d, 1, False),
+             (d, f, e, True), (d, f, e, True), (f, d, e, False)]
+    out = {}
+
+    def add(kname, m, k, n, ee, shared, count, wper):
+        t = times[(kname, m, k, n, ee, shared)]
+        b, _ = (bound_ms_experts(ee, m, k, n, ee * k * n // wper, shared)
+                if ee > 1 else bound_ms(m, k, n, k * n // wper))
+        c, ms, bd = out.get(kname, (0, 0.0, 0.0))
+        out[kname] = (c + count, ms + t * count, bd + b * count)
+
+    for k, n, ee, shared in layer:
+        add(name, PREFILL_M, k, n, ee, shared, cfg.n_layers, per)
+        add(f"{name}_small_m", DECODE_M, k, n, ee, shared,
+            cfg.n_layers * (GEN - 1), per)
+    add(f"{hname}_small_m", DECODE_M, d, cfg.vocab, 1, False, GEN,
+        1 if hname == "quant_matmul" else 2)
+    return out
+
+
+def phase_moe(times: dict) -> dict:
+    """Phase 8: granite-moe-1b-a400m served at full width (24 layers,
+    d 1024, 32 experts of d_ff 512, vocab 49155; nothing cut; random
+    weights from seed 0), B=8, prompt 128, 32 new tokens, greedy, w4a8
+    and w8a8, bf16 cache, through `_serve_gates` (fused == per-step ==
+    plain-forced, bit for bit; launches counted: 24 x 7 GEMMs per step,
+    the three expert-stacked ones one launch each, and the odd-vocab head
+    in w8a8 under both formats); --silvia all == off in tokens; a
+    replayed step's profile; the step's weight-byte bound (all 32 experts
+    are read every step).  Returns ({GEMM counter: {path: launches}},
+    {path: {GEMM counter: its launches, ms and bound_ms per generate}})."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    cfg = configs.get_config("granite-moe-1b-a400m")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                            device="cuda")
+    launches, per_generate = {}, {}
+    for fmt in ("w4a8", "w8a8"):
+        tag = f"granite-moe-1b-a400m {fmt}"
+        t0 = time.perf_counter()
+        params = serve.build_params(cfg, fmt, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        head = params["lm_head"]
+        moe = params["blocks"]["moe"]
+        if head.fmt != "w8a8" or moe["wi"].fmt != fmt or \
+                tuple(moe["wi"].scale.shape) != (cfg.n_layers,
+                                                  cfg.moe.n_experts, 1,
+                                                  cfg.moe.d_ff_expert) or \
+                moe["router"].dtype != torch.float32:
+            raise AssertionError(f"{tag}: quantized tree {head.fmt} head, "
+                                 f"{moe['wi'].fmt} experts "
+                                 f"{tuple(moe['wi'].scale.shape)} scales, "
+                                 f"router {moe['router'].dtype}")
+        r = _serve_gates(cfg, fmt, params, prompts, tag)
+        for k in ("quant_matmul", "packed_w4_matmul"):   # as phase_dense's
+            small = r["launched"][f"{k}_small_m"]
+            for kname, n in ((k, r["launched"][k] - small),
+                             (f"{k}_small_m", small)):
+                if n:
+                    launches.setdefault(kname, {})[tag] = n
+        first_a = _timed_generate(serve, params, prompts, cfg,
+                                  silvia_passes="all")[3]
+        toks_a, logits_a, _, silvia_s = _timed_generate(
+            serve, params, prompts, cfg, silvia_passes="all")
+        if not torch.equal(toks_a, r["toks"]):
+            raise AssertionError(f"{tag}: --silvia all tokens differ from off")
+        same = "identical" if torch.equal(logits_a, r["logits"]) \
+            else "DIFFER"
+        log(f"{tag} --silvia all: tokens identical to off, logits {same}"
+            f"; first call (trace + capture) {first_a * 1e3:.1f} ms, fused "
+            f"decode {(silvia_s - r['prefill_s']) / (GEN - 1) * 1e3:.2f} "
+            f"ms/step; passes "
+            f"{serve.get_decode_step(cfg, 'all').cache_info()}")
+        # the replayed steps' small-M launches (the profiled main path)
+        small = sum(n for k, n in r["launched"].items()
+                    if k.endswith("_small_m"))
+        per_step = (small - 1) / (GEN - 1)   # the prefill's head: one
+        if per_step != 7 * cfg.n_layers + 1:
+            raise AssertionError(f"{tag}: {per_step} small-M launches per "
+                                 f"replayed step, expected "
+                                 f"{7 * cfg.n_layers + 1}")
+        per_gen = moe_per_generate(cfg, fmt, times)
+        small = [k for k in per_gen if k.endswith("_small_m")]
+        b2b = sum(per_gen[k][1] for k in small) / sum(
+            per_gen[k][0] for k in small) * 1e3
+        replay_profile(torch, r["captured"], params, cfg, prompts,
+                       PROMPT + GEN, tag, b2b)
+        nbytes = step_weight_bytes(cfg, fmt)
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        for k, (c, _, _) in per_gen.items():     # the profiled launches
+            seen = r["launched"][k] if k.endswith("_small_m") else \
+                r["launched"][k] - r["launched"][f"{k}_small_m"]
+            if c != seen:
+                raise AssertionError(f"{tag}: {k} launched {seen} times, "
+                                     f"the per-generate sum counts {c}")
+        log(f"{tag}: {per_step:.0f} small-M launches per replayed decode "
+            f"step (profiled); built and quantized in {t_build:.1f} s; GEMM "
+            "kernels "
+            "per generate (per-launch times x launches, phase 8's gates): "
+            + "; ".join(f"{k} {c} launches {ms:.3f} ms (bound {bd:.3f})"
+                        for k, (c, ms, bd) in per_gen.items())
+            + f"; decode bound {b:.3f} ms/step ({nbytes / 1e9:.3f} GB of "
+            f"weights, every expert, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
+            f"fused {r['fused_ms']:.2f} ms/step, {100 * b / r['fused_ms']:.1f}"
+            f"% of it; replays alone {r['replay_ms']:.2f}; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        per_generate[tag] = {k: dict(launches=c, ms=ms, bound_ms=bd)
+                             for k, (c, ms, bd) in per_gen.items()}
+        del params, head, moe, r, toks_a, logits_a
+        serve.decode_cache_clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return launches, per_generate
+
+
 def _small_m_back_to_back_us(res: dict) -> float:
     """The small-M kernel's mean time per decode launch, back to back
     (phase_kernels' CUDA-event timing, L2 spilled), weighted as one
@@ -1655,10 +1999,10 @@ def _small_m_back_to_back_us(res: dict) -> float:
 def _profiled(torch, run, steps: int):
     """Profile run() (which makes `steps` decode steps and synchronizes):
     (host ms/step, device ms/step, [(key, device ms/step, calls/step,
-    us/call)] of the device kernels, by device time)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    us/call)] of the device kernels, by device time), in a
+    `registry.profile_window` (its prologue is not timed or listed)."""
+    from repro_torch.kernels import registry
+    with registry.profile_window() as prof:
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
@@ -1666,8 +2010,7 @@ def _profiled(torch, run, steps: int):
                             getattr(e, "self_cuda_time_total", 0.0))
     # device-side kernel events only: a host op's own entry repeats the
     # device time of the kernels it launched
-    events = sorted((e for e in prof.key_averages()
-                     if str(e.device_type).endswith("CUDA") and dev(e) > 0),
+    events = sorted((e for e in registry.window_events(prof) if dev(e) > 0),
                     key=dev, reverse=True)
     rows = [(e.key, dev(e) / 1e3 / steps, e.count / steps,
              dev(e) / e.count) for e in events]
@@ -1797,9 +2140,18 @@ def main() -> int:
                     results) + swar_entries
     other = phase("dense serving: yi-6b, qwen1.5-0.5b int8 KV, "
                   "attn_q_chunk", phase_dense, wide)
+    moe_times = phase("expert-stacked GEMM gates", phase_moe_gemms)
+    moe, per_gen = phase("MoE serving: granite-moe-1b-a400m", phase_moe,
+                         moe_times)
+    for k, paths in moe.items():
+        other.setdefault(k, {}).update(paths)
     for e in entries:
         if e["name"] in other:
             e["launches_other_paths"] = other[e["name"]]
+        moe_path = {tag: rows[e["name"]] for tag, rows in per_gen.items()
+                    if e["name"] in rows}
+        if moe_path:
+            e["moe_path_per_generate"] = moe_path
     log(f"== total: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries}), flush=True)

@@ -12,6 +12,8 @@ ARCHS = [
     "qwen1.5-0.5b",
     "yi-6b",
     "command-r-35b",
+    "granite-moe-1b-a400m",
+    "arctic-480b",
 ]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

@@ -191,8 +191,8 @@ def on_cpu(t, counter: LaunchCounter) -> bool:
 
 
 def launch_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
-                   w_scale, *, want_acc: bool, want_out: bool,
-                   vec_bytes: int = 16, also: LaunchCounter | None = None):
+                w_scale, *, want_acc: bool, want_out: bool,
+                vec_bytes: int = 16, also: LaunchCounter | None = None):
     """Validate operands, allocate outputs and launch one of the int8 GEMM
     kernels (`csrc/quant_matmul.cu` / `csrc/packed_w4_matmul.cu`, bound as
     `fn`) on the current stream.  `w` is the stored weight ([K,N] int8 or
@@ -201,27 +201,44 @@ def launch_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
     x aligned to it, w's likewise for its row length.  A launch counts on
     `counter` and, if given, on `also` (a counter of this one kernel among
     several behind `counter`).  Returns (acc int32 [M,n] or None, out f32
-    [M,n] or None)."""
+    [M,n] or None).
+
+    Expert-stacked weights (w [E,K,N] or [E,K,N//2], `fn` a batched
+    `*_experts` entry): x_q [E,M,K], x_scale [E,M,1], w_scale [E,1,N],
+    and outputs [E,M,n], all E experts in ONE launch.  An x_q whose
+    expert axis has stride 0 (an expanded [M,K], with an x_scale expanded
+    alike) is passed once for every expert, uncopied.  The int32 index
+    limit holds per expert."""
     dev = x_q.device
     if dev.type != "cuda":
         raise ValueError(f"{counter.name}: kernel launch needs CUDA tensors "
                          f"(got {dev})")
+    experts = w.ndim == 3
+    nd = 3 if experts else 2
     for name, t in (("x_q", x_q), ("w", w)):
-        if t.dtype != torch.int8 or t.ndim != 2 or t.device != dev:
-            raise ValueError(f"{counter.name}: {name} must be a 2-D int8 "
+        if t.dtype != torch.int8 or t.ndim != nd or t.device != dev:
+            raise ValueError(f"{counter.name}: {name} must be a {nd}-D int8 "
                              f"tensor on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    m, k = x_q.shape
-    if w.shape[0] != k:
+    m, k = x_q.shape[-2:]
+    e = w.shape[0] if experts else 1
+    if w.shape[-2] != k or (experts and x_q.shape[0] != e):
         raise ValueError(f"{counter.name}: K mismatch {tuple(x_q.shape)} @ "
                          f"{tuple(w.shape)}")
     if max(m * k, k * n, m * n) >= 2 ** 31:
         raise ValueError(f"{counter.name}: shape {(m, k, n)} exceeds the "
                          "kernel's int32 indexing")
-    x_q, w = x_q.contiguous(), w.contiguous()
-    acc = torch.empty((m, n), dtype=torch.int32, device=dev) \
+    if e > 65535:
+        raise ValueError(f"{counter.name}: {e} experts, beyond the grid's "
+                         "65535")
+    lead = (e,) if experts else ()
+    shared = experts and x_q.stride(0) == 0 and (
+        not want_out or x_scale.expand(e, m, 1).stride(0) == 0)
+    x_q = x_q[0].contiguous() if shared else x_q.contiguous()
+    w = w.contiguous()
+    acc = torch.empty(lead + (m, n), dtype=torch.int32, device=dev) \
         if want_acc else None
-    out = torch.empty((m, n), dtype=torch.float32, device=dev) \
+    out = torch.empty(lead + (m, n), dtype=torch.float32, device=dev) \
         if want_out else None
     xs = ws = None
     if want_out:
@@ -229,9 +246,10 @@ def launch_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
             if s.dtype != torch.float32 or s.device != dev:
                 raise ValueError(f"{counter.name}: {name} must be float32 "
                                  f"on {dev}, got {s.dtype} on {s.device}")
-        xs = x_scale.expand(m, 1).reshape(m).contiguous()
-        ws = w_scale.expand(1, n).reshape(n).contiguous()
-    if m == 0 or n == 0:
+        xs = x_scale.expand(lead + (m, 1))
+        xs = (xs[0] if shared else xs).reshape(-1).contiguous()
+        ws = w_scale.expand(lead + (1, n)).reshape(-1).contiguous()
+    if e == 0 or m == 0 or n == 0:
         return acc, out
     if k == 0:   # empty reduction: nothing to launch, the sum is 0
         for t in (acc, out):
@@ -239,14 +257,18 @@ def launch_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
                 t.zero_()
         return acc, out
     vec_x = k % vec_bytes == 0 and x_q.data_ptr() % vec_bytes == 0
-    vec_w = w.shape[1] % vec_bytes == 0 and w.data_ptr() % vec_bytes == 0
-    code = fn(x_q.data_ptr(), w.data_ptr(),
-              xs.data_ptr() if xs is not None else None,
-              ws.data_ptr() if ws is not None else None,
-              acc.data_ptr() if acc is not None else None,
-              out.data_ptr() if out is not None else None,
-              m, k, n, int(vec_x), int(vec_w),
-              torch.cuda.current_stream(dev).cuda_stream)
+    vec_w = w.shape[-1] % vec_bytes == 0 and w.data_ptr() % vec_bytes == 0
+    ptrs = (x_q.data_ptr(), w.data_ptr(),
+            xs.data_ptr() if xs is not None else None,
+            ws.data_ptr() if ws is not None else None,
+            acc.data_ptr() if acc is not None else None,
+            out.data_ptr() if out is not None else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if experts:
+        code = fn(*ptrs, e, m, k, n, int(not shared), int(vec_x),
+                  int(vec_w), stream)
+    else:
+        code = fn(*ptrs, m, k, n, int(vec_x), int(vec_w), stream)
     for c in (counter, also):
         if c is not None:
             c.launched(x_q, w)

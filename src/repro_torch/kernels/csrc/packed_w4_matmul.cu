@@ -78,8 +78,9 @@ extern "C" int repro_packed_w4_matmul(const void* x, const void* w,
                                       void* acc_out, void* f_out, int M,
                                       int K, int N, int vec_x, int vec_w,
                                       void* stream) {
-  return s8tile::launch_tile<s8tile::TileW4>(x, w, xs, ws, acc_out, f_out,
-                                             M, K, N, vec_x, vec_w, stream);
+  return s8tile::launch_tile<s8tile::TileW4>(
+      x, w, xs, ws, acc_out, f_out, 1, M, K, N, vec_x, vec_w,
+      s8small::ExpertStrides{}, stream);
 }
 
 // The number of blocks repro_packed_w4_matmul launches for an M x N
@@ -99,5 +100,32 @@ extern "C" int repro_packed_w4_matmul_small_m(const void* x, const void* w,
                                               int N, int vec_x, int vec_w,
                                               void* stream) {
   return s8small::launch_small_m<s8small::LoadW4Word>(
-      x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w, stream);
+      x, w, xs, ws, acc_out, f_out, 1, M, K, N, vec_x, vec_w,
+      s8small::ExpertStrides{}, stream);
+}
+
+// Expert-stacked weights, one launch for all E experts (blockIdx.y =
+// e): w [E, K, N/2], w_scale [E, N], outputs [E, M, N]; x [E, M, K]
+// and x_scale [E, M] with x_per_expert, else one x [M, K] and x_scale [M]
+// for every expert.  The tile (repro_packed_w4_matmul_experts) and
+// the small-M kernel (repro_packed_w4_matmul_small_m_experts), each
+// with the contract of its 2-D entry above per expert; E = 1 gives the
+// 2-D entry's result bit for bit.  cudaErrorInvalidValue (nothing
+// launched) for E outside 1..65535.
+extern "C" int repro_packed_w4_matmul_experts(
+    const void* x, const void* w, const void* xs, const void* ws,
+    void* acc_out, void* f_out, int E, int M, int K, int N, int x_per_expert,
+    int vec_x, int vec_w, void* stream) {
+  return s8tile::launch_tile<s8tile::TileW4>(
+      x, w, xs, ws, acc_out, f_out, E, M, K, N, vec_x, vec_w,
+      s8small::expert_strides(M, K, N, N / 2, x_per_expert != 0), stream);
+}
+
+extern "C" int repro_packed_w4_matmul_small_m_experts(
+    const void* x, const void* w, const void* xs, const void* ws,
+    void* acc_out, void* f_out, int E, int M, int K, int N, int x_per_expert,
+    int vec_x, int vec_w, void* stream) {
+  return s8small::launch_small_m<s8small::LoadW4Word>(
+      x, w, xs, ws, acc_out, f_out, E, M, K, N, vec_x, vec_w,
+      s8small::expert_strides(M, K, N, N / 2, x_per_expert != 0), stream);
 }

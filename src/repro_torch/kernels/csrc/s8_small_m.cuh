@@ -62,6 +62,19 @@
 // f = ((float)acc * x_scale[m]) * w_scale[n], each product rounded to
 // nearest: bit-identical to the plain PyTorch version.
 //
+// Expert-stacked weights (the MoE family's [E, K, N] experts, which the
+// reference serves by vmap over the pallas_call, one grid axis more):
+// one launch takes all E experts, expert e on blockIdx.y = e.  Each
+// expert's x, w, scales and outputs start at e times their expert
+// stride (ExpertStrides, in elements; computed in size_t, since a
+// stacked arctic weight is 128 x 7168 x 4864 = 4.46e9 bytes), and inside
+// an expert the kernel is the 2-D kernel unchanged.  An x stride of 0
+// hands every expert the same x rows and scales (the per-token MoE path
+// feeds one x to all experts).  The 2-D entries launch E = 1 with zero
+// strides: the same grid, the same blocks, the same sums.  Bound: the
+// 2-D bound summed over the experts; a decode launch of granite's
+// [32, 1024, 512] int8 experts moves 16.8 MB, 5.0 us at 3.35 TB/s.
+//
 // The constants below are read by tests/test_torch_small_m.py, whose
 // numpy emulation of this kernel runs on the CPU against the plain
 // version: keep each a literal.
@@ -302,55 +315,99 @@ __device__ __forceinline__ void gemm_small_m(
   }
 }
 
-inline dim3 grid_for(int N) { return dim3((N + COLS - 1) / COLS); }
+inline dim3 grid_for(int N, int E = 1) {
+  return dim3((N + COLS - 1) / COLS, E);
+}
 
-template <int MT, class LoadW>
+// Elements between consecutive experts of a batched launch: x (0: one x
+// for every expert), the stored w bytes, x_scale (0 with x), w_scale and
+// the outputs.  All zero for a 2-D launch (E = 1).
+struct ExpertStrides {
+  size_t x, w, xs, ws, out;
+};
+
+// The strides of E experts of [M, K] x (x_per_expert; else one shared x)
+// against [K, N] weights stored in rows of w_row bytes (N int8, N / 2
+// packed int4).
+inline ExpertStrides expert_strides(int M, int K, int N, int w_row,
+                                    bool x_per_expert) {
+  const size_t m = static_cast<size_t>(M);
+  return ExpertStrides{x_per_expert ? m * K : 0,
+                       static_cast<size_t>(K) * w_row, x_per_expert ? m : 0,
+                       static_cast<size_t>(N), m * N};
+}
+
+// Expert blockIdx.y's pointer: base + e * stride (null stays null).
+template <class T>
+__device__ __forceinline__ T* expert_ptr(T* base, size_t stride) {
+  return base ? base + static_cast<size_t>(blockIdx.y) * stride : base;
+}
+
+// EXPERTS: the batched kernel, each expert's pointers offset first; the
+// 2-D kernel (EXPERTS false) keeps the kernel arguments as they are, so
+// its code is the kernel's before the expert axis (the offsets, held in
+// registers through the K loop, cost the batched kernel 17 registers at
+// MT = 8).
+template <int MT, class LoadW, bool EXPERTS>
 __global__ void __launch_bounds__(THREADS)
     small_m_kernel(const int8_t* __restrict__ x,
                    const int8_t* __restrict__ w,
                    const float* __restrict__ xs,
                    const float* __restrict__ ws,
                    int32_t* __restrict__ acc_out, float* __restrict__ f_out,
-                   int M, int K, int N, bool vec_x, bool vec_w) {
-  gemm_small_m<MT, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x,
-                          vec_w);
+                   int M, int K, int N, bool vec_x, bool vec_w,
+                   ExpertStrides es) {
+  if constexpr (EXPERTS)
+    gemm_small_m<MT, LoadW>(expert_ptr(x, es.x), expert_ptr(w, es.w),
+                            expert_ptr(xs, es.xs), expert_ptr(ws, es.ws),
+                            expert_ptr(acc_out, es.out),
+                            expert_ptr(f_out, es.out), M, K, N, vec_x,
+                            vec_w);
+  else
+    gemm_small_m<MT, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x,
+                            vec_w);
 }
 
 template <int MT, class LoadW>
 void launch_mt(const void* x, const void* w, const void* xs, const void* ws,
-               void* acc_out, void* f_out, int M, int K, int N, int vec_x,
-               int vec_w, void* stream) {
-  small_m_kernel<MT, LoadW>
-      <<<grid_for(N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-          static_cast<const float*>(xs), static_cast<const float*>(ws),
-          static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K,
-          N, vec_x != 0, vec_w != 0);
+               void* acc_out, void* f_out, int E, int M, int K, int N,
+               int vec_x, int vec_w, ExpertStrides es, void* stream) {
+  auto kernel = E > 1 ? small_m_kernel<MT, LoadW, true>
+                      : small_m_kernel<MT, LoadW, false>;
+  kernel<<<grid_for(N, E), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(xs), static_cast<const float*>(ws),
+      static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K, N,
+      vec_x != 0, vec_w != 0, es);
 }
 
 // The C entry points' body: x rows padded to MT, the next of 1, 2, 4, 8,
-// 16 at or above M.  Returns cudaErrorInvalidValue (nothing launched) for
-// M outside 1..MAX_M, else cudaGetLastError() after the launch.
+// 16 at or above M; E experts on the grid's y axis (E = 1 and zero
+// strides for a 2-D launch).  Returns cudaErrorInvalidValue (nothing
+// launched) for M outside 1..MAX_M or E outside 1..65535, else
+// cudaGetLastError() after the launch.
 template <class LoadW>
 int launch_small_m(const void* x, const void* w, const void* xs,
-                   const void* ws, void* acc_out, void* f_out, int M, int K,
-                   int N, int vec_x, int vec_w, void* stream) {
-  if (M < 1 || M > MAX_M) return static_cast<int>(cudaErrorInvalidValue);
+                   const void* ws, void* acc_out, void* f_out, int E, int M,
+                   int K, int N, int vec_x, int vec_w, ExpertStrides es,
+                   void* stream) {
+  if (M < 1 || M > MAX_M || E < 1 || E > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 1)
-    launch_mt<1, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
-                        stream);
+    launch_mt<1, LoadW>(x, w, xs, ws, acc_out, f_out, E, M, K, N, vec_x,
+                        vec_w, es, stream);
   else if (M <= 2)
-    launch_mt<2, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
-                        stream);
+    launch_mt<2, LoadW>(x, w, xs, ws, acc_out, f_out, E, M, K, N, vec_x,
+                        vec_w, es, stream);
   else if (M <= 4)
-    launch_mt<4, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
-                        stream);
+    launch_mt<4, LoadW>(x, w, xs, ws, acc_out, f_out, E, M, K, N, vec_x,
+                        vec_w, es, stream);
   else if (M <= 8)
-    launch_mt<8, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x, vec_w,
-                        stream);
+    launch_mt<8, LoadW>(x, w, xs, ws, acc_out, f_out, E, M, K, N, vec_x,
+                        vec_w, es, stream);
   else
-    launch_mt<16, LoadW>(x, w, xs, ws, acc_out, f_out, M, K, N, vec_x,
-                         vec_w, stream);
+    launch_mt<16, LoadW>(x, w, xs, ws, acc_out, f_out, E, M, K, N, vec_x,
+                         vec_w, es, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

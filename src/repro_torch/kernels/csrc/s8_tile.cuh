@@ -97,6 +97,14 @@
 // rounded to nearest (no add, so nothing contracts into an FMA):
 // bit-identical to the plain PyTorch version.
 //
+// Expert-stacked weights: as the small-M kernel (s8_small_m.cuh's note),
+// one launch takes E experts, expert e on blockIdx.y = e, from its base
+// offsets (s8small::ExpertStrides, size_t); the tile inside an expert is
+// the 2-D tile unchanged.  The vector paths hold per expert: K % 16 == 0
+// puts every expert's x at a multiple of 16 bytes, a stored w row of a
+// multiple of 16 bytes every expert's w, and N % 4 == 0 every expert's
+// outputs.
+//
 // The constants below are read by tests/test_torch_tile.py, whose numpy
 // emulation of this kernel runs on the CPU against the plain version:
 // keep each a literal (STAGES that of S8TILE_STAGES's default, which
@@ -436,51 +444,72 @@ __device__ __forceinline__ void gemm_tile(
   }
 }
 
-// One block per 64x64 output tile, linear over the tiles (row-major).
-inline dim3 grid_for(int M, int N) {
+// One block per 64x64 output tile, linear over the tiles (row-major);
+// E experts on the y axis.
+inline dim3 grid_for(int M, int N, int E = 1) {
   return dim3(static_cast<unsigned>(((M + BM - 1) / BM) *
-                                    ((N + BN - 1) / BN)));
+                                    ((N + BN - 1) / BN)),
+              E);
 }
 
-template <class W, bool VX, bool VW>
+using s8small::ExpertStrides;
+using s8small::expert_ptr;
+
+// EXPERTS: the batched kernel (each expert's pointers offset first); the
+// 2-D kernel keeps its arguments as they are, its code unchanged.
+template <class W, bool VX, bool VW, bool EXPERTS>
 __global__ void __launch_bounds__(THREADS)
     tile_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                 const float* __restrict__ xs, const float* __restrict__ ws,
                 int32_t* __restrict__ acc_out, float* __restrict__ f_out,
-                int M, int K, int N) {
-  gemm_tile<W, VX, VW>(x, w, xs, ws, acc_out, f_out, M, K, N);
+                int M, int K, int N, ExpertStrides es) {
+  if constexpr (EXPERTS)
+    gemm_tile<W, VX, VW>(expert_ptr(x, es.x), expert_ptr(w, es.w),
+                         expert_ptr(xs, es.xs), expert_ptr(ws, es.ws),
+                         expert_ptr(acc_out, es.out),
+                         expert_ptr(f_out, es.out), M, K, N);
+  else
+    gemm_tile<W, VX, VW>(x, w, xs, ws, acc_out, f_out, M, K, N);
 }
 
 template <class W, bool VX, bool VW>
 void launch_vec(const void* x, const void* w, const void* xs,
-                const void* ws, void* acc_out, void* f_out, int M, int K,
-                int N, void* stream) {
-  tile_kernel<W, VX, VW><<<grid_for(M, N), THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+                const void* ws, void* acc_out, void* f_out, int E, int M,
+                int K, int N, ExpertStrides es, void* stream) {
+  auto kernel = E > 1 ? tile_kernel<W, VX, VW, true>
+                      : tile_kernel<W, VX, VW, false>;
+  kernel<<<grid_for(M, N, E), THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K, N);
+      static_cast<int32_t*>(acc_out), static_cast<float*>(f_out), M, K, N,
+      es);
 }
 
 // The C entry points' body: the vector paths chosen by the wrapper
 // (vec_x: K % 16 == 0 and x 16-byte aligned; vec_w: a stored w row of a
-// multiple of 16 bytes and w 16-byte aligned).  Returns
+// multiple of 16 bytes and w 16-byte aligned); E experts on the grid's y
+// axis (E = 1 and zero strides for a 2-D launch).  Returns
+// cudaErrorInvalidValue (nothing launched) for E outside 1..65535, else
 // cudaGetLastError() after the launch.
 template <class W>
 int launch_tile(const void* x, const void* w, const void* xs,
-                const void* ws, void* acc_out, void* f_out, int M, int K,
-                int N, int vec_x, int vec_w, void* stream) {
+                const void* ws, void* acc_out, void* f_out, int E, int M,
+                int K, int N, int vec_x, int vec_w, ExpertStrides es,
+                void* stream) {
+  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (vec_x && vec_w)
-    launch_vec<W, true, true>(x, w, xs, ws, acc_out, f_out, M, K, N, stream);
+    launch_vec<W, true, true>(x, w, xs, ws, acc_out, f_out, E, M, K, N, es,
+                              stream);
   else if (vec_x)
-    launch_vec<W, true, false>(x, w, xs, ws, acc_out, f_out, M, K, N,
+    launch_vec<W, true, false>(x, w, xs, ws, acc_out, f_out, E, M, K, N, es,
                                stream);
   else if (vec_w)
-    launch_vec<W, false, true>(x, w, xs, ws, acc_out, f_out, M, K, N,
+    launch_vec<W, false, true>(x, w, xs, ws, acc_out, f_out, E, M, K, N, es,
                                stream);
   else
-    launch_vec<W, false, false>(x, w, xs, ws, acc_out, f_out, M, K, N,
-                                stream);
+    launch_vec<W, false, false>(x, w, xs, ws, acc_out, f_out, E, M, K, N,
+                                es, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

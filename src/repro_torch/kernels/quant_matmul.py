@@ -15,8 +15,16 @@ Two kernels, by a fixed rule on M (the rows of x):
   `repro_quant_matmul`): mma.sync s8 on a cp.async ring of raw x and
   weight tiles, the weights transposed in registers.
 
+Expert-stacked weights ([E, K, N], the MoE family's experts: the
+reference runs `jax.vmap` over the pallas_call, one grid axis more) go
+to both kernels' batched entries (`repro_quant_matmul_experts`,
+`repro_quant_matmul_small_m_experts`): all E experts in ONE launch, by
+the same rule on M, the rows of one expert.  x is [E, M, K], or an
+expanded [M, K] whose expert stride is 0 (one x for every expert,
+passed uncopied).
+
 `LAUNCHES` counts the launches of both, `SMALL_M_LAUNCHES` those of the
-small-M kernel alone.
+small-M kernel alone; a batched launch counts once.
 
 On CUDA, while traced (`core.optimize`, fake tensors), `quant_matmul`
 launches through the custom op `repro_torch::quant_matmul`, which has a
@@ -35,7 +43,7 @@ import torch
 from repro_torch.kernels import common, ref
 
 # the kernels as the profiler names them (common.LaunchCounter)
-_SMALL_M_SYMBOL = r"\bsmall_m_kernel<[^>]*LoadW8Word>"
+_SMALL_M_SYMBOL = r"\bsmall_m_kernel<[^>]*LoadW8Word\b"
 LAUNCHES = common.LaunchCounter(
     "quant_matmul", _SMALL_M_SYMBOL + r"|\btile_kernel<[\w:]*TileW8,")
 SMALL_M_LAUNCHES = common.LaunchCounter("quant_matmul_small_m",
@@ -54,20 +62,36 @@ def _small_m_kernel():
     return common.bind("quant_matmul", "repro_quant_matmul_small_m", 6, 5)
 
 
+@functools.cache
+def _experts_kernel():
+    return common.bind("quant_matmul", "repro_quant_matmul_experts", 6, 7)
+
+
+@functools.cache
+def _small_m_experts_kernel():
+    return common.bind("quant_matmul", "repro_quant_matmul_small_m_experts",
+                       6, 7)
+
+
 def _launch(x_q, w_q, x_scale, w_scale, *, want_acc: bool, want_out: bool):
-    """Launch the kernel the rule picks for x_q's rows (module doc)."""
-    if x_q.ndim == 2 and x_q.shape[0] <= SMALL_M:
+    """Launch the kernel the rule picks for x_q's rows (module doc); a
+    3-D w_q takes the batched entry of that kernel."""
+    experts = w_q.ndim == 3
+    if x_q.ndim >= 2 and x_q.shape[-2] <= SMALL_M:
+        fn = _small_m_experts_kernel() if experts else _small_m_kernel()
         return common.launch_gemm(
-            _small_m_kernel(), LAUNCHES, x_q, w_q, w_q.shape[-1], x_scale,
-            w_scale, want_acc=want_acc, want_out=want_out, vec_bytes=4,
+            fn, LAUNCHES, x_q, w_q, w_q.shape[-1], x_scale, w_scale,
+            want_acc=want_acc, want_out=want_out, vec_bytes=4,
             also=SMALL_M_LAUNCHES)
-    return common.launch_gemm(_kernel(), LAUNCHES, x_q, w_q,
-                                 w_q.shape[-1], x_scale, w_scale,
-                                 want_acc=want_acc, want_out=want_out)
+    return common.launch_gemm(_experts_kernel() if experts else _kernel(),
+                              LAUNCHES, x_q, w_q, w_q.shape[-1], x_scale,
+                              w_scale, want_acc=want_acc,
+                              want_out=want_out)
 
 
 def quant_matmul_acc(x_q, w_q):
-    """int8 [M,K] @ int8 [K,N] -> int32 [M,N] accumulator."""
+    """int8 [M,K] @ int8 [K,N] -> int32 [M,N] accumulator; expert-stacked,
+    [E,M,K] @ [E,K,N] -> [E,M,N] in one launch."""
     if common.on_cpu(x_q, LAUNCHES):
         return ref.quant_matmul_acc_ref(x_q, w_q)
     acc, _ = _launch(x_q, w_q, None, None, want_acc=True, want_out=False)
@@ -85,12 +109,15 @@ def _quant_matmul_op(x_q: torch.Tensor, w_q: torch.Tensor,
 
 @_quant_matmul_op.register_fake
 def _quant_matmul_fake(x_q, w_q, x_scale, w_scale):
-    return x_q.new_empty((x_q.shape[0], w_q.shape[-1]), dtype=torch.float32)
+    return x_q.new_empty((*w_q.shape[:-2], x_q.shape[-2], w_q.shape[-1]),
+                         dtype=torch.float32)
 
 
 def quant_matmul(x_q, w_q, x_scale, w_scale, *, out_dtype=torch.float32):
     """((acc.float() * x_scale) * w_scale).to(out_dtype), the dequant
-    epilogue fused into the kernel (bit-identical to the plain version)."""
+    epilogue fused into the kernel (bit-identical to the plain version);
+    x_scale [M,1], w_scale [1,N], or [E,M,1] and [E,1,N] with
+    expert-stacked weights."""
     if common.on_cpu(x_q, LAUNCHES):
         return ref.quant_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)
     if common.tracing(x_q):

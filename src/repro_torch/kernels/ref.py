@@ -20,6 +20,12 @@ integer sum; it goes to int64 exactly and then to int32 modulo 2^32.
 That is the reference's int32 accumulator, which wraps once the sum
 leaves the int32 range (from K = 2^17 + 1 with x = w = -128): a direct
 float64 -> int32 cast would saturate there instead.
+
+Expert-stacked operands (the MoE family: x [E,M,K], w [E,K,N] or
+[E,K,N//2], x_scale [E,M,1], w_scale [E,1,N]) go through the same
+statements with one leading axis more, as the reference's `jax.vmap`
+maps its kernel: the float64 matmul batches over E (each expert's sums
+exact as above), and the dequantization keeps its operation order.
 """
 from __future__ import annotations
 
@@ -81,9 +87,9 @@ def mul4_ref(a: Sequence, b):
 # ---------------------------------------------------------------------------
 
 def _exact_int_matmul(a, b):
-    """int32 [M,K] @ [K,N] of int8-valued operands, summed exactly and
-    wrapped to int32 as the reference's accumulator is (see module
-    docstring for the float64 bound)."""
+    """int32 [..., M,K] @ [..., K,N] of int8-valued operands, summed
+    exactly and wrapped to int32 as the reference's accumulator is (see
+    module docstring for the float64 bound)."""
     exact = a.to(torch.float64) @ b.to(torch.float64)
     return exact.to(torch.int64).to(torch.int32)
 
@@ -94,29 +100,33 @@ def _dequant(acc, x_scale, w_scale, out_dtype):
 
 
 def quant_matmul_acc_ref(x_q, w_q):
-    """int8 x_q [M,K] @ int8 w_q [K,N] -> exact int32 [M,N]."""
+    """int8 x_q [M,K] @ int8 w_q [K,N] -> exact int32 [M,N] (or [E,M,K] @
+    [E,K,N] -> [E,M,N])."""
     return _exact_int_matmul(x_q, w_q)
 
 
 def quant_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype=torch.float32):
     """w8a8 matmul: dequantized result of the int8 x int8 -> int32 GEMM.
 
-    x_scale: [M,1] or scalar, w_scale: [1,N] or scalar (float32)."""
+    x_scale: [M,1] or scalar, w_scale: [1,N] or scalar (float32); with
+    expert-stacked operands [E,M,1] and [E,1,N]."""
     return _dequant(quant_matmul_acc_ref(x_q, w_q), x_scale, w_scale,
                     out_dtype)
 
 
 def _unpack_words(w_packed):
-    """[K, N//2] int8 words (w_even + 8) | (w_odd << 4) -> [K, N] int32."""
+    """[..., K, N//2] int8 words (w_even + 8) | (w_odd << 4) -> [..., K, N]
+    int32."""
     w32 = w_packed.to(torch.int32)
     w_even = (w32 & 0xF) - 8           # de-bias the low nibble
     w_odd = w32 >> 4                   # arithmetic shift of the signed byte
-    k, n_half = w_packed.shape
-    return torch.stack([w_even, w_odd], dim=-1).reshape(k, 2 * n_half)
+    *lead, n_half = w_packed.shape
+    return torch.stack([w_even, w_odd], dim=-1).reshape(*lead, 2 * n_half)
 
 
 def packed_w4_matmul_acc_ref(x_q, w_packed):
-    """int8 x_q [M,K] @ packed int4 w [K, N//2] -> exact int32 [M,N]."""
+    """int8 x_q [M,K] @ packed int4 w [K, N//2] -> exact int32 [M,N] (or
+    [E,M,K] @ [E,K,N//2] -> [E,M,N])."""
     return _exact_int_matmul(x_q, _unpack_words(w_packed))
 
 

@@ -22,6 +22,10 @@ layout:
     mul4              a: stacked (4, ...) int8; b: (...) int8
     quant_matmul      x_q [M,K] int8, w_q [K,N] int8, scales f32
     packed_w4_matmul  x_q [M,K] int8, w_packed [K,N//2] int8, scales f32
+                      (either GEMM expert-stacked: x_q [E,M,K], possibly
+                      an expanded [M,K] of expert stride 0, w [E,K,*],
+                      x_scale [E,M,1], w_scale [E,1,N], passed through
+                      as they are: one launch, or one plain batched call)
 
 Resolution, per call: a forced id wins (innermost `force()` block, then
 the ``REPRO_TORCH_LOWERING`` env var); otherwise a CUDA operand takes
@@ -167,6 +171,46 @@ LAUNCH_COUNTERS = (simd_add.LAUNCHES, muladd2.LAUNCHES, mul4.LAUNCHES,
                    packed_matmul.SMALL_M_LAUNCHES)
 
 
+# A torch.profiler session on the card loses its FIRST N device kernel
+# events, N growing through the process by about one every 2-3 sessions
+# and not by waiting (scripts/profiler_loss.py).  A profile_window opens
+# with PROLOGUE launches of the spin kernel (`torch.cuda._sleep`), which
+# take the loss; window_events takes them out again and raises if the
+# whole prologue was lost (the block's own first kernels may then be).
+PROLOGUE = 2000
+PROLOGUE_SYMBOL = r"\bspin_kernel\b"
+
+
+@contextlib.contextmanager
+def profile_window():
+    """torch.profiler (CPU and CUDA activities) over the block, opened by
+    PROLOGUE spin-kernel launches and a synchronize; read the block's
+    device kernels with `window_events`."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROLOGUE):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def window_events(prof) -> list:
+    """The device kernel entries of a profile_window's `key_averages()`,
+    the prologue's taken out.  Raises unless the profiler saw between 1
+    and PROLOGUE prologue launches: with none seen, the loss may have
+    reached the block's own kernels."""
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    seen = sum(e.count for e in events
+               if re.search(PROLOGUE_SYMBOL, e.key))
+    if not 0 < seen <= PROLOGUE:
+        raise RuntimeError(f"profile window: {seen} of its {PROLOGUE} "
+                           "prologue kernels seen; the profiler may have "
+                           "lost the block's first kernels")
+    return [e for e in events if not re.search(PROLOGUE_SYMBOL, e.key)]
+
+
 def profiled_launches(kernels: Dict[str, int]) -> Dict[str, int]:
     """Launches per wrapper counter among device kernels a profile saw,
     {kernel name as the profiler gives it: launches} (say, from
@@ -219,6 +263,9 @@ def _adapt_mul4(a, b):
 
 
 def _adapt_matmul(x_q, w, x_scale, w_scale, *, out_dtype=torch.float32):
+    if w.ndim == 3 and (x_q.ndim != 3 or x_q.shape[0] != w.shape[0]):
+        raise ValueError(f"expert-stacked GEMM: x_q {tuple(x_q.shape)} "
+                         f"against w {tuple(w.shape)} (x_q [E,M,K] wanted)")
     return (x_q, w, x_scale, w_scale), {"out_dtype": out_dtype}
 
 
@@ -237,7 +284,7 @@ def dispatch(op: str, *args, **kwargs):
     packed-op call site binds through (core/prims.py, quant/qtensor.py).
 
     simd_add returns k int32 tensors, muladd2 (p_a, p_b) int32, mul4 four
-    int32 tensors, the GEMMs out_dtype [M,N]."""
+    int32 tensors, the GEMMs out_dtype [M,N] ([E,M,N] expert-stacked)."""
     if op not in _ADAPTERS:
         raise KeyError(f"unknown op {op!r} (known: {OPS})")
     cargs, ckwargs = _ADAPTERS[op](*args, **kwargs)

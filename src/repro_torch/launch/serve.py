@@ -7,9 +7,11 @@ cache and the CLI):
         --quant w4a8 --batch 8 --prompt-len 128 --gen 32 --device cuda \\
         [--silvia {off,add,muladd,all}] [--no-fused-decode]
 
-`--arch` takes the dense family: smollm-135m, qwen1.5-0.5b, yi-6b,
-command-r-35b.  As in the reference, the int8 KV cache
-(`serve_kv_dtype="int8"`) and the chunked prefill attention
+`--arch` takes the dense family (smollm-135m, qwen1.5-0.5b, yi-6b,
+command-r-35b) and the MoE family (granite-moe-1b-a400m, arctic-480b;
+each expert-stacked weight is one GEMM launch, and the per-token routing
+runs inside the captured decode step).  As in the reference, the int8
+KV cache (`serve_kv_dtype="int8"`) and the chunked prefill attention
 (`attn_q_chunk`) are config fields, set with `dataclasses.replace`; the
 CLI has no flag for them.
 

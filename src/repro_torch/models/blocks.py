@@ -1,5 +1,9 @@
-"""Residual blocks (port of `repro/models/blocks.py`): the dense unit,
-pre-norm attention + pre-norm MLP."""
+"""Residual blocks (port of `repro/models/blocks.py`): the dense unit
+(pre-norm attention + pre-norm MLP) and the moe unit (pre-norm attention
++ MoE, with arctic's parallel dense FFN, the "dense residual").
+
+`BLOCK_FNS` maps a family to its block, as the reference's
+`repro/models/lm.py:25` does; `lm` runs the stack through it."""
 from __future__ import annotations
 
 from repro_torch.models import attention as attn
@@ -11,6 +15,15 @@ def _norm(cfg, x, p):
     return common.norm_apply(x, p, cfg.norm, cfg.norm_eps)
 
 
+def _attend(p, x, cfg, mode, cache, pos, positions, active):
+    h = _norm(cfg, x, p["ln1"])
+    if mode == "decode":
+        return attn.attn_decode(p["attn"], h, cache, pos, cfg, active=active)
+    if mode == "prefill":
+        return attn.attn_full(p["attn"], h, cfg, positions, cache=cache)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
 def dense_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
                 pos=None, positions=None, active=None):
     """One dense layer.  mode "prefill" runs full causal attention (and
@@ -18,12 +31,23 @@ def dense_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     tokens against `cache`, updated in place.  Returns the new hidden
     state (the reference also returns the new cache and an aux loss; here
     the cache is mutated in place and dense blocks have no aux loss)."""
-    h = _norm(cfg, x, p["ln1"])
-    if mode == "decode":
-        a = attn.attn_decode(p["attn"], h, cache, pos, cfg, active=active)
-    elif mode == "prefill":
-        a = attn.attn_full(p["attn"], h, cfg, positions, cache=cache)
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
-    x = x + a
+    x = x + _attend(p, x, cfg, mode, cache, pos, positions, active)
     return x + mlp.mlp(p["mlp"], _norm(cfg, x, p["ln2"]), cfg)
+
+
+def moe_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
+              pos=None, positions=None, active=None):
+    """One moe layer (arctic / granite), modes as dense_block's.  The MoE
+    routes per token (dropless), so a row's tokens are independent of
+    its batch mates and padding; arctic adds a dense MLP on the same
+    normed input.  Returns the new hidden state: the reference's aux loss
+    is dropped by its prefill / decode, and not computed here."""
+    x = x + _attend(p, x, cfg, mode, cache, pos, positions, active)
+    h2 = _norm(cfg, x, p["ln2"])
+    y, _ = mlp.moe(p["moe"], h2, cfg, per_token=True, want_aux=False)
+    if "dense" in p:                      # arctic: parallel dense residual
+        y = y + mlp.mlp(p["dense"], h2, cfg)
+    return x + y
+
+
+BLOCK_FNS = {"dense": dense_block, "moe": moe_block}

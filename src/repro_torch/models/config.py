@@ -1,8 +1,9 @@
 """Model configuration schema (port of `repro/models/config.py`).
 
 The port keeps its own copy: it imports nothing of `repro`.  Only the
-fields and derived widths the ported families use are carried; the
-sub-configs of the MoE, SSM and hybrid families arrive with their slices.
+fields and derived widths the ported families (dense, moe) use are
+carried; the sub-configs of the SSM and hybrid families arrive with their
+slices.
 """
 from __future__ import annotations
 
@@ -11,9 +12,30 @@ from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The reference's MoEConfig, field for field.  Serving routes every
+    token to its top_k experts dropless (`mlp.moe(per_token=True)`) and
+    reads n_experts, top_k, d_ff_expert and dense_residual;
+    capacity_factor, interleave, dispatch and dispatch_groups belong to
+    the capacity dispatch of training (ROADMAP queue A items 4.6, 8) and
+    are carried so that a config equals the reference's."""
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # arctic: a dense FFN runs in parallel with the MoE ("dense residual")
+    dense_residual: bool = False
+    # jamba: MoE only on every `interleave`-th layer (1 = every layer)
+    interleave: int = 1
+    # token dispatch of training: "global" or "grouped" (GShard-style)
+    dispatch: str = "global"
+    dispatch_groups: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                # dense (the only family ported so far)
+    family: str                # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,6 +45,7 @@ class ModelConfig:
     d_head: Optional[int] = None
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    moe: Optional[MoEConfig] = None
     activation: str = "swiglu"         # swiglu (gelu: not ported yet)
     norm: str = "rmsnorm"              # rmsnorm (layernorm: not ported yet)
     norm_eps: float = 1e-5
@@ -49,15 +72,48 @@ class ModelConfig:
         return self.n_kv * self.head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense family, as the
+        """Analytic parameter count of the dense and moe families, as the
         reference's: embeddings (twice when untied), the four attention
-        projections and the SwiGLU MLP per layer; norms and biases are not
-        counted.  Used for byte bounds."""
-        if self.family != "dense":
+        projections per layer and the MLPs (`_mlp_params_all`); norms and
+        biases are not counted.  Used for byte bounds."""
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"param_count: family {self.family!r} is not ported yet")
         d = self.d_model
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         attn = d * self.q_dim * 2 + d * self.kv_dim * 2
+        return emb + self.n_layers * attn + self._mlp_params_all()
+
+    def _mlp_params_all(self) -> int:
+        """The MLPs of every layer: the dense MLP, or per MoE layer the
+        E experts and the router (d x E); arctic's dense residual adds a
+        dense MLP to every layer."""
+        d = self.d_model
         n_mlp = 3 if self.activation == "swiglu" else 2
-        return emb + self.n_layers * (attn + n_mlp * d * self.d_ff)
+        dense = n_mlp * d * self.d_ff
+        if self.moe is None:
+            return self.n_layers * dense
+        m = self.moe
+        expert = n_mlp * d * m.d_ff_expert
+        n_moe_layers = self.n_layers // m.interleave
+        n_dense_layers = self.n_layers - n_moe_layers
+        total = n_moe_layers * (m.n_experts * expert + d * m.n_experts)
+        if m.dense_residual:
+            total += self.n_layers * dense
+        else:
+            total += n_dense_layers * dense
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only the top-k experts), as
+        the reference counts them.  The port's serving path runs every
+        expert on every token (`mlp.moe`), so a decode step still reads
+        all of param_count()'s weights."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        n_mlp = 3 if self.activation == "swiglu" else 2
+        expert = n_mlp * self.d_model * m.d_ff_expert
+        n_moe_layers = self.n_layers // m.interleave
+        inactive = n_moe_layers * (m.n_experts - m.top_k) * expert
+        return self.param_count() - inactive

@@ -1,4 +1,5 @@
-"""Top-level language model: init / prefill / decode for the dense family.
+"""Top-level language model: init / prefill / decode for the dense and
+moe families.
 
 Port of `repro/models/lm.py`.  The reference stacks layer params on a
 leading axis and runs the stack under `jax.lax.scan`; the port keeps the
@@ -6,7 +7,8 @@ same stacked layout (so params convert leaf for leaf) and runs a Python
 loop over per-layer slices.  The KV cache is stacked the same way,
 {k, v: [L, B, S_max, KV, D]}, and updated in place (see
 models/attention.py); with serve_kv_dtype="int8" it also holds the
-per-position scales {k_s, v_s: [L, B, S_max, KV]}.
+per-position scales {k_s, v_s: [L, B, S_max, KV]}.  Each layer runs the
+block of its family (`blocks.BLOCK_FNS`, as the reference's `BLOCK_FNS`).
 """
 from __future__ import annotations
 
@@ -16,15 +18,16 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import blocks, common
+from repro_torch.models import blocks, common, mlp
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qtensor import qmatmul
 
 
 def _check_family(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in blocks.BLOCK_FNS:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (ported: "
+            f"{', '.join(blocks.BLOCK_FNS)})")
 
 
 def _layer(tree, i: int):
@@ -48,16 +51,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     dense weights: N(0, 1) / sqrt(d_in) in float32, cast to cfg.dtype;
     embed: N(0, 1) * 0.02; norm weights: ones (float32); with
     cfg.qkv_bias the stacked q/k/v biases bq [L, q_dim], bk and bv
-    [L, kv_dim]: zeros in cfg.dtype, as the reference's."""
+    [L, kv_dim]: zeros in cfg.dtype, as the reference's.  The moe family
+    has `moe` (`mlp.init_moe`: the float32 router [L, d, E] and the
+    experts [L, E, K, N]) in place of `mlp`, and with dense_residual a
+    dense `dense` MLP beside it."""
     _check_family(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, cfg.dtype)
     n, d = cfg.n_layers, cfg.d_model
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=dt):
         return (torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32) * scale).to(dt)
+                            dtype=torch.float32) * scale).to(dtype)
 
     def dense(d_in, d_out):
         return normal((n, d_in, d_out), 1.0 / math.sqrt(d_in))
@@ -75,13 +81,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
         for key, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
                            ("bv", cfg.kv_dim)):
             attn[key] = torch.zeros((n, width), dtype=dt, device=dev)
-    p["blocks"] = {
-        "ln1": {"w": ones(n, d)},
-        "attn": attn,
-        "ln2": {"w": ones(n, d)},
-        "mlp": {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
-                "wo": dense(cfg.d_ff, d)},
-    }
+
+    def dense_mlp():
+        return {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
+                "wo": dense(cfg.d_ff, d)}
+
+    p["blocks"] = {"ln1": {"w": ones(n, d)}, "attn": attn,
+                   "ln2": {"w": ones(n, d)}}
+    if cfg.family == "moe":
+        p["blocks"]["moe"] = mlp.init_moe(normal, cfg, n)
+        if cfg.moe.dense_residual:
+            p["blocks"]["dense"] = dense_mlp()
+    else:
+        p["blocks"]["mlp"] = dense_mlp()
     return p
 
 
@@ -118,11 +130,11 @@ def prefill(params, inputs, cfg: ModelConfig, cache_len: int,
     x = _embed(params, inputs, cfg)
     b = x.shape[0]
     cache = init_cache(cfg, b, cache_len, device=x.device)
+    block = blocks.BLOCK_FNS[cfg.family]
     for i in range(cfg.n_layers):
         layer_cache = {k: t[i] for k, t in cache.items()}
-        x = blocks.dense_block(_layer(params["blocks"], i), x, cfg,
-                               mode="prefill", cache=layer_cache,
-                               positions=positions)
+        x = block(_layer(params["blocks"], i), x, cfg, mode="prefill",
+                  cache=layer_cache, positions=positions)
     x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     if last_positions is None:
         x_last = x[:, -1:, :]
@@ -141,10 +153,10 @@ def decode_step(params, token_t, cache, pos, cfg: ModelConfig, active=None):
     and returned for symmetry with the reference's functional update."""
     _check_family(cfg)
     x = _embed(params, token_t, cfg)
+    block = blocks.BLOCK_FNS[cfg.family]
     for i in range(cfg.n_layers):
         layer_cache = {k: t[i] for k, t in cache.items()}
-        x = blocks.dense_block(_layer(params["blocks"], i), x, cfg,
-                               mode="decode", cache=layer_cache, pos=pos,
-                               active=active)
+        x = block(_layer(params["blocks"], i), x, cfg, mode="decode",
+                  cache=layer_cache, pos=pos, active=active)
     x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return _lm_head(params, x, cfg), cache

@@ -1,11 +1,29 @@
 """Feed-forward layers (port of `repro/models/mlp.py`): the dense SwiGLU
-MLP.  The GELU variant and MoE arrive with the families that use them."""
+MLP and the top-k mixture of experts' serving path.
+
+MoE serving (`moe(per_token=True)`, the reference's prefill / decode
+path) routes every token dropless through a dense one-hot combine: every
+expert runs on every token and each token keeps its top-k, so a token's
+output depends on that token alone.  The expert products are three
+expert-stacked GEMMs ([E, K, N] weights), each ONE kernel launch for all
+E experts (`qmatmul`); the x of wi / wg is one x broadcast to every
+expert, passed with expert stride 0.  Every shape is static and nothing
+reads a device value on the host (topk, scatter, no boolean indexing),
+so the step can be captured in a CUDA graph.
+
+The capacity dispatch of training (`per_token=False`: the reference's
+`_dispatch_combine`, grouped dispatch and `moe_shard_map`) is not
+ported: it comes with `lm.forward` and training (ROADMAP queue A items
+4.6 and 8) and with distributed (item 7)."""
 from __future__ import annotations
 
+import math
+
+import torch
 import torch.nn.functional as F
 
-from repro_torch.models.config import ModelConfig
-from repro_torch.quant.qtensor import qmatmul
+from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.quant.qtensor import QTensor, qmatmul
 
 
 def mlp(p, x, cfg: ModelConfig):
@@ -14,3 +32,72 @@ def mlp(p, x, cfg: ModelConfig):
             f"activation {cfg.activation!r} is not ported yet")
     return qmatmul(F.silu(qmatmul(x, p["wg"])) * qmatmul(x, p["wi"]),
                    p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+def init_moe(normal, cfg: ModelConfig, n: int):
+    """The reference's init_moe for n stacked layers, drawn by
+    `normal(shape, scale, dtype)` (float32 draws, cast to dtype): the
+    router [n, d, E] float32 (`dense_init`, 1/sqrt(d)); wi and wg
+    [n, E, d, d_ff_expert] at 1/sqrt(d), wo [n, E, d_ff_expert, d] at
+    1/sqrt(d_ff_expert), in cfg.dtype."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff_expert, m.n_experts
+    dt = getattr(torch, cfg.dtype)
+    return {
+        "router": normal((n, d, e), 1.0 / math.sqrt(d), torch.float32),
+        "wi": normal((n, e, d, f), 1.0 / math.sqrt(d), dt),
+        "wg": normal((n, e, d, f), 1.0 / math.sqrt(d), dt),
+        "wo": normal((n, e, f, d), 1.0 / math.sqrt(f), dt),
+    }
+
+
+def _emm(xe, w):
+    """Expert-batched matmul ([E,C,*] x [E,*,*]), QTensor-aware: one
+    GEMM launch for all experts, or a plain einsum of a float weight."""
+    if isinstance(w, QTensor):
+        return qmatmul(xe, w)
+    return torch.einsum("ecd,edf->ecf", xe, w)
+
+
+def moe(p, x, cfg: ModelConfig, per_token: bool = False, *,
+        want_aux: bool = True):
+    """x: [B, S, d] -> ([B, S, d], aux_loss scalar float32).
+
+    per_token=True (serving: prefill / decode) is the reference's path:
+    router logits in float32, softmax, top-k renormalized, the gate a
+    scatter of the top-k weights, all experts on all tokens, and the
+    gate-weighted combine.  aux is the Switch-style load-balancing loss,
+    E * sum(mean prob x top-1 share); want_aux=False skips it and returns
+    None (serving drops it, as XLA drops the reference's unused aux)."""
+    m: MoEConfig = cfg.moe
+    if not per_token:
+        raise NotImplementedError(
+            "moe(per_token=False): the capacity dispatch (_dispatch_combine, "
+            "grouped dispatch, moe_shard_map) is not ported; it comes with "
+            "lm.forward and training (ROADMAP queue A items 4.6 and 8) and "
+            "distributed (item 7)")
+    b, s, d = x.shape
+    t, e = b * s, m.n_experts
+    xt = x.reshape(t, d)
+    logits = xt.to(torch.float32) @ p["router"]              # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, m.top_k, dim=-1)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    aux = None
+    if want_aux:
+        me = probs.mean(dim=0)
+        ce = torch.zeros_like(probs).scatter_(1, top_e[:, :1], 1.0).mean(
+            dim=0)
+        aux = e * (me * ce).sum()
+    # gate[t, e] = routing weight iff e is one of t's top-k (distinct)
+    gate = torch.zeros((t, e), dtype=xt.dtype, device=xt.device).scatter(
+        1, top_e, top_p.to(xt.dtype))
+    xe = xt.unsqueeze(0).expand(e, t, d)
+    h = F.silu(_emm(xe, p["wg"])) * _emm(xe, p["wi"])
+    eout = _emm(h, p["wo"])                                  # [E, T, d]
+    yt = torch.einsum("etd,te->td", eout, gate)
+    return yt.reshape(b, s, d), aux

@@ -1,8 +1,8 @@
 """QTensor: quantized weight leaves + the matmul they dispatch to.
 
-Port of `repro/quant/qtensor.py` for 2-D weights (batched expert weights
-wait for the MoE slice).  `qmatmul(x, w)` accepts a plain tensor (bf16
-path) or a QTensor (serving path).
+Port of `repro/quant/qtensor.py`.  `qmatmul(x, w)` accepts a plain
+tensor (bf16 path) or a QTensor (serving path): a [K, N] weight, or the
+MoE family's expert-stacked [E, K, N], all E experts in one GEMM launch.
 
 A QTensor is a pytree node, as the reference's is: `q` and `scale` are
 its children, `fmt` its context.  So `torch.utils._pytree` flattens a
@@ -55,7 +55,7 @@ pytree.register_pytree_node(
 
 def quantize_weight(w, fmt: str) -> QTensor:
     """w: [..., K, N] float -> QTensor (per-output-channel scales; leading
-    axes, e.g. stacked layers, keep independent scales)."""
+    axes, e.g. stacked layers or experts, keep independent scales)."""
     bits = 4 if fmt == "w4a8" else 8
     qmax = 2 ** (bits - 1) - 1
     wf = w.to(torch.float32)
@@ -73,17 +73,42 @@ def _q2d(x2, w: QTensor):
     return registry.dispatch(op, x_q, w.q, x_s, w.scale)
 
 
+def _q_experts(xe, w: QTensor):
+    """xe [E, M, K] against QTensor [E, K, N] -> f32 [E, M, N]: each
+    expert's rows quantized per row, as the reference's vmap(_q2d) does,
+    and one dispatch for all experts.  An xe whose expert axis has
+    stride 0 (one x broadcast to every expert: the per-token MoE path's
+    wi / wg) is quantized once and passed expanded, which gives every
+    expert the same int8 rows and scales bit for bit; the kernel reads
+    it once for all experts."""
+    e, m, k = xe.shape
+    if xe.stride(0) == 0:
+        x_q, x_s = quantize(xe.select(0, 0), bits=8, axis=0)
+        x_q, x_s = x_q.expand(e, m, k), x_s.expand(e, m, 1)
+    else:
+        x_q, x_s = quantize(xe.reshape(e * m, k), bits=8, axis=0)
+        x_q, x_s = x_q.reshape(e, m, k), x_s.reshape(e, m, 1)
+    op = "quant_matmul" if w.fmt == "w8a8" else "packed_w4_matmul"
+    return registry.dispatch(op, x_q, w.q, x_s, w.scale)
+
+
 def qmatmul(x, w):
-    """x: [..., K]; w: tensor [K, N] | QTensor [K, N]."""
+    """x: [..., K]; w: tensor [K, N] | QTensor [K, N] | QTensor [E, K, N]
+    (batched expert weights, x then [E, ..., K])."""
     if not isinstance(w, QTensor):
         return x @ w
-    if w.q.ndim != 2:
-        raise NotImplementedError(
-            f"qmatmul: {w.q.ndim}-D QTensor (batched expert weights are "
-            "not ported yet)")
-    lead = x.shape[:-1]
-    y = _q2d(x.reshape(-1, x.shape[-1]), w)
-    return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+    if w.q.ndim == 2:
+        lead = x.shape[:-1]
+        y = _q2d(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+    e = w.q.shape[0]
+    if w.q.ndim != 3 or x.ndim < 3 or x.shape[0] != e:
+        raise ValueError(f"qmatmul: x {tuple(x.shape)} against a "
+                         f"{tuple(w.logical_shape)} QTensor (expert-stacked "
+                         "weights take x [E, ..., K])")
+    lead = x.shape[1:-1]
+    ye = _q_experts(x.reshape(e, -1, x.shape[-1]), w)
+    return ye.reshape(e, *lead, ye.shape[-1]).to(x.dtype)
 
 
 def quantize_tree_for_serving(params, fmt: str, min_size: int = 1 << 16,

@@ -324,17 +324,14 @@ def test_cuda_eager_gemm_bypasses_custom_op(cuda, packed, monkeypatch):
 
 def _profiled_launches(run):
     """run()'s launches per wrapper counter as the profiler saw them on
-    the device (a graph replay launches without the wrappers)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    the device (a graph replay launches without the wrappers), in a
+    `registry.profile_window`."""
     from repro_torch.kernels import registry
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with registry.profile_window() as prof:
         run()
         torch.cuda.synchronize()
     return registry.profiled_launches({
-        e.key: e.count for e in prof.key_averages()
-        if str(e.device_type).endswith("CUDA")})
+        e.key: e.count for e in registry.window_events(prof)})
 
 
 @pytest.mark.cuda
@@ -615,3 +612,85 @@ def test_cuda_scan_program_launches_per_iteration(cuda, name):
     got = opt(*args)
     assert counter.count == before + want
     assert all(torch.equal(g, w) for g, w in zip(got, fn(*args)))
+
+
+# --- expert-stacked weights (the MoE family): one launch per weight ---
+
+EXPERT_SHAPES = [(3, 1, 100, 34), (4, 8, 1024, 512), (4, 16, 512, 1024),
+                 (3, 17, 100, 34), (2, 1024, 512, 1024), (5, 70, 48, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_experts_bit_exact_vs_plain(cuda, packed, shared):
+    """Both kernels on [E, K, N] weights against the batched plain
+    version, acc and f32 out bit for bit, each call ONE launch (on the
+    small-M counter for M <= 16 rows per expert, whatever E x M); with
+    shared, one x expanded to every expert (stride 0, not copied).  E = 1
+    equals the 2-D entry bit for bit."""
+    rng = np.random.default_rng(31 + packed + 2 * shared)
+    mod = packed_matmul if packed else quant_matmul
+    acc_fn = mod.packed_w4_matmul_acc if packed else mod.quant_matmul_acc
+    out_fn = mod.packed_w4_matmul if packed else mod.quant_matmul
+    acc_ref = ref.packed_w4_matmul_acc_ref if packed \
+        else ref.quant_matmul_acc_ref
+    out_ref = ref.packed_w4_matmul_ref if packed else ref.quant_matmul_ref
+    for e, m, k, n in EXPERT_SHAPES:
+        x, _, xs, _ = _operands(rng, m, k, n, packed, cuda)
+        w = torch.randint(-128, 128, (e, k, n // 2 if packed else n),
+                          dtype=torch.int8, device=cuda)
+        ws = torch.rand((e, 1, n), device=cuda) * 0.02 + 1e-3
+        if shared:
+            x, xs = x.expand(e, m, k), xs.expand(e, m, 1)
+        else:
+            x = torch.randint(-128, 128, (e, m, k), dtype=torch.int8,
+                              device=cuda)
+            xs = torch.rand((e, m, 1), device=cuda) * 0.02 + 1e-3
+        before = (mod.LAUNCHES.count, mod.SMALL_M_LAUNCHES.count)
+        assert torch.equal(acc_fn(x, w), acc_ref(x, w)), (e, m, k, n)
+        assert torch.equal(out_fn(x, w, xs, ws), out_ref(x, w, xs, ws)), \
+            (e, m, k, n)
+        small = 2 if m <= quant_matmul.SMALL_M else 0
+        assert (mod.LAUNCHES.count, mod.SMALL_M_LAUNCHES.count) == \
+            (before[0] + 2, before[1] + small), (e, m, k, n)
+        one = out_fn(x[:1].contiguous(), w[:1], xs[:1].contiguous(), ws[:1])
+        assert torch.equal(one[0], out_fn(x[0].contiguous(), w[0],
+                                          xs[0].contiguous(), ws[0]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["w4a8", "w8a8"])
+def test_cuda_moe_fused_decode_matches_stepwise(cuda, fmt):
+    """Reduced granite through generate(fused=True), the captured decode
+    step with its topk / scatter routing and expert-stacked GEMMs, equals
+    the per-step loop bit for bit; each layer launches 4 attention and 3
+    expert GEMMs per step (7, as a dense layer), the untied head one."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    serve.decode_cache_clear()
+    cfg = configs.get_reduced_config("granite-moe-1b-a400m")
+    params = serve.build_params(cfg, fmt, quant_force=True, device=cuda)
+    prompts = np.random.default_rng(12).integers(0, cfg.vocab, (3, 8))
+    name = "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
+    out = []
+    for fused in (False, True):
+        before = _counts()
+        out.append(serve.generate(params, prompts, cfg, gen=6, cache_len=14,
+                                  fused=fused, device=cuda,
+                                  return_logits=True))
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in _counts().items()}
+        if not fused:
+            assert launched[name] == (7 * cfg.n_layers + 1) * 6
+            assert launched[f"{name}_small_m"] == (7 * cfg.n_layers + 1) \
+                * 5 + 1
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    from repro_torch.kernels import registry
+    with registry.force("ref"):
+        plain = serve.generate(params, prompts, cfg, gen=6, cache_len=14,
+                               device=cuda, return_logits=True)
+    assert torch.equal(plain[0], out[0][0]) and \
+        torch.equal(plain[1], out[0][1])

@@ -133,7 +133,11 @@ def test_config_fields_match_reference(arch, reduced):
 
 
 def test_archs_are_the_dense_family():
-    assert tconfigs.ARCHS == DENSE
+    """The dense family leads ARCHS (the MoE family follows it:
+    tests/test_torch_moe.py::test_archs_include_the_moe_family)."""
+    assert tconfigs.ARCHS[:len(DENSE)] == DENSE
+    assert all(tconfigs.get_config(a).family == "moe"
+               for a in tconfigs.ARCHS[len(DENSE):])
     assert set(DENSE) <= set(jconfigs.ARCHS)
     assert all(jconfigs.get_config(a).family == "dense" for a in DENSE)
     with pytest.raises(KeyError, match="not yet ported"):

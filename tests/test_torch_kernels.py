@@ -325,6 +325,23 @@ PROFILED = [
     ("void at::native::unrolled_elementwise_kernel<at::native::"
      "direct_copy_kernel_cuda(at::TensorIteratorBase&)>(int)", ()),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize32x32x8_stage3", ()),
+    # the expert axis (a bool template argument more: false for the 2-D
+    # launch, true for an expert-stacked one)
+    ("void s8small::small_m_kernel<8, s8small::LoadW8Word, true>(signed "
+     "char const*, signed char const*, float const*, float const*, int*, "
+     "float*, int, int, int, bool, bool, s8small::ExpertStrides)",
+     ("quant_matmul", "quant_matmul_small_m")),
+    ("void s8small::small_m_kernel<16, s8small::LoadW4Word, false>(signed "
+     "char const*, signed char const*, float const*, float const*, int*, "
+     "float*, int, int, int, bool, bool, s8small::ExpertStrides)",
+     ("packed_w4_matmul", "packed_w4_matmul_small_m")),
+    ("void s8tile::tile_kernel<s8tile::TileW8, true, true, true>(signed "
+     "char const*, signed char const*, float const*, float const*, int*, "
+     "float*, int, int, int, s8small::ExpertStrides)", ("quant_matmul",)),
+    ("void s8tile::tile_kernel<s8tile::TileW4, true, false, false>(signed "
+     "char const*, signed char const*, float const*, float const*, int*, "
+     "float*, int, int, int, s8small::ExpertStrides)",
+     ("packed_w4_matmul",)),
 ]
 
 
@@ -336,6 +353,45 @@ def test_profiled_launches_by_symbol(kernel, counters):
     got = registry.profiled_launches({kernel: 210, "cudaLaunchKernel": 7})
     assert got == {c.name: 210 if c.name in counters else 0
                    for c in registry.LAUNCH_COUNTERS}
+
+
+class _FakeEvent:
+    def __init__(self, key, count, device_type="DeviceType.CUDA"):
+        self.key, self.count, self.device_type = key, count, device_type
+
+
+class _FakeProfile:
+    def __init__(self, events):
+        self.events = events
+
+    def key_averages(self):
+        return self.events
+
+
+SPIN = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+
+
+@pytest.mark.parametrize("seen", [1, 1999, 2000])
+def test_window_events_take_the_prologue_out(seen):
+    """A profile_window's device events without its prologue (however
+    many of its launches the profiler kept) and without host entries."""
+    kernel = PROFILED[0][0]
+    prof = _FakeProfile([_FakeEvent(SPIN, seen), _FakeEvent(kernel, 210),
+                         _FakeEvent("cudaLaunchKernel", 7, "DeviceType.CPU")])
+    got = registry.window_events(prof)
+    assert [(e.key, e.count) for e in got] == [(kernel, 210)]
+    assert seen <= registry.PROLOGUE == 2000
+
+
+@pytest.mark.parametrize("seen", [0, 2001])
+def test_window_events_refuse_a_lost_prologue(seen):
+    """No prologue launch seen: the profiler's loss may have reached the
+    block's own first kernels, and the window raises (as it does for
+    more prologue launches than it made)."""
+    prof = _FakeProfile([_FakeEvent(SPIN, seen),
+                         _FakeEvent(PROFILED[0][0], 210)])
+    with pytest.raises(RuntimeError, match="prologue"):
+        registry.window_events(prof)
 
 
 def test_launch_symbols_name_the_sources_kernels():

@@ -374,3 +374,158 @@ def test_emulated_kernel_wraps_past_2_17(packed, fill):
     assert np.array_equal(acc, want)
     if fill is not None and not packed:
         assert (acc == k * 2 ** 14 - 2 ** 32).all()
+
+
+# --- expert-stacked weights: one launch, experts on blockIdx.y ---
+
+def expert_strides(m, k, n, w_row, x_per_expert):
+    """The header's expert_strides: elements between consecutive experts
+    of x, w (stored bytes), x_scale, w_scale and the outputs (Python
+    ints: the kernel's size_t)."""
+    return {"x": m * k if x_per_expert else 0, "w": k * w_row,
+            "xs": m if x_per_expert else 0, "ws": n, "out": m * n}
+
+
+def emulate_experts(kernel, x, w, xs=None, ws=None, *, packed=False):
+    """A batched launch: the grid's y axis runs over the experts, and
+    expert e's blocks read the flat operands from e times their expert
+    stride (expert_ptr) and compute the 2-D kernel `kernel` (this file's
+    `emulate`, or the tile's) there.  x [E,M,K], or [M,K] shared by
+    every expert (stride 0, with xs [M,1]); w [E,K,N] or packed
+    [E,K,N//2]; xs [E,M,1], ws [E,1,N].  Returns (acc [E,M,N], f32 or
+    None)."""
+    e, k, w_row = w.shape
+    m = x.shape[-2]
+    n = 2 * w_row if packed else w_row
+    st = expert_strides(m, k, n, w_row, x.ndim == 3)
+    flat = {name: None if a is None else a.reshape(-1)
+            for name, a in (("x", x), ("w", w), ("xs", xs), ("ws", ws))}
+    acc = np.zeros(e * m * n, np.int32)
+    f = None if xs is None else np.zeros(e * m * n, np.float32)
+    for ey in range(e):                                    # blockIdx.y
+
+        def at(name, size, shape):
+            o = ey * st[name]
+            return flat[name][o:o + size].reshape(shape)
+
+        a, fo = kernel(at("x", m * k, (m, k)), at("w", k * w_row, (k, w_row)),
+                       None if f is None else at("xs", m, (m, 1)),
+                       None if f is None else at("ws", n, (1, n)),
+                       packed=packed)
+        o = ey * st["out"]
+        acc[o:o + m * n] = a.reshape(-1)
+        if f is not None:
+            f[o:o + m * n] = fo.reshape(-1)
+    return acc.reshape(e, m, n), None if f is None else f.reshape(e, m, n)
+
+
+def expert_operands(rng, e, m, k, n, packed, shared):
+    x = rng.integers(-128, 128, (m, k) if shared else (e, m, k)).astype(
+        np.int8)
+    w = rng.integers(-128, 128, (e, k, n // 2 if packed else n)).astype(
+        np.int8)
+    xs = (rng.random((m, 1) if shared else (e, m, 1)) * 0.02 + 1e-3).astype(
+        np.float32)
+    ws = (rng.random((e, 1, n)) * 0.02 + 1e-3).astype(np.float32)
+    return x, w, xs, ws
+
+
+def check_experts_plain(kernel, x, w, xs, ws, packed):
+    """The emulated batched launch against the batched plain version (a
+    shared x expanded to every expert), bit for bit, acc and f32."""
+    acc, f = emulate_experts(kernel, x, w, xs, ws, packed=packed)
+    e = w.shape[0]
+    t = [torch.from_numpy(a) for a in (x, w, xs, ws)]
+    if x.ndim == 2:
+        t[0], t[2] = t[0].expand(e, *x.shape), t[2].expand(e, *xs.shape)
+    acc_ref, out_ref = (
+        (ref.packed_w4_matmul_acc_ref, ref.packed_w4_matmul_ref) if packed
+        else (ref.quant_matmul_acc_ref, ref.quant_matmul_ref))
+    assert np.array_equal(acc, acc_ref(*t[:2]).numpy())
+    assert np.array_equal(f, out_ref(*t).numpy())
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m,k,n", [(1, 100, 34), (8, 64, 32), (16, 40, 6)])
+def test_emulated_experts_match_plain(m, k, n, packed, shared):
+    """Three experts in one launch, with per-expert x or one x for all
+    (stride 0), int8 and packed int4 weights, ragged K and N: each
+    expert's slice at its size_t offsets gives the batched plain version
+    bit for bit."""
+    rng = np.random.default_rng(m + k + n + 10 * packed + 100 * shared)
+    check_experts_plain(emulate, *expert_operands(rng, 3, m, k, n, packed,
+                                                  shared), packed)
+
+
+def test_one_expert_is_the_2d_launch():
+    """E = 1 at zero offsets is the 2-D kernel, bit for bit."""
+    rng = np.random.default_rng(3)
+    x, w, xs, ws = _operands(rng, 8, 100, 34)
+    acc, f = emulate_experts(emulate, x[None], w[None], xs[None], ws[None])
+    acc2, f2 = emulate(x, w, xs, ws)
+    assert np.array_equal(acc[0], acc2) and np.array_equal(f[0], f2)
+
+
+HEADER_TEXT = HEADER.read_text()
+
+
+def test_expert_offsets_are_size_t():
+    """The header computes each expert's base offset in size_t: an
+    arctic-shaped stacked weight (128 x 7168 x 4864 int8, 4.46e9 bytes)
+    puts expert 127 past 2^31, where an int product would wrap; inside an
+    expert the offsets stay below 2^31 (the wrapper checks per expert)."""
+    assert re.search(r"struct ExpertStrides \{\s*size_t x, w, xs, ws, out;",
+                     HEADER_TEXT)
+    assert "base + static_cast<size_t>(blockIdx.y) * stride" in HEADER_TEXT
+    body = re.search(r"inline ExpertStrides expert_strides\((.*?)\n\}",
+                     HEADER_TEXT, re.S).group(1)
+    assert "const size_t m = static_cast<size_t>(M);" in body
+    assert "static_cast<size_t>(K) * w_row" in body
+    assert "m * K" in body and "m * N" in body
+    st = expert_strides(8, 7168, 4864, 4864, True)
+    assert 127 * st["w"] > 2 ** 31 > max(8 * 7168, 7168 * 4864, 8 * 4864)
+    off = 127 * st["w"]                     # as a 32-bit int it wraps
+    assert (off + 2 ** 31) % 2 ** 32 - 2 ** 31 != off
+
+
+def test_rule_reads_rows_per_expert(monkeypatch):
+    """A stacked weight takes the batched entry of the kernel the rule
+    picks for the rows of ONE expert: x [32, 8, K] (256 rows in all) goes
+    to the small-M kernel, x [4, 17, K] to the tile."""
+    calls = []
+
+    def fake_launch(fn, counter, x_q, w, n, x_scale, w_scale, **kw):
+        calls.append((fn, n, kw.get("vec_bytes", 16), kw.get("also")))
+        return None, torch.zeros((*x_q.shape[:-1], n))
+
+    monkeypatch.setattr(common, "launch_gemm", fake_launch)
+    for mod in (quant_matmul, packed_matmul):
+        monkeypatch.setattr(mod, "_experts_kernel", lambda: "tile_e")
+        monkeypatch.setattr(mod, "_small_m_experts_kernel",
+                            lambda: "small_m_e")
+    for e, m, kernel in ((32, 8, "small_m_e"), (4, 17, "tile_e")):
+        x = torch.zeros((e, m, 32), dtype=torch.int8)
+        quant_matmul._launch(x, torch.zeros((e, 32, 8), dtype=torch.int8),
+                             None, None, want_acc=True, want_out=False)
+        packed_matmul._launch(x, torch.zeros((e, 32, 4), dtype=torch.int8),
+                              None, None, want_acc=True, want_out=False)
+    small = [(4, quant_matmul.SMALL_M_LAUNCHES),
+             (4, packed_matmul.SMALL_M_LAUNCHES)]
+    assert [(c[0], c[1]) for c in calls] == [
+        ("small_m_e", 8), ("small_m_e", 8), ("tile_e", 8), ("tile_e", 8)]
+    assert [c[2:] for c in calls[:2]] == small
+    assert [c[2:] for c in calls[2:]] == [(16, None)] * 2
+
+
+def test_fakes_give_expert_shapes():
+    """The custom ops' fake implementations (traced graphs) give
+    [E, M, N] for a stacked weight and [M, N] for a 2-D one."""
+    x3, x2 = torch.zeros((5, 3, 32), dtype=torch.int8), \
+        torch.zeros((3, 32), dtype=torch.int8)
+    for fake, w in ((quant_matmul._quant_matmul_fake, 8),
+                    (packed_matmul._packed_w4_matmul_fake, 4)):
+        assert tuple(fake(x3, torch.zeros((5, 32, w), dtype=torch.int8),
+                          None, None).shape) == (5, 3, 8)
+        assert tuple(fake(x2, torch.zeros((32, w), dtype=torch.int8),
+                          None, None).shape) == (3, 8)

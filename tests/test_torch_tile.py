@@ -463,7 +463,9 @@ def test_entries_bound(monkeypatch):
     """Each wrapper binds its tile entry (repro_quant_matmul,
     repro_packed_w4_matmul), which launches s8_tile.cuh's tile with its
     weight loader (TileW8, TileW4); both sources also define the tile's
-    grid (repro_*_grid), and nothing of the retired 64x64 tile is left."""
+    grid (repro_*_grid), and nothing of the retired 64x64 tile is left.
+    The batched entries of expert-stacked weights (repro_*_experts, the
+    tile; repro_*_small_m_experts) take E and the x flag: 7 ints."""
     bound = []
     monkeypatch.setattr(common, "bind",
                         lambda lib, sym, p, i: bound.append((lib, sym, p, i)))
@@ -473,6 +475,17 @@ def test_entries_bound(monkeypatch):
         mod._kernel.cache_clear()
     assert bound == [("quant_matmul", "repro_quant_matmul", 6, 5),
                      ("packed_w4_matmul", "repro_packed_w4_matmul", 6, 5)]
+    bound.clear()
+    for mod in (quant_matmul, packed_matmul):
+        for fn in (mod._experts_kernel, mod._small_m_experts_kernel):
+            fn.cache_clear()
+            fn()
+            fn.cache_clear()
+    assert bound == [
+        ("quant_matmul", "repro_quant_matmul_experts", 6, 7),
+        ("quant_matmul", "repro_quant_matmul_small_m_experts", 6, 7),
+        ("packed_w4_matmul", "repro_packed_w4_matmul_experts", 6, 7),
+        ("packed_w4_matmul", "repro_packed_w4_matmul_small_m_experts", 6, 7)]
     assert sorted(p.name for p in CSRC.glob("*.cuh")) == [
         "s8_small_m.cuh", "s8_tile.cuh", "swar.cuh"]
     for name, entry, loader in (
@@ -482,10 +495,12 @@ def test_entries_bound(monkeypatch):
         assert re.findall(r'#include "(\w+\.cuh)"', src) == [
             "s8_small_m.cuh", "s8_tile.cuh"]
         assert re.findall(r'extern "C" int (\w+)\(', src) == [
-            entry, f"{entry}_grid", f"{entry}_small_m"]
-        assert re.search(rf'extern "C" int {entry}\([^)]*\) \{{\s*'
-                         rf"return s8tile::launch_tile<s8tile::{loader}>\(",
-                         src), name
+            entry, f"{entry}_grid", f"{entry}_small_m", f"{entry}_experts",
+            f"{entry}_small_m_experts"]
+        for e in (entry, f"{entry}_experts"):
+            assert re.search(rf'extern "C" int {e}\([^)]*\) \{{\s*'
+                             rf"return s8tile::launch_tile<s8tile::{loader}>"
+                             r"\(", src), e
         assert re.search(rf"{entry}_grid\(int M, int N\) \{{\s*"
                          r"return static_cast<int>\(s8tile::grid_for\(M, N\)",
                          src), name
@@ -605,3 +620,35 @@ def test_emulated_packed_tile_matches_jax():
         jnp.asarray(x), jnp.asarray(wp), block=(8, 256, 128),
         interpret=True))
     assert np.array_equal(acc, want)
+
+
+# --- expert-stacked weights: one launch, experts on blockIdx.y ---
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m,k,n", [(17, 100, 34), (70, 64, 64)])
+def test_emulated_tile_experts_match_plain(m, k, n, packed, shared):
+    """The tile over three experts in one launch (each expert's x, w,
+    scales and outputs at its size_t offsets; or one x for all, stride 0)
+    against the batched plain version, bit for bit: ragged M, K, N, both
+    loaders, the vector and byte paths."""
+    from test_torch_small_m import (check_experts_plain,  # noqa: E402
+                                    expert_operands)
+    rng = np.random.default_rng(m + k + n + 10 * packed + 100 * shared)
+    check_experts_plain(emulate, *expert_operands(rng, 3, m, k, n, packed,
+                                                  shared), packed)
+
+
+def test_tile_grid_has_an_expert_axis():
+    """grid_for(M, N, E): the 2-D linear grid on x, the experts on y (E = 1
+    for a 2-D launch); every batched entry launches E experts and the
+    2-D entries E = 1 with zero strides."""
+    assert re.search(
+        r"inline dim3 grid_for\(int M, int N, int E = 1\) \{\s*"
+        r"return dim3\(static_cast<unsigned>\(\(\(M \+ BM - 1\) / BM\) \*"
+        r"\s*\(\(N \+ BN - 1\) / BN\)\),\s*E\);", HEADER)
+    for name, w_row in (("quant_matmul", "N"), ("packed_w4_matmul", "N / 2")):
+        src = (CSRC / f"{name}.cu").read_text()
+        assert src.count("s8small::ExpertStrides{}, stream);") == 2
+        assert src.count(f"s8small::expert_strides(M, K, N, {w_row}, "
+                         "x_per_expert != 0), stream);") == 2
