@@ -84,12 +84,14 @@ over):
    time); a reduced model must agree with its CPU run;
 7. the rest of the dense family at full width, each path through the
    gates of 6 (`_serve_gates`; its main path's counts from 0): yi-6b
-   under w4a8 and w8a8 (7 x 32 x 32 GEMM launches plus the untied
-   lm_head's 32, counted by its weight's width), qwen1.5-0.5b under w8a8
+   cut to 16 of its 32 layers (`YI_LAYERS`; every width kept) under w4a8
+   and w8a8 (7 x 16 x 32 GEMM launches plus the untied lm_head's 32,
+   counted by its weight's width), qwen1.5-0.5b under w8a8
    with the int8 KV cache and nonzero q/k/v biases (its logits within
    INT8_KV_REL of the largest against the bf16 cache's at the first and
    last step, teacher-forced), each with a profile of a replayed step;
-   then yi-6b's prefill, B=2, 2048 tokens, in a float32 config (w4a8),
+   then yi-6b's prefill (16 layers), B=2, 2048 tokens, in a float32
+   config (w4a8),
    with attn_q_chunk=512 against unchunked: logits within CHUNK_REL of
    the largest and a lower peak of allocated memory;
 8. the MoE family: both GEMM kernels on expert-stacked weights, one
@@ -106,12 +108,26 @@ over):
    tile launches per prefill; the odd vocab's head in w8a8 under both
    formats), `--silvia all` == off, a replayed step's profile, its GEMM
    kernels' time per generate beside their bounds and the step's
-   weight-byte bound with every expert read (`phase_moe`).  Each
-   phase's seconds are logged.
+   weight-byte bound with every expert read (`phase_moe`);
+9. the SSM family: both GEMM kernels bit for bit at mamba2-2.7b's
+   widths, in_proj (K 2560, N 10576) and out_proj (5120, 2560), at M = 8
+   and the prefill's M = 2048 (the fixed chunk grid pads the 128-token
+   prompt to 256), each timed beside its bound with its w-load path (the
+   packed tile's rows of 5288 bytes are not a multiple of 16: the byte
+   path); then full-width mamba2-2.7b (64 layers, tied vocab 50280;
+   random weights, seed 0) under w4a8 and w8a8 through the gates of 6
+   (`_serve_gates`: 128 tile launches per prefill, 128 small-M launches
+   per replayed decode step; the captured step's static buffers are the
+   {ssm, conv} state), `--silvia all` == off, a replayed step's profile,
+   rows 1-2's time per generate beside their bounds, and decode ms/step
+   beside the byte bound with and without the state's read and write
+   (1.342 GB of float32 state each way at B=8); the reduced model's
+   prefill and decode against its CPU run (`phase_ssm`).  Each phase's
+   seconds are logged.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
-launches, the MoE path's included, and the MoE path's GEMM time per
-generate), the nvidia-smi line and, last,
+launches, the MoE and SSM paths' included, and those paths' GEMM time
+per generate), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
@@ -664,15 +680,41 @@ def phase_kernels(torch) -> dict:
 
 
 def gemm_widths(cfg) -> list:
-    """Every (K, N) of cfg that reaches a GEMM kernel: the q, k, v, o
-    projections, the MLP's gate, up and down, and an untied lm_head (a
-    tied one is the bf16 embedding, a plain matmul)."""
+    """Every (K, N) of cfg that reaches a GEMM kernel, by family: the q,
+    k, v, o projections and the MLP's gate, up and down (dense), or the
+    SSD mixer's in_proj and out_proj (ssm); and an untied lm_head (a tied
+    one is the bf16 embedding, a plain matmul).  The moe family's expert
+    widths are phase_moe_gemms'."""
     d = cfg.d_model
-    kn = [(d, cfg.q_dim), (d, cfg.kv_dim), (cfg.q_dim, d), (d, cfg.d_ff),
-          (cfg.d_ff, d)]
+    if cfg.family == "ssm":
+        from repro_torch.models import ssm
+        s, d_inner, n_heads, _ = ssm.dims(cfg)
+        kn = [(d, 2 * d_inner + 2 * s.n_groups * s.d_state + n_heads),
+              (d_inner, d)]
+    elif cfg.family == "dense":
+        kn = [(d, cfg.q_dim), (d, cfg.kv_dim), (cfg.q_dim, d),
+              (d, cfg.d_ff), (cfg.d_ff, d)]
+    else:
+        raise ValueError(f"gemm_widths: family {cfg.family!r}")
     if not cfg.tie_embeddings:
         kn.append((d, cfg.vocab))
     return list(dict.fromkeys(kn))
+
+
+def gemms_per_layer(cfg) -> int:
+    """GEMM launches per layer and forward: q k v o and the MLP's three (a
+    moe layer's three expert-stacked GEMMs, one launch each), or the SSD
+    mixer's in_proj and out_proj."""
+    return 2 if cfg.family == "ssm" else 7
+
+
+def w_load_path(launch: dict, row: int) -> str:
+    """The w-load path a GEMM launch took, as `common.launch_gemm`
+    recorded it on the wrapper's counter (`LaunchCounter.last`); `row` is
+    the stored row's bytes."""
+    vec = launch["vec_bytes"]
+    return (f"w {vec}-byte vector loads" if launch["vec_w"] else
+            f"w byte path (stored row {row} B, not {vec}-byte loads)")
 
 
 WIDE_ARCHS = ("qwen1.5-0.5b", "yi-6b", "command-r-35b")
@@ -681,16 +723,18 @@ WIDE_ARCHS = ("qwen1.5-0.5b", "yi-6b", "command-r-35b")
 PLAIN_SLICE_BYTES = 2 << 30
 
 
-def phase_wide_gemms(torch) -> dict:
+def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
     """Both GEMM kernels bit for bit (`torch.equal`, acc and out) against
-    their plain versions at decode M=8 and prefill M=1024, at every
-    (K, N) of the three other dense configs that reaches a kernel (K up
-    to 22528, N up to 256000: command-r's lm_head, k * n = 2.097e9, just
-    under the kernels' 2^31 index limit).  The plain version is compared
-    in column slices against the matching columns of one full-width
-    kernel launch.  Logs each shape's per-launch time (CUDA events, L2
-    spilled) and its bound.  Returns the decode (M=8) per-launch times,
-    {(kernel, arch): {(K, N): us}}."""
+    their plain versions at decode M=8 and prefill M=prefill_m, at every
+    (K, N) of `archs` that reaches a kernel (`gemm_widths`; for the three
+    other dense configs K up to 22528, N up to 256000: command-r's
+    lm_head, k * n = 2.097e9, just under the kernels' 2^31 index limit).
+    The plain version is compared in column slices against the matching
+    columns of one full-width kernel launch.  Logs each shape's
+    per-launch time (CUDA events, L2 spilled), its bound and the w-load
+    path its launch recorded (`w_load_path`).  Returns the per-launch times, {(kernel, arch):
+    {(K, N): us}} (the small-M kernel's at M=8, the tile's at
+    prefill_m)."""
     from repro_torch import configs
     from repro_torch.kernels import packed_matmul, quant_matmul, ref
 
@@ -709,8 +753,8 @@ def phase_wide_gemms(torch) -> dict:
               ref.packed_w4_matmul_acc_ref, ref.packed_w4_matmul_ref, 2)]
     t0 = time.perf_counter()
     n_shapes = 0
-    decode_us = {}
-    for arch in WIDE_ARCHS:
+    times = {}
+    for arch in archs:
         cfg = configs.get_config(arch)
         for k, n in gemm_widths(cfg):
             for name, mod, acc_ref, out_ref, per_word in specs:
@@ -719,11 +763,12 @@ def phase_wide_gemms(torch) -> dict:
                 w = i8(k, n // per_word)
                 ws = scales(1, n)
                 cols = max(2, PLAIN_SLICE_BYTES // (8 * k)) // 2 * 2
-                for m in (DECODE_M, PREFILL_M):
+                for m in (DECODE_M, prefill_m):
                     x, xs = i8(m, k), scales(m, 1)
                     start = mod.SMALL_M_LAUNCHES.count
                     acc_k, out_k = acc_fn(x, w), out_fn(x, w, xs, ws)
                     torch.cuda.synchronize()
+                    w_path = w_load_path(mod.LAUNCHES.last, w.shape[-1])
                     small = m <= quant_matmul.SMALL_M
                     kname = name + ("_small_m" if small else "")
                     if mod.SMALL_M_LAUNCHES.count - start != \
@@ -753,20 +798,19 @@ def phase_wide_gemms(torch) -> dict:
                         100 if m == DECODE_M else 20)
                     del copies
                     b_ms, b_by = bound_ms(m, k, n, w.numel())
-                    if small:
-                        decode_us.setdefault((kname, arch), {})[(k, n)] = \
-                            t_k * 1e3
+                    times.setdefault((kname, arch), {})[(k, n)] = t_k * 1e3
                     log(f"  {kname:24s} {arch:13s} M={m:5d} K={k:5d} "
                         f"N={n:6d}  kernel {t_k * 1e3:10.2f} us  bound "
                         f"{b_ms * 1e3:9.2f} us ({b_by}, "
-                        f"{100 * b_ms / t_k:.1f}%)")
+                        f"{100 * b_ms / t_k:.1f}%)  "
+                        f"{w_path}")
                     n_shapes += 1
                 del w, ws
                 torch.cuda.empty_cache()
     log(f"wide GEMM gates: both kernels bit-identical to the plain "
         f"versions at {n_shapes} (kernel, M, K, N) of "
-        f"{', '.join(WIDE_ARCHS)} in {time.perf_counter() - t0:.1f} s")
-    return decode_us
+        f"{', '.join(archs)} in {time.perf_counter() - t0:.1f} s")
+    return times
 
 
 def phase_scan_gate() -> None:
@@ -1263,9 +1307,7 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
     hname = _gemm_name(head_fmt)
     counter = {c.name: c for c in registry.LAUNCH_COUNTERS}[hname]
     head = 0 if cfg.tie_embeddings else 1
-    # 7 GEMMs per layer: q k v o and the MLP's three (a moe layer's three
-    # expert-stacked GEMMs, one launch each)
-    tile = 7 * cfg.n_layers                 # prefill rows: M = B * S > 16
+    tile = gemms_per_layer(cfg) * cfg.n_layers   # prefill: M = B * S > 16
 
     def launches(tile, small, heads):
         want = {c.name: 0 for c in registry.LAUNCH_COUNTERS}
@@ -1494,6 +1536,10 @@ QWEN_BIAS_STD = 0.1
 # tests/test_perf_variants.py::test_int8_kv_decode_accuracy, relative to
 # the largest |logit|
 INT8_KV_REL = 0.05
+# yi-6b at half its depth (16 of 32 layers; every width kept) in both of
+# its paths: a layer's gates are those of every other, and phase 9 took
+# the whole run past ~480 s
+YI_LAYERS = 16
 # yi-6b's prefill with and without attn_q_chunk, in a float32 config
 CHUNK_B, CHUNK_S, Q_CHUNK, CHUNK_REL = 2, 2048, 512, 1e-4
 
@@ -1505,7 +1551,9 @@ def step_weight_bytes(cfg, fmt: str) -> float:
     embedding lookup reads B rows, left out); scales and activations left
     out.  A moe layer reads every expert: the serving path runs all of
     them on every token (mlp.moe); its float32 router is counted at the
-    format's bytes too (0.06% of granite's)."""
+    format's bytes too (0.06% of granite's), as an ssm layer's conv taps,
+    A_log, D, dt_bias and gated-norm weight are (0.08% of mamba2's).
+    The recurrent state is `step_state_bytes`."""
     emb = cfg.vocab * cfg.d_model
     blocks = cfg.param_count() - emb * (1 if cfg.tie_embeddings else 2)
     per = 0.5 if fmt == "w4a8" else 1.0
@@ -1515,7 +1563,8 @@ def step_weight_bytes(cfg, fmt: str) -> float:
 
 def phase_dense(wide_us: dict) -> dict:
     """Phase 7, full-width dense serving beyond smollm (random weights from
-    seeded torch.Generators): yi-6b under w4a8 and w8a8 with the bf16
+    seeded torch.Generators; yi-6b at YI_LAYERS of its 32 layers): yi-6b
+    under w4a8 and w8a8 with the bf16
     cache, and qwen1.5-0.5b under w8a8 with the int8 cache and nonzero
     q/k/v biases, each through `_serve_gates` (B=8, prompt 128, 32 new
     tokens; fused == per-step == forced-plain, bit for bit; yi's untied
@@ -1569,11 +1618,11 @@ def phase_dense(wide_us: dict) -> dict:
                 f"{r['fused_ms']:.2f} ms/step, {100 * b / r['fused_ms']:.1f}%"
                 f" of it; replays alone {r['replay_ms']:.2f}")
 
-    cfg = configs.get_config("yi-6b")
+    cfg = dataclasses.replace(configs.get_config("yi-6b"), n_layers=YI_LAYERS)
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                             device="cuda")
     for fmt in ("w4a8", "w8a8"):
-        tag = f"yi-6b {fmt}"
+        tag = f"yi-6b {YI_LAYERS}L {fmt}"
         t0 = time.perf_counter()
         params = serve.build_params(cfg, fmt, seed=0, device="cuda")
         torch.cuda.synchronize()
@@ -1630,7 +1679,8 @@ def phase_dense(wide_us: dict) -> dict:
     release()
 
     t0 = time.perf_counter()
-    fcfg = dataclasses.replace(configs.get_config("yi-6b"), dtype="float32")
+    fcfg = dataclasses.replace(configs.get_config("yi-6b"), dtype="float32",
+                               n_layers=YI_LAYERS)
     params = serve.build_params(fcfg, "w4a8", seed=0, device="cuda")
     release()
     prompts = torch.randint(0, fcfg.vocab, (CHUNK_B, CHUNK_S), generator=gen,
@@ -1657,7 +1707,8 @@ def phase_dense(wide_us: dict) -> dict:
     if not peak1 < peak0:
         raise AssertionError(f"yi-6b f32 prefill: chunked peak {peak1} B "
                              f"not below the unchunked {peak0} B")
-    log(f"yi-6b f32 w4a8 prefill B={CHUNK_B} S={CHUNK_S}: attn_q_chunk="
+    log(f"yi-6b {YI_LAYERS}L f32 w4a8 prefill B={CHUNK_B} S={CHUNK_S}: "
+        f"attn_q_chunk="
         f"{Q_CHUNK} logits within {diff:.3g} of the largest |logit| (bound "
         f"{CHUNK_REL}); peak allocated {peak0 / 2**30:.3f} GiB unchunked, "
         f"{peak1 / 2**30:.3f} GiB chunked ({(peak0 - base0) / 2**30:.3f} / "
@@ -1987,6 +2038,185 @@ def phase_moe(times: dict) -> dict:
     return launches, per_generate
 
 
+# phase 9: the SSM family
+SSM_ARCH = "mamba2-2.7b"
+# the reduced model against its CPU run: a prompt of three chunks of 16
+SSM_CPU_PROMPT, SSM_CPU_STEPS = 40, 3
+
+
+def ssm_prefill_m(cfg) -> int:
+    """The prefill GEMMs' rows: the fixed chunk grid pads a PROMPT-token
+    prompt to a multiple of the chunk (128 -> 256 for mamba2)."""
+    q = cfg.ssm.chunk
+    return BATCH * (-(-PROMPT // q) * q)
+
+
+def step_state_bytes(cfg) -> float:
+    """Recurrent-state bytes one decode step reads and writes (0 for the
+    attention families, whose KV cache is not counted): per layer the
+    float32 SSM state [B, H, P, N] and the conv window [B, W-1, ch] in
+    cfg.dtype, each read once and written once."""
+    if cfg.family != "ssm":
+        return 0.0
+    from repro_torch.models import ssm
+    s, _, n_heads, ch = ssm.dims(cfg)
+    elt = getattr(torch, cfg.dtype).itemsize
+    per_layer = BATCH * (n_heads * s.headdim * s.d_state * 4
+                         + (s.conv_width - 1) * ch * elt)
+    return 2.0 * cfg.n_layers * per_layer
+
+
+def phase_ssm() -> tuple:
+    """Phase 9: the SSM family.  Both GEMM kernels bit for bit at
+    mamba2-2.7b's widths, in_proj (2560, 10576) and out_proj (5120,
+    2560), at M = 8 and the prefill's M = 2048 (`phase_wide_gemms`; the
+    packed tile's w rows of 5288 bytes take the byte path).  Then
+    mamba2-2.7b served at full width (64 layers, d 2560, 80 heads of 64,
+    d_state 128, tied vocab 50280; nothing cut; random weights from seed
+    0), B=8, prompt 128, 32 new tokens, greedy, w4a8 and w8a8, through
+    `_serve_gates` (fused == per-step == plain-forced, bit for bit; 128
+    tile launches per prefill, 128 small-M launches per replayed step,
+    none of the other format); the captured step's static buffers are
+    the {ssm, conv} state; --silvia all == off in tokens; the profiles
+    of a replayed step and of a prefill; rows 1-2's time per generate
+    beside their bounds; the step's byte bound with and without the
+    state's read and write.  Then
+    the reduced model on the card against its CPU run.  Returns
+    ({GEMM counter: {path: launches}}, {path: {GEMM counter: launches,
+    ms and bound_ms per generate}})."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(SSM_ARCH)
+    m_pre = ssm_prefill_m(cfg)
+    t0 = time.perf_counter()
+    times = phase_wide_gemms(torch, archs=(SSM_ARCH,), prefill_m=m_pre)
+    log(f"{SSM_ARCH} GEMM gates: {time.perf_counter() - t0:.1f} s")
+    kn = gemm_widths(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                            device="cuda")
+    per_layer = gemms_per_layer(cfg)
+    launches, per_generate = {}, {}
+    for fmt in ("w4a8", "w8a8"):
+        tag = f"{SSM_ARCH} {fmt}"
+        name = _gemm_name(fmt)
+        t1 = time.perf_counter()
+        params = serve.build_params(cfg, fmt, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t1
+        mixer = params["blocks"]["ssm"]
+        floats = {k: mixer[k].dtype for k in ("conv_w", "conv_b", "A_log",
+                                             "D", "dt_bias", "norm_w")}
+        if "lm_head" in params or any(
+                mixer[k].fmt != fmt for k in ("in_proj", "out_proj")) or \
+                floats != {"conv_w": torch.bfloat16,
+                           "conv_b": torch.bfloat16,
+                           "A_log": torch.float32, "D": torch.float32,
+                           "dt_bias": torch.float32,
+                           "norm_w": torch.float32}:
+            raise AssertionError(f"{tag}: quantized tree {sorted(params)}, "
+                                 f"{floats}")
+        r = _serve_gates(cfg, fmt, params, prompts, tag)
+        launched = r["launched"]
+        small = launched[f"{name}_small_m"]
+        tile = launched[name] - small
+        if tile != per_layer * cfg.n_layers or \
+                small != per_layer * cfg.n_layers * (GEN - 1):
+            raise AssertionError(f"{tag}: {tile} tile launches per prefill, "
+                                 f"{small / (GEN - 1)} small-M per replayed "
+                                 f"step, expected {per_layer * cfg.n_layers}")
+        for kname, c in ((name, tile), (f"{name}_small_m", small)):
+            launches.setdefault(kname, {})[tag] = c
+        state = r["captured"].cache
+        if {k: (t.dtype, tuple(t.shape)) for k, t in state.items()} != \
+                {k: (t.dtype, tuple(t.shape)) for k, t in lm.init_cache(
+                    cfg, BATCH, 1, device="meta").items()}:
+            raise AssertionError(f"{tag}: the captured step's buffers are "
+                                 f"{ {k: t.shape for k, t in state.items()} }")
+        first_a = _timed_generate(serve, params, prompts, cfg,
+                                  silvia_passes="all")[3]
+        toks_a, logits_a, _, silvia_s = _timed_generate(
+            serve, params, prompts, cfg, silvia_passes="all")
+        if not torch.equal(toks_a, r["toks"]):
+            raise AssertionError(f"{tag}: --silvia all tokens differ from off")
+        same = "identical" if torch.equal(logits_a, r["logits"]) \
+            else "DIFFER"
+        log(f"{tag} --silvia all: tokens identical to off, logits {same}"
+            f"; first call (trace + capture) {first_a * 1e3:.1f} ms, fused "
+            f"decode {(silvia_s - r['prefill_s']) / (GEN - 1) * 1e3:.2f} "
+            f"ms/step; passes "
+            f"{serve.get_decode_step(cfg, 'all').cache_info()}")
+        # rows 1-2 per generate, from the gates' per-launch times
+        per = 2 if fmt == "w4a8" else 1
+        per_gen = {}
+        for kname, m, count in ((name, m_pre, cfg.n_layers),
+                                (f"{name}_small_m", DECODE_M,
+                                 cfg.n_layers * (GEN - 1))):
+            us = times[(kname, SSM_ARCH)]
+            per_gen[kname] = dict(
+                launches=count * len(kn),
+                ms=sum(us[x] for x in kn) * count / 1e3,
+                bound_ms=sum(bound_ms(m, k, n, k * n // per)[0]
+                             for k, n in kn) * count)
+        b2b = per_gen[f"{name}_small_m"]["ms"] * 1e3 / \
+            per_gen[f"{name}_small_m"]["launches"]
+        replay_profile(torch, r["captured"], params, cfg, prompts,
+                       PROMPT + GEN, tag, b2b)
+        prefill_profile(torch, params, cfg, prompts, PROMPT + GEN, tag)
+        w_bytes = step_weight_bytes(cfg, fmt)
+        s_bytes = step_state_bytes(cfg)
+        b_w = w_bytes / HBM_BYTES_PER_S * 1e3
+        b_ws = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
+        log(f"{tag}: {small / (GEN - 1):.0f} small-M launches per replayed "
+            f"decode step (profiled), {tile} tile launches per prefill (M = "
+            f"{m_pre}); built and quantized in {t_build:.1f} s; GEMM kernels "
+            "per generate (per-launch times x launches, phase 9's gates): "
+            + "; ".join(f"{k} {v['launches']} launches {v['ms']:.3f} ms "
+                        f"(bound {v['bound_ms']:.3f})"
+                        for k, v in per_gen.items())
+            + f"; decode bound {b_ws:.3f} ms/step ({w_bytes / 1e9:.3f} GB "
+            f"of weights + {s_bytes / 1e9:.3f} GB of state read and written "
+            f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; weights alone "
+            f"{b_w:.3f}): fused {r['fused_ms']:.2f} ms/step, "
+            f"{100 * b_ws / r['fused_ms']:.1f}% of it; replays alone "
+            f"{r['replay_ms']:.2f}; phase {time.perf_counter() - t1:.1f} s")
+        per_generate[tag] = per_gen
+        del params, mixer, r, state, toks_a, logits_a
+        serve.decode_cache_clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # the reduced model, prefill and decode, against its CPU run
+    red = configs.get_reduced_config(SSM_ARCH)
+    rp = torch.randint(0, red.vocab, (2, SSM_CPU_PROMPT), generator=gen,
+                       device="cuda")
+    for fmt in ("w4a8", "w8a8"):
+        p_gpu = serve.build_params(red, fmt, seed=0, quant_force=True,
+                                   device="cuda")
+        p_cpu = _to_cpu(p_gpu)
+        cache_len = SSM_CPU_PROMPT + SSM_CPU_STEPS
+        lg, kv = lm.prefill(p_gpu, rp, red, cache_len=cache_len)
+        lc, kc = lm.prefill(p_cpu, rp.cpu(), red, cache_len=cache_len)
+        diffs = [(lg.cpu() - lc).abs().max().item()]
+        tok = lc[:, -1].argmax(dim=-1)[:, None]
+        for i in range(SSM_CPU_STEPS):
+            pos = torch.full((2,), SSM_CPU_PROMPT + i)
+            lg, kv = lm.decode_step(p_gpu, tok.cuda(), kv, pos.cuda(), red)
+            lc, kc = lm.decode_step(p_cpu, tok, kc, pos, red)
+            diffs.append((lg.cpu() - lc).abs().max().item())
+            tok = lc[:, -1].argmax(dim=-1)[:, None]
+        if not max(diffs) <= CPU_LOGIT_ATOL:
+            raise AssertionError(f"reduced {SSM_ARCH} {fmt}: card vs CPU "
+                                 f"logits differ by {max(diffs)} > "
+                                 f"{CPU_LOGIT_ATOL}")
+        log(f"reduced {SSM_ARCH} {fmt}: card vs CPU logits max diff "
+            f"{max(diffs):.3g} (prefill of {SSM_CPU_PROMPT} tokens, then "
+            f"{SSM_CPU_STEPS} decode steps)")
+    return launches, per_generate
+
+
 def _small_m_back_to_back_us(res: dict) -> float:
     """The small-M kernel's mean time per decode launch, back to back
     (phase_kernels' CUDA-event timing, L2 spilled), weighted as one
@@ -2058,6 +2288,22 @@ def decode_profile(torch, params, cfg, prompts, cache_len, fmt, small_b2b,
 
     _log_profile(f"{fmt} decode profile, per-step loop",
                  *_profiled(torch, run, steps), steps, small_b2b)
+
+
+def prefill_profile(torch, params, cfg, prompts, cache_len, what) -> None:
+    """Where one prefill's time goes: device kernel time (profiler)
+    against the host clock, and the top kernels (the small-M line of
+    `_log_profile` does not apply: prefill rows run on the tile)."""
+    from repro_torch.models import lm
+    lm.prefill(params, prompts, cfg, cache_len=cache_len)
+    torch.cuda.synchronize()
+
+    def run():
+        lm.prefill(params, prompts, cfg, cache_len=cache_len)
+        torch.cuda.synchronize()
+
+    _log_profile(f"{what} prefill profile", *_profiled(torch, run, 1), 1,
+                 0.0)
 
 
 def replay_profile(torch, captured, params, cfg, prompts, cache_len, fmt,
@@ -2143,15 +2389,20 @@ def main() -> int:
     moe_times = phase("expert-stacked GEMM gates", phase_moe_gemms)
     moe, per_gen = phase("MoE serving: granite-moe-1b-a400m", phase_moe,
                          moe_times)
-    for k, paths in moe.items():
-        other.setdefault(k, {}).update(paths)
+    ssm, ssm_gen = phase("SSM: mamba2-2.7b GEMM gates and serving",
+                         phase_ssm)
+    for paths_of in (moe, ssm):
+        for k, paths in paths_of.items():
+            other.setdefault(k, {}).update(paths)
     for e in entries:
         if e["name"] in other:
             e["launches_other_paths"] = other[e["name"]]
-        moe_path = {tag: rows[e["name"]] for tag, rows in per_gen.items()
+        for key, gens in (("moe_path_per_generate", per_gen),
+                          ("ssm_path_per_generate", ssm_gen)):
+            path = {tag: rows[e["name"]] for tag, rows in gens.items()
                     if e["name"] in rows}
-        if moe_path:
-            e["moe_path_per_generate"] = moe_path
+            if path:
+                e[key] = path
     log(f"== total: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries}), flush=True)

@@ -14,6 +14,7 @@ ARCHS = [
     "command-r-35b",
     "granite-moe-1b-a400m",
     "arctic-480b",
+    "mamba2-2.7b",
 ]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

@@ -141,7 +141,8 @@ class LaunchCounter:
     it and counts nowhere.  `symbol` is a regex that the device kernels
     counted here match, and no other kernel, as the profiler names them
     (`registry.profiled_launches` counts a replayed run with it; every
-    wrapper's counter has one).  Inside
+    wrapper's counter has one).  `last` holds the attrs of the latest
+    launch (for a GEMM, the load paths it chose).  Inside
     `capture()` it also records each launch's operands, to replay the
     kernel at the shapes a run gave it."""
 
@@ -149,6 +150,7 @@ class LaunchCounter:
         self.name = name
         self.symbol = symbol
         self.count = 0
+        self.last: dict = {}
         self.captured: list | None = None
 
     def reset(self) -> None:
@@ -156,6 +158,7 @@ class LaunchCounter:
 
     def launched(self, *operands, **attrs) -> None:
         self.count += 1
+        self.last = attrs
         if self.captured is not None:
             self.captured.append((operands, attrs))
 
@@ -200,7 +203,8 @@ def launch_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
     vector paths load `vec_bytes` at a time: x's when K is a multiple and
     x aligned to it, w's likewise for its row length.  A launch counts on
     `counter` and, if given, on `also` (a counter of this one kernel among
-    several behind `counter`).  Returns (acc int32 [M,n] or None, out f32
+    several behind `counter`), with the paths it chose as attrs
+    (`vec_bytes`, `vec_x`, `vec_w`).  Returns (acc int32 [M,n] or None, out f32
     [M,n] or None).
 
     Expert-stacked weights (w [E,K,N] or [E,K,N//2], `fn` a batched
@@ -271,6 +275,7 @@ def launch_gemm(fn, counter: LaunchCounter, x_q, w, n: int, x_scale,
         code = fn(*ptrs, m, k, n, int(vec_x), int(vec_w), stream)
     for c in (counter, also):
         if c is not None:
-            c.launched(x_q, w)
+            c.launched(x_q, w, vec_bytes=vec_bytes, vec_x=vec_x,
+                       vec_w=vec_w)
     _build.check(code, counter.name)
     return acc, out

@@ -8,9 +8,13 @@ cache and the CLI):
         [--silvia {off,add,muladd,all}] [--no-fused-decode]
 
 `--arch` takes the dense family (smollm-135m, qwen1.5-0.5b, yi-6b,
-command-r-35b) and the MoE family (granite-moe-1b-a400m, arctic-480b;
+command-r-35b), the MoE family (granite-moe-1b-a400m, arctic-480b;
 each expert-stacked weight is one GEMM launch, and the per-token routing
-runs inside the captured decode step).  As in the reference, the int8
+runs inside the captured decode step) and the SSM family (mamba2-2.7b:
+two GEMMs per layer, in_proj and out_proj; its recurrent state takes the
+KV cache's place, a static buffer of the captured step updated in
+place; the prompt runs on the fixed chunk grid, padded to a multiple of
+the chunk).  As in the reference, the int8
 KV cache (`serve_kv_dtype="int8"`) and the chunked prefill attention
 (`attn_q_chunk`) are config fields, set with `dataclasses.replace`; the
 CLI has no flag for them.
@@ -144,7 +148,9 @@ def _pin_lowerings(fn, census: dict):
 
 class _CapturedStep:
     """One greedy decode step over static buffers: the token and position
-    it reads, the KV cache it updates in place, the tokens (and logits
+    it reads, the cache it updates in place (whatever `lm.init_cache`
+    gives: the KV cache, or the ssm family's {ssm, conv} state), the
+    tokens (and logits
     rows) it writes at a device-side step index, for up to `n_steps`
     steps.  On CUDA the step is captured in a CUDA graph and each replay
     is one decode step; nothing on the host changes between replays.  On
@@ -156,7 +162,8 @@ class _CapturedStep:
     weights at their addresses), a KV cache of `cache_len` positions
     (29.5 MB for smollm-135m at B=8, cache_len 160; an int8 cache's
     float32 scales are static buffers too, which the step updates in
-    place with the values), the tokens [B,
+    place with the values) or an ssm state (1.359 GB for mamba2-2.7b at
+    B=8, whatever cache_len), the tokens [B,
     n_steps] int32, with return_logits the logits rows [B, n_steps, V]
     float32 (48.8 MB at B=8, n_steps 31), and the graph's private pool
     of one step's intermediates."""

@@ -25,12 +25,9 @@ import torch
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qtensor import qmatmul
+from repro_torch.quant.quantize import quantize_compiled
 
 _NEG = -1e30
-# float32(1 / 127) and float32(1e-8), the constants of the reference's
-# jitted int8 KV quantization, as Python floats (float64)
-_INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
-_EPS_1E8 = float(torch.tensor(1e-8, dtype=torch.float32))
 
 
 def _project_q(p, x, cfg: ModelConfig):
@@ -73,17 +70,14 @@ def _gqa_out(w, v):
 def _kv_quantize(t):
     """Per-position symmetric int8 quantization of a [B,S,KV,D] tensor
     over D: (int8 values, [B,S,KV] float32 scales).  As the reference:
-    scale = amax / 127 + 1e-8, round half to even, no clamp (|t / scale|
-    <= 127 by construction).  The reference's serving path runs it under
-    jit, where XLA turns the division by 127 into a multiplication by
-    float32(1 / 127) and fuses the add into one FMA (one rounding); the
-    port takes the same steps in float64, where the product is exact,
-    so its scales equal the jitted reference's bit for bit (but for a
-    double rounding, at odds of ~2^-29 a position)."""
-    tf = t.to(torch.float32)
-    amax = tf.abs().amax(dim=-1).to(torch.float64)
-    scale = (amax * _INV_127 + _EPS_1E8).to(torch.float32)
-    return torch.round(tf / scale[..., None]).to(torch.int8), scale
+    scale = amax / 127 + 1e-8 on the float32 values, round half to even
+    (|t / scale| <= 127 by construction).  The reference's serving path
+    runs it under jit, so the scale is the compiled float32 form
+    (`quantize_compiled`: one FMA), bit for bit with the jitted
+    reference's."""
+    q, scale = quantize_compiled(t.to(torch.float32).reshape(
+        -1, t.shape[-1]))
+    return q.reshape(t.shape), scale.reshape(t.shape[:-1])
 
 
 def _kv_dequant(q, scale, dtype):

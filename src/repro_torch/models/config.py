@@ -1,9 +1,8 @@
 """Model configuration schema (port of `repro/models/config.py`).
 
 The port keeps its own copy: it imports nothing of `repro`.  Only the
-fields and derived widths the ported families (dense, moe) use are
-carried; the sub-configs of the SSM and hybrid families arrive with their
-slices.
+fields and derived widths the ported families (dense, moe, ssm) use are
+carried; the hybrid family's sub-config arrives with its slice.
 """
 from __future__ import annotations
 
@@ -33,9 +32,21 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """The reference's SSMConfig, field for field: the Mamba2 SSD mixer
+    (models/ssm.py)."""
+    d_state: int = 128
+    headdim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    n_groups: int = 1
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                # dense | moe (the families ported so far)
+    family: str                # dense | moe | ssm (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -46,6 +57,7 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     activation: str = "swiglu"         # swiglu (gelu: not ported yet)
     norm: str = "rmsnorm"              # rmsnorm (layernorm: not ported yet)
     norm_eps: float = 1e-5
@@ -72,17 +84,35 @@ class ModelConfig:
         return self.n_kv * self.head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense and moe families, as the
-        reference's: embeddings (twice when untied), the four attention
-        projections per layer and the MLPs (`_mlp_params_all`); norms and
-        biases are not counted.  Used for byte bounds."""
-        if self.family not in ("dense", "moe"):
+        """Analytic parameter count, as the reference's: embeddings (twice
+        when untied), then per family: the four attention projections per
+        layer and the MLPs (`_mlp_params_all`; norms and biases not
+        counted), or for ssm each layer's mixer (`_ssm_layer_params`) and
+        the final norm.  Used for byte bounds."""
+        if self.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"param_count: family {self.family!r} is not ported yet")
         d = self.d_model
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            return emb + self.n_layers * self._ssm_layer_params() + d
         attn = d * self.q_dim * 2 + d * self.kv_dim * 2
         return emb + self.n_layers * attn + self._mlp_params_all()
+
+    def _ssm_layer_params(self) -> int:
+        """One Mamba2 mixer: in_proj (z, x, B, C, dt), out_proj, the
+        depthwise conv's taps and bias, and A_log, D, dt_bias and the
+        gated norm's weight."""
+        s = self.ssm or SSMConfig()
+        d = self.d_model
+        d_inner = s.expand * d
+        n_heads = d_inner // s.headdim
+        d_conv_ch = d_inner + 2 * s.n_groups * s.d_state
+        in_proj = d * (2 * d_inner + 2 * s.n_groups * s.d_state + n_heads)
+        out_proj = d_inner * d
+        conv = s.conv_width * d_conv_ch + d_conv_ch
+        extras = 3 * n_heads + d_inner  # A, D, dt_bias, gated norm
+        return in_proj + out_proj + conv + extras
 
     def _mlp_params_all(self) -> int:
         """The MLPs of every layer: the dense MLP, or per MoE layer the

@@ -1,5 +1,5 @@
-"""Top-level language model: init / prefill / decode for the dense and
-moe families.
+"""Top-level language model: init / prefill / decode for the dense, moe
+and ssm families.
 
 Port of `repro/models/lm.py`.  The reference stacks layer params on a
 leading axis and runs the stack under `jax.lax.scan`; the port keeps the
@@ -7,8 +7,11 @@ same stacked layout (so params convert leaf for leaf) and runs a Python
 loop over per-layer slices.  The KV cache is stacked the same way,
 {k, v: [L, B, S_max, KV, D]}, and updated in place (see
 models/attention.py); with serve_kv_dtype="int8" it also holds the
-per-position scales {k_s, v_s: [L, B, S_max, KV]}.  Each layer runs the
-block of its family (`blocks.BLOCK_FNS`, as the reference's `BLOCK_FNS`).
+per-position scales {k_s, v_s: [L, B, S_max, KV]}.  The ssm family's
+cache is its recurrent state instead, {ssm: [L, B, H, P, N] float32,
+conv: [L, B, W-1, ch]} (models/ssm.py), updated in place the same way.
+Each layer runs the block of its family (`blocks.BLOCK_FNS`, as the
+reference's `BLOCK_FNS`).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import blocks, common, mlp
+from repro_torch.models import blocks, common, mlp, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qtensor import qmatmul
 
@@ -54,7 +57,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     [L, kv_dim]: zeros in cfg.dtype, as the reference's.  The moe family
     has `moe` (`mlp.init_moe`: the float32 router [L, d, E] and the
     experts [L, E, K, N]) in place of `mlp`, and with dense_residual a
-    dense `dense` MLP beside it."""
+    dense `dense` MLP beside it.  The ssm family's block is {ln: {w},
+    ssm: `ssm.init_ssm`} (no attention, no MLP); mamba2 ties its head
+    to the embedding."""
     _check_family(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -75,6 +80,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, cfg.vocab), 1.0 / math.sqrt(d))
     p["final_norm"] = {"w": ones(d)}
+    if cfg.family == "ssm":
+        p["blocks"] = {"ln": {"w": ones(n, d)},
+                       "ssm": ssm.init_ssm(normal, cfg, n, dev)}
+        return p
     attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
             "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
     if cfg.qkv_bias:
@@ -111,10 +120,15 @@ def _embed(p, tokens, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device):
-    """Stacked per-layer KV cache {k, v: [L, B, S_max, KV, D]}, and the
-    scales {k_s, v_s: [L, B, S_max, KV]} of an int8 cache."""
+    """Stacked per-layer cache: the KV cache {k, v: [L, B, S_max, KV, D]},
+    and the scales {k_s, v_s: [L, B, S_max, KV]} of an int8 cache; for
+    the ssm family the recurrent state {ssm: [L, B, H, P, N] float32,
+    conv: [L, B, W-1, ch] cfg.dtype} (no KV, s_max unused)."""
     _check_family(cfg)
-    one = attn_mod.init_cache(cfg, batch, s_max, device=device)
+    if cfg.family == "ssm":
+        one = ssm.init_ssm_state(cfg, batch, device=device)
+    else:
+        one = attn_mod.init_cache(cfg, batch, s_max, device=device)
     return {k: torch.zeros((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
                            device=t.device) for k, t in one.items()}
 
@@ -125,16 +139,23 @@ def prefill(params, inputs, cfg: ModelConfig, cache_len: int,
 
     inputs: [B,S] int tokens.  last_positions: optional [B] int -- per-row
     index of the last REAL prompt token (right-padded ragged batches).
-    Default: the final column."""
+    Default: the final column.  Every block gets the rows' real lengths
+    (S, or last_positions + 1): attention masks the padding causally,
+    but an SSM state is sequential, and its padded steps must be
+    identity updates (models/ssm.py)."""
     _check_family(cfg)
     x = _embed(params, inputs, cfg)
-    b = x.shape[0]
+    b, s = x.shape[:2]
+    if last_positions is None:
+        lengths = torch.full((b,), s, dtype=torch.int64, device=x.device)
+    else:
+        lengths = last_positions.to(device=x.device, dtype=torch.int64) + 1
     cache = init_cache(cfg, b, cache_len, device=x.device)
     block = blocks.BLOCK_FNS[cfg.family]
     for i in range(cfg.n_layers):
         layer_cache = {k: t[i] for k, t in cache.items()}
         x = block(_layer(params["blocks"], i), x, cfg, mode="prefill",
-                  cache=layer_cache, positions=positions)
+                  cache=layer_cache, positions=positions, lengths=lengths)
     x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     if last_positions is None:
         x_last = x[:, -1:, :]

@@ -22,7 +22,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import registry
-from repro_torch.quant.quantize import pack_int4, quantize
+from repro_torch.quant.quantize import pack_int4, quantize_compiled
 
 
 @dataclasses.dataclass
@@ -68,7 +68,10 @@ def quantize_weight(w, fmt: str) -> QTensor:
 
 
 def _q2d(x2, w: QTensor):
-    x_q, x_s = quantize(x2, bits=8, axis=0)
+    """x2 [M, K] against a 2-D QTensor -> f32 [M, N].  Each row of x2 is
+    quantized in the form the reference serves activations in
+    (`quantize_compiled`: its layers run compiled, inside `lax.scan`)."""
+    x_q, x_s = quantize_compiled(x2)
     op = "quant_matmul" if w.fmt == "w8a8" else "packed_w4_matmul"
     return registry.dispatch(op, x_q, w.q, x_s, w.scale)
 
@@ -83,10 +86,10 @@ def _q_experts(xe, w: QTensor):
     it once for all experts."""
     e, m, k = xe.shape
     if xe.stride(0) == 0:
-        x_q, x_s = quantize(xe.select(0, 0), bits=8, axis=0)
+        x_q, x_s = quantize_compiled(xe.select(0, 0))
         x_q, x_s = x_q.expand(e, m, k), x_s.expand(e, m, 1)
     else:
-        x_q, x_s = quantize(xe.reshape(e * m, k), bits=8, axis=0)
+        x_q, x_s = quantize_compiled(xe.reshape(e * m, k))
         x_q, x_s = x_q.reshape(e, m, k), x_s.reshape(e, m, 1)
     op = "quant_matmul" if w.fmt == "w8a8" else "packed_w4_matmul"
     return registry.dispatch(op, x_q, w.q, x_s, w.scale)

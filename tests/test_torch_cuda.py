@@ -167,6 +167,28 @@ def test_cuda_packed_tile_matches_plain(cuda, aligned):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m", [8, 64])
+def test_cuda_gemm_records_its_load_paths(cuda, m, packed):
+    """Each GEMM launch records on its wrapper's counter the paths it
+    took (`LaunchCounter.last`): the small-M kernels ask 4-byte vectors,
+    the tiles 16; at N = 80 the packed row is 40 bytes, so the packed
+    tile takes the byte path for w (as in_proj's 5288-byte rows of
+    mamba2-2.7b do) and the others the vector path.  Results equal the
+    plain versions."""
+    mod = packed_matmul if packed else quant_matmul
+    out_fn = mod.packed_w4_matmul if packed else mod.quant_matmul
+    plain = ref.packed_w4_matmul_ref if packed else ref.quant_matmul_ref
+    x, w, xs, ws = _operands(np.random.default_rng(40 + m + packed), m, 64,
+                             80, packed, cuda)
+    assert torch.equal(out_fn(x, w, xs, ws), plain(x, w, xs, ws))
+    small = m <= quant_matmul.SMALL_M
+    assert mod.LAUNCHES.last == {"vec_bytes": 4 if small else 16,
+                                 "vec_x": True,
+                                 "vec_w": small or not packed}
+
+
+@pytest.mark.cuda
 def test_cuda_tile_grid(cuda):
     """The grid the prefill tile's launchers compute
     (repro_quant_matmul_grid, repro_packed_w4_matmul_grid): one block per
@@ -691,6 +713,45 @@ def test_cuda_moe_fused_decode_matches_stepwise(cuda, fmt):
     from repro_torch.kernels import registry
     with registry.force("ref"):
         plain = serve.generate(params, prompts, cfg, gen=6, cache_len=14,
+                               device=cuda, return_logits=True)
+    assert torch.equal(plain[0], out[0][0]) and \
+        torch.equal(plain[1], out[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["w4a8", "w8a8"])
+def test_cuda_ssm_fused_decode_matches_stepwise(cuda, fmt):
+    """Reduced mamba2 through generate(fused=True): the captured decode
+    step updates the {ssm, conv} state in place as static buffers and
+    equals the per-step loop and the plain-forced run bit for bit; the
+    prompt of 20 tokens runs on the fixed chunk grid (padded to 32); two
+    GEMMs per layer (in_proj, out_proj) and token, none for the tied
+    head."""
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    serve.decode_cache_clear()
+    cfg = configs.get_reduced_config("mamba2-2.7b")
+    params = serve.build_params(cfg, fmt, quant_force=True, device=cuda)
+    prompts = np.random.default_rng(13).integers(0, cfg.vocab, (3, 20))
+    name = "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
+    out = []
+    for fused in (False, True):
+        before = _counts()
+        out.append(serve.generate(params, prompts, cfg, gen=6, cache_len=26,
+                                  fused=fused, device=cuda,
+                                  return_logits=True))
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in _counts().items()}
+        if not fused:
+            assert launched[name] == 2 * cfg.n_layers * 6
+            assert launched[f"{name}_small_m"] == 2 * cfg.n_layers * 5
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    step = serve._decode_bundle(cfg, "off", cuda).step
+    assert set(step.cache) == {"ssm", "conv"}
+    with registry.force("ref"):
+        plain = serve.generate(params, prompts, cfg, gen=6, cache_len=26,
                                device=cuda, return_logits=True)
     assert torch.equal(plain[0], out[0][0]) and \
         torch.equal(plain[1], out[0][1])

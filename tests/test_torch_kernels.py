@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import common as jcommon  # noqa: E402
@@ -233,14 +234,17 @@ def test_quantize_weight_bit_exact(dtype, fmt):
 @pytest.mark.parametrize("fmt", ["w8a8", "w4a8"])
 def test_qmatmul_matches_reference(fmt):
     """The quantized matmul a projection runs: activation quantization,
-    the plain GEMM, the f32 epilogue and the cast back to x's dtype."""
+    the plain GEMM, the f32 epilogue and the cast back to x's dtype,
+    against the reference's as it serves it, compiled (its layers run
+    inside `lax.scan`): the port quantizes activations in the compiled
+    form (`quantize_compiled`, ROADMAP C7)."""
     rng = np.random.default_rng(13)
     x = rng.standard_normal((2, 5, 48)).astype(np.float32)
     w = (rng.standard_normal((48, 16)) / 7).astype(np.float32)
     for dtype in ("f32", "bf16"):
         jx, tx = _as(x, dtype)
         jw, tw = _as(w, dtype)
-        want = jqt.qmatmul(jx, jqt.quantize_weight(jw, fmt))
+        want = jax.jit(jqt.qmatmul)(jx, jqt.quantize_weight(jw, fmt))
         got = tqt.qmatmul(tx, tqt.quantize_weight(tw, fmt))
         assert got.dtype == tx.dtype and tuple(got.shape) == (2, 5, 16)
         np.testing.assert_array_equal(got.float().numpy(),

@@ -7,22 +7,27 @@ are numpy from a seed.
 
 What is held bit for bit: the expert-stacked GEMM (`qmatmul` on a
 [E, K, N] QTensor: the int8 activations, the int32 accumulators and the
-f32 output) against the reference's `vmap(_q2d)` run eagerly, and the
-batched plain versions against `jax.vmap` of `repro.kernels.ref`.
+f32 output) against the reference's `vmap(_q2d)` under `jax.jit`, and
+the batched plain versions against `jax.vmap` of `repro.kernels.ref`.
 
 Tolerances and why:
-* The reference is compared as it runs op by op (eager), except where a
-  test says jitted.  Jitted, XLA multiplies the activation
-  quantization's `amax / 127` by float32(1/127) instead (the rewrite of
-  ROADMAP C-ref6, in every `quantize`: a third of the scales one ulp
-  apart), which moves an int8 step now and then; through the
-  router that moves reduced arctic's float32 w4a8 prefill logits by
-  0.047 (of max 2.6) between the reference jitted and eager, and in
-  bf16 w8a8 one token takes other experts (ROADMAP C-ref7).  The port
-  computes the eager form, and equals the eager reference to ~5e-7 in
-  float32.  Unquantized (fmt bf16) there is no quantization, and the
-  jitted reference is compared directly (`test_reference_loop_is_the_
-  reference`).
+* The reference is compared in the form it serves activations in: its
+  layers run compiled (inside `lax.scan`, decode under jit), where XLA
+  computes the per-row activation scale as `fma(amax, float32(1/127),
+  1e-8)` (float32) or with the bf16 divide and a float32 add (bf16), and
+  the port does the same (`quantize_compiled`, ROADMAP C7).  The eager
+  reference differs from it by an int8 step now and then, which the
+  router amplifies (reduced arctic's float32 w4a8 prefill logits moved
+  by 0.047 of max 2.6; in bf16 w8a8 one token took other experts:
+  ROADMAP C-ref7).  So every reference call here runs with the
+  reference's `quantize` jitted (`_served_quantize`), and the MoE calls
+  otherwise op by op: the routes of each layer are recorded from
+  concrete values (`_recorded`), which a call traced whole under jit
+  has not got.  `test_reference_loop_is_the_reference` holds that loop
+  against the jitted `lm.prefill` / `decode_step` in float32, quantized
+  and not, within 1e-5.  Against it the port's reduced arctic logits sit
+  within 7.2e-7 (float32 w4a8) and 0.0625 of max 3.98 (bf16 w8a8, one
+  token-layer routed otherwise at a near-tie).
 * float32 configs: MOE_TOL / LOGIT_TOL float32, 1e-5 (float32 sums in
   another order: measured <= 1.8e-6 on logits of max ~3.4).
 * bf16 configs (the serving dtype): the two frameworks round to bf16 at
@@ -80,6 +85,7 @@ from repro_torch.models import blocks as tblocks  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.quant import qtensor as tqt  # noqa: E402
+from repro_torch.quant import quantize as tquant  # noqa: E402
 from test_torch_model import TOL, jax_to_numpy  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 
@@ -155,6 +161,20 @@ def _agree(port, ref, dtype):
     assert (ref[1][~same] <= 2 * ROUTER_TOL[dtype]).all(), \
         "experts differ away from a near-tie"
     return same
+
+
+@contextlib.contextmanager
+def _served_quantize():
+    """Inside the block the reference's activation quantization (`_q2d`'s
+    `quantize`, under vmap too) runs under jax.jit, the form it is
+    served in (module docstring); weights are quantized beforehand,
+    eagerly, as the reference serves them."""
+    orig = jqt.quantize
+    jqt.quantize = jax.jit(orig, static_argnames=("bits", "axis", "eps"))
+    try:
+        yield
+    finally:
+        jqt.quantize = orig
 
 
 @contextlib.contextmanager
@@ -298,7 +318,8 @@ def test_quantize_tree_and_convert_moe(fmt):
 
 
 def test_archs_include_the_moe_family():
-    assert tconfigs.ARCHS[-2:] == MOE
+    assert [a for a in tconfigs.ARCHS
+            if tconfigs.get_config(a).family == "moe"] == MOE
     assert all(jconfigs.get_config(a).family == "moe" for a in MOE)
 
 
@@ -316,8 +337,9 @@ def _stacked_weight(rng, e, k, n):
                                    ("w4a8", 25)])
 def test_qmatmul_experts_bit_exact(fmt, n, shared, x_dtype):
     """qmatmul on a [E, K, N] QTensor against the reference's
-    (vmap(_q2d), eager): the per-row int8 activations, the int32
-    accumulators and the f32 (then x's dtype) output, bit for bit.  N = 25
+    (vmap(_q2d) under jax.jit, as it is served): the per-row int8
+    activations, the int32 accumulators and the f32 (then x's dtype)
+    output, bit for bit.  N = 25
     under w4a8 is quantized by quantize_tree_for_serving, which falls back
     to w8a8 as the reference's does.  shared: one x broadcast to every
     expert (the per-token path's wi / wg), which the port quantizes once
@@ -339,7 +361,7 @@ def test_qmatmul_experts_bit_exact(fmt, n, shared, x_dtype):
     if shared:
         jx = jnp.broadcast_to(jx[None], (e, m, k))
         tx = tx[None].expand(e, m, k)
-    want = jqt.qmatmul(jx, jw)
+    want = jax.jit(jqt.qmatmul)(jx, jw)
     registry.reset_dispatch_counts()
     got = tqt.qmatmul(tx, tw)
     assert sum(registry.dispatch_counts().values()) == 1     # one GEMM
@@ -347,8 +369,9 @@ def test_qmatmul_experts_bit_exact(fmt, n, shared, x_dtype):
     assert np.array_equal(_f32(got), _f32(want))
     # the accumulators: each side's int8 rows, then the int32 GEMM of the
     # reference's Pallas kernel under vmap (interpret mode)
-    jq_, _ = jax.vmap(lambda x2: jqt.quantize(x2, bits=8, axis=0))(jx)
-    tq_, _ = tqt.quantize(tx.reshape(e * m, k), bits=8, axis=0)
+    jq_, _ = jax.jit(jax.vmap(lambda x2: jqt.quantize(x2, bits=8,
+                                                      axis=0)))(jx)
+    tq_, _ = tquant.quantize_compiled(tx.reshape(e * m, k))
     assert np.array_equal(tq_.reshape(e, m, k).numpy(), np.asarray(jq_))
     acc_j = jax.vmap(_jacc(jw.fmt == "w4a8"))(jq_, jw.q)
     acc_t = (tref.quant_matmul_acc_ref if tw.fmt == "w8a8"
@@ -427,9 +450,10 @@ def test_registry_refuses_mismatched_experts():
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_matches_reference(arch, fmt, dtype):
     """mlp.moe(per_token=True) on layer 0's weights against the
-    reference's (eager): the outputs of tokens routed alike within
-    MOE_TOL, aux within 1e-6 (float32 means of the same probabilities);
-    per_token=False (training's capacity dispatch) is not ported."""
+    reference's (its quantization compiled, `_served_quantize`): the
+    outputs of tokens routed alike within MOE_TOL, aux within 1e-6
+    (float32 means of the same probabilities); per_token=False
+    (training's capacity dispatch) is not ported."""
     jcfg, tcfg = _cfgs(arch, dtype=dtype)
     jp, tp = params_for(arch, dtype, fmt)
     jmoe = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"]["moe"])
@@ -438,7 +462,8 @@ def test_moe_matches_reference(arch, fmt, dtype):
         (B, S, jcfg.d_model)).astype(np.float32)
     jx = jnp.asarray(x, jnp.dtype(dtype))
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    want, want_aux = jmlp.moe(jmoe, jx, jcfg, per_token=True)
+    with _served_quantize():
+        want, want_aux = jmlp.moe(jmoe, jx, jcfg, per_token=True)
     got, aux = tmlp.moe(tmoe, tx, tcfg, per_token=True)
     assert got.dtype == tx.dtype and tuple(got.shape) == tuple(want.shape)
     k = tcfg.moe.top_k
@@ -479,9 +504,9 @@ def test_gate_combine_rounding():
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_block_matches_reference(arch, dtype, fmt):
     """moe_block in prefill mode (its cache filled in place) against the
-    reference's (eager): granite without, arctic with the parallel dense
-    residual; tokens routed alike within MOE_TOL, the cache within it
-    too."""
+    reference's (quantization compiled): granite without, arctic with
+    the parallel dense residual; tokens routed alike within MOE_TOL, the
+    cache within it too."""
     jcfg, tcfg = _cfgs(arch, dtype=dtype)
     jp, tp = params_for(arch, dtype, fmt)
     assert ("dense" in tp["blocks"]) == (arch == "arctic-480b")
@@ -491,7 +516,7 @@ def test_moe_block_matches_reference(arch, dtype, fmt):
         (B, S, jcfg.d_model)).astype(np.float32)
     jx = jnp.asarray(x, jnp.dtype(dtype))
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    with _recorded(jmlp) as ref:
+    with _recorded(jmlp) as ref, _served_quantize():
         want, jcache, _ = jblocks.moe_block(jl, jx, jcfg, mode="prefill",
                                             cache_len=S)
     cache = {k: t[0] for k, t in tlm.init_cache(tcfg, B, S,
@@ -513,8 +538,9 @@ def test_moe_block_matches_reference(arch, dtype, fmt):
 # ---------------------------------------------------------------------------
 
 def _reference_run(jp, jcfg, prompts, toks=None):
-    """The reference's prefill then G-1 decode steps, op by op (eager):
-    its blocks layer by layer, as lm.prefill / decode_step scan them.
+    """The reference's prefill then G-1 decode steps, layer by layer as
+    lm.prefill / decode_step scan them, op by op but for the activation
+    quantization, which runs compiled (`_served_quantize`).
     Teacher-forced on `toks` [B, G] if given, else greedy on its own
     argmax.  Returns (tokens [B, G], logits [B, G, V] float32)."""
     layers = [jax.tree_util.tree_map(lambda a, i=i: a[i], jp["blocks"])
@@ -556,28 +582,33 @@ def _reference(arch, dtype, fmt):
         jp, _ = params_for(arch, dtype, fmt)
         prompts = np.random.default_rng(4).integers(
             0, jcfg.vocab, (B, S)).astype(np.int32)
-        with _recorded(jmlp) as routes:
+        with _recorded(jmlp) as routes, _served_quantize():
             toks, logits = _reference_run(jp, jcfg, prompts)
         _REF[key] = (prompts, toks, logits, routes)
     return _REF[key]
 
 
 def test_reference_loop_is_the_reference():
-    """_reference_run is the reference's prefill / decode_step: on an
-    unquantized float32 config it equals the jitted lm.prefill and
-    lm.decode_step to float32 rounding."""
+    """_reference_run is the reference's prefill / decode_step as served:
+    on float32 configs, unquantized and w4a8, it equals the jitted
+    lm.prefill and lm.decode_step to float32 rounding (quantized, only
+    because its activation quantization runs compiled: op by op, the
+    router amplifies the eager form's int8 steps to 0.047, ROADMAP
+    C-ref7)."""
     jcfg, _ = _cfgs("arctic-480b", dtype="float32")
-    jp, _ = params_for("arctic-480b", "float32", "bf16")
-    prompts, toks, logits, _ = _reference("arctic-480b", "float32", "bf16")
-    lg, cache = jax.jit(jlm.prefill, static_argnums=(2, 3))(
-        jp, jnp.asarray(prompts), jcfg, S + G)
-    want = [np.asarray(lg[:, -1])]
-    dec = jax.jit(jlm.decode_step, static_argnums=(4,))
-    for i in range(G - 1):
-        lg, cache = dec(jp, jnp.asarray(toks[:, i:i + 1]), cache,
-                        jnp.full((B,), S + i, jnp.int32), jcfg)
-        want.append(np.asarray(lg[:, -1]))
-    np.testing.assert_allclose(logits, np.stack(want, 1), rtol=0, atol=1e-5)
+    for fmt in ("bf16", "w4a8"):
+        jp, _ = params_for("arctic-480b", "float32", fmt)
+        prompts, toks, logits, _ = _reference("arctic-480b", "float32", fmt)
+        lg, cache = jax.jit(jlm.prefill, static_argnums=(2, 3))(
+            jp, jnp.asarray(prompts), jcfg, S + G)
+        want = [np.asarray(lg[:, -1])]
+        dec = jax.jit(jlm.decode_step, static_argnums=(4,))
+        for i in range(G - 1):
+            lg, cache = dec(jp, jnp.asarray(toks[:, i:i + 1]), cache,
+                            jnp.full((B,), S + i, jnp.int32), jcfg)
+            want.append(np.asarray(lg[:, -1]))
+        np.testing.assert_allclose(logits, np.stack(want, 1), rtol=0,
+                                   atol=1e-5, err_msg=fmt)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

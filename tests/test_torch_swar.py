@@ -346,3 +346,18 @@ def test_launch_counter_records_operands_only_inside_capture():
     assert c.count == 3 and c.captured is None
     assert len(seen) == 1 and seen[0][0][0] is x
     assert seen[0][1] == {"sub": True}
+
+
+def test_launch_counter_keeps_the_last_launchs_attrs():
+    """`last` holds the attrs of the latest launch (a GEMM's load paths),
+    inside capture or not; a reset leaves it."""
+    c = common.LaunchCounter("k")
+    assert c.last == {}
+    c.launched(1, vec_bytes=16, vec_w=False)
+    assert c.last == {"vec_bytes": 16, "vec_w": False}
+    with c.capture():
+        c.launched(2, vec_bytes=4, vec_w=True)
+    c.reset()
+    assert c.last == {"vec_bytes": 4, "vec_w": True}
+    c.launched(3)
+    assert c.last == {}
