@@ -114,25 +114,50 @@ over):
    and the prefill's M = 2048 (the fixed chunk grid pads the 128-token
    prompt to 256), each timed beside its bound with its w-load path (the
    packed tile's rows of 5288 bytes are not a multiple of 16: the byte
-   path); then full-width mamba2-2.7b (64 layers, tied vocab 50280;
-   random weights, seed 0) under w4a8 and w8a8 through the gates of 6
-   (`_serve_gates`: 128 tile launches per prefill, 128 small-M launches
-   per replayed decode step; the captured step's static buffers are the
-   {ssm, conv} state), `--silvia all` == off, a replayed step's profile,
-   rows 1-2's time per generate beside their bounds, and decode ms/step
-   beside the byte bound with and without the state's read and write
-   (1.342 GB of float32 state each way at B=8); the reduced model's
-   prefill and decode against its CPU run (`phase_ssm`).  Each phase's
-   seconds are logged.
+   path); then mamba2-2.7b at every width, cut to 32 of its 64 layers
+   (`SSM_LAYERS`; tied vocab 50280; random weights, seed 0) under w4a8
+   and w8a8 through the gates of 6 (`_serve_gates`: 64 tile launches per
+   prefill, 64 small-M launches per replayed decode step; the captured
+   step's static buffers are the {ssm, conv} state), `--silvia all` ==
+   off, a replayed step's profile, rows 1-2's time per generate beside
+   their bounds, and decode ms/step beside the byte bound with and
+   without the state's read and write (0.671 GB of float32 state each
+   way at B=8 and 32 layers); the reduced model's
+   prefill and decode against its CPU run (`phase_ssm`);
+10. the hybrid family (`phase_hybrid`): reduced jamba at 2 scan units
+   (16 layers, float32) on the card against its CPU run, teacher-forced
+   one GEMM and one MoE layer at a time (`teacher_forced_vs_cpu`: at the
+   prefill and every decode step each GEMM's output from the CPU's input
+   bit for bit, each GEMM's and MoE layer's input, the logits and the
+   cache within CARD_CPU_RTOL); both GEMM kernels bit for bit at every
+   jamba width, M = 8 and the prefill's M (2048 for the mixers' in_proj
+   (4096, 16544) and out_proj (8192, 4096), on the fixed chunk grid;
+   1024 for attention, the dense MLP and the head (4096, 65536)) and on
+   the [16, 4096, 14336] / [16, 14336, 4096] expert stacks (wi / wg on a
+   shared x of expert stride 0, wo per expert; the plain versions walk
+   them an expert at a time), each timed beside its bound and its
+   w-load path (`phase_hybrid_gemms`); then full-width jamba-v0.1-52b (32
+   layers in 4 scan units, 16 experts on every other layer, 28 SSD
+   mixers, untied vocab 65536; nothing cut; random weights from seed 0,
+   built a [K, N] matrix at a time by `serve.build_params`, its time and
+   peak memory logged, the w4a8 tree freed before the w8a8 one is built)
+   under w4a8 and w8a8 through the gates of 6 (`_serve_gates`: 168 tile
+   launches per prefill, 169 small-M per replayed step; the captured
+   step's static buffers are the flat hybrid cache), `--silvia all` ==
+   off, the profiles of a replayed step and a prefill, rows 1-2's time
+   per generate beside their bounds and decode ms/step beside the byte
+   bound with and without the 0.278 GB of state and KV traffic.  Each
+   phase's seconds are logged.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
-launches, the MoE and SSM paths' included, and those paths' GEMM time
-per generate), the nvidia-smi line and, last,
+launches, the MoE, SSM and hybrid paths' included, and those paths'
+GEMM time per generate), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -679,21 +704,30 @@ def phase_kernels(torch) -> dict:
     return results
 
 
+def mixer_widths(cfg) -> list:
+    """The SSD mixer's (K, N): in_proj and out_proj."""
+    from repro_torch.models import ssm
+    s, d_inner, n_heads, _ = ssm.dims(cfg)
+    return [(cfg.d_model, 2 * d_inner + 2 * s.n_groups * s.d_state
+             + n_heads), (d_inner, cfg.d_model)]
+
+
 def gemm_widths(cfg) -> list:
-    """Every (K, N) of cfg that reaches a GEMM kernel, by family: the q,
-    k, v, o projections and the MLP's gate, up and down (dense), or the
-    SSD mixer's in_proj and out_proj (ssm); and an untied lm_head (a tied
-    one is the bf16 embedding, a plain matmul).  The moe family's expert
-    widths are phase_moe_gemms'."""
+    """Every 2-D (K, N) of cfg that reaches a GEMM kernel, by family: the
+    q, k, v, o projections and the MLP's gate, up and down (dense), the
+    SSD mixer's in_proj and out_proj (ssm), both and the dense MLP's
+    (hybrid); and an untied lm_head (a tied one is the bf16 embedding, a
+    plain matmul).  The expert-stacked widths are phase_moe_gemms' and
+    phase_hybrid_gemms'."""
     d = cfg.d_model
+    attn = [(d, cfg.q_dim), (d, cfg.kv_dim), (cfg.q_dim, d)]
+    ffn = [(d, cfg.d_ff), (cfg.d_ff, d)]
     if cfg.family == "ssm":
-        from repro_torch.models import ssm
-        s, d_inner, n_heads, _ = ssm.dims(cfg)
-        kn = [(d, 2 * d_inner + 2 * s.n_groups * s.d_state + n_heads),
-              (d_inner, d)]
+        kn = mixer_widths(cfg)
     elif cfg.family == "dense":
-        kn = [(d, cfg.q_dim), (d, cfg.kv_dim), (cfg.q_dim, d),
-              (d, cfg.d_ff), (cfg.d_ff, d)]
+        kn = attn + ffn
+    elif cfg.family == "hybrid":
+        kn = attn + mixer_widths(cfg) + ffn
     else:
         raise ValueError(f"gemm_widths: family {cfg.family!r}")
     if not cfg.tie_embeddings:
@@ -701,11 +735,30 @@ def gemm_widths(cfg) -> list:
     return list(dict.fromkeys(kn))
 
 
-def gemms_per_layer(cfg) -> int:
-    """GEMM launches per layer and forward: q k v o and the MLP's three (a
-    moe layer's three expert-stacked GEMMs, one launch each), or the SSD
-    mixer's in_proj and out_proj."""
-    return 2 if cfg.family == "ssm" else 7
+def hybrid_kinds(cfg) -> collections.Counter:
+    """Layers of each kind in one hybrid scan unit, from the layout the
+    model runs (`blocks.hybrid_layout`): {"attn": 1, "mamba": 7, "moe":
+    4, "dense": 4} for jamba."""
+    from repro_torch.models import blocks
+    return collections.Counter(
+        kind for layer in blocks.hybrid_layout(cfg) for kind in layer)
+
+
+def gemms_per_forward(cfg) -> int:
+    """GEMM launches of the blocks per forward (the head's apart): per
+    dense or moe layer q k v o and the MLP's three (a moe layer's three
+    expert-stacked GEMMs, one launch each); per ssm layer the mixer's
+    in_proj and out_proj; per hybrid unit its attention layers' four,
+    its mixers' two each and its FFNs' three each (42 for jamba's unit
+    of 8)."""
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        n = hybrid_kinds(cfg)
+        per_unit = (4 * n["attn"] + 2 * n["mamba"]
+                    + 3 * (n["moe"] + n["dense"]))
+        return cfg.n_layers // cfg.hybrid.period * per_unit
+    return 7 * cfg.n_layers
 
 
 def w_load_path(launch: dict, row: int) -> str:
@@ -725,7 +778,8 @@ PLAIN_SLICE_BYTES = 2 << 30
 
 def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
     """Both GEMM kernels bit for bit (`torch.equal`, acc and out) against
-    their plain versions at decode M=8 and prefill M=prefill_m, at every
+    their plain versions at decode M=8 and prefill M=prefill_m (an int,
+    or {(K, N): M} with PREFILL_M for the shapes it omits), at every
     (K, N) of `archs` that reaches a kernel (`gemm_widths`; for the three
     other dense configs K up to 22528, N up to 256000: command-r's
     lm_head, k * n = 2.097e9, just under the kernels' 2^31 index limit).
@@ -763,7 +817,9 @@ def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
                 w = i8(k, n // per_word)
                 ws = scales(1, n)
                 cols = max(2, PLAIN_SLICE_BYTES // (8 * k)) // 2 * 2
-                for m in (DECODE_M, prefill_m):
+                m_pre = prefill_m.get((k, n), PREFILL_M) \
+                    if isinstance(prefill_m, dict) else prefill_m
+                for m in (DECODE_M, m_pre):
                     x, xs = i8(m, k), scales(m, 1)
                     start = mod.SMALL_M_LAUNCHES.count
                     acc_k, out_k = acc_fn(x, w), out_fn(x, w, xs, ws)
@@ -1307,7 +1363,7 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
     hname = _gemm_name(head_fmt)
     counter = {c.name: c for c in registry.LAUNCH_COUNTERS}[hname]
     head = 0 if cfg.tie_embeddings else 1
-    tile = gemms_per_layer(cfg) * cfg.n_layers   # prefill: M = B * S > 16
+    tile = gemms_per_forward(cfg)   # prefill: M = B * S > 16
 
     def launches(tile, small, heads):
         want = {c.name: 0 for c in registry.LAUNCH_COUNTERS}
@@ -2040,6 +2096,10 @@ def phase_moe(times: dict) -> dict:
 
 # phase 9: the SSM family
 SSM_ARCH = "mamba2-2.7b"
+# mamba2-2.7b at half its depth (32 of 64 layers; every width kept) in
+# both of its paths: a layer's gates are those of every other, and phase
+# 10 took the whole run past ~600 s
+SSM_LAYERS = 32
 # the reduced model against its CPU run: a prompt of three chunks of 16
 SSM_CPU_PROMPT, SSM_CPU_STEPS = 40, 3
 
@@ -2051,19 +2111,26 @@ def ssm_prefill_m(cfg) -> int:
     return BATCH * (-(-PROMPT // q) * q)
 
 
-def step_state_bytes(cfg) -> float:
-    """Recurrent-state bytes one decode step reads and writes (0 for the
-    attention families, whose KV cache is not counted): per layer the
-    float32 SSM state [B, H, P, N] and the conv window [B, W-1, ch] in
-    cfg.dtype, each read once and written once."""
-    if cfg.family != "ssm":
+def step_state_bytes(cfg, cache_len: int = PROMPT + GEN) -> float:
+    """State bytes one decode step reads and writes (0 for the attention
+    families, whose KV cache is not counted): per mixer layer the float32
+    SSM state [B, H, P, N] and the conv window [B, W-1, ch] in cfg.dtype,
+    each read once and written once; for the hybrid family also its
+    attention layers' KV cache [B, cache_len, KV, D] (k and v) read once
+    (the decode attends over the whole buffer) and one position of it
+    written."""
+    if cfg.family not in ("ssm", "hybrid"):
         return 0.0
     from repro_torch.models import ssm
     s, _, n_heads, ch = ssm.dims(cfg)
     elt = getattr(torch, cfg.dtype).itemsize
     per_layer = BATCH * (n_heads * s.headdim * s.d_state * 4
                          + (s.conv_width - 1) * ch * elt)
-    return 2.0 * cfg.n_layers * per_layer
+    if cfg.family == "ssm":
+        return 2.0 * cfg.n_layers * per_layer
+    units, n = cfg.n_layers // cfg.hybrid.period, hybrid_kinds(cfg)
+    kv = 2 * BATCH * cfg.kv_dim * elt * (cache_len + 1)
+    return units * (2.0 * n["mamba"] * per_layer + n["attn"] * kv)
 
 
 def phase_ssm() -> tuple:
@@ -2071,24 +2138,28 @@ def phase_ssm() -> tuple:
     mamba2-2.7b's widths, in_proj (2560, 10576) and out_proj (5120,
     2560), at M = 8 and the prefill's M = 2048 (`phase_wide_gemms`; the
     packed tile's w rows of 5288 bytes take the byte path).  Then
-    mamba2-2.7b served at full width (64 layers, d 2560, 80 heads of 64,
-    d_state 128, tied vocab 50280; nothing cut; random weights from seed
-    0), B=8, prompt 128, 32 new tokens, greedy, w4a8 and w8a8, through
-    `_serve_gates` (fused == per-step == plain-forced, bit for bit; 128
-    tile launches per prefill, 128 small-M launches per replayed step,
+    mamba2-2.7b served at every width (d 2560, 80 heads of 64, d_state
+    128, tied vocab 50280; random weights from seed 0) at SSM_LAYERS of
+    its 64 layers, B=8, prompt 128, 32 new tokens, greedy, w4a8 and w8a8,
+    through `_serve_gates` (fused == per-step == plain-forced, bit for
+    bit; 2 tile launches per layer and prefill, 2 small-M per layer and
+    replayed step,
     none of the other format); the captured step's static buffers are
     the {ssm, conv} state; --silvia all == off in tokens; the profiles
     of a replayed step and of a prefill; rows 1-2's time per generate
     beside their bounds; the step's byte bound with and without the
-    state's read and write.  Then
-    the reduced model on the card against its CPU run.  Returns
+    state's read and write.  Then the reduced model on the card against
+    its CPU run.  Returns
     ({GEMM counter: {path: launches}}, {path: {GEMM counter: launches,
     ms and bound_ms per generate}})."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    cfg = configs.get_config(SSM_ARCH)
+    cfg = dataclasses.replace(configs.get_config(SSM_ARCH),
+                              n_layers=SSM_LAYERS)
     m_pre = ssm_prefill_m(cfg)
     t0 = time.perf_counter()
     times = phase_wide_gemms(torch, archs=(SSM_ARCH,), prefill_m=m_pre)
@@ -2097,10 +2168,10 @@ def phase_ssm() -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(13)
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                             device="cuda")
-    per_layer = gemms_per_layer(cfg)
+    per_fwd = gemms_per_forward(cfg)
     launches, per_generate = {}, {}
     for fmt in ("w4a8", "w8a8"):
-        tag = f"{SSM_ARCH} {fmt}"
+        tag = f"{SSM_ARCH} {SSM_LAYERS}L {fmt}"
         name = _gemm_name(fmt)
         t1 = time.perf_counter()
         params = serve.build_params(cfg, fmt, seed=0, device="cuda")
@@ -2122,11 +2193,10 @@ def phase_ssm() -> tuple:
         launched = r["launched"]
         small = launched[f"{name}_small_m"]
         tile = launched[name] - small
-        if tile != per_layer * cfg.n_layers or \
-                small != per_layer * cfg.n_layers * (GEN - 1):
+        if tile != per_fwd or small != per_fwd * (GEN - 1):
             raise AssertionError(f"{tag}: {tile} tile launches per prefill, "
                                  f"{small / (GEN - 1)} small-M per replayed "
-                                 f"step, expected {per_layer * cfg.n_layers}")
+                                 f"step, expected {per_fwd}")
         for kname, c in ((name, tile), (f"{name}_small_m", small)):
             launches.setdefault(kname, {})[tag] = c
         state = r["captured"].cache
@@ -2214,6 +2284,471 @@ def phase_ssm() -> tuple:
         log(f"reduced {SSM_ARCH} {fmt}: card vs CPU logits max diff "
             f"{max(diffs):.3g} (prefill of {SSM_CPU_PROMPT} tokens, then "
             f"{SSM_CPU_STEPS} decode steps)")
+    return launches, per_generate
+
+
+# phase 10: the hybrid family
+HYBRID_ARCH = "jamba-v0.1-52b"
+# the reduced model against its CPU run: 2 scan units (16 layers), a
+# prompt of three chunks of 16
+HYBRID_CPU_LAYERS, HYBRID_CPU_PROMPT, HYBRID_CPU_STEPS = 16, 40, 3
+
+
+def expert_widths(cfg) -> list:
+    """(K, N, x shared by every expert) of the expert-stacked GEMMs, as
+    mlp.moe runs them: wi and wg on one x broadcast to every expert
+    (expert stride 0), wo on each expert's own rows."""
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    return [(d, f, True), (f, d, False)]
+
+
+def phase_hybrid_gemms(cfg) -> dict:
+    """Both GEMM kernels bit for bit at every (K, N) of jamba's path: the
+    2-D widths through `phase_wide_gemms` (the mixers' in_proj (4096,
+    16544), whose packed rows of 8272 bytes take the 16-byte path, and
+    out_proj (8192, 4096) at the prefill's M = 2048 of the fixed chunk
+    grid; attention, the dense MLP and the head at M = 1024), then the
+    [16, K, N] expert stacks at M = 8 and 1024 rows per expert (wi / wg
+    on a shared x of expert stride 0, wo per expert): one launch per
+    call, acc and f32 out `torch.equal` to the batched plain versions
+    (which walk a stack this large an expert at a time,
+    `ref.PLAIN_EXPERT_BYTES`), each timed (CUDA events; the median of
+    three runs; a 0.94 GB stack spills the L2 by itself) beside its
+    bound and its w-load path.  Returns {(kernel, arch): {(K, N): us}},
+    the expert stacks' under (kernel, arch + " experts")."""
+    from repro_torch.kernels import packed_matmul, quant_matmul, ref
+
+    rows = {kn: ssm_prefill_m(cfg) for kn in mixer_widths(cfg)}
+    times = phase_wide_gemms(torch, archs=(HYBRID_ARCH,), prefill_m=rows)
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device="cuda") * 0.02 + 1e-3
+
+    specs = [("quant_matmul", quant_matmul, ref.quant_matmul_acc_ref,
+              ref.quant_matmul_ref, 1),
+             ("packed_w4_matmul", packed_matmul,
+              ref.packed_w4_matmul_acc_ref, ref.packed_w4_matmul_ref, 2)]
+    e = cfg.moe.n_experts
+    t0 = time.perf_counter()
+    for name, mod, acc_ref, out_ref, per in specs:
+        acc_fn, out_fn = getattr(mod, f"{name}_acc"), getattr(mod, name)
+        for k, n, shared in expert_widths(cfg):
+            w, ws = i8(e, k, n // per), scales(e, 1, n)
+            for m in (DECODE_M, PREFILL_M):
+                if shared:
+                    x, xs = i8(m, k).expand(e, m, k), \
+                        scales(m, 1).expand(e, m, 1)
+                else:
+                    x, xs = i8(e, m, k), scales(e, m, 1)
+                what = (f"E={e} M={m} K={k} N={n}"
+                        f"{' shared x' if shared else ''}")
+                before = (mod.LAUNCHES.count, mod.SMALL_M_LAUNCHES.count)
+                acc_k, out_k = acc_fn(x, w), out_fn(x, w, xs, ws)
+                torch.cuda.synchronize()
+                small = 2 if m <= quant_matmul.SMALL_M else 0
+                if (mod.LAUNCHES.count - before[0],
+                        mod.SMALL_M_LAUNCHES.count - before[1]) != (2, small):
+                    raise AssertionError(f"{name} {what}: not one launch "
+                                         "per call")
+                w_path = w_load_path(mod.LAUNCHES.last, w.shape[-1])
+                if not torch.equal(acc_k, acc_ref(x, w)):
+                    raise AssertionError(f"{name} {what}: int32 accumulator "
+                                         "differs from the plain version")
+                if not torch.equal(out_k, out_ref(x, w, xs, ws)):
+                    raise AssertionError(f"{name} {what}: f32 output "
+                                         "differs from the plain version")
+                del acc_k, out_k
+                t = median_device_ms(lambda i: out_fn(x, w, xs, ws),
+                                     20 if m == DECODE_M else 10)
+                b_ms, b_by = bound_ms_experts(e, m, k, n, w.numel(), shared)
+                kname = name + ("_small_m" if small else "")
+                times.setdefault((kname, HYBRID_ARCH + " experts"),
+                                 {})[(k, n)] = t * 1e3
+                log(f"  {kname:24s} {what:34s} kernel {t * 1e3:9.2f} us  "
+                    f"bound {b_ms * 1e3:8.2f} us ({b_by}, "
+                    f"{100 * b_ms / t:.1f}%)  {w_path}")
+            del w, ws, x, xs
+            torch.cuda.empty_cache()
+    log(f"{HYBRID_ARCH} expert-stacked GEMM gates: both kernels bit-identical "
+        f"to the plain versions at M = {DECODE_M} and {PREFILL_M} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return times
+
+
+def hybrid_per_generate(cfg, fmt: str, times: dict) -> dict:
+    """One generate's worth (B=BATCH, prompt PROMPT, GEN new tokens) of
+    each GEMM kernel on jamba's path, from phase_hybrid_gemms' per-launch
+    times: per unit the prefill's 42 tile launches (the mixers' at the
+    chunk grid's M) and 42 small-M launches per decode step, the head's
+    small-M launch per token.  {kernel: (launches, ms, bound_ms)}."""
+    name = _gemm_name(fmt)
+    per = 2 if fmt == "w4a8" else 1
+    units, kinds = cfg.n_layers // cfg.hybrid.period, hybrid_kinds(cfg)
+    d = cfg.d_model
+    (kin, nin), (kout, nout) = mixer_widths(cfg)
+    m_mix = ssm_prefill_m(cfg)
+    e = cfg.moe.n_experts
+    # (K, N, launches per unit, prefill M, experts, shared x)
+    rows = [(d, cfg.q_dim, kinds["attn"], PREFILL_M, 1, False),
+            (d, cfg.kv_dim, 2 * kinds["attn"], PREFILL_M, 1, False),
+            (cfg.q_dim, d, kinds["attn"], PREFILL_M, 1, False),
+            (kin, nin, kinds["mamba"], m_mix, 1, False),
+            (kout, nout, kinds["mamba"], m_mix, 1, False),
+            (d, cfg.d_ff, 2 * kinds["dense"], PREFILL_M, 1, False),
+            (cfg.d_ff, d, kinds["dense"], PREFILL_M, 1, False)] + [
+        (k, n, (2 if shared else 1) * kinds["moe"], PREFILL_M, e, shared)
+        for k, n, shared in expert_widths(cfg)]
+    out = {}
+
+    def add(kname, mm, k, n, ee, shared, count):
+        key = (kname, HYBRID_ARCH + (" experts" if ee > 1 else ""))
+        t = times[key][(k, n)] / 1e3
+        b, _ = (bound_ms_experts(ee, mm, k, n, ee * k * n // per, shared)
+                if ee > 1 else bound_ms(mm, k, n, k * n // per))
+        c, ms, bd = out.get(kname, (0, 0.0, 0.0))
+        out[kname] = (c + count, ms + t * count, bd + b * count)
+
+    for k, n, count, m_pre, ee, shared in rows:
+        add(name, m_pre, k, n, ee, shared, count * units)
+        add(f"{name}_small_m", DECODE_M, k, n, ee, shared,
+            count * units * (GEN - 1))
+    add(f"{name}_small_m", DECODE_M, d, cfg.vocab, 1, False, GEN)
+    return out
+
+
+# the reduced hybrid on the card against its CPU run, each quantized GEMM
+# and MoE layer of the card's run fed the CPU's input: every compared
+# tensor within this share of the CPU tensor's largest magnitude (float32
+# sums in other orders and other libm roundings, ~1e-6; a wrong op or a
+# dropped term moves a tensor by O(1) of it)
+CARD_CPU_RTOL = 1e-4
+
+
+@contextlib.contextmanager
+def _hooked(qmatmul, moe):
+    """Route the model's quantized GEMMs (`qmatmul` as attention, lm, mlp
+    and ssm call it) and its MoE layers (`mlp.moe`) through `qmatmul(orig,
+    x, w)` and `moe(orig, p, x, cfg, per_token, **kw)`, `orig` the
+    function they replace."""
+    from repro_torch.models import attention, lm, mlp, ssm
+    mods = (attention, lm, mlp, ssm)
+    orig_q, orig_moe = mlp.qmatmul, mlp.moe
+    for m in mods:
+        m.qmatmul = functools.partial(qmatmul, orig_q)
+    mlp.moe = functools.partial(moe, orig_moe)
+    try:
+        yield
+    finally:
+        mlp.moe = orig_moe
+        for m in mods:
+            m.qmatmul = orig_q
+
+
+def _kept(x):
+    """x on the host; an expert-stacked GEMM's x of expert stride 0 (one
+    x broadcast to every expert) as its one expert's rows."""
+    shared = x.ndim == 3 and x.stride(0) == 0
+    return (x[:1] if shared else x).detach().cpu().clone(), shared
+
+
+def teacher_forced_vs_cpu(params, cpu_params, prompts, cfg, steps: int,
+                          rtol: float = CARD_CPU_RTOL) -> dict:
+    """The hybrid model on `params` (on the card) against its run on
+    `cpu_params` (the same weights on the host), teacher-forced one
+    quantized GEMM and one MoE layer at a time.  The host runs a prefill
+    of `prompts` and `steps` greedy decode steps, recording each GEMM's
+    and MoE layer's input and output in call order.  The card runs the
+    same steps on the host's tokens; each GEMM and MoE layer there gets
+    the host's input in place of its own, so an int8 rounding tie or a
+    router near-tie cannot carry the host's last-bit differences through
+    the rest of the stack (ROADMAP C8).  Held, at every step (the prefill
+    and each decode step):
+      * each GEMM's and MoE layer's own input within `rtol` of the host's
+        (everything between two GEMMs: norms, rope, attention, the SSD
+        scan and its conv, the SwiGLU, the router and the MoE combine);
+      * each GEMM's output from the host's input bit for bit (the int8
+        rows, the int32 sums and the float32 epilogue are exact);
+      * each MoE layer's output from the host's input within `rtol`;
+      * the logits and every cache tensor within `rtol`;
+      * the number of GEMM and MoE calls: gemms_per_forward + the head,
+        and one MoE call per MoE layer.
+    Returns {"gemms", "moes", "tensors": counts compared, "worst": the
+    largest difference over the tensor's largest magnitude}."""
+    from repro_torch.models import lm
+    b, s = prompts.shape
+    cache_len = s + steps
+    moes = lm.n_scan_units(cfg) * hybrid_kinds(cfg)["moe"]
+    want_calls = gemms_per_forward(cfg) + 1 + moes
+    stats = {"gemms": 0, "moes": 0, "tensors": 0, "worst": 0.0}
+
+    # the host: each step's calls [(kind, input, shared, output)]
+    host, calls = [], []
+
+    def rec_q(orig, x, w):
+        i = len(calls)
+        calls.append(None)
+        y = orig(x, w)
+        calls[i] = ("GEMM", *_kept(x), y.clone())
+        return y
+
+    def rec_moe(orig, p, x, c, per_token=False, **kw):
+        i = len(calls)
+        calls.append(None)
+        y, aux = orig(p, x, c, per_token, **kw)
+        calls[i] = ("MoE", x.clone(), False, y.clone())
+        return y, aux
+
+    tokens = []
+    with _hooked(rec_q, rec_moe):
+        logits, cache = lm.prefill(cpu_params, prompts.cpu(), cfg,
+                                   cache_len=cache_len)
+        for i in range(steps + 1):
+            host.append((calls, logits[:, -1].clone(),
+                         {k: t.clone() for k, t in cache.items()}))
+            calls = []
+            tokens.append(logits[:, -1].argmax(dim=-1)[:, None])
+            if i == steps:
+                break
+            logits, _ = lm.decode_step(cpu_params, tokens[-1], cache,
+                                       torch.full((b,), s + i), cfg)
+
+    def close(got, want, what):
+        got = got.detach().cpu().float()
+        want = want.float()
+        if got.shape != want.shape:
+            raise AssertionError(f"{what}: shape {tuple(got.shape)} on the "
+                                 f"card, {tuple(want.shape)} on the host")
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        if not err <= rtol * top:
+            raise AssertionError(f"{what}: card and host differ by {err} "
+                                 f"(largest |host| {top}, limit {rtol} of it)")
+        stats["tensors"] += 1
+        stats["worst"] = max(stats["worst"], err / top if top else 0.0)
+
+    def fed(want, shared, like):
+        x = want.to(like.device)
+        return x.expand(like.shape) if shared else x
+
+    for t, (want_calls_t, want_logits, want_cache) in enumerate(host):
+        at = iter(range(len(want_calls_t)))
+        step = "prefill" if t == 0 else f"decode step {t}"
+
+        def take(kind):
+            i = next(at, None)
+            if i is None or want_calls_t[i][0] != kind:
+                raise AssertionError(f"{step}: call {i} is a {kind} on the "
+                                     "card, not on the host")
+            return i, want_calls_t[i][1:]
+
+        def fq(orig, x, w):
+            i, (xw, shared, yw) = take("GEMM")
+            close(x[:1] if shared else x, xw, f"{step}, GEMM {i}'s input")
+            y = orig(fed(xw, shared, x), w)
+            if not torch.equal(y.cpu(), yw):
+                raise AssertionError(f"{step}, GEMM {i}: the card's output "
+                                     "from the host's input is not the "
+                                     "host's, bit for bit")
+            stats["gemms"] += 1
+            return y
+
+        def fmoe(orig, p, x, c, per_token=False, **kw):
+            i, (xw, _, yw) = take("MoE")
+            close(x, xw, f"{step}, MoE {i}'s input")
+            y, aux = orig(p, fed(xw, False, x), c, per_token, **kw)
+            close(y, yw, f"{step}, MoE {i}'s output")
+            stats["moes"] += 1
+            return y, aux
+
+        with _hooked(fq, fmoe):
+            if t == 0:
+                logits, cache = lm.prefill(params, prompts, cfg,
+                                           cache_len=cache_len)
+            else:
+                logits, _ = lm.decode_step(
+                    params, tokens[t - 1].to(prompts.device), cache,
+                    torch.full((b,), s + t - 1, device=prompts.device), cfg)
+        if len(want_calls_t) != want_calls or next(at, None) is not None:
+            raise AssertionError(f"{step}: {len(want_calls_t)} GEMM and MoE "
+                                 f"calls on the host, {want_calls} expected, "
+                                 "or fewer on the card")
+        close(logits[:, -1], want_logits, f"{step}, logits")
+        for k, v in want_cache.items():
+            close(cache[k], v, f"{step}, cache {k}")
+    return stats
+
+
+def hybrid_reduced_vs_cpu(gen) -> None:
+    """Reduced jamba at 2 scan units, in a float32 config, on the card
+    against its CPU run (the same weights, moved), under both formats:
+    a prefill of HYBRID_CPU_PROMPT tokens, then HYBRID_CPU_STEPS decode
+    steps on the CPU's greedy tokens, teacher-forced one GEMM and one MoE
+    layer at a time (`teacher_forced_vs_cpu`: every GEMM's and MoE
+    layer's input, every GEMM's output bit for bit, the logits and the
+    cache at every step).  Why teacher-forced: the devices' last-bit
+    float differences tip an int8 rounding now and then (~10 of ~0.5 M
+    activations per prefill here, ROADMAP C8), and a free-running
+    16-layer stack carries one such step into the logits and the
+    routes."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    red = dataclasses.replace(configs.get_reduced_config(HYBRID_ARCH),
+                              n_layers=HYBRID_CPU_LAYERS, dtype="float32")
+    rp = torch.randint(0, red.vocab, (2, HYBRID_CPU_PROMPT), generator=gen,
+                       device="cuda")
+    for fmt in ("w4a8", "w8a8"):
+        p_gpu = serve.build_params(red, fmt, seed=0, quant_force=True,
+                                   device="cuda")
+        st = teacher_forced_vs_cpu(p_gpu, _to_cpu(p_gpu), rp, red,
+                                   HYBRID_CPU_STEPS)
+        log(f"reduced {HYBRID_ARCH} ({HYBRID_CPU_LAYERS} layers, float32) "
+            f"{fmt}, card against CPU, teacher-forced (prefill of "
+            f"{HYBRID_CPU_PROMPT} tokens, then {HYBRID_CPU_STEPS} decode "
+            f"steps): {st['gemms']} GEMM outputs bit for bit, "
+            f"{st['moes']} MoE layers, {st['tensors']} tensors (GEMM and "
+            f"MoE inputs, MoE outputs, logits, caches) within "
+            f"{st['worst']:.3e} of their largest magnitude (limit "
+            f"{CARD_CPU_RTOL})")
+
+
+def phase_hybrid() -> tuple:
+    """Phase 10: the hybrid family.  Reduced jamba (2 units) on the card
+    against its CPU run; both GEMM kernels bit for bit at every jamba
+    width (`phase_hybrid_gemms`); then jamba-v0.1-52b served at full width
+    (32 layers in 4 scan units, d 4096, 16 experts of d_ff 14336 on every
+    other layer, 28 SSD mixers, untied vocab 65536; nothing cut; random
+    weights from seed 0, built a [K, N] matrix at a time by
+    `serve.build_params`, its time and peak memory logged), B=8, prompt
+    128, 32 new tokens, greedy, w4a8 and then w8a8 (the first tree freed
+    before the second is built), through `_serve_gates` (fused ==
+    per-step == plain-forced, bit for bit; 168 tile launches per prefill,
+    169 small-M launches per replayed step; one capture); the captured
+    step's static buffers are the flat hybrid cache; --silvia all == off
+    in tokens; the profiles of a replayed step and of a prefill; rows
+    1-2's time per generate beside their bounds; decode ms/step beside
+    the step's byte bound with and without the state and KV traffic.
+    Returns ({GEMM counter: {path: launches}}, {path: {GEMM counter:
+    launches, ms and bound_ms per generate}})."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(HYBRID_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    t0 = time.perf_counter()
+    hybrid_reduced_vs_cpu(gen)
+    log(f"reduced {HYBRID_ARCH} against the CPU: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    times = phase_hybrid_gemms(cfg)
+    log(f"{HYBRID_ARCH} GEMM gates: {time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                            device="cuda")
+    per_fwd = gemms_per_forward(cfg)
+    units, n_moe = lm.n_scan_units(cfg), hybrid_kinds(cfg)["moe"]
+    launches, per_generate = {}, {}
+    for fmt in ("w4a8", "w8a8"):
+        tag = f"{HYBRID_ARCH} {fmt}"
+        name = _gemm_name(fmt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        params = serve.build_params(cfg, fmt, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t1
+        resident = torch.cuda.memory_allocated() - base
+        peak = torch.cuda.max_memory_allocated() - base
+        blk = params["blocks"]
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        if params["lm_head"].fmt != fmt or \
+                any(blk["moe"][k].fmt != fmt for k in ("wi", "wg", "wo")) or \
+                tuple(blk["moe"]["wi"].scale.shape) != (units, n_moe, e, 1, f) or \
+                blk["moe"]["router"].dtype != torch.float32 or \
+                any(blk["mamba"][k].fmt != fmt
+                    for k in ("in_proj", "out_proj")) or \
+                blk["mamba"]["conv_w"].dtype != torch.bfloat16 or \
+                any(blk["attn"][k].fmt != fmt for k in blk["attn"]) or \
+                any(blk["dense"][k].fmt != fmt for k in blk["dense"]):
+            raise AssertionError(f"{tag}: the quantized tree is not the "
+                                 "serving tree")
+        log(f"{tag}: built and quantized a matrix at a time in {t_build:.1f} "
+            f"s; resident {resident / 2**30:.2f} GiB, peak "
+            f"{peak / 2**30:.2f} GiB above the card's {base / 2**30:.2f} GiB "
+            f"before (torch.cuda.max_memory_allocated)")
+        r = _serve_gates(cfg, fmt, params, prompts, tag)
+        launched = r["launched"]
+        small = launched[f"{name}_small_m"]
+        tile = launched[name] - small
+        per_step = (small - 1) / (GEN - 1)   # the prefill's head: one
+        if tile != per_fwd or per_step != per_fwd + 1:
+            raise AssertionError(f"{tag}: {tile} tile launches per prefill, "
+                                 f"{per_step} small-M per replayed step, "
+                                 f"expected {per_fwd} and {per_fwd + 1}")
+        for kname, c in ((name, tile), (f"{name}_small_m", small)):
+            launches.setdefault(kname, {})[tag] = c
+        state = r["captured"].cache
+        want = lm.init_cache(cfg, BATCH, PROMPT + GEN, device="meta")
+        if {k: (t.dtype, tuple(t.shape)) for k, t in state.items()} != \
+                {k: (t.dtype, tuple(t.shape)) for k, t in want.items()}:
+            raise AssertionError(f"{tag}: the captured step's buffers are "
+                                 f"{ {k: t.shape for k, t in state.items()} }")
+        first_a = _timed_generate(serve, params, prompts, cfg,
+                                  silvia_passes="all")[3]
+        toks_a, logits_a, _, silvia_s = _timed_generate(
+            serve, params, prompts, cfg, silvia_passes="all")
+        if not torch.equal(toks_a, r["toks"]):
+            raise AssertionError(f"{tag}: --silvia all tokens differ from off")
+        same = "identical" if torch.equal(logits_a, r["logits"]) \
+            else "DIFFER"
+        log(f"{tag} --silvia all: tokens identical to off, logits {same}"
+            f"; first call (trace + capture) {first_a * 1e3:.1f} ms, fused "
+            f"decode {(silvia_s - r['prefill_s']) / (GEN - 1) * 1e3:.2f} "
+            f"ms/step; passes "
+            f"{serve.get_decode_step(cfg, 'all').cache_info()}")
+        del toks_a, logits_a
+        serve.decode_cache_clear()        # the --silvia bundle's graph
+        per_gen = hybrid_per_generate(cfg, fmt, times)
+        for k, (c, _, _) in per_gen.items():     # the profiled launches
+            seen = launched[k] if k.endswith("_small_m") else \
+                launched[k] - launched[f"{k}_small_m"]
+            if c != seen:
+                raise AssertionError(f"{tag}: {k} launched {seen} times, "
+                                     f"the per-generate sum counts {c}")
+        sm = per_gen[f"{name}_small_m"]
+        replay_profile(torch, r["captured"], params, cfg, prompts,
+                       PROMPT + GEN, tag, sm[1] * 1e3 / sm[0])
+        prefill_profile(torch, params, cfg, prompts, PROMPT + GEN, tag)
+        w_bytes = step_weight_bytes(cfg, fmt)
+        s_bytes = step_state_bytes(cfg)
+        b_w = w_bytes / HBM_BYTES_PER_S * 1e3
+        b_ws = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
+        log(f"{tag}: {per_step:.0f} small-M launches per replayed decode "
+            f"step (profiled), {tile} tile launches per prefill; prefill "
+            f"{r['prefill_ms']:.1f} ms; GEMM kernels per generate "
+            "(per-launch times x launches, phase 10's gates): "
+            + "; ".join(f"{k} {c} launches {ms:.3f} ms (bound {bd:.3f})"
+                        for k, (c, ms, bd) in per_gen.items())
+            + f"; decode bound {b_ws:.3f} ms/step ({w_bytes / 1e9:.3f} GB "
+            f"of weights, every expert, + {s_bytes / 1e9:.3f} GB of state "
+            f"and KV at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; weights alone "
+            f"{b_w:.3f}): fused {r['fused_ms']:.2f} ms/step, "
+            f"{100 * b_ws / r['fused_ms']:.1f}% of it; replays alone "
+            f"{r['replay_ms']:.2f}; per-step loop {r['step_ms']:.2f}; "
+            f"{time.perf_counter() - t1:.1f} s")
+        per_generate[tag] = {k: dict(launches=c, ms=ms, bound_ms=bd)
+                             for k, (c, ms, bd) in per_gen.items()}
+        del params, blk, r, state
+        serve.decode_cache_clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     return launches, per_generate
 
 
@@ -2391,14 +2926,16 @@ def main() -> int:
                          moe_times)
     ssm, ssm_gen = phase("SSM: mamba2-2.7b GEMM gates and serving",
                          phase_ssm)
-    for paths_of in (moe, ssm):
+    hyb, hyb_gen = phase("hybrid: jamba-v0.1-52b", phase_hybrid)
+    for paths_of in (moe, ssm, hyb):
         for k, paths in paths_of.items():
             other.setdefault(k, {}).update(paths)
     for e in entries:
         if e["name"] in other:
             e["launches_other_paths"] = other[e["name"]]
         for key, gens in (("moe_path_per_generate", per_gen),
-                          ("ssm_path_per_generate", ssm_gen)):
+                          ("ssm_path_per_generate", ssm_gen),
+                          ("hybrid_path_per_generate", hyb_gen)):
             path = {tag: rows[e["name"]] for tag, rows in gens.items()
                     if e["name"] in rows}
             if path:

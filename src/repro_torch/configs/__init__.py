@@ -15,6 +15,7 @@ ARCHS = [
     "granite-moe-1b-a400m",
     "arctic-480b",
     "mamba2-2.7b",
+    "jamba-v0.1-52b",
 ]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

@@ -25,7 +25,11 @@ Expert-stacked operands (the MoE family: x [E,M,K], w [E,K,N] or
 [E,K,N//2], x_scale [E,M,1], w_scale [E,1,N]) go through the same
 statements with one leading axis more, as the reference's `jax.vmap`
 maps its kernel: the float64 matmul batches over E (each expert's sums
-exact as above), and the dequantization keeps its operation order.
+exact as above), and the dequantization keeps its operation order.  A
+stack whose float64 weight copy would pass PLAIN_EXPERT_BYTES is
+multiplied one expert at a time (the same exact sums, so the same
+bits): a full-width jamba expert stack is 0.94 GB of int8, 7.5 GB as
+float64.
 """
 from __future__ import annotations
 
@@ -86,10 +90,29 @@ def mul4_ref(a: Sequence, b):
 # Packed quantized matmuls (serving path)
 # ---------------------------------------------------------------------------
 
+# the float64 weight copy above which a stack is multiplied an expert at
+# a time
+PLAIN_EXPERT_BYTES = 1 << 30
+
+
+def _per_expert(fn, a, b):
+    """fn over the leading (expert) axis of a [E, M, K] and b [E, K, *],
+    one expert at a time, into one [E, M, N] int32 result."""
+    first = fn(a[0], b[0])
+    out = torch.empty((a.shape[0],) + tuple(first.shape),
+                      dtype=first.dtype, device=first.device)
+    out[0] = first
+    for e in range(1, a.shape[0]):
+        out[e] = fn(a[e], b[e])
+    return out
+
+
 def _exact_int_matmul(a, b):
     """int32 [..., M,K] @ [..., K,N] of int8-valued operands, summed
     exactly and wrapped to int32 as the reference's accumulator is (see
     module docstring for the float64 bound)."""
+    if a.ndim == 3 and 8 * b.numel() > PLAIN_EXPERT_BYTES:
+        return _per_expert(_exact_int_matmul, a, b)
     exact = a.to(torch.float64) @ b.to(torch.float64)
     return exact.to(torch.int64).to(torch.int32)
 
@@ -126,7 +149,10 @@ def _unpack_words(w_packed):
 
 def packed_w4_matmul_acc_ref(x_q, w_packed):
     """int8 x_q [M,K] @ packed int4 w [K, N//2] -> exact int32 [M,N] (or
-    [E,M,K] @ [E,K,N//2] -> [E,M,N])."""
+    [E,M,K] @ [E,K,N//2] -> [E,M,N]; a large stack unpacked an expert at
+    a time too)."""
+    if x_q.ndim == 3 and 16 * w_packed.numel() > PLAIN_EXPERT_BYTES:
+        return _per_expert(packed_w4_matmul_acc_ref, x_q, w_packed)
     return _exact_int_matmul(x_q, _unpack_words(w_packed))
 
 

@@ -10,11 +10,15 @@ cache and the CLI):
 `--arch` takes the dense family (smollm-135m, qwen1.5-0.5b, yi-6b,
 command-r-35b), the MoE family (granite-moe-1b-a400m, arctic-480b;
 each expert-stacked weight is one GEMM launch, and the per-token routing
-runs inside the captured decode step) and the SSM family (mamba2-2.7b:
+runs inside the captured decode step), the SSM family (mamba2-2.7b:
 two GEMMs per layer, in_proj and out_proj; its recurrent state takes the
 KV cache's place, a static buffer of the captured step updated in
 place; the prompt runs on the fixed chunk grid, padded to a multiple of
-the chunk).  As in the reference, the int8
+the chunk) and the hybrid family (jamba-v0.1-52b: per scan unit of 8
+layers one attention layer, seven SSD mixers and eight FFNs, every
+other one the MoE; the flat cache of both kinds is the captured step's
+static buffers; its 51.46 B parameters are built a [K, N] matrix at a
+time, `build_params`).  As in the reference, the int8
 KV cache (`serve_kv_dtype="int8"`) and the chunked prefill attention
 (`attn_q_chunk`) are config fields, set with `dataclasses.replace`; the
 CLI has no flag for them.
@@ -69,7 +73,7 @@ from repro_torch import core as silvia
 from repro_torch import device as device_lib
 from repro_torch.kernels import registry
 from repro_torch.models import lm
-from repro_torch.quant.qtensor import quantize_tree_for_serving
+from repro_torch.quant.qtensor import QTensor, quantize_weight, serving_format
 
 SILVIA_PASS_SETS = {
     "off": [],
@@ -149,11 +153,11 @@ def _pin_lowerings(fn, census: dict):
 class _CapturedStep:
     """One greedy decode step over static buffers: the token and position
     it reads, the cache it updates in place (whatever `lm.init_cache`
-    gives: the KV cache, or the ssm family's {ssm, conv} state), the
-    tokens (and logits
-    rows) it writes at a device-side step index, for up to `n_steps`
-    steps.  On CUDA the step is captured in a CUDA graph and each replay
-    is one decode step; nothing on the host changes between replays.  On
+    gives: the KV cache, the ssm family's {ssm, conv} state, or the
+    hybrid family's flat dict of both), the tokens (and logits rows) it
+    writes at a device-side step index, for up to `n_steps` steps.  On
+    CUDA the step is captured in a CUDA graph and each replay is one
+    decode step; nothing on the host changes between replays.  On
     the CPU there is no graph and `run` calls the step eagerly
     (`generate` never builds one there; the CPU tests check the buffers'
     bookkeeping this way).
@@ -163,7 +167,8 @@ class _CapturedStep:
     (29.5 MB for smollm-135m at B=8, cache_len 160; an int8 cache's
     float32 scales are static buffers too, which the step updates in
     place with the values) or an ssm state (1.359 GB for mamba2-2.7b at
-    B=8, whatever cache_len), the tokens [B,
+    B=8, whatever cache_len; jamba-v0.1-52b's 28 mixers' 0.129 GB and its
+    4 attention layers' 21 MB of KV at cache_len 160), the tokens [B,
     n_steps] int32, with return_logits the logits rows [B, n_steps, V]
     float32 (48.8 MB at B=8, n_steps 31), and the graph's private pool
     of one step's intermediates."""
@@ -340,11 +345,53 @@ def generate(params, prompts, cfg, *, gen: int, cache_len: int,
     return toks
 
 
+# the most elements of a matrix that `build_params` quantizes at once
+QUANT_SLICE_ELEMS = 1 << 27
+
+
 def build_params(cfg, quant: str, *, seed: int = 0, quant_force=False,
                  device="cuda"):
-    """Random params from `seed`, quantized for serving as `quant`."""
-    params = lm.init_params(cfg, seed, device=device)
-    return quantize_tree_for_serving(params, quant, force=quant_force)
+    """Random params from `seed`, quantized for serving as `quant`: bit for
+    bit `quantize_tree_for_serving(lm.init_params(cfg, seed), quant,
+    force=quant_force)`, without ever holding a whole leaf of float
+    weights.  lm.init_params draws each random leaf one [K, N] matrix at
+    a time; each matrix of a leaf that quantizes is quantized as it is
+    drawn (per-column scales: a matrix's are those of the whole leaf),
+    QUANT_SLICE_ELEMS elements of columns at a time, into the leaf's
+    preallocated QTensor.  Whether a leaf quantizes, and to which format,
+    is decided from the WHOLE leaf's path and shape (`serving_format`:
+    size floors, the 2-D rule, the odd-N w4a8 -> w8a8 fallback), never
+    from a matrix's.  So beside the tree built so far there is one
+    matrix in its dtype, its float32 draw until it is cast, and one
+    column slice's quantization temporaries: command-r-35b (whose
+    [8192, 256000] lm_head is drawn as 7.8 GiB of float32) peaks 2.24 /
+    1.89 GiB above its resident 18.02 / 32.12 GiB (w4a8 / w8a8;
+    scripts/build_memory.py on an H100 80GB HBM3), where quantizing that
+    head whole peaked 27.88 / 8.90 GiB above, and drawing
+    jamba-v0.1-52b's stacked expert weights whole would take 60 GB."""
+    def build(path, spec, slices, dev):
+        fmt = serving_format("/".join(path), spec.shape, quant,
+                             force=quant_force)
+        if fmt is None:
+            return lm.materialize(path, spec, slices, dev)
+        k, n = spec.shape[-2:]
+        per = 2 if fmt == "w4a8" else 1        # columns per stored byte
+        q = torch.empty(spec.shape[:-1] + (n // per,), dtype=torch.int8,
+                        device=dev)
+        scale = torch.empty(spec.shape[:-2] + (1, n), dtype=torch.float32,
+                            device=dev)
+        # columns quantize independently: slices of an even width
+        cols = max(2, QUANT_SLICE_ELEMS // k // 2 * 2)
+        for idx, w in slices:
+            for c in range(0, n, cols):
+                qt = quantize_weight(w[:, c:c + cols], fmt)
+                q[idx][:, c // per:(c + cols) // per] = qt.q
+                scale[idx][:, c:c + cols] = qt.scale
+        return QTensor(q, scale, fmt)
+
+    # the constant leaves (norms, biases, the mixers' A_log, D, dt_bias,
+    # conv_b) stay float, as serving_format keeps them
+    return lm.init_params(cfg, seed, device=device, build=build)
 
 
 def main(argv=None):

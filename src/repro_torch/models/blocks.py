@@ -1,15 +1,39 @@
 """Residual blocks (port of `repro/models/blocks.py`): the dense unit
 (pre-norm attention + pre-norm MLP), the moe unit (pre-norm attention
-+ MoE, with arctic's parallel dense FFN, the "dense residual") and the
-ssm unit (pre-norm Mamba2 SSD mixer, no MLP).
++ MoE, with arctic's parallel dense FFN, the "dense residual"), the
+ssm unit (pre-norm Mamba2 SSD mixer, no MLP) and the hybrid unit
+(jamba's super-block: `period` layers of mixer + FFN).
 
 `BLOCK_FNS` maps a family to its block, as the reference's
 `repro/models/lm.py:25` does; `lm` runs the stack through it."""
 from __future__ import annotations
 
+import collections
+
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp, ssm
 from repro_torch.models.config import ModelConfig
+
+
+def tree_idx(tree, i):
+    """Slice i of the leading axis of every leaf (QTensor leaves slice q
+    and scale together): a scan unit's params, or a hybrid sub-layer's."""
+    if isinstance(tree, dict):
+        return {k: tree_idx(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def hybrid_layout(cfg: ModelConfig) -> list:
+    """Each layer of a hybrid scan unit as (mixer, ffn), in order: mixer
+    "attn" at `attn_index`, else "mamba" (an SSD mixer); ffn "moe" when
+    i % interleave == interleave - 1, else "dense" (jamba's unit of 8:
+    one attention, seven mixers, four MoE and four dense FFNs).  The
+    params tree (`lm.param_specs`), `hybrid_block` and the launch counts
+    read it."""
+    hp, m = cfg.hybrid, cfg.moe
+    return [("attn" if i == hp.attn_index else "mamba",
+             "moe" if i % m.interleave == m.interleave - 1 else "dense")
+            for i in range(hp.period)]
 
 
 def _norm(cfg, x, p):
@@ -73,4 +97,49 @@ def ssm_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     return x + y
 
 
-BLOCK_FNS = {"dense": dense_block, "moe": moe_block, "ssm": ssm_block}
+def hybrid_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
+                 pos=None, positions=None, active=None, lengths=None):
+    """One jamba super-block (a scan unit): `period` layers, each a mixer
+    and an FFN, each with its pre-norm and residual.  Layer `attn_index`
+    mixes by attention (`attn_ln`, `attn`), the others by an SSD mixer
+    (`mamba_ln`, `mamba`, as ssm_block); layer i's FFN is the MoE
+    (per-token routing) when i % interleave == interleave - 1, else the
+    dense SwiGLU MLP (`dense`), after `ffn_ln` i.  `cache` is the unit's
+    slice of the flat hybrid cache, {ssm, conv: [period-1, B, ...]} and
+    the attention's {k, v (, k_s, v_s)}, updated in place: the prefill
+    fills it (the mixers on the fixed chunk grid with `lengths`), a
+    decode step steps it (masked by `active`).  Modes as dense_block's;
+    the reference's aux loss is dropped, as its prefill / decode drop it."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    kv = {k: t for k, t in cache.items() if k not in ("ssm", "conv")}
+    n = collections.Counter()        # layers of each kind so far
+    for i, (mixer, ffn) in enumerate(hybrid_layout(cfg)):
+        if mixer == "attn":
+            h = _norm(cfg, x, p["attn_ln"])
+            if mode == "decode":
+                x = x + attn.attn_decode(p["attn"], h, kv, pos, cfg,
+                                         active=active)
+            else:
+                x = x + attn.attn_full(p["attn"], h, cfg, positions,
+                                       cache=kv)
+        else:
+            j = n["mamba"]
+            layer = {"ln": tree_idx(p["mamba_ln"], j),
+                     "ssm": tree_idx(p["mamba"], j)}
+            state = {k: cache[k][j] for k in ("ssm", "conv")}
+            x = ssm_block(layer, x, cfg, mode=mode, cache=state,
+                          active=active, lengths=lengths)
+        h2 = _norm(cfg, x, tree_idx(p["ffn_ln"], i))
+        if ffn == "moe":
+            y, _ = mlp.moe(tree_idx(p["moe"], n["moe"]), h2, cfg,
+                           per_token=True, want_aux=False)
+        else:
+            y = mlp.mlp(tree_idx(p["dense"], n["dense"]), h2, cfg)
+        n.update((mixer, ffn))
+        x = x + y
+    return x
+
+
+BLOCK_FNS = {"dense": dense_block, "moe": moe_block, "ssm": ssm_block,
+             "hybrid": hybrid_block}

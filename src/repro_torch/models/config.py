@@ -1,8 +1,8 @@
 """Model configuration schema (port of `repro/models/config.py`).
 
 The port keeps its own copy: it imports nothing of `repro`.  Only the
-fields and derived widths the ported families (dense, moe, ssm) use are
-carried; the hybrid family's sub-config arrives with its slice.
+fields and derived widths the ported families (dense, moe, ssm, hybrid)
+use are carried.
 """
 from __future__ import annotations
 
@@ -44,9 +44,18 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """The reference's HybridConfig, field for field: jamba-style
+    super-blocks ("scan units") of `period` layers, layer `attn_index`
+    attention and the others Mamba2 SSD mixers."""
+    period: int = 8            # layers per super-block
+    attn_index: int = 4        # which layer in the block is attention
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                # dense | moe | ssm (the families ported so far)
+    family: str                # dense | moe | ssm | hybrid (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -58,6 +67,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     activation: str = "swiglu"         # swiglu (gelu: not ported yet)
     norm: str = "rmsnorm"              # rmsnorm (layernorm: not ported yet)
     norm_eps: float = 1e-5
@@ -88,8 +98,10 @@ class ModelConfig:
         when untied), then per family: the four attention projections per
         layer and the MLPs (`_mlp_params_all`; norms and biases not
         counted), or for ssm each layer's mixer (`_ssm_layer_params`) and
-        the final norm.  Used for byte bounds."""
-        if self.family not in ("dense", "moe", "ssm"):
+        the final norm, or for hybrid one attention layer per `period`,
+        a mixer on each of the others and every layer's MLP (no final
+        norm).  Used for byte bounds."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"param_count: family {self.family!r} is not ported yet")
         d = self.d_model
@@ -97,6 +109,11 @@ class ModelConfig:
         if self.family == "ssm":
             return emb + self.n_layers * self._ssm_layer_params() + d
         attn = d * self.q_dim * 2 + d * self.kv_dim * 2
+        if self.family == "hybrid":
+            n_attn = self.n_layers // (self.hybrid or HybridConfig()).period
+            n_mamba = self.n_layers - n_attn
+            return emb + n_attn * attn + n_mamba * \
+                self._ssm_layer_params() + self._mlp_params_all()
         return emb + self.n_layers * attn + self._mlp_params_all()
 
     def _ssm_layer_params(self) -> int:

@@ -1,21 +1,28 @@
-"""Top-level language model: init / prefill / decode for the dense, moe
-and ssm families.
+"""Top-level language model: init / prefill / decode for the dense, moe,
+ssm and hybrid families.
 
 Port of `repro/models/lm.py`.  The reference stacks layer params on a
 leading axis and runs the stack under `jax.lax.scan`; the port keeps the
 same stacked layout (so params convert leaf for leaf) and runs a Python
-loop over per-layer slices.  The KV cache is stacked the same way,
-{k, v: [L, B, S_max, KV, D]}, and updated in place (see
-models/attention.py); with serve_kv_dtype="int8" it also holds the
+loop over the scan units' slices (`n_scan_units`: a layer, or one of the
+hybrid family's super-blocks of `period` layers).  The KV cache is
+stacked the same way, {k, v: [L, B, S_max, KV, D]}, and updated in place
+(see models/attention.py); with serve_kv_dtype="int8" it also holds the
 per-position scales {k_s, v_s: [L, B, S_max, KV]}.  The ssm family's
 cache is its recurrent state instead, {ssm: [L, B, H, P, N] float32,
 conv: [L, B, W-1, ch]} (models/ssm.py), updated in place the same way.
-Each layer runs the block of its family (`blocks.BLOCK_FNS`, as the
-reference's `BLOCK_FNS`).
+The hybrid family's cache is both, kept flat: {ssm, conv: [U, period-1,
+B, ...]} for each unit's mixers and {k, v: [U, B, S_max, KV, D]} for its
+attention layer (the reference nests them as {"mamba": {ssm, conv},
+"attn": {k, v}}).  Each unit runs the block of its family
+(`blocks.BLOCK_FNS`, as the reference's `BLOCK_FNS`).
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -33,77 +40,148 @@ def _check_family(cfg: ModelConfig):
             f"{', '.join(blocks.BLOCK_FNS)})")
 
 
-def _layer(tree, i: int):
-    """Layer i's slice of the stacked block params (QTensor leaves slice
-    q and scale together)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+def n_scan_units(cfg: ModelConfig) -> int:
+    """Slices of the stacked block params: one per layer, or one per
+    hybrid super-block of `period` layers."""
+    if cfg.family == "hybrid":
+        assert cfg.n_layers % cfg.hybrid.period == 0
+        return cfg.n_layers // cfg.hybrid.period
+    return cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
-    """Random params with the reference's shapes and scales, drawn from a
-    seeded torch.Generator on `device` (the numbers differ from the
-    reference's jax.random draws; parity tests convert the reference's
-    params instead, see convert.py).
+class Draw(NamedTuple):
+    """A leaf of random weights: N(0, 1) * scale drawn in float32, cast to
+    dtype.  `draw_slices` draws it one [K, N] matrix at a time."""
+    shape: tuple
+    scale: float
+    dtype: torch.dtype
 
-    dense weights: N(0, 1) / sqrt(d_in) in float32, cast to cfg.dtype;
-    embed: N(0, 1) * 0.02; norm weights: ones (float32); with
-    cfg.qkv_bias the stacked q/k/v biases bq [L, q_dim], bk and bv
-    [L, kv_dim]: zeros in cfg.dtype, as the reference's.  The moe family
-    has `moe` (`mlp.init_moe`: the float32 router [L, d, E] and the
-    experts [L, E, K, N]) in place of `mlp`, and with dense_residual a
-    dense `dense` MLP beside it.  The ssm family's block is {ln: {w},
-    ssm: `ssm.init_ssm`} (no attention, no MLP); mamba2 ties its head
-    to the embedding."""
-    _check_family(cfg)
-    dev = device_lib.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+
+def draw_slices(spec: Draw, gen: torch.Generator, device):
+    """(index, matrix) for each [K, N] matrix of the leaf, its leading
+    indices in row-major order, each drawn by its own `torch.randn` call
+    from `gen` (a leaf of at most two axes is one matrix, index ())."""
+    lead = spec.shape[:-2]
+    for idx in itertools.product(*(range(n) for n in lead)):
+        # no name holds the float32 draw: it is freed once cast
+        yield idx, torch.randn(spec.shape[len(lead):], generator=gen,
+                               device=device, dtype=torch.float32).mul_(
+            spec.scale).to(spec.dtype)
+
+
+def materialize(path, spec: Draw, slices, device):
+    """The default `build` of `init_params`: the whole leaf in its
+    dtype, written a matrix at a time (a one-matrix leaf is its draw,
+    not copied)."""
+    if len(spec.shape) <= 2:
+        return next(slices)[1]
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    for idx, w in slices:
+        out[idx] = w
+    return out
+
+
+def param_specs(cfg: ModelConfig, device):
+    """The params tree with a `Draw` at each random leaf and the constant
+    leaves (norm weights, biases, the ssm family's A_log, D, dt_bias,
+    conv bias) as tensors on `device`.
+
+    Stacked block leaves lead with the scan units, [L, ...] (a hybrid
+    sub-layer's with [U, n, ...]); dense weights are N(0, 1) / sqrt(d_in)
+    in cfg.dtype; embed: N(0, 1) * 0.02; norm weights: ones (float32);
+    with cfg.qkv_bias the stacked q/k/v biases bq [L, q_dim], bk and bv
+    [L, kv_dim]: zeros in cfg.dtype, as the reference's.  The moe
+    family has `moe` (`mlp.init_moe`: the float32 router [L, d, E] and
+    the experts [L, E, K, N]) in place of `mlp`, and with dense_residual
+    a dense `dense` MLP beside it.  The ssm family's block is {ln: {w},
+    ssm: `ssm.init_ssm`} (no attention, no MLP); mamba2 ties its head to
+    the embedding.  The hybrid family's unit is the reference's
+    `init_hybrid_block`: `mamba` and `mamba_ln` [U, period-1, ...], `attn`
+    and `attn_ln` [U, ...], `moe` [U, n_moe, ...], `dense` [U, n_dense,
+    ...] and the FFNs' norms `ffn_ln` [U, period, d]."""
     dt = getattr(torch, cfg.dtype)
-    n, d = cfg.n_layers, cfg.d_model
+    d, u = cfg.d_model, n_scan_units(cfg)
 
     def normal(shape, scale, dtype=dt):
-        return (torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32) * scale).to(dtype)
+        return Draw(tuple(shape), scale, dtype)
 
-    def dense(d_in, d_out):
-        return normal((n, d_in, d_out), 1.0 / math.sqrt(d_in))
+    def dense(lead, d_in, d_out):
+        return normal(lead + (d_in, d_out), 1.0 / math.sqrt(d_in))
 
     def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=dev)
+        return torch.ones(shape, dtype=torch.float32, device=device)
+
+    def attention(lead):
+        p = {"wq": dense(lead, d, cfg.q_dim), "wk": dense(lead, d, cfg.kv_dim),
+             "wv": dense(lead, d, cfg.kv_dim), "wo": dense(lead, cfg.q_dim, d)}
+        if cfg.qkv_bias:
+            for key, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                               ("bv", cfg.kv_dim)):
+                p[key] = torch.zeros(lead + (width,), dtype=dt, device=device)
+        return p
+
+    def dense_mlp(lead):
+        return {"wi": dense(lead, d, cfg.d_ff), "wg": dense(lead, d, cfg.d_ff),
+                "wo": dense(lead, cfg.d_ff, d)}
 
     p = {"embed": normal((cfg.vocab, d), 0.02)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = normal((d, cfg.vocab), 1.0 / math.sqrt(d))
+        p["lm_head"] = dense((), d, cfg.vocab)
     p["final_norm"] = {"w": ones(d)}
     if cfg.family == "ssm":
-        p["blocks"] = {"ln": {"w": ones(n, d)},
-                       "ssm": ssm.init_ssm(normal, cfg, n, dev)}
-        return p
-    attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
-            "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
-    if cfg.qkv_bias:
-        for key, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
-                           ("bv", cfg.kv_dim)):
-            attn[key] = torch.zeros((n, width), dtype=dt, device=dev)
-
-    def dense_mlp():
-        return {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
-                "wo": dense(cfg.d_ff, d)}
-
-    p["blocks"] = {"ln1": {"w": ones(n, d)}, "attn": attn,
-                   "ln2": {"w": ones(n, d)}}
-    if cfg.family == "moe":
-        p["blocks"]["moe"] = mlp.init_moe(normal, cfg, n)
-        if cfg.moe.dense_residual:
-            p["blocks"]["dense"] = dense_mlp()
+        p["blocks"] = {"ln": {"w": ones(u, d)},
+                       "ssm": ssm.init_ssm(normal, cfg, (u,), device)}
+    elif cfg.family == "hybrid":
+        layout = blocks.hybrid_layout(cfg)
+        n = collections.Counter(kind for layer in layout for kind in layer)
+        p["blocks"] = {
+            "mamba": ssm.init_ssm(normal, cfg, (u, n["mamba"]), device),
+            "mamba_ln": {"w": ones(u, n["mamba"], d)},
+            "attn": attention((u,)), "attn_ln": {"w": ones(u, d)},
+            "moe": mlp.init_moe(normal, cfg, (u, n["moe"])),
+            "dense": dense_mlp((u, n["dense"])),
+            "ffn_ln": {"w": ones(u, len(layout), d)}}
     else:
-        p["blocks"]["mlp"] = dense_mlp()
+        p["blocks"] = {"ln1": {"w": ones(u, d)}, "attn": attention((u,)),
+                       "ln2": {"w": ones(u, d)}}
+        if cfg.family == "moe":
+            p["blocks"]["moe"] = mlp.init_moe(normal, cfg, (u,))
+            if cfg.moe.dense_residual:
+                p["blocks"]["dense"] = dense_mlp((u,))
+        else:
+            p["blocks"]["mlp"] = dense_mlp((u,))
     return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+                build=materialize):
+    """Random params with the reference's tree, shapes and scales
+    (`param_specs`), drawn from a torch.Generator seeded with `seed` on
+    `device` (the numbers differ from the reference's jax.random draws;
+    parity tests convert the reference's params instead, see convert.py).
+
+    The random leaves are drawn in the tree's order, each one [K, N]
+    matrix at a time (`draw_slices`), and `build(path, spec, slices,
+    device)` makes each leaf from its slices (default: the whole leaf,
+    `materialize`).  `launch/serve.py::build_params` passes a `build`
+    that quantizes each matrix as it is drawn, so no whole leaf of
+    float weights exists, and gets the same weights bit for bit."""
+    _check_family(cfg)
+    dev = device_lib.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(path + (k,), v) for k, v in node.items()}
+        if isinstance(node, Draw):
+            return build(path, node, draw_slices(node, gen, dev), dev)
+        return node
+
+    return walk((), param_specs(cfg, dev))
 
 
 def _lm_head(p, x, cfg: ModelConfig):
@@ -120,17 +198,24 @@ def _embed(p, tokens, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device):
-    """Stacked per-layer cache: the KV cache {k, v: [L, B, S_max, KV, D]},
+    """Stacked per-unit cache: the KV cache {k, v: [L, B, S_max, KV, D]},
     and the scales {k_s, v_s: [L, B, S_max, KV]} of an int8 cache; for
     the ssm family the recurrent state {ssm: [L, B, H, P, N] float32,
-    conv: [L, B, W-1, ch] cfg.dtype} (no KV, s_max unused)."""
+    conv: [L, B, W-1, ch] cfg.dtype} (no KV, s_max unused); for the
+    hybrid family both, flat: the mixers' {ssm, conv: [U, period-1, B,
+    ...]} and the attention layer's {k, v: [U, B, S_max, KV, D]}."""
     _check_family(cfg)
-    if cfg.family == "ssm":
-        one = ssm.init_ssm_state(cfg, batch, device=device)
-    else:
-        one = attn_mod.init_cache(cfg, batch, s_max, device=device)
-    return {k: torch.zeros((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
-                           device=t.device) for k, t in one.items()}
+    u = n_scan_units(cfg)
+    lead = {}
+    if cfg.family in ("ssm", "hybrid"):
+        n = (u,) if cfg.family == "ssm" else (u, cfg.hybrid.period - 1)
+        lead.update({k: (n, t) for k, t in ssm.init_ssm_state(
+            cfg, batch, device=device).items()})
+    if cfg.family != "ssm":
+        lead.update({k: ((u,), t) for k, t in attn_mod.init_cache(
+            cfg, batch, s_max, device=device).items()})
+    return {k: torch.zeros(n + tuple(t.shape), dtype=t.dtype,
+                           device=t.device) for k, (n, t) in lead.items()}
 
 
 def prefill(params, inputs, cfg: ModelConfig, cache_len: int,
@@ -152,9 +237,9 @@ def prefill(params, inputs, cfg: ModelConfig, cache_len: int,
         lengths = last_positions.to(device=x.device, dtype=torch.int64) + 1
     cache = init_cache(cfg, b, cache_len, device=x.device)
     block = blocks.BLOCK_FNS[cfg.family]
-    for i in range(cfg.n_layers):
+    for i in range(n_scan_units(cfg)):
         layer_cache = {k: t[i] for k, t in cache.items()}
-        x = block(_layer(params["blocks"], i), x, cfg, mode="prefill",
+        x = block(blocks.tree_idx(params["blocks"], i), x, cfg, mode="prefill",
                   cache=layer_cache, positions=positions, lengths=lengths)
     x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     if last_positions is None:
@@ -175,9 +260,9 @@ def decode_step(params, token_t, cache, pos, cfg: ModelConfig, active=None):
     _check_family(cfg)
     x = _embed(params, token_t, cfg)
     block = blocks.BLOCK_FNS[cfg.family]
-    for i in range(cfg.n_layers):
+    for i in range(n_scan_units(cfg)):
         layer_cache = {k: t[i] for k, t in cache.items()}
-        x = block(_layer(params["blocks"], i), x, cfg, mode="decode",
+        x = block(blocks.tree_idx(params["blocks"], i), x, cfg, mode="decode",
                   cache=layer_cache, pos=pos, active=active)
     x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return _lm_head(params, x, cfg), cache

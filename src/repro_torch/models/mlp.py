@@ -38,20 +38,22 @@ def mlp(p, x, cfg: ModelConfig):
 # mixture of experts
 # ---------------------------------------------------------------------------
 
-def init_moe(normal, cfg: ModelConfig, n: int):
-    """The reference's init_moe for n stacked layers, drawn by
+def init_moe(normal, cfg: ModelConfig, lead: tuple):
+    """The reference's init_moe for a stack of MoE layers of leading shape
+    `lead` ((L,) layers, or a hybrid's (U, n_moe)), drawn by
     `normal(shape, scale, dtype)` (float32 draws, cast to dtype): the
-    router [n, d, E] float32 (`dense_init`, 1/sqrt(d)); wi and wg
-    [n, E, d, d_ff_expert] at 1/sqrt(d), wo [n, E, d_ff_expert, d] at
-    1/sqrt(d_ff_expert), in cfg.dtype."""
+    router [*lead, d, E] float32 (`dense_init`, 1/sqrt(d)); wi and wg
+    [*lead, E, d, d_ff_expert] at 1/sqrt(d), wo [*lead, E, d_ff_expert,
+    d] at 1/sqrt(d_ff_expert), in cfg.dtype."""
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff_expert, m.n_experts
     dt = getattr(torch, cfg.dtype)
+    lead = tuple(lead)
     return {
-        "router": normal((n, d, e), 1.0 / math.sqrt(d), torch.float32),
-        "wi": normal((n, e, d, f), 1.0 / math.sqrt(d), dt),
-        "wg": normal((n, e, d, f), 1.0 / math.sqrt(d), dt),
-        "wo": normal((n, e, f, d), 1.0 / math.sqrt(f), dt),
+        "router": normal(lead + (d, e), 1.0 / math.sqrt(d), torch.float32),
+        "wi": normal(lead + (e, d, f), 1.0 / math.sqrt(d), dt),
+        "wg": normal(lead + (e, d, f), 1.0 / math.sqrt(d), dt),
+        "wo": normal(lead + (e, f, d), 1.0 / math.sqrt(f), dt),
     }
 
 

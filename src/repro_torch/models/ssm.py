@@ -50,30 +50,32 @@ def dims(cfg: ModelConfig):
     return s, d_inner, n_heads, conv_ch
 
 
-def init_ssm(normal, cfg: ModelConfig, n: int, device):
-    """The reference's init_ssm for n stacked layers, drawn by
+def init_ssm(normal, cfg: ModelConfig, lead: tuple, device):
+    """The reference's init_ssm for a stack of mixers of leading shape
+    `lead` ((L,) layers, or a hybrid's (U, period-1)), drawn by
     `normal(shape, scale, dtype)` (float32 draws, cast to dtype):
-    in_proj [n, d, 2*d_inner + 2*G*N + H] at 1/sqrt(d) and out_proj
-    [n, d_inner, d] at 1/sqrt(d_inner) in cfg.dtype; the conv's taps
-    [n, W, ch] at 0.2 and its bias (zeros) in cfg.dtype; A_log and
+    in_proj [*lead, d, 2*d_inner + 2*G*N + H] at 1/sqrt(d) and out_proj
+    [*lead, d_inner, d] at 1/sqrt(d_inner) in cfg.dtype; the conv's taps
+    [*lead, W, ch] at 0.2 and its bias (zeros) in cfg.dtype; A_log and
     dt_bias zeros, D and the gated norm's weight ones, in float32."""
     s, d_inner, n_heads, conv_ch = dims(cfg)
     d = cfg.d_model
     dt = getattr(torch, cfg.dtype)
     d_in_proj = 2 * d_inner + 2 * s.n_groups * s.d_state + n_heads
+    lead = tuple(lead)
 
     def const(value, *shape, dtype=torch.float32):
-        return torch.full((n,) + shape, value, dtype=dtype, device=device)
+        return torch.full(lead + shape, value, dtype=dtype, device=device)
 
     return {
-        "in_proj": normal((n, d, d_in_proj), 1.0 / math.sqrt(d)),
-        "conv_w": normal((n, s.conv_width, conv_ch), 0.2),
+        "in_proj": normal(lead + (d, d_in_proj), 1.0 / math.sqrt(d)),
+        "conv_w": normal(lead + (s.conv_width, conv_ch), 0.2),
         "conv_b": const(0.0, conv_ch, dtype=dt),
         "A_log": const(0.0, n_heads),
         "D": const(1.0, n_heads),
         "dt_bias": const(0.0, n_heads),
         "norm_w": const(1.0, d_inner),
-        "out_proj": normal((n, d_inner, d), 1.0 / math.sqrt(d_inner)),
+        "out_proj": normal(lead + (d_inner, d), 1.0 / math.sqrt(d_inner)),
     }
 
 

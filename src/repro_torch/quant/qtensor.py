@@ -16,6 +16,7 @@ Formats:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -114,42 +115,55 @@ def qmatmul(x, w):
     return ye.reshape(e, *lead, ye.shape[-1]).to(x.dtype)
 
 
-def quantize_tree_for_serving(params, fmt: str, min_size: int = 1 << 16,
-                              skip_keys=("router", "embed", "pos", "conv",
-                                         "ln", "norm", "A_log", "dt_bias",
-                                         "D"),
-                              force: bool = False):
-    """Replace every large >=2D float weight leaf with a QTensor.
+SKIP_KEYS = ("router", "embed", "pos", "conv", "ln", "norm", "A_log",
+             "dt_bias", "D")
 
-    Walks the nested-dict params by path; leaves whose key path contains
-    any of `skip_keys`, 1-D leaves and small leaves stay in bf16/f32.
-    force=True drops the SIZE floors (`min_size` and the
-    min(shape[-2:]) >= 64 width check) but keeps the structural rules:
-    every weight of the reduced test configs sits under the floors, so
-    quantized smoke runs pass force=True and check the dispatch census.
-    A w4a8 leaf with an odd column count falls back to w8a8 (two int4
-    columns share a word)."""
+
+def serving_format(keys: str, shape, fmt: str, *, min_size: int = 1 << 16,
+                   skip_keys=SKIP_KEYS, force: bool = False):
+    """The format `quantize_tree_for_serving` gives a float leaf of this
+    WHOLE shape at key path `keys` ("blocks/attn/wq"), or None where the
+    leaf stays float.  Leaves whose key path contains any of `skip_keys`,
+    1-D leaves and small leaves stay in bf16/f32.  force=True drops the
+    SIZE floors (`min_size` and the min(shape[-2:]) >= 64 width check)
+    but keeps the structural rules: every weight of the reduced test
+    configs sits under the floors, so quantized smoke runs pass
+    force=True and check the dispatch census.  A w4a8 leaf with an odd
+    column count falls back to w8a8 (two int4 columns share a word)."""
+    shape = tuple(shape)
+    if fmt == "bf16" or len(shape) < 2 or \
+            any(k in keys for k in skip_keys):
+        return None
+    if not force and (math.prod(shape) < min_size
+                      or min(shape[-2:]) < 64):
+        return None   # stacked vectors / tiny weights
+    if len(shape) == 2 and "lm_head" not in keys:
+        # 2-D leaves inside the stacked block tree are per-layer vectors
+        # (norms etc.) -- only the unstacked lm_head matmul weight is a
+        # real 2-D GEMM operand
+        return None
+    if shape[-1] % 2 and fmt == "w4a8":
+        return "w8a8"
+    return fmt
+
+
+def quantize_tree_for_serving(params, fmt: str, min_size: int = 1 << 16,
+                              skip_keys=SKIP_KEYS, force: bool = False):
+    """Replace every large >=2D float weight leaf with a QTensor, in the
+    format `serving_format` decides from the leaf's path and shape.
+
+    Walks the nested-dict params by path; other leaves (QTensors, integer
+    tensors) pass through unchanged."""
     if fmt == "bf16":
         return params
 
     def visit(path, leaf):
-        keys = "/".join(path)
         is_float = isinstance(leaf, torch.Tensor) and leaf.dtype in (
             torch.float32, torch.bfloat16, torch.float16)
-        if (not is_float or leaf.ndim < 2
-                or any(k in keys for k in skip_keys)):
-            return leaf
-        if not force and (leaf.numel() < min_size
-                          or min(leaf.shape[-2:]) < 64):
-            return leaf   # stacked vectors / tiny weights
-        if leaf.ndim == 2 and "lm_head" not in keys:
-            # 2-D leaves inside the stacked block tree are per-layer
-            # vectors (norms etc.) -- only the unstacked lm_head matmul
-            # weight is a real 2-D GEMM operand
-            return leaf
-        if leaf.shape[-1] % 2 and fmt == "w4a8":
-            return quantize_weight(leaf, "w8a8")
-        return quantize_weight(leaf, fmt)
+        leaf_fmt = serving_format("/".join(path), leaf.shape, fmt,
+                                  min_size=min_size, skip_keys=skip_keys,
+                                  force=force) if is_float else None
+        return leaf if leaf_fmt is None else quantize_weight(leaf, leaf_fmt)
 
     def walk(path, node):
         if isinstance(node, dict):

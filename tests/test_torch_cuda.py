@@ -755,3 +755,93 @@ def test_cuda_ssm_fused_decode_matches_stepwise(cuda, fmt):
                                device=cuda, return_logits=True)
     assert torch.equal(plain[0], out[0][0]) and \
         torch.equal(plain[1], out[0][1])
+
+
+def _chip_smoke():
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_reduced_matches_cpu(cuda):
+    """Reduced jamba at 2 scan units (float32) on the card against its
+    CPU run on the same weights, both formats, teacher-forced one GEMM
+    and one MoE layer at a time (chip_smoke.py's `teacher_forced_vs_cpu`:
+    every GEMM's output from the CPU's input bit for bit; every GEMM's
+    and MoE layer's input, the logits and the cache within CARD_CPU_RTOL
+    at the prefill and every decode step)."""
+    _chip_smoke().hybrid_reduced_vs_cpu(
+        torch.Generator(device="cuda").manual_seed(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b",
+                                  "jamba-v0.1-52b"])
+def test_cuda_build_params_matches_whole_tree(cuda, arch):
+    """build_params on the card (each matrix quantized as it is drawn from
+    the card's generator) equals quantize_tree_for_serving over
+    lm.init_params' whole tree on the card, bit for bit, forced and not,
+    under both formats."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.quant import qtensor
+    cfg = configs.get_reduced_config(arch)
+    for fmt in ("w4a8", "w8a8"):
+        for force in (False, True):
+            got = serve.build_params(cfg, fmt, seed=4, quant_force=force,
+                                     device=cuda)
+            want = qtensor.quantize_tree_for_serving(
+                lm.init_params(cfg, 4, device=cuda), fmt, force=force)
+            g, gs = pytree.tree_flatten(got)
+            w, ws = pytree.tree_flatten(want)
+            assert gs == ws
+            assert all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["w4a8", "w8a8"])
+def test_cuda_hybrid_fused_decode_matches_stepwise(cuda, fmt):
+    """Reduced jamba at 2 scan units through generate(fused=True): the
+    captured decode step updates the flat hybrid cache (the mixers'
+    {ssm, conv} state and the attention layers' {k, v}) in place as
+    static buffers and equals the per-step loop and the plain-forced run
+    bit for bit; 42 GEMM launches per unit and token, the untied head
+    one."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    serve.decode_cache_clear()
+    cfg = dataclasses.replace(configs.get_reduced_config("jamba-v0.1-52b"),
+                              n_layers=16)
+    params = serve.build_params(cfg, fmt, quant_force=True, device=cuda)
+    prompts = np.random.default_rng(14).integers(0, cfg.vocab, (3, 20))
+    name = "quant_matmul" if fmt == "w8a8" else "packed_w4_matmul"
+    out = []
+    for fused in (False, True):
+        before = _counts()
+        out.append(serve.generate(params, prompts, cfg, gen=6, cache_len=26,
+                                  fused=fused, device=cuda,
+                                  return_logits=True))
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in _counts().items()}
+        if not fused:
+            assert launched[name] == (42 * 2 + 1) * 6
+            assert launched[f"{name}_small_m"] == 42 * 2 * 5 + 6
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    step = serve._decode_bundle(cfg, "off", cuda).step
+    assert set(step.cache) == {"ssm", "conv", "k", "v"}
+    with registry.force("ref"):
+        plain = serve.generate(params, prompts, cfg, gen=6, cache_len=26,
+                               device=cuda, return_logits=True)
+    assert torch.equal(plain[0], out[0][0]) and \
+        torch.equal(plain[1], out[0][1])

@@ -133,17 +133,18 @@ def test_config_fields_match_reference(arch, reduced):
 
 
 def test_archs_are_the_dense_family():
-    """The dense family leads ARCHS (the MoE and SSM families follow it:
-    tests/test_torch_moe.py::test_archs_include_the_moe_family,
-    tests/test_torch_ssm.py::test_config_fields_match_reference); an
+    """The dense family leads ARCHS (the MoE, SSM and hybrid families
+    follow it: tests/test_torch_moe.py::test_archs_include_the_moe_family,
+    tests/test_torch_ssm.py::test_config_fields_match_reference,
+    tests/test_torch_hybrid.py::test_archs_include_the_hybrid_family); an
     arch of a family not ported yet raises."""
     assert tconfigs.ARCHS[:len(DENSE)] == DENSE
-    assert all(tconfigs.get_config(a).family in ("moe", "ssm")
+    assert all(tconfigs.get_config(a).family in ("moe", "ssm", "hybrid")
                for a in tconfigs.ARCHS[len(DENSE):])
     assert set(DENSE) <= set(jconfigs.ARCHS)
     assert all(jconfigs.get_config(a).family == "dense" for a in DENSE)
     with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get_config("jamba-v0.1-52b")
+        tconfigs.get_config("whisper-small")
 
 
 @pytest.mark.parametrize("arch", NEW)

@@ -457,7 +457,7 @@ def test_moe_matches_reference(arch, fmt, dtype):
     jcfg, tcfg = _cfgs(arch, dtype=dtype)
     jp, tp = params_for(arch, dtype, fmt)
     jmoe = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"]["moe"])
-    tmoe = tlm._layer(tp["blocks"]["moe"], 0)
+    tmoe = tblocks.tree_idx(tp["blocks"]["moe"], 0)
     x = np.random.default_rng(1).standard_normal(
         (B, S, jcfg.d_model)).astype(np.float32)
     jx = jnp.asarray(x, jnp.dtype(dtype))
@@ -511,7 +511,7 @@ def test_moe_block_matches_reference(arch, dtype, fmt):
     jp, tp = params_for(arch, dtype, fmt)
     assert ("dense" in tp["blocks"]) == (arch == "arctic-480b")
     jl = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"])
-    tl = tlm._layer(tp["blocks"], 0)
+    tl = tblocks.tree_idx(tp["blocks"], 0)
     x = np.random.default_rng(2).standard_normal(
         (B, S, jcfg.d_model)).astype(np.float32)
     jx = jnp.asarray(x, jnp.dtype(dtype))
@@ -729,7 +729,7 @@ def test_cuda_experts_trace_as_custom_ops(fmt):
     from torch._subclasses.fake_tensor import FakeTensorMode
     _, tcfg = _cfgs("granite-moe-1b-a400m")
     _, tp = params_for("granite-moe-1b-a400m", "bfloat16", fmt)
-    layer = tlm._layer(tp["blocks"]["moe"], 0)
+    layer = tblocks.tree_idx(tp["blocks"]["moe"], 0)
     e, f, d = tcfg.moe.n_experts, tcfg.moe.d_ff_expert, tcfg.d_model
     with FakeTensorMode(allow_non_fake_inputs=True):
         layer = pytree.tree_map(

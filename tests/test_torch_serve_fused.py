@@ -251,7 +251,7 @@ def test_cuda_gemms_trace_as_custom_ops(fmt):
     from repro_torch.models import mlp
     from repro_torch.quant.qtensor import qmatmul
     _, tcfg, _, tp = _setup("bfloat16", fmt)
-    layer = tlm._layer(tp["blocks"], 0)
+    layer = tlm.blocks.tree_idx(tp["blocks"], 0)
     with FakeTensorMode(allow_non_fake_inputs=True):
         layer = pytree.tree_map(
             lambda t: torch.empty(t.shape, dtype=t.dtype, device="cuda"),
