@@ -114,15 +114,15 @@ over):
    and the prefill's M = 2048 (the fixed chunk grid pads the 128-token
    prompt to 256), each timed beside its bound with its w-load path (the
    packed tile's rows of 5288 bytes are not a multiple of 16: the byte
-   path); then mamba2-2.7b at every width, cut to 32 of its 64 layers
+   path); then mamba2-2.7b at every width, cut to 16 of its 64 layers
    (`SSM_LAYERS`; tied vocab 50280; random weights, seed 0) under w4a8
-   and w8a8 through the gates of 6 (`_serve_gates`: 64 tile launches per
-   prefill, 64 small-M launches per replayed decode step; the captured
+   and w8a8 through the gates of 6 (`_serve_gates`: 32 tile launches per
+   prefill, 32 small-M launches per replayed decode step; the captured
    step's static buffers are the {ssm, conv} state), `--silvia all` ==
    off, a replayed step's profile, rows 1-2's time per generate beside
    their bounds, and decode ms/step beside the byte bound with and
-   without the state's read and write (0.671 GB of float32 state each
-   way at B=8 and 32 layers); the reduced model's
+   without the state's read and write (0.336 GB of float32 state each
+   way at B=8 and 16 layers); the reduced model's
    prefill and decode against its CPU run (`phase_ssm`);
 10. the hybrid family (`phase_hybrid`): reduced jamba at 2 scan units
    (16 layers, float32) on the card against its CPU run, teacher-forced
@@ -146,12 +146,31 @@ over):
    step's static buffers are the flat hybrid cache), `--silvia all` ==
    off, the profiles of a replayed step and a prefill, rows 1-2's time
    per generate beside their bounds and decode ms/step beside the byte
-   bound with and without the 0.278 GB of state and KV traffic.  Each
-   phase's seconds are logged.
+   bound with and without the 0.278 GB of state and KV traffic;
+11. the encoder-decoder family (`phase_encdec`): reduced whisper (2 + 2
+   layers, float32) on the card against its CPU run, teacher-forced as
+   in 10 on (features, dec_tokens); both GEMM kernels bit for bit at
+   whisper-small's four (K, N), (768, 768), (768, 3072), (3072, 768)
+   and the odd head (768, 51865) (w8a8 only: an odd N has no packed
+   weight), at M = 8, 1024 (the decoder's prompt) and 12000 (the
+   encoder's 8 x 1500 frames and the cross k, v on the memory), each
+   timed beside its bound; then full-width whisper-small (12 encoder and
+   12 decoder layers, d 768, 12 heads, d_ff 3072, untied vocab 51865;
+   nothing cut; random weights from seed 0) on 1500 seeded frames per
+   row, B=8, a decoder prompt of 128, 32 new tokens, under w4a8 and
+   w8a8 through the gates of 6 (`_serve_gates`, which takes the
+   (features, dec_tokens) tuple: 192 tile launches per prefill, 97
+   small-M per replayed step, the head in w8a8 under w4a8; the captured
+   step's static buffers are the self KV and the 0.442 GB of cross K/V
+   for 1500 frames), `--silvia all` == off and its ms/step, the
+   encoder's peak memory, the profiles of a replayed step and a
+   prefill, rows 1-2's time per generate beside their bounds and decode
+   ms/step beside the byte bound with and without the KV read (cross
+   and self).  Each phase's seconds are logged.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
-launches, the MoE, SSM and hybrid paths' included, and those paths'
-GEMM time per generate), the nvidia-smi line and, last,
+launches, the MoE, SSM, hybrid and encdec paths' included, and those
+paths' GEMM time per generate), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
@@ -716,15 +735,16 @@ def gemm_widths(cfg) -> list:
     """Every 2-D (K, N) of cfg that reaches a GEMM kernel, by family: the
     q, k, v, o projections and the MLP's gate, up and down (dense), the
     SSD mixer's in_proj and out_proj (ssm), both and the dense MLP's
-    (hybrid); and an untied lm_head (a tied one is the bf16 embedding, a
-    plain matmul).  The expert-stacked widths are phase_moe_gemms' and
-    phase_hybrid_gemms'."""
+    (hybrid), the projections and the GELU MLP's up and down (encdec:
+    self and cross attention share the widths); and an untied lm_head
+    (a tied one is the bf16 embedding, a plain matmul).  The
+    expert-stacked widths are phase_moe_gemms' and phase_hybrid_gemms'."""
     d = cfg.d_model
     attn = [(d, cfg.q_dim), (d, cfg.kv_dim), (cfg.q_dim, d)]
     ffn = [(d, cfg.d_ff), (cfg.d_ff, d)]
     if cfg.family == "ssm":
         kn = mixer_widths(cfg)
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "encdec"):
         kn = attn + ffn
     elif cfg.family == "hybrid":
         kn = attn + mixer_widths(cfg) + ffn
@@ -750,7 +770,10 @@ def gemms_per_forward(cfg) -> int:
     expert-stacked GEMMs, one launch each); per ssm layer the mixer's
     in_proj and out_proj; per hybrid unit its attention layers' four,
     its mixers' two each and its FFNs' three each (42 for jamba's unit
-    of 8)."""
+    of 8); encdec (a prefill) per encoder layer q k v o and the MLP's
+    two, per decoder layer the self-attention's four, the cross
+    attention's q, o and its k, v on the memory, and the MLP's two (192
+    for whisper-small)."""
     if cfg.family == "ssm":
         return 2 * cfg.n_layers
     if cfg.family == "hybrid":
@@ -758,7 +781,40 @@ def gemms_per_forward(cfg) -> int:
         per_unit = (4 * n["attn"] + 2 * n["mamba"]
                     + 3 * (n["moe"] + n["dense"]))
         return cfg.n_layers // cfg.hybrid.period * per_unit
+    if cfg.family == "encdec":
+        return 6 * cfg.n_layers + 10 * cfg.n_decoder_layers
     return 7 * cfg.n_layers
+
+
+def gemms_per_step(cfg) -> int:
+    """GEMM launches of the blocks per decode step (the head's apart):
+    gemms_per_forward, but for encdec, whose step runs only the decoder
+    and reads the cross K/V the prefill projected: per decoder layer the
+    self-attention's four, the cross attention's q and o and the MLP's
+    two (96 for whisper-small)."""
+    if cfg.family == "encdec":
+        return 8 * cfg.n_decoder_layers
+    return gemms_per_forward(cfg)
+
+
+def moe_layers(cfg) -> int:
+    """Calls of `mlp.moe` per forward."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.period * hybrid_kinds(cfg)["moe"]
+    return cfg.n_layers if cfg.family == "moe" else 0
+
+
+def dec_tokens(prompts):
+    """The decoder's prompt [B, S]: the tokens, or an encdec input's
+    second half."""
+    return prompts[1] if isinstance(prompts, tuple) else prompts
+
+
+def prompt_prefix(prompts, n: int):
+    """The first n prompt tokens (an encdec input keeps its frames)."""
+    if isinstance(prompts, tuple):
+        return prompts[0], prompts[1][:, :n]
+    return prompts[:, :n]
 
 
 def w_load_path(launch: dict, row: int) -> str:
@@ -778,17 +834,19 @@ PLAIN_SLICE_BYTES = 2 << 30
 
 def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
     """Both GEMM kernels bit for bit (`torch.equal`, acc and out) against
-    their plain versions at decode M=8 and prefill M=prefill_m (an int,
-    or {(K, N): M} with PREFILL_M for the shapes it omits), at every
+    their plain versions at decode M=8 and prefill M=prefill_m (an int or
+    a tuple of them, or {(K, N): either} with PREFILL_M for the shapes it
+    omits), at every
     (K, N) of `archs` that reaches a kernel (`gemm_widths`; for the three
     other dense configs K up to 22528, N up to 256000: command-r's
     lm_head, k * n = 2.097e9, just under the kernels' 2^31 index limit).
     The plain version is compared in column slices against the matching
     columns of one full-width kernel launch.  Logs each shape's
     per-launch time (CUDA events, L2 spilled), its bound and the w-load
-    path its launch recorded (`w_load_path`).  Returns the per-launch times, {(kernel, arch):
-    {(K, N): us}} (the small-M kernel's at M=8, the tile's at
-    prefill_m)."""
+    path its launch recorded (`w_load_path`).  Returns the per-launch
+    times, {(kernel, arch): {(K, N): us}} (the small-M kernel's at M=8,
+    the tile's at the last prefill M) and {(kernel, arch, M): {(K, N):
+    us}}."""
     from repro_torch import configs
     from repro_torch.kernels import packed_matmul, quant_matmul, ref
 
@@ -812,6 +870,8 @@ def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
         cfg = configs.get_config(arch)
         for k, n in gemm_widths(cfg):
             for name, mod, acc_ref, out_ref, per_word in specs:
+                if n % per_word:    # an odd N has no packed int4 weight:
+                    continue        # it serves w8a8 (`serving_format`)
                 acc_fn = getattr(mod, f"{name}_acc")
                 out_fn = getattr(mod, name)
                 w = i8(k, n // per_word)
@@ -819,7 +879,9 @@ def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
                 cols = max(2, PLAIN_SLICE_BYTES // (8 * k)) // 2 * 2
                 m_pre = prefill_m.get((k, n), PREFILL_M) \
                     if isinstance(prefill_m, dict) else prefill_m
-                for m in (DECODE_M, m_pre):
+                if not isinstance(m_pre, tuple):
+                    m_pre = (m_pre,)
+                for m in (DECODE_M,) + m_pre:
                     x, xs = i8(m, k), scales(m, 1)
                     start = mod.SMALL_M_LAUNCHES.count
                     acc_k, out_k = acc_fn(x, w), out_fn(x, w, xs, ws)
@@ -855,6 +917,8 @@ def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
                     del copies
                     b_ms, b_by = bound_ms(m, k, n, w.numel())
                     times.setdefault((kname, arch), {})[(k, n)] = t_k * 1e3
+                    times.setdefault((kname, arch, m), {})[(k, n)] = \
+                        t_k * 1e3
                     log(f"  {kname:24s} {arch:13s} M={m:5d} K={k:5d} "
                         f"N={n:6d}  kernel {t_k * 1e3:10.2f} us  bound "
                         f"{b_ms * 1e3:9.2f} us ({b_by}, "
@@ -1351,8 +1415,9 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
     plain versions forced.  Gates: launch counts of every run (an untied
     lm_head adds one small-M launch per token, counted by its weight's
     width in the per-step loop); fused == per-step == forced-plain in
-    tokens and logits, bit for bit; one capture.  Returns what the caller
-    logs and gates further."""
+    tokens and logits, bit for bit; one capture.  `prompts` is [B, S]
+    tokens, or an encdec input (features, dec_tokens).  Returns what the
+    caller logs and gates further."""
     from repro_torch.kernels import registry
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -1364,6 +1429,7 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
     counter = {c.name: c for c in registry.LAUNCH_COUNTERS}[hname]
     head = 0 if cfg.tie_embeddings else 1
     tile = gemms_per_forward(cfg)   # prefill: M = B * S > 16
+    step = gemms_per_step(cfg)
 
     def launches(tile, small, heads):
         want = {c.name: 0 for c in registry.LAUNCH_COUNTERS}
@@ -1373,10 +1439,10 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
         return want
 
     # the prefill's lm_head runs on the last position only (M = B)
-    want = launches(tile, tile * (GEN - 1), head * GEN)
+    want = launches(tile, step * (GEN - 1), head * GEN)
     cache_len = PROMPT + GEN
-    serve.generate(params, prompts[:, :8], cfg, gen=2, cache_len=16,
-                   fused=False)
+    serve.generate(params, prompt_prefix(prompts, 8), cfg, gen=2,
+                   cache_len=16, fused=False)
     torch.cuda.synchronize()
 
     def check(toks, logits, counts, what, want=want):
@@ -1429,7 +1495,7 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
     toks_1, logits_1, counts_1, first_s = _timed_generate(
         serve, params, prompts, cfg)
     check(toks_1, logits_1, counts_1, "first fused call (wrappers)",
-          launches(tile, 2 * tile, 3 * head))
+          launches(tile, 2 * step, 3 * head))
     same_as_per_step(toks_1, logits_1, "the first fused call")
     bundle = serve._decode_bundle(cfg, "off", "cuda")
     captured = bundle.step
@@ -1609,9 +1675,16 @@ def step_weight_bytes(cfg, fmt: str) -> float:
     them on every token (mlp.moe); its float32 router is counted at the
     format's bytes too (0.06% of granite's), as an ssm layer's conv taps,
     A_log, D, dt_bias and gated-norm weight are (0.08% of mamba2's).
-    The recurrent state is `step_state_bytes`."""
+    The recurrent state is `step_state_bytes`.  An encdec step reads the
+    decoder's GEMM weights only (self q k v o, cross q o, the MLP's two;
+    the encoder's and the cross k, v ran at the prefill)."""
     emb = cfg.vocab * cfg.d_model
     blocks = cfg.param_count() - emb * (1 if cfg.tie_embeddings else 2)
+    if cfg.family == "encdec":
+        d = cfg.d_model
+        blocks = cfg.n_decoder_layers * (
+            d * cfg.q_dim * 2 + d * cfg.kv_dim * 2 + 2 * d * cfg.q_dim
+            + 2 * d * cfg.d_ff)
     per = 0.5 if fmt == "w4a8" else 1.0
     head = 1.0 if cfg.vocab % 2 else per
     return blocks * per + (2.0 * emb if cfg.tie_embeddings else head * emb)
@@ -2096,10 +2169,11 @@ def phase_moe(times: dict) -> dict:
 
 # phase 9: the SSM family
 SSM_ARCH = "mamba2-2.7b"
-# mamba2-2.7b at half its depth (32 of 64 layers; every width kept) in
-# both of its paths: a layer's gates are those of every other, and phase
-# 10 took the whole run past ~600 s
-SSM_LAYERS = 32
+# mamba2-2.7b at a quarter of its depth (16 of 64 layers; every width
+# kept) in both of its paths: a layer's gates are those of every other;
+# cut to 32 when phase 10 took the whole run past ~600 s, to 16 when
+# phase 11 took it past ~700 s
+SSM_LAYERS = 16
 # the reduced model against its CPU run: a prompt of three chunks of 16
 SSM_CPU_PROMPT, SSM_CPU_STEPS = 40, 3
 
@@ -2112,24 +2186,28 @@ def ssm_prefill_m(cfg) -> int:
 
 
 def step_state_bytes(cfg, cache_len: int = PROMPT + GEN) -> float:
-    """State bytes one decode step reads and writes (0 for the attention
-    families, whose KV cache is not counted): per mixer layer the float32
+    """State bytes one decode step reads and writes (0 for the dense and
+    moe families, whose KV cache is not counted): per mixer layer the float32
     SSM state [B, H, P, N] and the conv window [B, W-1, ch] in cfg.dtype,
     each read once and written once; for the hybrid family also its
     attention layers' KV cache [B, cache_len, KV, D] (k and v) read once
     (the decode attends over the whole buffer) and one position of it
-    written."""
+    written; for encdec each decoder layer's self KV the same way and its
+    cross K/V [B, S_enc, KV, D] (k and v) read once (never written)."""
+    elt = getattr(torch, cfg.dtype).itemsize
+    kv = 2 * BATCH * cfg.kv_dim * elt * (cache_len + 1)
+    if cfg.family == "encdec":
+        cross = 2 * BATCH * cfg.kv_dim * elt * ENC_FRAMES
+        return cfg.n_decoder_layers * (kv + cross)
     if cfg.family not in ("ssm", "hybrid"):
         return 0.0
     from repro_torch.models import ssm
     s, _, n_heads, ch = ssm.dims(cfg)
-    elt = getattr(torch, cfg.dtype).itemsize
     per_layer = BATCH * (n_heads * s.headdim * s.d_state * 4
                          + (s.conv_width - 1) * ch * elt)
     if cfg.family == "ssm":
         return 2.0 * cfg.n_layers * per_layer
     units, n = cfg.n_layers // cfg.hybrid.period, hybrid_kinds(cfg)
-    kv = 2 * BATCH * cfg.kv_dim * elt * (cache_len + 1)
     return units * (2.0 * n["mamba"] * per_layer + n["attn"] * kv)
 
 
@@ -2475,15 +2553,20 @@ def teacher_forced_vs_cpu(params, cpu_params, prompts, cfg, steps: int,
         rows, the int32 sums and the float32 epilogue are exact);
       * each MoE layer's output from the host's input within `rtol`;
       * the logits and every cache tensor within `rtol`;
-      * the number of GEMM and MoE calls: gemms_per_forward + the head,
-        and one MoE call per MoE layer.
-    Returns {"gemms", "moes", "tensors": counts compared, "worst": the
-    largest difference over the tensor's largest magnitude}."""
+      * the number of GEMM and MoE calls: gemms_per_forward (a decode
+        step: gemms_per_step) + the head, and one MoE call per MoE layer.
+    `prompts` is [B, S] tokens, or an encdec input (features,
+    dec_tokens).  Returns {"gemms", "moes", "tensors": counts compared,
+    "worst": the largest difference over the tensor's largest
+    magnitude}."""
     from repro_torch.models import lm
-    b, s = prompts.shape
+    tokens_in = dec_tokens(prompts)
+    b, s = tokens_in.shape
+    dev = tokens_in.device
     cache_len = s + steps
-    moes = lm.n_scan_units(cfg) * hybrid_kinds(cfg)["moe"]
-    want_calls = gemms_per_forward(cfg) + 1 + moes
+    moes = moe_layers(cfg)
+    want_calls = [gemms_per_forward(cfg) + 1 + moes] + \
+        [gemms_per_step(cfg) + 1 + moes] * steps
     stats = {"gemms": 0, "moes": 0, "tensors": 0, "worst": 0.0}
 
     # the host: each step's calls [(kind, input, shared, output)]
@@ -2504,8 +2587,10 @@ def teacher_forced_vs_cpu(params, cpu_params, prompts, cfg, steps: int,
         return y, aux
 
     tokens = []
+    host_prompts = tuple(t.cpu() for t in prompts) \
+        if isinstance(prompts, tuple) else prompts.cpu()
     with _hooked(rec_q, rec_moe):
-        logits, cache = lm.prefill(cpu_params, prompts.cpu(), cfg,
+        logits, cache = lm.prefill(cpu_params, host_prompts, cfg,
                                    cache_len=cache_len)
         for i in range(steps + 1):
             host.append((calls, logits[:, -1].clone(),
@@ -2571,12 +2656,12 @@ def teacher_forced_vs_cpu(params, cpu_params, prompts, cfg, steps: int,
                                            cache_len=cache_len)
             else:
                 logits, _ = lm.decode_step(
-                    params, tokens[t - 1].to(prompts.device), cache,
-                    torch.full((b,), s + t - 1, device=prompts.device), cfg)
-        if len(want_calls_t) != want_calls or next(at, None) is not None:
+                    params, tokens[t - 1].to(dev), cache,
+                    torch.full((b,), s + t - 1, device=dev), cfg)
+        if len(want_calls_t) != want_calls[t] or next(at, None) is not None:
             raise AssertionError(f"{step}: {len(want_calls_t)} GEMM and MoE "
-                                 f"calls on the host, {want_calls} expected, "
-                                 "or fewer on the card")
+                                 f"calls on the host, {want_calls[t]} "
+                                 "expected, or fewer on the card")
         close(logits[:, -1], want_logits, f"{step}, logits")
         for k, v in want_cache.items():
             close(cache[k], v, f"{step}, cache {k}")
@@ -2746,6 +2831,249 @@ def phase_hybrid() -> tuple:
         per_generate[tag] = {k: dict(launches=c, ms=ms, bound_ms=bd)
                              for k, (c, ms, bd) in per_gen.items()}
         del params, blk, r, state
+        serve.decode_cache_clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return launches, per_generate
+
+
+# phase 11: the encoder-decoder family
+ENCDEC_ARCH = "whisper-small"
+GEMMS = ("quant_matmul", "packed_w4_matmul")
+# whisper's 30 s window after the conv frontend's stride: the encoder's
+# frames, and the rows of both learned position tables (`max_seq`)
+ENC_FRAMES = 1500
+# the reduced model against its CPU run: frames, decoder prompt, steps
+ENCDEC_CPU_FRAMES, ENCDEC_CPU_PROMPT, ENCDEC_CPU_STEPS = 60, 12, 3
+
+
+def encdec_rows(cfg) -> list:
+    """(K, N, tile launches per prefill, prefill M, small-M launches per
+    decode step) of each 2-D width on whisper's path: per encoder layer
+    q k v o and the MLP's two at M = B * S_enc; per decoder layer the
+    self q k v o, the cross q o and the MLP's two at M = B * S (and once
+    per step at M = B), the cross k v at M = B * S_enc (the prefill
+    only)."""
+    d, enc, dec = cfg.d_model, cfg.n_layers, cfg.n_decoder_layers
+    m_enc, m_dec = BATCH * ENC_FRAMES, BATCH * PROMPT
+    return [(d, d, 4 * enc + 2 * dec, m_enc, 0),
+            (d, cfg.d_ff, enc, m_enc, 0), (cfg.d_ff, d, enc, m_enc, 0),
+            (d, d, 6 * dec, m_dec, 6 * dec),
+            (d, cfg.d_ff, dec, m_dec, dec), (cfg.d_ff, d, dec, m_dec, dec)]
+
+
+def encdec_per_generate(cfg, fmt: str, times: dict) -> dict:
+    """One generate's worth (B=BATCH, S_enc frames, prompt PROMPT, GEN new
+    tokens) of each GEMM kernel on whisper's path, from phase 11's
+    per-launch times (`encdec_rows`; the head's small-M launch per token,
+    in w8a8 under w4a8: the odd vocab).  {kernel: (launches, ms,
+    bound_ms)}."""
+    name = _gemm_name(fmt)
+    hname = _gemm_name("w8a8" if fmt == "w4a8" and cfg.vocab % 2 else fmt)
+    out = {}
+
+    def add(kname, m, k, n, count):
+        per = 2 if kname.startswith("packed") else 1
+        t = times[(kname, ENCDEC_ARCH, m)][(k, n)] / 1e3
+        b, _ = bound_ms(m, k, n, k * n // per)
+        c, ms, bd = out.get(kname, (0, 0.0, 0.0))
+        out[kname] = (c + count, ms + t * count, bd + b * count)
+
+    for k, n, tile, m_pre, small in encdec_rows(cfg):
+        add(name, m_pre, k, n, tile)
+        if small:
+            add(f"{name}_small_m", DECODE_M, k, n, small * (GEN - 1))
+    add(f"{hname}_small_m", DECODE_M, cfg.d_model, cfg.vocab, GEN)
+    return out
+
+
+def _features(cfg, gen, b: int, frames: int):
+    """Seeded frame embeddings [b, frames, d] (the audio frontend's
+    output; a stub in the reference too), float32 on the card."""
+    return torch.randn((b, frames, cfg.d_model), generator=gen,
+                       device="cuda")
+
+
+def encdec_reduced_vs_cpu(gen) -> None:
+    """Reduced whisper (2 + 2 layers, d 64), in a float32 config, on the
+    card against its CPU run (the same weights, moved), under both
+    formats: a prefill of ENCDEC_CPU_FRAMES frames and a decoder prompt
+    of ENCDEC_CPU_PROMPT tokens, then ENCDEC_CPU_STEPS decode steps on
+    the CPU's greedy tokens, teacher-forced one GEMM at a time
+    (`teacher_forced_vs_cpu`: every GEMM's input, every GEMM's output
+    bit for bit, the logits and the cache at every step)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    red = dataclasses.replace(configs.get_reduced_config(ENCDEC_ARCH),
+                              dtype="float32")
+    inputs = (_features(red, gen, 2, ENCDEC_CPU_FRAMES),
+              torch.randint(0, red.vocab, (2, ENCDEC_CPU_PROMPT),
+                            generator=gen, device="cuda"))
+    for fmt in ("w4a8", "w8a8"):
+        p_gpu = serve.build_params(red, fmt, seed=0, quant_force=True,
+                                   device="cuda", max_seq=ENCDEC_CPU_FRAMES)
+        st = teacher_forced_vs_cpu(p_gpu, _to_cpu(p_gpu), inputs, red,
+                                   ENCDEC_CPU_STEPS)
+        log(f"reduced {ENCDEC_ARCH} (float32) {fmt}, card against CPU, "
+            f"teacher-forced ({ENCDEC_CPU_FRAMES} frames, a prompt of "
+            f"{ENCDEC_CPU_PROMPT} tokens, then {ENCDEC_CPU_STEPS} decode "
+            f"steps): {st['gemms']} GEMM outputs bit for bit, "
+            f"{st['tensors']} tensors (GEMM inputs, logits, caches) within "
+            f"{st['worst']:.3e} of their largest magnitude (limit "
+            f"{CARD_CPU_RTOL})")
+
+
+def phase_encdec() -> tuple:
+    """Phase 11: the encoder-decoder family.  Reduced whisper on the card
+    against its CPU run, teacher-forced (`encdec_reduced_vs_cpu`); both
+    GEMM kernels bit for bit at whisper-small's four (K, N), (768, 768),
+    (768, 3072), (3072, 768) and the head (768, 51865), at M = 8, 1024
+    (the decoder's prompt) and 12000 (the encoder's 8 x 1500 frames, and
+    the cross k, v on the memory), each timed beside its bound
+    (`phase_wide_gemms`).  Then whisper-small served at full width (12
+    encoder and 12 decoder layers, d 768, 12 heads of 64, d_ff 3072,
+    untied vocab 51865; nothing cut; random weights from seed 0, both
+    position tables of ENC_FRAMES rows), B=8, 1500 seeded encoder frames,
+    a decoder prompt of 128 tokens, 32 new tokens, greedy, w4a8 and w8a8,
+    through `_serve_gates` (fused == per-step == plain-forced, bit for
+    bit; 192 tile launches per prefill, 97 small-M per replayed step,
+    the head in w8a8 under w4a8; one capture); the captured step's
+    static buffers are the self KV and the 0.442 GB of cross K/V, as
+    `lm.init_cache` shapes them for 1500 frames; --silvia all == off in
+    tokens, its ms/step logged; the encoder's peak memory; the profiles
+    of a replayed step and a prefill; rows 1-2's time per generate beside
+    their bounds; decode ms/step beside the step's byte bound with and
+    without the KV read (cross and self).  Returns ({GEMM counter:
+    {path: launches}}, {path: {GEMM counter: launches, ms and bound_ms
+    per generate}})."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(ENCDEC_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    t0 = time.perf_counter()
+    encdec_reduced_vs_cpu(gen)
+    log(f"reduced {ENCDEC_ARCH} against the CPU: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m_enc, m_dec = BATCH * ENC_FRAMES, BATCH * PROMPT
+    times = phase_wide_gemms(torch, archs=(ENCDEC_ARCH,),
+                             prefill_m=(m_dec, m_enc))
+    log(f"{ENCDEC_ARCH} GEMM gates: {time.perf_counter() - t0:.1f} s")
+    prompts = (_features(cfg, gen, BATCH, ENC_FRAMES),
+               torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                             device="cuda"))
+    per_fwd, per_step = gemms_per_forward(cfg), gemms_per_step(cfg)
+    launches, per_generate = {}, {}
+    for fmt in ("w4a8", "w8a8"):
+        tag = f"{ENCDEC_ARCH} {fmt}"
+        name = _gemm_name(fmt)
+        head_fmt = "w8a8" if cfg.vocab % 2 else fmt
+        t1 = time.perf_counter()
+        params = serve.build_params(cfg, fmt, seed=0, device="cuda",
+                                    max_seq=ENC_FRAMES)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t1
+        gemm_leaves = [params[st][part][k] for st, parts in (
+            ("enc", ("attn", "mlp")), ("dec", ("self", "cross", "mlp")))
+            for part in parts for k in params[st][part]
+            if k.startswith("w")]
+        if params["lm_head"].fmt != head_fmt or len(gemm_leaves) != 16 or \
+                any(w.fmt != fmt for w in gemm_leaves) or \
+                params["dec"]["mlp"]["bi"].dtype != torch.bfloat16 or \
+                params["enc_norm"]["b"].dtype != torch.float32 or \
+                tuple(params["enc_pos"].shape) != (ENC_FRAMES, cfg.d_model):
+            raise AssertionError(f"{tag}: the quantized tree is not the "
+                                 "serving tree")
+        # the encoder alone: its peak memory above what is resident
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        memory = lm.encode(params, prompts[0], cfg)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t1) * 1e3
+        enc_peak = torch.cuda.max_memory_allocated() - base
+        if tuple(memory.shape) != (BATCH, ENC_FRAMES, cfg.d_model) or \
+                not bool(torch.isfinite(memory).all()):
+            raise AssertionError(f"{tag}: encoder output misshapen or not "
+                                 "finite")
+        del memory
+        log(f"{tag}: built and quantized in {t_build:.1f} s; encoder "
+            f"({BATCH} x {ENC_FRAMES} frames) {enc_ms:.1f} ms, peak "
+            f"{enc_peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
+            "before (torch.cuda.max_memory_allocated; its [8, 12, 1500, "
+            "1500] float32 scores alone are 0.81 GiB)")
+        r = _serve_gates(cfg, fmt, params, prompts, tag)
+        launched = r["launched"]
+        small = sum(launched[f"{k}_small_m"] for k in GEMMS)
+        tile = sum(launched[k] for k in GEMMS) - small
+        steps = (small - 1) / (GEN - 1)      # the prefill's head: one
+        if tile != per_fwd or steps != per_step + 1:
+            raise AssertionError(f"{tag}: {tile} tile launches per prefill, "
+                                 f"{steps} small-M per replayed step, "
+                                 f"expected {per_fwd} and {per_step + 1}")
+        for k in GEMMS:
+            for kname, c in ((k, launched[k] - launched[f"{k}_small_m"]),
+                             (f"{k}_small_m", launched[f"{k}_small_m"])):
+                if c:
+                    launches.setdefault(kname, {})[tag] = c
+        state = r["captured"].cache
+        want = lm.init_cache(cfg, BATCH, PROMPT + GEN, device="meta",
+                             s_enc=ENC_FRAMES)
+        if {k: (t.dtype, tuple(t.shape)) for k, t in state.items()} != \
+                {k: (t.dtype, tuple(t.shape)) for k, t in want.items()}:
+            raise AssertionError(f"{tag}: the captured step's buffers are "
+                                 f"{ {k: t.shape for k, t in state.items()} }")
+        first_a = _timed_generate(serve, params, prompts, cfg,
+                                  silvia_passes="all")[3]
+        toks_a, logits_a, _, silvia_s = _timed_generate(
+            serve, params, prompts, cfg, silvia_passes="all")
+        if not torch.equal(toks_a, r["toks"]):
+            raise AssertionError(f"{tag}: --silvia all tokens differ from off")
+        same = "identical" if torch.equal(logits_a, r["logits"]) \
+            else "DIFFER"
+        log(f"{tag} --silvia all: tokens identical to off, logits {same}"
+            f"; first call (trace + capture) {first_a * 1e3:.1f} ms, fused "
+            f"decode {(silvia_s - r['prefill_s']) / (GEN - 1) * 1e3:.2f} "
+            f"ms/step (off: {r['fused_ms']:.2f}); passes "
+            f"{serve.get_decode_step(cfg, 'all').cache_info()}")
+        del toks_a, logits_a
+        serve.decode_cache_clear()        # the --silvia bundle's graph
+        per_gen = encdec_per_generate(cfg, fmt, times)
+        for k, (c, _, _) in per_gen.items():     # the profiled launches
+            seen = launched[k] if k.endswith("_small_m") else \
+                launched[k] - launched[f"{k}_small_m"]
+            if c != seen:
+                raise AssertionError(f"{tag}: {k} launched {seen} times, "
+                                     f"the per-generate sum counts {c}")
+        sm = per_gen[f"{name}_small_m"]
+        replay_profile(torch, r["captured"], params, cfg, prompts,
+                       PROMPT + GEN, tag, sm[1] * 1e3 / sm[0])
+        prefill_profile(torch, params, cfg, prompts, PROMPT + GEN, tag)
+        w_bytes = step_weight_bytes(cfg, fmt)
+        s_bytes = step_state_bytes(cfg)
+        b_w = w_bytes / HBM_BYTES_PER_S * 1e3
+        b_ws = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
+        log(f"{tag}: {steps:.0f} small-M launches per replayed decode "
+            f"step (profiled), {tile} tile launches per prefill; prefill "
+            f"{r['prefill_ms']:.1f} ms; GEMM kernels per generate "
+            "(per-launch times x launches, phase 11's gates): "
+            + "; ".join(f"{k} {c} launches {ms:.3f} ms (bound {bd:.3f})"
+                        for k, (c, ms, bd) in per_gen.items())
+            + f"; decode bound {b_ws:.3f} ms/step ({w_bytes / 1e9:.3f} GB "
+            f"of weights + {s_bytes / 1e9:.3f} GB of KV read, cross and "
+            f"self, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; weights alone "
+            f"{b_w:.3f}): fused {r['fused_ms']:.2f} ms/step, "
+            f"{100 * b_ws / r['fused_ms']:.1f}% of it; replays alone "
+            f"{r['replay_ms']:.2f}; per-step loop {r['step_ms']:.2f}; "
+            f"{time.perf_counter() - t1:.1f} s")
+        per_generate[tag] = {k: dict(launches=c, ms=ms, bound_ms=bd)
+                             for k, (c, ms, bd) in per_gen.items()}
+        del params, gemm_leaves, r, state
         serve.decode_cache_clear()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2927,7 +3255,8 @@ def main() -> int:
     ssm, ssm_gen = phase("SSM: mamba2-2.7b GEMM gates and serving",
                          phase_ssm)
     hyb, hyb_gen = phase("hybrid: jamba-v0.1-52b", phase_hybrid)
-    for paths_of in (moe, ssm, hyb):
+    enc, enc_gen = phase("encoder-decoder: whisper-small", phase_encdec)
+    for paths_of in (moe, ssm, hyb, enc):
         for k, paths in paths_of.items():
             other.setdefault(k, {}).update(paths)
     for e in entries:
@@ -2935,7 +3264,8 @@ def main() -> int:
             e["launches_other_paths"] = other[e["name"]]
         for key, gens in (("moe_path_per_generate", per_gen),
                           ("ssm_path_per_generate", ssm_gen),
-                          ("hybrid_path_per_generate", hyb_gen)):
+                          ("hybrid_path_per_generate", hyb_gen),
+                          ("encdec_path_per_generate", enc_gen)):
             path = {tag: rows[e["name"]] for tag, rows in gens.items()
                     if e["name"] in rows}
             if path:

@@ -16,6 +16,7 @@ ARCHS = [
     "arctic-480b",
     "mamba2-2.7b",
     "jamba-v0.1-52b",
+    "whisper-small",
 ]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

@@ -18,7 +18,12 @@ the chunk) and the hybrid family (jamba-v0.1-52b: per scan unit of 8
 layers one attention layer, seven SSD mixers and eight FFNs, every
 other one the MoE; the flat cache of both kinds is the captured step's
 static buffers; its 51.46 B parameters are built a [K, N] matrix at a
-time, `build_params`).  As in the reference, the int8
+time, `build_params`).  The encoder-decoder family (whisper-small) is
+served by `generate` with a (features [B, S_enc, d], dec_tokens [B, S])
+tuple: its cross-attention K/V, projected once by the prefill, is a
+static buffer of the captured step, read by every step and never
+written; the CLI refuses it, as the reference's does (it has no
+features to give).  As in the reference, the int8
 KV cache (`serve_kv_dtype="int8"`) and the chunked prefill attention
 (`attn_q_chunk`) are config fields, set with `dataclasses.replace`; the
 CLI has no flag for them.
@@ -154,7 +159,8 @@ class _CapturedStep:
     """One greedy decode step over static buffers: the token and position
     it reads, the cache it updates in place (whatever `lm.init_cache`
     gives: the KV cache, the ssm family's {ssm, conv} state, or the
-    hybrid family's flat dict of both), the tokens (and logits rows) it
+    hybrid family's flat dict of both, or the encdec family's self KV and
+    cross K/V of `s_enc` positions), the tokens (and logits rows) it
     writes at a device-side step index, for up to `n_steps` steps.  On
     CUDA the step is captured in a CUDA graph and each replay is one
     decode step; nothing on the host changes between replays.  On
@@ -168,17 +174,20 @@ class _CapturedStep:
     float32 scales are static buffers too, which the step updates in
     place with the values) or an ssm state (1.359 GB for mamba2-2.7b at
     B=8, whatever cache_len; jamba-v0.1-52b's 28 mixers' 0.129 GB and its
-    4 attention layers' 21 MB of KV at cache_len 160), the tokens [B,
+    4 attention layers' 21 MB of KV at cache_len 160; whisper-small's
+    0.442 GB of cross K/V at B=8 and 1500 frames), the tokens [B,
     n_steps] int32, with return_logits the logits rows [B, n_steps, V]
     float32 (48.8 MB at B=8, n_steps 31), and the graph's private pool
     of one step's intermediates."""
 
     def __init__(self, decode, params, cfg, batch: int, cache_len: int,
-                 n_steps: int, return_logits: bool, device: torch.device):
-        self.key = _step_key(params, batch, cache_len, return_logits)
+                 n_steps: int, return_logits: bool, device: torch.device,
+                 s_enc: int | None = None):
+        self.key = _step_key(params, batch, cache_len, return_logits, s_enc)
         self.n_steps = n_steps
         self.leaves = pytree.tree_leaves(params)   # kept alive: see above
-        self.cache = lm.init_cache(cfg, batch, cache_len, device=device)
+        self.cache = lm.init_cache(cfg, batch, cache_len, device=device,
+                                   s_enc=s_enc)
 
         def zeros(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=device)
@@ -237,11 +246,13 @@ class _CapturedStep:
         return self.toks[:, :n_steps].clone(), logits
 
 
-def _step_key(params, batch: int, cache_len: int, return_logits: bool):
+def _step_key(params, batch: int, cache_len: int, return_logits: bool,
+              s_enc: int | None):
     # the params tree by the identity of its leaves, which a captured step
-    # keeps alive, so a second tree never replays the first one's weights
+    # keeps alive, so a second tree never replays the first one's weights;
+    # s_enc, the width of an encdec cache's cross K/V buffers
     return (tuple(id(t) for t in pytree.tree_leaves(params)), batch,
-            cache_len, return_logits)
+            cache_len, return_logits, s_enc)
 
 
 class _DecodeBundle:
@@ -261,20 +272,20 @@ class _DecodeBundle:
         self.captures = 0
 
     def captured(self, params, batch: int, cache_len: int,
-                 return_logits: bool, n_steps: int,
-                 device) -> _CapturedStep:
+                 return_logits: bool, n_steps: int, device,
+                 s_enc: int | None = None) -> _CapturedStep:
         """The captured step for this params tree and these shapes.  The
-        bundle keeps one: another params tree, batch, cache_len or
-        return_logits, or more steps than its buffers hold, drops it and
-        captures anew."""
+        bundle keeps one: another params tree, batch, cache_len,
+        return_logits or cross K/V width s_enc, or more steps than its
+        buffers hold, drops it and captures anew."""
         s = self.step
         if s is None or s.key != _step_key(params, batch, cache_len,
-                                           return_logits) \
+                                           return_logits, s_enc) \
                 or s.n_steps < n_steps:
             self.step = None    # the old graph, weights and buffers first
             self.step = _CapturedStep(self.decode, params, self.cfg, batch,
                                       cache_len, n_steps, return_logits,
-                                      device)
+                                      device, s_enc)
             self.captures += 1
         return self.step
 
@@ -306,7 +317,10 @@ def generate(params, prompts, cfg, *, gen: int, cache_len: int,
              return_logits: bool = False, device="cuda"):
     """Greedy generation: prefill, its argmax, then gen-1 decode steps.
 
-    prompts: [B,S] int tokens (tensor or numpy).  Returns the generated
+    prompts: [B,S] int tokens (tensor or numpy); for the encdec family a
+    tuple (features [B,S_enc,d], dec_tokens [B,S]), as the reference's
+    takes, the encoder's frames then the decoder's prompt (S counts the
+    decoder's tokens).  Returns the generated
     tokens [B, gen] int32 on `device`, the reference's dtype; with
     return_logits=True also the float32 logits each token was chosen
     from, [B, gen, V].  silvia_passes picks a SILVIA_PASS_SETS entry for
@@ -314,8 +328,13 @@ def generate(params, prompts, cfg, *, gen: int, cache_len: int,
     decode step (module docstring); fused=False, and any CPU run, is the
     per-step loop.  Both give the same tokens and logits, bit for bit."""
     dev = device_lib.resolve(device)
-    prompts = torch.as_tensor(prompts, device=dev)
-    b, s = prompts.shape
+    s_enc = None
+    if cfg.family == "encdec":
+        features, tokens = (torch.as_tensor(t, device=dev) for t in prompts)
+        prompts, s_enc = (features, tokens), features.shape[1]
+    else:
+        tokens = prompts = torch.as_tensor(prompts, device=dev)
+    b, s = tokens.shape
     if gen < 1 or cache_len < s + gen - 1:
         raise ValueError(f"need gen >= 1 and cache_len >= prompt + gen - 1 "
                          f"(got gen={gen}, cache_len={cache_len}, "
@@ -326,7 +345,7 @@ def generate(params, prompts, cfg, *, gen: int, cache_len: int,
     tok = last.argmax(dim=-1)[:, None]
     if fused and dev.type == "cuda" and gen > 1:
         step = bundle.captured(params, b, cache_len, return_logits, gen - 1,
-                               dev)
+                               dev, s_enc)
         toks, seen = step.run(tok, cache, s, gen - 1)
         toks = torch.cat([tok.to(torch.int32), toks], dim=1)
         if return_logits:
@@ -350,10 +369,11 @@ QUANT_SLICE_ELEMS = 1 << 27
 
 
 def build_params(cfg, quant: str, *, seed: int = 0, quant_force=False,
-                 device="cuda"):
+                 device="cuda", max_seq: int = 4096):
     """Random params from `seed`, quantized for serving as `quant`: bit for
-    bit `quantize_tree_for_serving(lm.init_params(cfg, seed), quant,
-    force=quant_force)`, without ever holding a whole leaf of float
+    bit `quantize_tree_for_serving(lm.init_params(cfg, seed,
+    max_seq=max_seq), quant, force=quant_force)`, without ever holding a
+    whole leaf of float
     weights.  lm.init_params draws each random leaf one [K, N] matrix at
     a time; each matrix of a leaf that quantizes is quantized as it is
     drawn (per-column scales: a matrix's are those of the whole leaf),
@@ -391,7 +411,8 @@ def build_params(cfg, quant: str, *, seed: int = 0, quant_force=False,
 
     # the constant leaves (norms, biases, the mixers' A_log, D, dt_bias,
     # conv_b) stay float, as serving_format keeps them
-    return lm.init_params(cfg, seed, device=device, build=build)
+    return lm.init_params(cfg, seed, device=device, build=build,
+                          max_seq=max_seq)
 
 
 def main(argv=None):
@@ -416,9 +437,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    dev = device_lib.resolve(args.device)
     cfg = configs.get_reduced_config(args.arch) if args.reduced \
         else configs.get_config(args.arch)
+    if cfg.family == "encdec":
+        ap.error(f"--arch {args.arch}: the encoder-decoder family takes "
+                 "(features, dec_tokens); serve it through generate(), "
+                 "not the CLI (as the reference's CLI refuses it)")
+    dev = device_lib.resolve(args.device)
     cache_len = args.prompt_len + args.gen
     params = build_params(cfg, args.quant, seed=args.seed,
                           quant_force=args.quant_force, device=dev)

@@ -1,9 +1,13 @@
 """Grouped-query attention with RoPE and a KV cache.
 
 Port of `repro/models/attention.py` without tensor parallelism: the
-prefill path `attn_full` (with the `attn_q_chunk` query chunking) and
+prefill path `attn_full` (causal, with the `attn_q_chunk` query
+chunking, or bidirectional with per-row key lengths: the encoder's),
 the decode path `attn_decode` with the `active` slot mask, over a bf16
-or an int8 KV cache, with the optional q/k/v biases (`qkv_bias`).
+or an int8 KV cache, with the optional q/k/v biases (`qkv_bias`), and
+the cross-attention `attn_cross` (decoder over the encoder's memory,
+masked by the rows' encoder lengths).  With cfg.learned_pos (whisper)
+no rotary embedding is applied.
 Written as plain PyTorch mirroring the reference's numerics -- scores
 and softmax in float32, masks at -1e30, weights cast to v's dtype --
 with no fused SDPA.
@@ -84,14 +88,25 @@ def _kv_dequant(q, scale, dtype):
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
-def _attend(q, k, v, qpos, kpos, cfg: ModelConfig, dtype):
-    """Causal GQA of q [B,S,H,D] at positions qpos [B,S] over k, v
-    [B,T,KV,D] at kpos [B,T] (key t is seen where kpos <= qpos):
-    [B,S,H*D] in v's dtype; softmax weights in `dtype`."""
+def _attend(q, k, v, cfg: ModelConfig, dtype, qpos=None, kpos=None,
+            valid=None):
+    """GQA of q [B,S,H,D] over k, v [B,T,KV,D]: [B,S,H*D] in v's dtype;
+    softmax weights in `dtype`.  Causal where qpos [B,S] and kpos [B,T]
+    are given (key t is seen where kpos <= qpos); keys off `valid` [B,T]
+    bool are masked.  A masked score is -1e30, so a row with no key left
+    gets a uniform, finite softmax."""
     scores = _gqa_scores(q, k) * (1.0 / math.sqrt(cfg.head_dim))
-    mask = qpos[:, None, None, :, None] >= kpos[:, None, None, None, :]
-    scores = scores.masked_fill(~mask, _NEG)
+    if qpos is not None:
+        mask = qpos[:, None, None, :, None] >= kpos[:, None, None, None, :]
+        scores = scores.masked_fill(~mask, _NEG)
+    if valid is not None:
+        scores = scores.masked_fill(~valid[:, None, None, None, :], _NEG)
     return _gqa_out(torch.softmax(scores, dim=-1).to(dtype), v)
+
+
+def _valid(lengths, t: int, device):
+    """[B, t] bool: position < the row's length."""
+    return torch.arange(t, device=device)[None, :] < lengths[:, None]
 
 
 def _attn_chunked(q, k, v, positions, cfg: ModelConfig, q_chunk: int):
@@ -99,33 +114,41 @@ def _attn_chunked(q, k, v, positions, cfg: ModelConfig, q_chunk: int):
     a [B, KV, G, q_chunk, T] score block is live at a time (the
     reference scans over the chunks; a Python loop here)."""
     return torch.cat([
-        _attend(q[:, c:c + q_chunk], k, v, positions[:, c:c + q_chunk],
-                positions, cfg, v.dtype)
+        _attend(q[:, c:c + q_chunk], k, v, cfg, v.dtype,
+                positions[:, c:c + q_chunk], positions)
         for c in range(0, q.shape[1], q_chunk)], dim=1)
 
 
-def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None):
-    """Causal self-attention over the full sequence (prefill).
+def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None,
+              causal: bool = True, kv_lengths=None):
+    """Self-attention over the full sequence (prefill; the encoder).
 
     positions: [B,S] int (default arange).  cache: optional layer cache
     (`init_cache`); the sequence's keys and values are written into its
     first S positions in place.  The sequence attends over its own
     unquantized keys and values: only what goes into an int8 cache is
-    quantized.  With cfg.attn_q_chunk = c, and S > c a multiple of c, the
-    queries run in chunks of c (`_attn_chunked`), as the reference's.
-    Returns [B,S,d]."""
+    quantized.  causal=False with kv_lengths [B] (the encoder's real
+    frames per row): keys at positions >= kv_lengths[b] are masked out
+    of row b's softmax, so a right-padded row attends as it would
+    unpadded.  With cfg.attn_q_chunk = c, causal, and S > c a multiple
+    of c, the queries run in chunks of c (`_attn_chunked`), as the
+    reference's (which then ignores kv_lengths).  Returns [B,S,d]."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     q = _project_q(p, x, cfg)
     k, v = _project_kv(p, x, cfg)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    if not cfg.learned_pos:     # whisper-style models: absolute embeddings
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     chunk = cfg.attn_q_chunk
-    if chunk and s > chunk and s % chunk == 0:
+    if chunk and causal and s > chunk and s % chunk == 0:
         o = _attn_chunked(q, k, v, positions, cfg, chunk)
     else:
-        o = _attend(q, k, v, positions, positions, cfg, x.dtype)
+        valid = None if kv_lengths is None else \
+            _valid(kv_lengths, s, x.device)
+        qpos, kpos = (positions, positions) if causal else (None, None)
+        o = _attend(q, k, v, cfg, x.dtype, qpos, kpos, valid)
     out = qmatmul(o, p["wo"])
     if cache is not None:
         _write_prefill(cache, k, v)
@@ -174,8 +197,9 @@ def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
                                        dtype=pos.dtype)          # [B,C]
     q = _project_q(p, x_t, cfg)
     k_t, v_t = _project_kv(p, x_t, cfg)
-    q = common.apply_rope(q, qpos, cfg.rope_theta)
-    k_t = common.apply_rope(k_t, qpos, cfg.rope_theta)
+    if not cfg.learned_pos:
+        q = common.apply_rope(q, qpos, cfg.rope_theta)
+        k_t = common.apply_rope(k_t, qpos, cfg.rope_theta)
     rows = torch.arange(b, device=x_t.device)
     if active is not None:
         rows = rows[active]
@@ -188,7 +212,28 @@ def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
     else:
         k, v = cache["k"], cache["v"]
     kpos = torch.arange(k.shape[1], device=x_t.device).expand(b, -1)
-    return qmatmul(_attend(q, k, v, qpos, kpos, cfg, x_t.dtype), p["wo"])
+    return qmatmul(_attend(q, k, v, cfg, x_t.dtype, qpos, kpos), p["wo"])
+
+
+def attn_cross(p, x, memory, cfg: ModelConfig, mem_kv=None,
+               enc_lengths=None):
+    """Cross-attention of the decoder's x [B,S,d] over the encoder's
+    memory [B,S_enc,d]: [B,S,d].  With mem_kv {k, v: [B,T,KV,D], len:
+    [B]} (the cross K/V the prefill projected, right-padded to T), the
+    memory's projection is skipped and `len` masks the padded tail
+    unless enc_lengths [B] is given.  Memory positions >= a row's length
+    get a softmax weight of exactly 0; a row of length 0 gets a uniform,
+    finite softmax (never NaN).  The K/V is only read."""
+    q = _project_q(p, x, cfg)
+    if mem_kv is None:
+        k, v = _project_kv(p, memory, cfg)
+    else:
+        k, v = mem_kv["k"], mem_kv["v"]
+        if enc_lengths is None:
+            enc_lengths = mem_kv.get("len")
+    valid = None if enc_lengths is None else \
+        _valid(enc_lengths, k.shape[1], x.device)
+    return qmatmul(_attend(q, k, v, cfg, x.dtype, valid=valid), p["wo"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device):

@@ -1,11 +1,16 @@
 """Residual blocks (port of `repro/models/blocks.py`): the dense unit
 (pre-norm attention + pre-norm MLP), the moe unit (pre-norm attention
 + MoE, with arctic's parallel dense FFN, the "dense residual"), the
-ssm unit (pre-norm Mamba2 SSD mixer, no MLP) and the hybrid unit
-(jamba's super-block: `period` layers of mixer + FFN).
+ssm unit (pre-norm Mamba2 SSD mixer, no MLP), the hybrid unit
+(jamba's super-block: `period` layers of mixer + FFN), and whisper's
+encoder and decoder units (`enc_block`: bidirectional self-attention +
+GELU MLP; `dec_block`: causal self-attention, cross-attention over the
+encoder's memory, GELU MLP).
 
-`BLOCK_FNS` maps a family to its block, as the reference's
-`repro/models/lm.py:25` does; `lm` runs the stack through it."""
+`BLOCK_FNS` maps a family to the block its prefill and decode run over
+the cache, as the reference's `repro/models/lm.py:25` does (encdec: the
+decoder's; `lm.encode` runs `enc_block`); `lm` runs the stack through
+it."""
 from __future__ import annotations
 
 import collections
@@ -141,5 +146,58 @@ def hybrid_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     return x
 
 
+def enc_block(p, x, cfg: ModelConfig, lengths=None):
+    """One encoder layer: pre-norm bidirectional self-attention, then the
+    pre-norm MLP.  lengths: optional [B] real frames per row; the padded
+    frames are masked out of the attention, so a right-padded row's real
+    positions come out as they would unpadded."""
+    x = x + attn.attn_full(p["attn"], _norm(cfg, x, p["ln1"]), cfg,
+                           causal=False, kv_lengths=lengths)
+    return x + mlp.mlp(p["mlp"], _norm(cfg, x, p["ln2"]), cfg)
+
+
+CROSS = ("cross_k", "cross_v", "cross_len")
+
+
+def dec_block(p, x, cfg: ModelConfig, *, memory=None, mode="prefill",
+              cache=None, pos=None, active=None, enc_lengths=None):
+    """One decoder layer over its slice of the flat encdec cache: the
+    self-attention's {k, v (, k_s, v_s)} and the cross-attention's
+    {cross_k, cross_v: [B, T, KV, D], cross_len: [B] int32}.
+
+    mode "prefill": causal self-attention over x, its keys and values
+    written into the self cache in place; the memory [B, S_enc, d]
+    projected to the cross K/V, written into cross_k / cross_v's first
+    S_enc positions (a page wider than S_enc keeps the zeros `init_cache`
+    gave it: right padding) with cross_len = enc_lengths (default
+    S_enc).  mode
+    "decode": the new tokens attend against the self cache, written in
+    place (`active` masks the write), and read the cross K/V, which the
+    step never writes.  Both attend over the cross K/V masked by
+    enc_lengths, else cross_len.  Returns the new hidden state."""
+    h = _norm(cfg, x, p["ln1"])
+    self_c = {k: t for k, t in cache.items() if k not in CROSS}
+    if mode == "decode":
+        a = attn.attn_decode(p["self"], h, self_c, pos, cfg, active=active)
+    elif mode == "prefill":
+        a = attn.attn_full(p["self"], h, cfg, cache=self_c)
+        k, v = attn._project_kv(p["cross"], memory, cfg)
+        s_enc = k.shape[1]
+        cache["cross_k"][:, :s_enc] = k
+        cache["cross_v"][:, :s_enc] = v
+        if enc_lengths is None:
+            cache["cross_len"].fill_(s_enc)
+        else:
+            cache["cross_len"].copy_(enc_lengths)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    x = x + a
+    mem_kv = {"k": cache["cross_k"], "v": cache["cross_v"],
+              "len": cache["cross_len"]}
+    x = x + attn.attn_cross(p["cross"], _norm(cfg, x, p["ln2"]), memory,
+                            cfg, mem_kv=mem_kv, enc_lengths=enc_lengths)
+    return x + mlp.mlp(p["mlp"], _norm(cfg, x, p["ln3"]), cfg)
+
+
 BLOCK_FNS = {"dense": dense_block, "moe": moe_block, "ssm": ssm_block,
-             "hybrid": hybrid_block}
+             "hybrid": hybrid_block, "encdec": dec_block}

@@ -1,7 +1,7 @@
-"""Shared model components: RMSNorm and rotary embeddings.
+"""Shared model components: RMSNorm, LayerNorm and rotary embeddings.
 
-Port of `repro/models/common.py` (standard RoPE only; M-RoPE and
-LayerNorm arrive with the families that use them).
+Port of `repro/models/common.py` (standard RoPE only; M-RoPE arrives
+with the family that uses it).
 """
 from __future__ import annotations
 
@@ -17,10 +17,23 @@ def rms_norm(x, weight, eps: float = 1e-5):
     return (y * weight.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """As the reference's: statistics in float32, the variance the mean of
+    the squared deviations (written out, as jnp.var computes it, not
+    F.layer_norm's fused form), `y * w + b` in float32, one cast."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(x.dtype)
+
+
 def norm_apply(x, params, kind: str, eps: float):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return rms_norm(x, params["w"], eps)
+    if kind == "rmsnorm":
+        return rms_norm(x, params["w"], eps)
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm {kind!r} (rmsnorm | layernorm)")
+    return layer_norm(x, params["w"], params["b"], eps)
 
 
 def rope_freqs(head_dim: int, theta: float):

@@ -1,8 +1,8 @@
 """Model configuration schema (port of `repro/models/config.py`).
 
 The port keeps its own copy: it imports nothing of `repro`.  Only the
-fields and derived widths the ported families (dense, moe, ssm, hybrid)
-use are carried.
+fields and derived widths the ported families (dense, moe, ssm, hybrid,
+encdec) use are carried.
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ class HybridConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                # dense | moe | ssm | hybrid (ported so far)
+    family: str                # dense | moe | ssm | hybrid | encdec (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -68,10 +68,15 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
-    activation: str = "swiglu"         # swiglu (gelu: not ported yet)
-    norm: str = "rmsnorm"              # rmsnorm (layernorm: not ported yet)
+    # encdec (whisper): decoder layer count; encoder uses n_layers
+    n_decoder_layers: Optional[int] = None
+    learned_pos: bool = False          # whisper: learned positional embeds
+    activation: str = "swiglu"         # swiglu | gelu
+    norm: str = "rmsnorm"              # rmsnorm | layernorm
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # modality frontend stub: inputs arrive as precomputed embeddings
+    frontend: Optional[str] = None     # None | "audio" (whisper)
     dtype: str = "bfloat16"
     # serving quantization format for decode/prefill cells
     serve_fmt: str = "w8a8"            # bf16 | w8a8 | w4a8
@@ -100,8 +105,11 @@ class ModelConfig:
         counted), or for ssm each layer's mixer (`_ssm_layer_params`) and
         the final norm, or for hybrid one attention layer per `period`,
         a mixer on each of the others and every layer's MLP (no final
-        norm).  Used for byte bounds."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
+        norm), or for encdec the encoder's attention and GELU MLP (up and
+        down) per layer and the decoder's self and cross attention and
+        MLP per decoder layer (learned positions not counted).  Used for
+        byte bounds."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
             raise NotImplementedError(
                 f"param_count: family {self.family!r} is not ported yet")
         d = self.d_model
@@ -114,6 +122,10 @@ class ModelConfig:
             n_mamba = self.n_layers - n_attn
             return emb + n_attn * attn + n_mamba * \
                 self._ssm_layer_params() + self._mlp_params_all()
+        if self.family == "encdec":
+            nd = self.n_decoder_layers or self.n_layers
+            mlp = 2 * d * self.d_ff  # gelu mlp: up + down
+            return emb + self.n_layers * (attn + mlp) + nd * (2 * attn + mlp)
         return emb + self.n_layers * attn + self._mlp_params_all()
 
     def _ssm_layer_params(self) -> int:

@@ -1,5 +1,5 @@
 """Feed-forward layers (port of `repro/models/mlp.py`): the dense SwiGLU
-MLP and the top-k mixture of experts' serving path.
+and GELU MLPs and the top-k mixture of experts' serving path.
 
 MoE serving (`moe(per_token=True)`, the reference's prefill / decode
 path) routes every token dropless through a dense one-hot combine: every
@@ -26,12 +26,37 @@ from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.quant.qtensor import QTensor, qmatmul
 
 
+def _in_dtypes(c: float) -> dict:
+    """c rounded to each floating dtype, as a Python float (exact in it)."""
+    return {dt: torch.tensor(c, dtype=torch.float64).to(dt).item()
+            for dt in (torch.float32, torch.bfloat16, torch.float16)}
+
+
+# computed once here: a traced step (core.optimize) must not make tensors
+_SQRT_2_OVER_PI = _in_dtypes(math.sqrt(2.0 / math.pi))
+_GELU_CUBIC = _in_dtypes(0.044715)
+
+
+def gelu(x):
+    """jax.nn.gelu's default, the tanh form (torch's default is the erf
+    form): x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))), the
+    constants rounded to x's dtype as jax rounds them (sqrt(2/pi) cast to
+    it, 0.044715 weakly typed), x^3 as x * x * x."""
+    inner = _SQRT_2_OVER_PI[x.dtype] * (x + _GELU_CUBIC[x.dtype]
+                                        * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def mlp(p, x, cfg: ModelConfig):
-    if cfg.activation != "swiglu":
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported yet")
-    return qmatmul(F.silu(qmatmul(x, p["wg"])) * qmatmul(x, p["wi"]),
-                   p["wo"])
+    """SwiGLU: qmatmul(silu(x wg) * (x wi), wo); GELU (whisper):
+    qmatmul(gelu(x wi + bi), wo) + bo, the biases in cfg.dtype."""
+    if cfg.activation == "swiglu":
+        return qmatmul(F.silu(qmatmul(x, p["wg"])) * qmatmul(x, p["wi"]),
+                       p["wo"])
+    if cfg.activation != "gelu":
+        raise ValueError(f"unknown activation {cfg.activation!r} "
+                         "(swiglu | gelu)")
+    return qmatmul(gelu(qmatmul(x, p["wi"]) + p["bi"]), p["wo"]) + p["bo"]
 
 
 # ---------------------------------------------------------------------------
