@@ -36,8 +36,8 @@ over):
    the plain version's do (ROADMAP C5).  Then both GEMM kernels, bit for
    bit at decode M=8 and prefill M=1024, at every (K, N) of qwen1.5-0.5b,
    yi-6b and command-r-35b that reaches a kernel (up to command-r's
-   lm_head, K=8192 N=256000: the plain version compared in column
-   slices), each shape's per-launch time beside its bound;
+   lm_head, K=8192 N=256000, which the plain version multiplies in
+   column slices), each shape's per-launch time beside its bound;
 4. each SWAR kernel (simd_add_packed, muladd2, mul4_full32, mul4_split)
    against its plain version at ragged shapes: both lane widths, add and
    sub, k = 1..lanes; chains of 1, 9 and 31; mul4 signed and unsigned,
@@ -136,17 +136,18 @@ over):
    the [16, 4096, 14336] / [16, 14336, 4096] expert stacks (wi / wg on a
    shared x of expert stride 0, wo per expert; the plain versions walk
    them an expert at a time), each timed beside its bound and its
-   w-load path (`phase_hybrid_gemms`); then full-width jamba-v0.1-52b (32
-   layers in 4 scan units, 16 experts on every other layer, 28 SSD
-   mixers, untied vocab 65536; nothing cut; random weights from seed 0,
-   built a [K, N] matrix at a time by `serve.build_params`, its time and
-   peak memory logged, the w4a8 tree freed before the w8a8 one is built)
-   under w4a8 and w8a8 through the gates of 6 (`_serve_gates`: 168 tile
-   launches per prefill, 169 small-M per replayed step; the captured
-   step's static buffers are the flat hybrid cache), `--silvia all` ==
-   off, the profiles of a replayed step and a prefill, rows 1-2's time
-   per generate beside their bounds and decode ms/step beside the byte
-   bound with and without the 0.278 GB of state and KV traffic;
+   w-load path (`phase_hybrid_gemms`); then jamba-v0.1-52b at every
+   width, cut to 2 of its 4 scan units (`HYBRID_UNITS`; 16 experts on
+   every other layer, 7 SSD mixers and one attention layer per unit,
+   untied vocab 65536; random weights from seed 0, built a [K, N] matrix
+   at a time by `serve.build_params`, its time and peak memory logged,
+   the w4a8 tree freed before the w8a8 one is built) under w4a8 and
+   w8a8 through the gates of 6 (`_serve_gates`: 84 tile launches per
+   prefill, 85 small-M per replayed step; the captured step's static
+   buffers are the flat hybrid cache), `--silvia all` == off, the
+   profiles of a replayed step and a prefill, rows 1-2's time per
+   generate beside their bounds and decode ms/step beside the byte
+   bound with and without the state and KV traffic;
 11. the encoder-decoder family (`phase_encdec`): reduced whisper (2 + 2
    layers, float32) on the card against its CPU run, teacher-forced as
    in 10 on (features, dec_tokens); both GEMM kernels bit for bit at
@@ -166,11 +167,39 @@ over):
    encoder's peak memory, the profiles of a replayed step and a
    prefill, rows 1-2's time per generate beside their bounds and decode
    ms/step beside the byte bound with and without the KV read (cross
-   and self).  Each phase's seconds are logged.
+   and self);
+12. the vlm family (`phase_vlm`): reduced qwen2-vl (2 layers, float32,
+   M-RoPE sections (2, 3, 3), nonzero q/k/v biases) on the card against
+   its CPU run on an image prompt (stub patch embeddings between text
+   embeddings, Qwen2-VL's 3-row positions: the patches share one
+   temporal position), teacher-forced as in 10; both GEMM kernels bit
+   for bit at qwen2-vl-72b's five (K, N), (8192, 8192), (8192, 1024),
+   (8192, 29568), (29568, 8192) and the head (8192, 152064), at M = 8,
+   1024 and 3072, each timed beside its bound with its w-load path (the
+   plain versions take the 2-D weights past ref.PLAIN_EXPERT_BYTES in
+   column slices); then full-width qwen2-vl-72b (80 layers, d 8192, 64
+   heads over 8 KV heads, d_ff 29568, untied vocab 152064, M-RoPE
+   sections (16, 24, 24) at theta 1e6; nothing cut; random weights from
+   seed 0, q/k/v biases drawn nonzero, built a [K, N] matrix at a time;
+   the w4a8 tree freed before the w8a8 one is built; build time,
+   resident memory and each stage's peak logged) under w4a8 and w8a8:
+   token traffic (B=8, prompt 128, 32 new tokens) through the gates of
+   6 (`_serve_gates`: 560 tile launches per prefill, 561 small-M per
+   replayed step), `--silvia all` == off, the profiles of a replayed
+   step and a prefill, rows 1-2's time per generate beside their bounds
+   and decode ms/step beside the byte bound (weights and the KV read);
+   then image traffic (`vlm_image_traffic`): B=8 rows of 8 text
+   tokens, one 448 x 448 image as 256 seeded patch embeddings (a 16 x
+   16 grid of merged patches) and 120 text tokens, with their 3-row
+   positions (`image_positions`), through `lm.prefill` (560 tile
+   launches at M = 3072; equal rows == the default positions bit for
+   bit; the image's positions move the logits) and 31 replays of the
+   captured decode step, bit for bit the per-step loop's.  Each phase's
+   seconds are logged.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
-launches, the MoE, SSM, hybrid and encdec paths' included, and those
-paths' GEMM time per generate), the nvidia-smi line and, last,
+launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
+those paths' GEMM time per generate), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
@@ -736,7 +765,8 @@ def gemm_widths(cfg) -> list:
     q, k, v, o projections and the MLP's gate, up and down (dense), the
     SSD mixer's in_proj and out_proj (ssm), both and the dense MLP's
     (hybrid), the projections and the GELU MLP's up and down (encdec:
-    self and cross attention share the widths); and an untied lm_head
+    self and cross attention share the widths; vlm: the dense ones); and
+    an untied lm_head
     (a tied one is the bf16 embedding, a plain matmul).  The
     expert-stacked widths are phase_moe_gemms' and phase_hybrid_gemms'."""
     d = cfg.d_model
@@ -744,7 +774,7 @@ def gemm_widths(cfg) -> list:
     ffn = [(d, cfg.d_ff), (cfg.d_ff, d)]
     if cfg.family == "ssm":
         kn = mixer_widths(cfg)
-    elif cfg.family in ("dense", "encdec"):
+    elif cfg.family in ("dense", "encdec", "vlm"):
         kn = attn + ffn
     elif cfg.family == "hybrid":
         kn = attn + mixer_widths(cfg) + ffn
@@ -827,9 +857,6 @@ def w_load_path(launch: dict, row: int) -> str:
 
 
 WIDE_ARCHS = ("qwen1.5-0.5b", "yi-6b", "command-r-35b")
-# the plain versions go through a float64 copy of the weights
-# (kernels/ref.py): compare in column slices of at most this many bytes
-PLAIN_SLICE_BYTES = 2 << 30
 
 
 def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
@@ -840,8 +867,8 @@ def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
     (K, N) of `archs` that reaches a kernel (`gemm_widths`; for the three
     other dense configs K up to 22528, N up to 256000: command-r's
     lm_head, k * n = 2.097e9, just under the kernels' 2^31 index limit).
-    The plain version is compared in column slices against the matching
-    columns of one full-width kernel launch.  Logs each shape's
+    The plain version takes a weight whose float64 copy would pass
+    ref.PLAIN_EXPERT_BYTES in column slices itself.  Logs each shape's
     per-launch time (CUDA events, L2 spilled), its bound and the w-load
     path its launch recorded (`w_load_path`).  Returns the per-launch
     times, {(kernel, arch): {(K, N): us}} (the small-M kernel's at M=8,
@@ -876,7 +903,6 @@ def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
                 out_fn = getattr(mod, name)
                 w = i8(k, n // per_word)
                 ws = scales(1, n)
-                cols = max(2, PLAIN_SLICE_BYTES // (8 * k)) // 2 * 2
                 m_pre = prefill_m.get((k, n), PREFILL_M) \
                     if isinstance(prefill_m, dict) else prefill_m
                 if not isinstance(m_pre, tuple):
@@ -893,20 +919,12 @@ def phase_wide_gemms(torch, archs=WIDE_ARCHS, prefill_m=PREFILL_M) -> dict:
                             (2 if small else 0):
                         raise AssertionError(f"{name} {(m, k, n)}: not "
                                              f"through {kname}")
-                    for c0 in range(0, n, cols):
-                        c1 = min(n, c0 + cols)
-                        wc = w[:, c0 // per_word:c1 // per_word]
-                        if not torch.equal(acc_k[:, c0:c1], acc_ref(x, wc)):
-                            raise AssertionError(
-                                f"{kname} {arch} {(m, k, n)}: int32 "
-                                f"accumulator differs in columns "
-                                f"[{c0}, {c1})")
-                        if not torch.equal(out_k[:, c0:c1],
-                                           out_ref(x, wc, xs,
-                                                   ws[:, c0:c1])):
-                            raise AssertionError(
-                                f"{kname} {arch} {(m, k, n)}: f32 output "
-                                f"differs in columns [{c0}, {c1})")
+                    if not torch.equal(acc_k, acc_ref(x, w)):
+                        raise AssertionError(f"{kname} {arch} {(m, k, n)}: "
+                                             "int32 accumulator differs")
+                    if not torch.equal(out_k, out_ref(x, w, xs, ws)):
+                        raise AssertionError(f"{kname} {arch} {(m, k, n)}: "
+                                             "f32 output differs")
                     del acc_k, out_k
                     # time over enough weight copies to spill the 50 MB L2
                     copies = [w] + [i8(*w.shape) for _ in range(
@@ -1476,20 +1494,29 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         return sorted(times)[1]
 
+    secs, t_part = {}, [time.perf_counter()]
+
+    def part(what):       # seconds of each part of the gates, for the log
+        now = time.perf_counter()
+        secs[what] = now - t_part[0]
+        t_part[0] = now
+
     # the per-step loop; its wrappers see every launch, the lm_head's by
-    # its weight's logical width
-    with counter.capture() as rec:
+    # its weight's logical width (only the width is kept: the prefill's
+    # activations are not held)
+    with counter.capture(lambda ops, _: ops[1].shape[-1]) as rec:
         toks_s, logits_s, counts_s, step_s = _timed_generate(
             serve, params, prompts, cfg, fused=False)
-    heads = sum(1 for (_, w), _ in rec
-                if w.shape[-1] * (2 if head_fmt == "w4a8" else 1)
-                == cfg.vocab)
+    heads = sum(1 for n in rec
+                if n * (2 if head_fmt == "w4a8" else 1) == cfg.vocab)
     del rec
     check(toks_s, logits_s, counts_s, "per-step")
     if heads != head * GEN:
         raise AssertionError(f"{tag} per-step: {heads} lm_head launches, "
                              f"expected {head * GEN}")
+    part("per-step loop")
     prefill_before = prefill_ms()
+    part("prefills")
     # the first fused call: the prefill, one eager warm-up step and the
     # capture (its wrappers launch into the graph), then the replays
     toks_1, logits_1, counts_1, first_s = _timed_generate(
@@ -1499,6 +1526,7 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
     same_as_per_step(toks_1, logits_1, "the first fused call")
     bundle = serve._decode_bundle(cfg, "off", "cuda")
     captured = bundle.step
+    part("first fused call")
     # the main path: every count from 0, the captured graph replayed
     # under the profiler, which counts what the replays launch.  The
     # profiler has been seen to drop ~1% of one profile's kernel
@@ -1515,6 +1543,7 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
             break
         log(f"{tag} fused (profiled), run {attempt}: launches "
             f"{launched} short of {want}; driven again")
+    part(f"profiled main path ({attempt} run{'s' * (attempt > 1)})")
     check(toks, logits, launched, "fused (profiled)")
     check(toks, logits, counts, "fused (wrappers: no eager decode step)",
           launches(tile, 0, head))
@@ -1554,12 +1583,14 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
         "generate); fused tokens and logits identical to the per-step "
         "loop's")
 
+    part("timed run, prefills, replays")
     before = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
     with registry.force("ref"):
         toks_p, logits_p = serve.generate(params, prompts, cfg, gen=GEN,
                                           cache_len=cache_len,
                                           return_logits=True)
     torch.cuda.synchronize()
+    part("plain-forced run")
     if {c.name: c.count for c in registry.LAUNCH_COUNTERS} != before:
         raise AssertionError(f"{tag}: forced plain run launched kernels")
     if not torch.equal(toks, toks_p) or not torch.equal(logits, logits_p):
@@ -1568,7 +1599,8 @@ def _serve_gates(cfg, fmt: str, params, prompts, tag: str) -> dict:
             f"(tokens equal: {torch.equal(toks, toks_p)}, max logit "
             f"diff {(logits - logits_p).abs().max().item()})")
     log(f"{tag}: tokens and logits identical to the plain-forced run; "
-        f"sample tokens {toks[0, :16].tolist()}")
+        f"sample tokens {toks[0, :16].tolist()}; the gates' seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     return dict(toks=toks, logits=logits, launched=launched,
                 captured=captured, bundle=bundle, prefill_s=prefill_s,
                 step_ms=step_ms, fused_ms=fused_ms, replay_ms=replay_ms,
@@ -2187,7 +2219,9 @@ def ssm_prefill_m(cfg) -> int:
 
 def step_state_bytes(cfg, cache_len: int = PROMPT + GEN) -> float:
     """State bytes one decode step reads and writes (0 for the dense and
-    moe families, whose KV cache is not counted): per mixer layer the float32
+    moe families, whose KV cache is not counted; for vlm each layer's KV
+    cache [B, cache_len, KV, D], k and v, read once and one position of
+    it written): per mixer layer the float32
     SSM state [B, H, P, N] and the conv window [B, W-1, ch] in cfg.dtype,
     each read once and written once; for the hybrid family also its
     attention layers' KV cache [B, cache_len, KV, D] (k and v) read once
@@ -2199,6 +2233,8 @@ def step_state_bytes(cfg, cache_len: int = PROMPT + GEN) -> float:
     if cfg.family == "encdec":
         cross = 2 * BATCH * cfg.kv_dim * elt * ENC_FRAMES
         return cfg.n_decoder_layers * (kv + cross)
+    if cfg.family == "vlm":
+        return cfg.n_layers * kv
     if cfg.family not in ("ssm", "hybrid"):
         return 0.0
     from repro_torch.models import ssm
@@ -2367,6 +2403,10 @@ def phase_ssm() -> tuple:
 
 # phase 10: the hybrid family
 HYBRID_ARCH = "jamba-v0.1-52b"
+# jamba-v0.1-52b's served path at half its depth (2 of its 4 scan units,
+# 16 layers; every width and every layer kind kept): a unit's gates are
+# those of every other; cut when phase 12 took the whole run past ~1000 s
+HYBRID_UNITS = 2
 # the reduced model against its CPU run: 2 scan units (16 layers), a
 # prompt of three chunks of 16
 HYBRID_CPU_LAYERS, HYBRID_CPU_PROMPT, HYBRID_CPU_STEPS = 16, 40, 3
@@ -2535,7 +2575,8 @@ def _kept(x):
 
 
 def teacher_forced_vs_cpu(params, cpu_params, prompts, cfg, steps: int,
-                          rtol: float = CARD_CPU_RTOL) -> dict:
+                          rtol: float = CARD_CPU_RTOL,
+                          positions=None) -> dict:
     """The hybrid model on `params` (on the card) against its run on
     `cpu_params` (the same weights on the host), teacher-forced one
     quantized GEMM and one MoE layer at a time.  The host runs a prefill
@@ -2555,13 +2596,14 @@ def teacher_forced_vs_cpu(params, cpu_params, prompts, cfg, steps: int,
       * the logits and every cache tensor within `rtol`;
       * the number of GEMM and MoE calls: gemms_per_forward (a decode
         step: gemms_per_step) + the head, and one MoE call per MoE layer.
-    `prompts` is [B, S] tokens, or an encdec input (features,
-    dec_tokens).  Returns {"gemms", "moes", "tensors": counts compared,
-    "worst": the largest difference over the tensor's largest
+    `prompts` is [B, S] tokens, [B, S, d] stub embeddings (an image
+    prompt, with its [3, B, S] `positions`), or an encdec input
+    (features, dec_tokens).  Returns {"gemms", "moes", "tensors": counts
+    compared, "worst": the largest difference over the tensor's largest
     magnitude}."""
     from repro_torch.models import lm
     tokens_in = dec_tokens(prompts)
-    b, s = tokens_in.shape
+    b, s = tokens_in.shape[:2]
     dev = tokens_in.device
     cache_len = s + steps
     moes = moe_layers(cfg)
@@ -2590,8 +2632,9 @@ def teacher_forced_vs_cpu(params, cpu_params, prompts, cfg, steps: int,
     host_prompts = tuple(t.cpu() for t in prompts) \
         if isinstance(prompts, tuple) else prompts.cpu()
     with _hooked(rec_q, rec_moe):
-        logits, cache = lm.prefill(cpu_params, host_prompts, cfg,
-                                   cache_len=cache_len)
+        logits, cache = lm.prefill(
+            cpu_params, host_prompts, cfg, cache_len=cache_len,
+            positions=None if positions is None else positions.cpu())
         for i in range(steps + 1):
             host.append((calls, logits[:, -1].clone(),
                          {k: t.clone() for k, t in cache.items()}))
@@ -2652,8 +2695,10 @@ def teacher_forced_vs_cpu(params, cpu_params, prompts, cfg, steps: int,
 
         with _hooked(fq, fmoe):
             if t == 0:
-                logits, cache = lm.prefill(params, prompts, cfg,
-                                           cache_len=cache_len)
+                logits, cache = lm.prefill(
+                    params, prompts, cfg, cache_len=cache_len,
+                    positions=None if positions is None
+                    else positions.to(dev))
             else:
                 logits, _ = lm.decode_step(
                     params, tokens[t - 1].to(dev), cache,
@@ -2707,14 +2752,15 @@ def phase_hybrid() -> tuple:
     """Phase 10: the hybrid family.  Reduced jamba (2 units) on the card
     against its CPU run; both GEMM kernels bit for bit at every jamba
     width (`phase_hybrid_gemms`); then jamba-v0.1-52b served at full width
-    (32 layers in 4 scan units, d 4096, 16 experts of d_ff 14336 on every
-    other layer, 28 SSD mixers, untied vocab 65536; nothing cut; random
-    weights from seed 0, built a [K, N] matrix at a time by
-    `serve.build_params`, its time and peak memory logged), B=8, prompt
-    128, 32 new tokens, greedy, w4a8 and then w8a8 (the first tree freed
-    before the second is built), through `_serve_gates` (fused ==
-    per-step == plain-forced, bit for bit; 168 tile launches per prefill,
-    169 small-M launches per replayed step; one capture); the captured
+    and HYBRID_UNITS of its 4 scan units (d 4096, 16 experts of d_ff
+    14336 on every other layer, 7 SSD mixers and one attention layer per
+    unit, untied vocab 65536; random weights from seed 0, built a [K, N]
+    matrix at a time by `serve.build_params`, its time and peak memory
+    logged), B=8, prompt 128, 32 new tokens, greedy, w4a8 and then w8a8
+    (the first tree freed before the second is built), through
+    `_serve_gates` (fused == per-step == plain-forced, bit for bit; 42
+    tile launches per unit and prefill, 42 small-M launches per unit and
+    replayed step and the head's; one capture); the captured
     step's static buffers are the flat hybrid cache; --silvia all == off
     in tokens; the profiles of a replayed step and of a prefill; rows
     1-2's time per generate beside their bounds; decode ms/step beside
@@ -2725,7 +2771,10 @@ def phase_hybrid() -> tuple:
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    cfg = configs.get_config(HYBRID_ARCH)
+    import dataclasses
+    full = configs.get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full,
+                              n_layers=HYBRID_UNITS * full.hybrid.period)
     gen = torch.Generator(device="cuda").manual_seed(17)
     t0 = time.perf_counter()
     hybrid_reduced_vs_cpu(gen)
@@ -2740,7 +2789,7 @@ def phase_hybrid() -> tuple:
     units, n_moe = lm.n_scan_units(cfg), hybrid_kinds(cfg)["moe"]
     launches, per_generate = {}, {}
     for fmt in ("w4a8", "w8a8"):
-        tag = f"{HYBRID_ARCH} {fmt}"
+        tag = f"{HYBRID_ARCH} {cfg.n_layers}L {fmt}"
         name = _gemm_name(fmt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3080,6 +3129,391 @@ def phase_encdec() -> tuple:
     return launches, per_generate
 
 
+# phase 12: the vlm family
+VLM_ARCH = "qwen2-vl-72b"
+# the image prompt of each row: 8 text tokens, one 448 x 448 image as 256
+# stub patch embeddings (Qwen2-VL's 14-pixel patches merged 2 x 2 into a
+# 16 x 16 grid), 120 text tokens: 384 positions
+IMG_BEFORE, IMG_GRID, IMG_AFTER = 8, (16, 16), 120
+IMG_PROMPT = IMG_BEFORE + IMG_GRID[0] * IMG_GRID[1] + IMG_AFTER
+# the reduced model against its CPU run: 3 text tokens, a 4 x 4 image, 5
+# text tokens, then 3 decode steps
+VLM_CPU_LAYOUT, VLM_CPU_STEPS = (3, (4, 4), 5), 3
+
+
+def image_positions(b: int, n_before: int, grid, n_after: int, device):
+    """Qwen2-VL's M-RoPE positions [3, b, S] (arXiv:2409.12191) of b rows
+    of n_before text tokens, one image of grid = (rows, cols) merged
+    patches and n_after text tokens: text has t = h = w = its index; the
+    image's patches t = n_before, h = n_before + row, w = n_before +
+    col; the text after it resumes at n_before + max(rows, cols).  Input
+    data of phase 12: the package computes no positions."""
+    gh, gw = grid
+    after = n_before + max(gh, gw) + torch.arange(n_after)
+    rows = [torch.cat([torch.arange(n_before), img, after]) for img in (
+        torch.full((gh * gw,), n_before),
+        n_before + torch.arange(gh).repeat_interleave(gw),
+        n_before + torch.arange(gw).repeat(gh))]
+    return torch.stack(rows)[:, None].expand(3, b, -1).contiguous().to(
+        device)
+
+
+def image_embeds(params, cfg, gen, b: int, n_before: int, grid,
+                 n_after: int):
+    """[b, S, d] float32 stub embeddings of an image prompt (the vision
+    frontend's output; a stub in the reference too): the text positions
+    the port's embedding rows of seeded tokens, the image's patch rows
+    seeded normals at the table's scale (the std of its first 4096
+    rows).  On the generator's device."""
+    table = params["embed"]
+    toks = torch.randint(0, cfg.vocab, (b, n_before + n_after),
+                         generator=gen, device=gen.device)
+    patches = torch.randn((b, grid[0] * grid[1], cfg.d_model),
+                          generator=gen, device=gen.device)
+    text = table[toks].float()
+    return torch.cat([text[:, :n_before],
+                      patches * table[:4096].float().std(),
+                      text[:, n_before:]], dim=1)
+
+
+def _nonzero_biases(params, gen) -> None:
+    """The q/k/v biases drawn nonzero (the init's are zeros), in place,
+    as phase 7 draws qwen's."""
+    attn = params["blocks"]["attn"]
+    for b in ("bq", "bk", "bv"):
+        attn[b] = (torch.randn(attn[b].shape, generator=gen,
+                               device=gen.device)
+                   * QWEN_BIAS_STD).to(attn[b].dtype)
+
+
+def vlm_reduced_vs_cpu(gen) -> None:
+    """Reduced qwen2-vl (2 layers, d 64, sections (2, 3, 3)), in a float32
+    config, on the card against its CPU run (the same weights, moved;
+    nonzero q/k/v biases), under both formats: an image prompt (stub
+    embeddings of VLM_CPU_LAYOUT with its 3-row positions: the patches
+    share a temporal position), then VLM_CPU_STEPS decode steps on the
+    CPU's greedy tokens, teacher-forced one GEMM at a time
+    (`teacher_forced_vs_cpu`: every GEMM's input, every GEMM's output
+    bit for bit, the logits and the cache at every step)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    red = dataclasses.replace(configs.get_reduced_config(VLM_ARCH),
+                              dtype="float32")
+    n0, grid, n1 = VLM_CPU_LAYOUT
+    pos = image_positions(2, n0, grid, n1, "cuda")
+    for fmt in ("w4a8", "w8a8"):
+        p_gpu = serve.build_params(red, fmt, seed=0, quant_force=True,
+                                   device="cuda")
+        _nonzero_biases(p_gpu, gen)
+        emb = image_embeds(p_gpu, red, gen, 2, n0, grid, n1)
+        st = teacher_forced_vs_cpu(p_gpu, _to_cpu(p_gpu), emb, red,
+                                   VLM_CPU_STEPS, positions=pos)
+        log(f"reduced {VLM_ARCH} (float32) {fmt}, card against CPU, "
+            f"teacher-forced (an image prompt of {emb.shape[1]} stub "
+            f"embeddings, a {grid[0]} x {grid[1]} image at position {n0}, "
+            f"then {VLM_CPU_STEPS} decode steps): {st['gemms']} GEMM "
+            f"outputs bit for bit, {st['tensors']} tensors (GEMM inputs, "
+            f"logits, caches) within {st['worst']:.3e} of their largest "
+            f"magnitude (limit {CARD_CPU_RTOL})")
+
+
+def vlm_per_generate(cfg, fmt: str, times: dict, m: int = PREFILL_M,
+                     steps: int = GEN - 1) -> dict:
+    """One generate's worth of each GEMM kernel on qwen2-vl's path, from
+    phase 12's per-launch times: per layer q, k, v, o and the MLP's
+    gate, up and down, one tile launch each at the prefill's M = m and
+    one small-M launch each per decode step, and the head's small-M
+    launch per token (steps + 1).  {kernel: (launches, ms, bound_ms)}."""
+    name = _gemm_name(fmt)
+    per = 2 if fmt == "w4a8" else 1
+    d, layers = cfg.d_model, cfg.n_layers
+    rows = [(d, cfg.q_dim, 1), (d, cfg.kv_dim, 2), (cfg.q_dim, d, 1),
+            (d, cfg.d_ff, 2), (cfg.d_ff, d, 1)]
+    out = {}
+
+    def add(kname, mm, k, n, count):
+        t = times[(kname, VLM_ARCH, mm)][(k, n)] / 1e3
+        b, _ = bound_ms(mm, k, n, k * n // per)
+        c, ms, bd = out.get(kname, (0, 0.0, 0.0))
+        out[kname] = (c + count, ms + t * count, bd + b * count)
+
+    for k, n, count in rows:
+        add(name, m, k, n, count * layers)
+        add(f"{name}_small_m", DECODE_M, k, n, count * layers * steps)
+    add(f"{name}_small_m", DECODE_M, d, cfg.vocab, steps + 1)
+    return out
+
+
+def vlm_image_traffic(cfg, fmt: str, params, gen, tag: str) -> dict:
+    """qwen2-vl's image traffic: B=BATCH rows of an image prompt
+    (`image_embeds`, IMG_PROMPT stub embeddings with their
+    `image_positions`) through `lm.prefill`, then GEN-1 steps of the
+    captured decode step from that cache.  Gates: the prefill's
+    per_fwd tile launches (M = B * IMG_PROMPT) and the head's one
+    small-M launch, nothing else; explicit equal 3-row positions give
+    the logits of positions=None bit for bit, and the image's positions
+    move them; the captured step (one new capture, for the wider cache)
+    equals the per-step loop on the same cache in tokens and logits, bit
+    for bit, all finite.  Returns what the caller logs."""
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    name = _gemm_name(fmt)
+    cache_len = IMG_PROMPT + GEN
+    emb = image_embeds(params, cfg, gen, BATCH, IMG_BEFORE, IMG_GRID,
+                       IMG_AFTER)
+    pos = image_positions(BATCH, IMG_BEFORE, IMG_GRID, IMG_AFTER, "cuda")
+    counters = {c.name: c for c in registry.LAUNCH_COUNTERS}
+    want = {k: 0 for k in counters}
+    want[name] = gemms_per_forward(cfg) + 1     # the head: M = B, small-M
+    want[f"{name}_small_m"] = 1
+
+    def prefill(positions):
+        before = {k: c.count for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm.prefill(params, emb, cfg, cache_len=cache_len,
+                         positions=positions)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: c.count - before[k] for k, c in counters.items()}
+        if counts != want:
+            raise AssertionError(f"{tag} image prefill: kernel launches "
+                                 f"{counts}, expected {want}")
+        return out, ms
+
+    (logits, kv), ms_img = prefill(pos)
+    out, ms_none = prefill(None)
+    lg_none = out[0]
+    out, ms_eq = prefill(torch.arange(
+        IMG_PROMPT, device="cuda").expand(3, BATCH, IMG_PROMPT))
+    lg_eq = out[0]
+    del out                     # its cache
+    if not torch.equal(lg_eq, lg_none):
+        raise AssertionError(f"{tag}: explicit equal position rows differ "
+                             "from the default positions")
+    moved = (logits - lg_none).abs().max().item()
+    if not moved > 0 or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: the image positions moved the logits "
+                             f"by {moved}")
+    del lg_none, lg_eq
+    tok = logits[:, -1].argmax(dim=-1)[:, None]
+    bundle = serve._decode_bundle(cfg, "off", "cuda")
+    captures = bundle.captures
+    t0 = time.perf_counter()
+    step = bundle.captured(params, BATCH, cache_len, True, GEN - 1,
+                           torch.device("cuda"))
+    capture_s = time.perf_counter() - t0
+    if bundle.captures != captures + 1:
+        raise AssertionError(f"{tag}: the image cache did not capture anew")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks_c, seen_c = step.run(tok, kv, IMG_PROMPT, GEN - 1)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / (GEN - 1)
+    t, toks_s, seen_s = tok, [], []
+    t0 = time.perf_counter()
+    for i in range(GEN - 1):
+        lg, _ = bundle.decode(params, t, kv, torch.full(
+            (BATCH,), IMG_PROMPT + i, dtype=torch.int64, device="cuda"))
+        t = lg[:, -1].argmax(dim=-1)[:, None]
+        toks_s.append(t)
+        seen_s.append(lg[:, -1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (GEN - 1)
+    toks_s = torch.cat(toks_s, dim=1).to(torch.int32)
+    seen_s = torch.stack(seen_s, dim=1)
+    if not torch.equal(toks_c, toks_s) or not torch.equal(seen_c, seen_s):
+        raise AssertionError(
+            f"{tag} image traffic: the captured step differs from the "
+            f"per-step loop (tokens equal: {torch.equal(toks_c, toks_s)}, "
+            f"max logit diff {(seen_c - seen_s).abs().max().item()})")
+    if not bool(torch.isfinite(seen_c).all()) or \
+            not bool(((toks_c >= 0) & (toks_c < cfg.vocab)).all()):
+        raise AssertionError(f"{tag} image traffic: bad tokens or logits")
+    del kv, step
+    return dict(prefill_ms=ms_img, prefill_ms_all=(ms_img, ms_none, ms_eq),
+                moved=moved, replay_ms=replay_ms, step_ms=step_ms,
+                capture_s=capture_s, toks=toks_c, tile=want[name] - 1)
+
+
+def phase_vlm() -> tuple:
+    """Phase 12: the vlm family.  Reduced qwen2-vl on the card against its
+    CPU run on an image prompt, teacher-forced (`vlm_reduced_vs_cpu`);
+    both GEMM kernels bit for bit at qwen2-vl-72b's five (K, N), (8192,
+    8192), (8192, 1024), (8192, 29568), (29568, 8192) and the head
+    (8192, 152064), at M = 8, 1024 and 3072 (the image prompt's 8 x
+    384), each timed beside its bound with its w-load path
+    (`phase_wide_gemms`).  Then qwen2-vl-72b served at full width (80
+    layers, d 8192, 64 heads over 8 KV heads, d_ff 29568, untied vocab
+    152064, q/k/v biases drawn nonzero; nothing cut; random weights from
+    seed 0 built a [K, N] matrix at a time by `serve.build_params`, the
+    w4a8 tree freed before the w8a8 one is built), under w4a8 and w8a8:
+    token traffic (B=8, prompt 128, 32 new tokens, greedy; the three
+    position rows equal, as the reference's `generate` serves tokens)
+    through `_serve_gates` (fused == per-step == plain-forced, bit for
+    bit; 560 tile launches per prefill, 561 small-M per replayed step;
+    one capture), --silvia all == off in tokens, the profiles of a
+    replayed step and a prefill, rows 1-2's time per generate beside
+    their bounds, decode ms/step beside the byte bound (weights and the
+    KV read); then image traffic (`vlm_image_traffic`).  Build time,
+    resident memory and each stage's peak are logged.  Returns ({GEMM
+    counter: {path: launches}}, {path: {GEMM counter: launches, ms and
+    bound_ms per generate}})."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(VLM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    t0 = time.perf_counter()
+    vlm_reduced_vs_cpu(gen)
+    log(f"reduced {VLM_ARCH} against the CPU: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m_img = BATCH * IMG_PROMPT
+    times = phase_wide_gemms(torch, archs=(VLM_ARCH,),
+                             prefill_m=(PREFILL_M, m_img))
+    log(f"{VLM_ARCH} GEMM gates: {time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                            device="cuda")
+    per_fwd = gemms_per_forward(cfg)
+    launches, per_generate = {}, {}
+    for fmt in ("w4a8", "w8a8"):
+        tag = f"{VLM_ARCH} {fmt}"
+        name = _gemm_name(fmt)
+        gib = lambda n: n / 2 ** 30
+        peaks = []
+
+        def stage(what):
+            torch.cuda.synchronize()
+            peak = gib(torch.cuda.max_memory_allocated())
+            peaks.append(f"{what} {peak:.2f}")
+            torch.cuda.reset_peak_memory_stats()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        params = serve.build_params(cfg, fmt, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t1
+        resident = torch.cuda.memory_allocated() - base
+        stage("build")
+        attn, mlp = params["blocks"]["attn"], params["blocks"]["mlp"]
+        if params["lm_head"].fmt != fmt or \
+                any(attn[k].fmt != fmt for k in ("wq", "wk", "wv", "wo")) or \
+                any(mlp[k].fmt != fmt for k in mlp) or \
+                params["embed"].dtype != torch.bfloat16 or \
+                attn["bq"].dtype != torch.bfloat16:
+            raise AssertionError(f"{tag}: the quantized tree is not the "
+                                 "serving tree")
+        _nonzero_biases(params, gen)
+        log(f"{tag}: built and quantized a matrix at a time in {t_build:.1f} "
+            f"s; resident {gib(resident):.2f} GiB above the card's "
+            f"{gib(base):.2f} GiB before, of "
+            f"{gib(torch.cuda.mem_get_info()[1]):.2f} GiB")
+        r = _serve_gates(cfg, fmt, params, prompts, tag)
+        stage("token gates")
+        launched = r["launched"]
+        small = launched[f"{name}_small_m"]
+        tile = launched[name] - small
+        per_step = (small - 1) / (GEN - 1)   # the prefill's head: one
+        if tile != per_fwd or per_step != per_fwd + 1:
+            raise AssertionError(f"{tag}: {tile} tile launches per prefill, "
+                                 f"{per_step} small-M per replayed step, "
+                                 f"expected {per_fwd} and {per_fwd + 1}")
+        for kname, c in ((name, tile), (f"{name}_small_m", small)):
+            launches.setdefault(kname, {})[tag] = c
+        state = r["captured"].cache
+        want = lm.init_cache(cfg, BATCH, PROMPT + GEN, device="meta")
+        if {k: (t.dtype, tuple(t.shape)) for k, t in state.items()} != \
+                {k: (t.dtype, tuple(t.shape)) for k, t in want.items()}:
+            raise AssertionError(f"{tag}: the captured step's buffers are "
+                                 f"{ {k: t.shape for k, t in state.items()} }")
+        del state
+        first_a = _timed_generate(serve, params, prompts, cfg,
+                                  silvia_passes="all")[3]
+        toks_a, logits_a, _, silvia_s = _timed_generate(
+            serve, params, prompts, cfg, silvia_passes="all")
+        if not torch.equal(toks_a, r["toks"]):
+            raise AssertionError(f"{tag}: --silvia all tokens differ from off")
+        same = "identical" if torch.equal(logits_a, r["logits"]) \
+            else "DIFFER"
+        log(f"{tag} --silvia all: tokens identical to off, logits {same}"
+            f"; first call (trace + capture) {first_a * 1e3:.1f} ms, fused "
+            f"decode {(silvia_s - r['prefill_s']) / (GEN - 1) * 1e3:.2f} "
+            f"ms/step (off: {r['fused_ms']:.2f}); passes "
+            f"{serve.get_decode_step(cfg, 'all').cache_info()}")
+        del toks_a, logits_a
+        serve.decode_cache_clear()        # the --silvia bundle's graph
+        stage("--silvia all")
+        per_gen = vlm_per_generate(cfg, fmt, times)
+        for k, (c, _, _) in per_gen.items():     # the profiled launches
+            seen = launched[k] if k.endswith("_small_m") else \
+                launched[k] - launched[f"{k}_small_m"]
+            if c != seen:
+                raise AssertionError(f"{tag}: {k} launched {seen} times, "
+                                     f"the per-generate sum counts {c}")
+        sm = per_gen[f"{name}_small_m"]
+        replay_profile(torch, r["captured"], params, cfg, prompts,
+                       PROMPT + GEN, tag, sm[1] * 1e3 / sm[0])
+        prefill_profile(torch, params, cfg, prompts, PROMPT + GEN, tag)
+        w_bytes = step_weight_bytes(cfg, fmt)
+        s_bytes = step_state_bytes(cfg)
+        b_w = w_bytes / HBM_BYTES_PER_S * 1e3
+        b_ws = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
+        log(f"{tag}: {per_step:.0f} small-M launches per replayed decode "
+            f"step (profiled), {tile} tile launches per prefill; prefill "
+            f"{r['prefill_ms']:.1f} ms; GEMM kernels per generate "
+            "(per-launch times x launches, phase 12's gates): "
+            + "; ".join(f"{k} {c} launches {ms:.3f} ms (bound {bd:.3f})"
+                        for k, (c, ms, bd) in per_gen.items())
+            + f"; decode bound {b_ws:.3f} ms/step ({w_bytes / 1e9:.3f} GB "
+            f"of weights + {s_bytes / 1e9:.3f} GB of KV read at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; weights alone "
+            f"{b_w:.3f}): fused {r['fused_ms']:.2f} ms/step, "
+            f"{100 * b_ws / r['fused_ms']:.1f}% of it; replays alone "
+            f"{r['replay_ms']:.2f}; per-step loop {r['step_ms']:.2f}; "
+            f"{time.perf_counter() - t1:.1f} s")
+        per_generate[tag] = {k: dict(launches=c, ms=ms, bound_ms=bd)
+                             for k, (c, ms, bd) in per_gen.items()}
+        del r
+        serve.decode_cache_clear()
+        torch.cuda.empty_cache()
+        stage("profiles")
+        t2 = time.perf_counter()
+        img = vlm_image_traffic(cfg, fmt, params, gen, tag)
+        stage("image traffic")
+        launches.setdefault(name, {})[f"{tag} image prefill"] = img["tile"]
+        img_gen = vlm_per_generate(cfg, fmt, times, m=m_img, steps=0)[name]
+        log(f"{tag} image traffic (B={BATCH}, {IMG_BEFORE} text tokens, a "
+            f"{IMG_GRID[0]} x {IMG_GRID[1]} image, {IMG_AFTER} text tokens: "
+            f"{IMG_PROMPT} stub embeddings, then {GEN - 1} decode steps): "
+            f"{img['tile']} tile launches per prefill at M = {m_img} "
+            f"({img_gen[1]:.3f} ms of tile per prefill, bound "
+            f"{img_gen[2]:.3f}); prefill {img['prefill_ms']:.1f} ms (the "
+            f"three runs "
+            f"{', '.join(f'{x:.1f}' for x in img['prefill_ms_all'])}); "
+            f"equal rows == default positions bit for bit, the image "
+            f"positions move the logits by up to {img['moved']:.4g}; "
+            f"captured step (capture {img['capture_s'] * 1e3:.1f} ms) == "
+            f"per-step loop bit for bit: replays {img['replay_ms']:.2f} "
+            f"ms/step, per-step loop {img['step_ms']:.2f} ms/step; sample "
+            f"tokens {img['toks'][0, :8].tolist()}; "
+            f"{time.perf_counter() - t2:.1f} s")
+        log(f"{tag}: allocated GiB, each stage's peak (max_memory_allocated"
+            f"): {'; '.join(peaks)}")
+        del params, attn, mlp, img
+        serve.decode_cache_clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return launches, per_generate
+
+
 def _small_m_back_to_back_us(res: dict) -> float:
     """The small-M kernel's mean time per decode launch, back to back
     (phase_kernels' CUDA-event timing, L2 spilled), weighted as one
@@ -3099,14 +3533,11 @@ def _profiled(torch, run, steps: int):
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    # device-side kernel events only: a host op's own entry repeats the
-    # device time of the kernels it launched
-    events = sorted((e for e in registry.window_events(prof) if dev(e) > 0),
-                    key=dev, reverse=True)
-    rows = [(e.key, dev(e) / 1e3 / steps, e.count / steps,
-             dev(e) / e.count) for e in events]
+    events = sorted((e for e in registry.window_events(prof)
+                     if e.device_time_us > 0),
+                    key=lambda e: e.device_time_us, reverse=True)
+    rows = [(e.key, e.device_time_us / 1e3 / steps, e.count / steps,
+             e.device_time_us / e.count) for e in events]
     return wall_ms, sum(r[1] for r in rows), rows
 
 
@@ -3256,7 +3687,8 @@ def main() -> int:
                          phase_ssm)
     hyb, hyb_gen = phase("hybrid: jamba-v0.1-52b", phase_hybrid)
     enc, enc_gen = phase("encoder-decoder: whisper-small", phase_encdec)
-    for paths_of in (moe, ssm, hyb, enc):
+    vlm, vlm_gen = phase("vlm: qwen2-vl-72b", phase_vlm)
+    for paths_of in (moe, ssm, hyb, enc, vlm):
         for k, paths in paths_of.items():
             other.setdefault(k, {}).update(paths)
     for e in entries:
@@ -3265,7 +3697,8 @@ def main() -> int:
         for key, gens in (("moe_path_per_generate", per_gen),
                           ("ssm_path_per_generate", ssm_gen),
                           ("hybrid_path_per_generate", hyb_gen),
-                          ("encdec_path_per_generate", enc_gen)):
+                          ("encdec_path_per_generate", enc_gen),
+                          ("vlm_path_per_generate", vlm_gen)):
             path = {tag: rows[e["name"]] for tag, rows in gens.items()
                     if e["name"] in rows}
             if path:

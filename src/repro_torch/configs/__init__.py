@@ -12,6 +12,8 @@ ARCHS = [
     "qwen1.5-0.5b",
     "yi-6b",
     "command-r-35b",
+    # the vlm family runs the dense block (M-RoPE, stub patch embeddings)
+    "qwen2-vl-72b",
     "granite-moe-1b-a400m",
     "arctic-480b",
     "mamba2-2.7b",

@@ -144,7 +144,9 @@ class LaunchCounter:
     wrapper's counter has one).  `last` holds the attrs of the latest
     launch (for a GEMM, the load paths it chose).  Inside
     `capture()` it also records each launch's operands, to replay the
-    kernel at the shapes a run gave it."""
+    kernel at the shapes a run gave it (or, given `keep`, only what
+    keep(operands, attrs) returns: a record that must not hold a
+    prefill's activations alive)."""
 
     def __init__(self, name: str, symbol: str | None = None):
         self.name = name
@@ -152,6 +154,7 @@ class LaunchCounter:
         self.count = 0
         self.last: dict = {}
         self.captured: list | None = None
+        self._keep = None
 
     def reset(self) -> None:
         self.count = 0
@@ -160,16 +163,18 @@ class LaunchCounter:
         self.count += 1
         self.last = attrs
         if self.captured is not None:
-            self.captured.append((operands, attrs))
+            self.captured.append((operands, attrs) if self._keep is None
+                                 else self._keep(operands, attrs))
 
     @contextlib.contextmanager
-    def capture(self):
-        """Record (operands, attrs) of every launch inside the block."""
-        self.captured = []
+    def capture(self, keep=None):
+        """Record (operands, attrs) of every launch inside the block, or
+        keep(operands, attrs) of each."""
+        self.captured, self._keep = [], keep
         try:
             yield self.captured
         finally:
-            self.captured = None
+            self.captured, self._keep = None, None
 
 
 def tracing(t) -> bool:

@@ -29,7 +29,12 @@ exact as above), and the dequantization keeps its operation order.  A
 stack whose float64 weight copy would pass PLAIN_EXPERT_BYTES is
 multiplied one expert at a time (the same exact sums, so the same
 bits): a full-width jamba expert stack is 0.94 GB of int8, 7.5 GB as
-float64.
+float64.  A 2-D weight past it is multiplied in column slices into one
+preallocated int32 [M, N] result (each output column's sum is its own,
+so the slices give the same bits, wrap included); a packed weight is
+cut on word boundaries, an even number of logical columns, and each
+slice unpacked alone: qwen2-vl-72b's [8192, 152064] head is 1.25 GB of
+int8, 9.97 GB as float64.
 """
 from __future__ import annotations
 
@@ -91,7 +96,7 @@ def mul4_ref(a: Sequence, b):
 # ---------------------------------------------------------------------------
 
 # the float64 weight copy above which a stack is multiplied an expert at
-# a time
+# a time, and a 2-D weight in column slices
 PLAIN_EXPERT_BYTES = 1 << 30
 
 
@@ -107,14 +112,35 @@ def _per_expert(fn, a, b):
     return out
 
 
+def _by_columns(fn, a, b, per: int):
+    """fn(a, b) for a [M, K] and a 2-D b whose float64 copy (of `per`
+    logical columns per stored column) would pass PLAIN_EXPERT_BYTES:
+    fn over slices of b's stored columns, each slice's float64 copy at
+    most that size, into one int32 [M, per * b.shape[1]] result."""
+    k, n = b.shape
+    step = max(1, PLAIN_EXPERT_BYTES // (8 * per * k))
+    out = torch.empty((a.shape[0], per * n), dtype=torch.int32,
+                      device=a.device)
+    for c in range(0, n, step):
+        out[:, per * c:per * (c + step)] = fn(a, b[:, c:c + step])
+    return out
+
+
+def _f64_matmul(a, b):
+    exact = a.to(torch.float64) @ b.to(torch.float64)
+    return exact.to(torch.int64).to(torch.int32)
+
+
 def _exact_int_matmul(a, b):
     """int32 [..., M,K] @ [..., K,N] of int8-valued operands, summed
     exactly and wrapped to int32 as the reference's accumulator is (see
     module docstring for the float64 bound)."""
-    if a.ndim == 3 and 8 * b.numel() > PLAIN_EXPERT_BYTES:
-        return _per_expert(_exact_int_matmul, a, b)
-    exact = a.to(torch.float64) @ b.to(torch.float64)
-    return exact.to(torch.int64).to(torch.int32)
+    if 8 * b.numel() > PLAIN_EXPERT_BYTES:
+        if a.ndim == 3:
+            return _per_expert(_exact_int_matmul, a, b)
+        if a.ndim == 2 and b.ndim == 2:
+            return _by_columns(_f64_matmul, a, b, 1)
+    return _f64_matmul(a, b)
 
 
 def _dequant(acc, x_scale, w_scale, out_dtype):
@@ -150,9 +176,14 @@ def _unpack_words(w_packed):
 def packed_w4_matmul_acc_ref(x_q, w_packed):
     """int8 x_q [M,K] @ packed int4 w [K, N//2] -> exact int32 [M,N] (or
     [E,M,K] @ [E,K,N//2] -> [E,M,N]; a large stack unpacked an expert at
-    a time too)."""
-    if x_q.ndim == 3 and 16 * w_packed.numel() > PLAIN_EXPERT_BYTES:
-        return _per_expert(packed_w4_matmul_acc_ref, x_q, w_packed)
+    a time too, a large 2-D weight a slice of words at a time)."""
+    if 16 * w_packed.numel() > PLAIN_EXPERT_BYTES:
+        if x_q.ndim == 3:
+            return _per_expert(packed_w4_matmul_acc_ref, x_q, w_packed)
+        if x_q.ndim == 2 and w_packed.ndim == 2:
+            return _by_columns(
+                lambda a, w: _f64_matmul(a, _unpack_words(w)), x_q,
+                w_packed, 2)
     return _exact_int_matmul(x_q, _unpack_words(w_packed))
 
 

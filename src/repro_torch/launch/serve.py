@@ -8,8 +8,13 @@ cache and the CLI):
         [--silvia {off,add,muladd,all}] [--no-fused-decode]
 
 `--arch` takes the dense family (smollm-135m, qwen1.5-0.5b, yi-6b,
-command-r-35b), the MoE family (granite-moe-1b-a400m, arctic-480b;
-each expert-stacked weight is one GEMM launch, and the per-token routing
+command-r-35b), the vlm family (qwen2-vl-72b: the dense block with
+M-RoPE; from tokens its three position rows are equal, as the
+reference's `generate` serves it; an image prompt, the vision
+frontend's patch embeddings with their [3, B, S] positions, goes
+through `lm.prefill` and then the decode step), the MoE family
+(granite-moe-1b-a400m, arctic-480b; each expert-stacked weight is one
+GEMM launch, and the per-token routing
 runs inside the captured decode step), the SSM family (mamba2-2.7b:
 two GEMMs per layer, in_proj and out_proj; its recurrent state takes the
 KV cache's place, a static buffer of the captured step updated in

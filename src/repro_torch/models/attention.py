@@ -7,7 +7,11 @@ the decode path `attn_decode` with the `active` slot mask, over a bf16
 or an int8 KV cache, with the optional q/k/v biases (`qkv_bias`), and
 the cross-attention `attn_cross` (decoder over the encoder's memory,
 masked by the rows' encoder lengths).  With cfg.learned_pos (whisper)
-no rotary embedding is applied.
+no rotary embedding is applied; with cfg.m_rope_sections (qwen2-vl)
+the prefill's positions are [3, B, S] (temporal, height, width): each
+row rotates its section of the frequencies, and the causal mask reads
+the temporal row alone, as the reference's does, so the patches of one
+image (one temporal position) attend to each other both ways.
 Written as plain PyTorch mirroring the reference's numerics -- scores
 and softmax in float32, masks at -1e30, weights cast to v's dtype --
 with no fused SDPA.
@@ -109,13 +113,14 @@ def _valid(lengths, t: int, device):
     return torch.arange(t, device=device)[None, :] < lengths[:, None]
 
 
-def _attn_chunked(q, k, v, positions, cfg: ModelConfig, q_chunk: int):
+def _attn_chunked(q, k, v, srcpos, cfg: ModelConfig, q_chunk: int):
     """Causal attention with the query dim cut in chunks of q_chunk: only
     a [B, KV, G, q_chunk, T] score block is live at a time (the
-    reference scans over the chunks; a Python loop here)."""
+    reference scans over the chunks; a Python loop here).  srcpos: the
+    [B, S] positions the mask compares (M-RoPE: the temporal row)."""
     return torch.cat([
         _attend(q[:, c:c + q_chunk], k, v, cfg, v.dtype,
-                positions[:, c:c + q_chunk], positions)
+                srcpos[:, c:c + q_chunk], srcpos)
         for c in range(0, q.shape[1], q_chunk)], dim=1)
 
 
@@ -123,8 +128,11 @@ def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None,
               causal: bool = True, kv_lengths=None):
     """Self-attention over the full sequence (prefill; the encoder).
 
-    positions: [B,S] int (default arange).  cache: optional layer cache
-    (`init_cache`); the sequence's keys and values are written into its
+    positions: [B,S] int, or [3,B,S] under cfg.m_rope_sections (the
+    causal mask then reads positions[0], the temporal row, as the
+    reference's does); default arange (on every row).  cache: optional
+    layer cache (`init_cache`); the sequence's keys and values are
+    written into its
     first S positions in place.  The sequence attends over its own
     unquantized keys and values: only what goes into an int8 cache is
     quantized.  causal=False with kv_lengths [B] (the encoder's real
@@ -135,19 +143,23 @@ def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None,
     reference's (which then ignores kv_lengths).  Returns [B,S,d]."""
     b, s, _ = x.shape
     if positions is None:
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = torch.arange(s, device=x.device).expand(
+            (b, s) if cfg.m_rope_sections is None else (3, b, s))
     q = _project_q(p, x, cfg)
     k, v = _project_kv(p, x, cfg)
     if not cfg.learned_pos:     # whisper-style models: absolute embeddings
-        q = common.apply_rope(q, positions, cfg.rope_theta)
-        k = common.apply_rope(k, positions, cfg.rope_theta)
+        q = common.apply_rope(q, positions, cfg.rope_theta,
+                              cfg.m_rope_sections)
+        k = common.apply_rope(k, positions, cfg.rope_theta,
+                              cfg.m_rope_sections)
+    srcpos = positions if positions.ndim == 2 else positions[0]
     chunk = cfg.attn_q_chunk
     if chunk and causal and s > chunk and s % chunk == 0:
-        o = _attn_chunked(q, k, v, positions, cfg, chunk)
+        o = _attn_chunked(q, k, v, srcpos, cfg, chunk)
     else:
         valid = None if kv_lengths is None else \
             _valid(kv_lengths, s, x.device)
-        qpos, kpos = (positions, positions) if causal else (None, None)
+        qpos, kpos = (srcpos, srcpos) if causal else (None, None)
         o = _attend(q, k, v, cfg, x.dtype, qpos, kpos, valid)
     out = qmatmul(o, p["wo"])
     if cache is not None:
@@ -191,15 +203,19 @@ def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
     attends causally to positions <= pos[b]+c.  An int8 cache takes the
     new rows quantized, scales too, and is then dequantized whole for
     the attention: a token attends over its own dequantized key, as in
-    the reference.  Returns [B, C, d]."""
+    the reference.  Under cfg.m_rope_sections the rotation takes the
+    cache position on all three rows, as the reference's decode does.
+    Returns [B, C, d]."""
     b, c = x_t.shape[:2]
     qpos = pos[:, None] + torch.arange(c, device=pos.device,
                                        dtype=pos.dtype)          # [B,C]
+    posq = qpos if cfg.m_rope_sections is None else qpos.expand(3, b, c)
     q = _project_q(p, x_t, cfg)
     k_t, v_t = _project_kv(p, x_t, cfg)
     if not cfg.learned_pos:
-        q = common.apply_rope(q, qpos, cfg.rope_theta)
-        k_t = common.apply_rope(k_t, qpos, cfg.rope_theta)
+        q = common.apply_rope(q, posq, cfg.rope_theta, cfg.m_rope_sections)
+        k_t = common.apply_rope(k_t, posq, cfg.rope_theta,
+                                cfg.m_rope_sections)
     rows = torch.arange(b, device=x_t.device)
     if active is not None:
         rows = rows[active]

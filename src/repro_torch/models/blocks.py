@@ -1,11 +1,11 @@
 """Residual blocks (port of `repro/models/blocks.py`): the dense unit
-(pre-norm attention + pre-norm MLP), the moe unit (pre-norm attention
-+ MoE, with arctic's parallel dense FFN, the "dense residual"), the
-ssm unit (pre-norm Mamba2 SSD mixer, no MLP), the hybrid unit
-(jamba's super-block: `period` layers of mixer + FFN), and whisper's
-encoder and decoder units (`enc_block`: bidirectional self-attention +
-GELU MLP; `dec_block`: causal self-attention, cross-attention over the
-encoder's memory, GELU MLP).
+(pre-norm attention + pre-norm MLP; also the vlm family's), the moe
+unit (pre-norm attention + MoE, with arctic's parallel dense FFN, the
+"dense residual"), the ssm unit (pre-norm Mamba2 SSD mixer, no MLP),
+the hybrid unit (jamba's super-block: `period` layers of mixer + FFN),
+and whisper's encoder and decoder units (`enc_block`: bidirectional
+self-attention + GELU MLP; `dec_block`: causal self-attention,
+cross-attention over the encoder's memory, GELU MLP).
 
 `BLOCK_FNS` maps a family to the block its prefill and decode run over
 the cache, as the reference's `repro/models/lm.py:25` does (encdec: the
@@ -199,5 +199,6 @@ def dec_block(p, x, cfg: ModelConfig, *, memory=None, mode="prefill",
     return x + mlp.mlp(p["mlp"], _norm(cfg, x, p["ln3"]), cfg)
 
 
-BLOCK_FNS = {"dense": dense_block, "moe": moe_block, "ssm": ssm_block,
-             "hybrid": hybrid_block, "encdec": dec_block}
+# vlm (qwen2-vl) runs the dense unit: its M-RoPE lives in the attention
+BLOCK_FNS = {"dense": dense_block, "vlm": dense_block, "moe": moe_block,
+             "ssm": ssm_block, "hybrid": hybrid_block, "encdec": dec_block}

@@ -1,7 +1,7 @@
 """Shared model components: RMSNorm, LayerNorm and rotary embeddings.
 
-Port of `repro/models/common.py` (standard RoPE only; M-RoPE arrives
-with the family that uses it).
+Port of `repro/models/common.py`: standard RoPE, and qwen2-vl's M-RoPE
+(`m_rope_sections`) over 3-row positions.
 """
 from __future__ import annotations
 
@@ -61,12 +61,33 @@ def _freqs_on(head_dim: int, theta: float, device: torch.device):
     return t
 
 
-def apply_rope(x, positions, theta: float = 10000.0):
-    """x: [B, S, H, D]; positions: [B, S].  Half-split (not interleaved)
-    rotation in float32, cast back to x's dtype."""
+def apply_rope(x, positions, theta: float = 10000.0,
+               m_rope_sections=None):
+    """x: [B, S, H, D]; positions: [B, S] (standard), or [3, B, S] under
+    m_rope_sections (M-RoPE: the temporal, height and width position
+    rows of qwen2-vl).  Half-split (not interleaved) rotation in float32,
+    cast back to x's dtype.
+
+    M-RoPE splits the D/2 frequency slots into three contiguous
+    sections, each section's angles from its own row of positions, as
+    the reference computes them (each row cast to float32 times its
+    slice of the float32 frequencies, then concatenated): three equal
+    rows give standard RoPE's angles, bit for bit."""
     d = x.shape[-1]
     freqs = _freqs_on(d, theta, x.device)                          # [D/2]
-    ang = positions[..., None].to(torch.float32) * freqs           # [B,S,D/2]
+    if m_rope_sections is None:
+        ang = positions[..., None].to(torch.float32) * freqs       # [B,S,D/2]
+    else:
+        if sum(m_rope_sections) != d // 2 or positions.shape[0] != 3:
+            raise ValueError(f"M-RoPE sections {m_rope_sections} over D/2 = "
+                             f"{d // 2}, positions {tuple(positions.shape)}"
+                             " (want [3, B, S])")
+        parts, off = [], 0
+        for row, n in zip(positions, m_rope_sections):
+            parts.append(row[..., None].to(torch.float32)
+                         * freqs[off:off + n])
+            off += n
+        ang = torch.cat(parts, dim=-1)                             # [B,S,D/2]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

@@ -2,12 +2,12 @@
 
 The port keeps its own copy: it imports nothing of `repro`.  Only the
 fields and derived widths the ported families (dense, moe, ssm, hybrid,
-encdec) use are carried.
+encdec, vlm) use are carried.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +55,7 @@ class HybridConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                # dense | moe | ssm | hybrid | encdec (ported)
+    family: str                # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -65,6 +65,8 @@ class ModelConfig:
     d_head: Optional[int] = None
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    # m_rope: 3-section multimodal rotary (qwen2-vl); None = standard RoPE
+    m_rope_sections: Optional[Tuple[int, int, int]] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
@@ -76,7 +78,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     # modality frontend stub: inputs arrive as precomputed embeddings
-    frontend: Optional[str] = None     # None | "audio" (whisper)
+    frontend: Optional[str] = None     # None | "audio" | "vision"
     dtype: str = "bfloat16"
     # serving quantization format for decode/prefill cells
     serve_fmt: str = "w8a8"            # bf16 | w8a8 | w4a8
@@ -107,9 +109,11 @@ class ModelConfig:
         a mixer on each of the others and every layer's MLP (no final
         norm), or for encdec the encoder's attention and GELU MLP (up and
         down) per layer and the decoder's self and cross attention and
-        MLP per decoder layer (learned positions not counted).  Used for
-        byte bounds."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
+        MLP per decoder layer (learned positions not counted); vlm counts
+        as dense (its vision frontend is a stub).  Used for byte
+        bounds."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec",
+                               "vlm"):
             raise NotImplementedError(
                 f"param_count: family {self.family!r} is not ported yet")
         d = self.d_model

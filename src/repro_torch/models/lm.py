@@ -1,5 +1,5 @@
 """Top-level language model: init / prefill / decode for the dense, moe,
-ssm, hybrid and encdec families.
+ssm, hybrid, encdec and vlm families.
 
 Port of `repro/models/lm.py`.  The reference stacks layer params on a
 leading axis and runs the stack under `jax.lax.scan`; the port keeps the
@@ -19,9 +19,13 @@ encoder over precomputed frame embeddings (`encode`), then the decoder,
 whose flat cache holds each layer's self-attention KV {k, v: [Ld, B,
 S_max, KV, D]} and the cross K/V of the encoder's memory {cross_k,
 cross_v: [Ld, B, S_enc, KV, D], cross_len: [Ld, B] int32} (the
-reference nests them as {"self": {k, v}, "cross": {k, v, len}}).  Each
-unit runs the block of its family (`blocks.BLOCK_FNS`, as the
-reference's `BLOCK_FNS`).
+reference nests them as {"self": {k, v}, "cross": {k, v, len}}).  The
+vlm family (qwen2-vl) is the dense family with M-RoPE: its tree and
+cache are the dense ones, its prefill takes token ids or the vision
+frontend's precomputed patch embeddings [B, S, d] (the frontend is a
+stub, as in the reference) with [3, B, S] positions.  Each unit runs
+the block of its family (`blocks.BLOCK_FNS`, as the reference's
+`BLOCK_FNS`).
 """
 from __future__ import annotations
 
@@ -232,8 +236,12 @@ def _lm_head(p, x, cfg: ModelConfig):
     return qmatmul(x, w).to(torch.float32)
 
 
-def _embed(p, tokens, cfg: ModelConfig):
-    return p["embed"][tokens.long()]
+def _embed(p, tokens_or_embeds, cfg: ModelConfig):
+    """Token ids [B, S] looked up in the embedding, or a frontend stub's
+    precomputed embeddings [B, S, d] (float) cast to cfg.dtype."""
+    if tokens_or_embeds.is_floating_point():
+        return tokens_or_embeds.to(getattr(torch, cfg.dtype))
+    return p["embed"][tokens_or_embeds.long()]
 
 
 # ---------------------------------------------------------------------------
@@ -288,8 +296,11 @@ def prefill(params, inputs, cfg: ModelConfig, cache_len: int,
             enc_pad=None):
     """Run the prompt, return (last-position logits [B,1,V] f32, cache).
 
-    inputs: [B,S] int tokens; for encdec (features [B,S_enc,d],
+    inputs: [B,S] int tokens, or [B,S,d] float stub embeddings (the vlm
+    family's image prompts); for encdec (features [B,S_enc,d],
     dec_tokens [B,S]), with enc_lengths / enc_pad (`encdec_prefill`).
+    positions: [B,S], or [3,B,S] under cfg.m_rope_sections (default:
+    arange, the same on all three rows there).
     last_positions: optional [B] int -- per-row index of the last REAL
     prompt token (right-padded ragged batches).  Default: the final
     column.  Every block gets the rows' real lengths (S, or
@@ -303,6 +314,8 @@ def prefill(params, inputs, cfg: ModelConfig, cache_len: int,
                               enc_lengths=enc_lengths, enc_pad=enc_pad)
     x = _embed(params, inputs, cfg)
     b, s = x.shape[:2]
+    if cfg.m_rope_sections is not None and positions is None:
+        positions = torch.arange(s, device=x.device).expand(3, b, s)
     if last_positions is None:
         lengths = torch.full((b,), s, dtype=torch.int64, device=x.device)
     else:
@@ -317,9 +330,9 @@ def prefill(params, inputs, cfg: ModelConfig, cache_len: int,
 
 
 def decode_step(params, token_t, cache, pos, cfg: ModelConfig, active=None):
-    """token_t: [B,C] int; pos: [B] int position of the first new token per
-    row; active: optional [B] bool slot mask -- inactive rows compute but
-    do not write their cache.
+    """token_t: [B,C] int (or [B,C,d] stub embeddings); pos: [B] int
+    position of the first new token per row; active: optional [B] bool
+    slot mask -- inactive rows compute but do not write their cache.
 
     Returns (logits [B,C,V] f32, cache).  The cache is updated IN PLACE
     and returned for symmetry with the reference's functional update."""

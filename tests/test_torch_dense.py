@@ -133,20 +133,22 @@ def test_config_fields_match_reference(arch, reduced):
 
 
 def test_archs_are_the_dense_family():
-    """The dense family leads ARCHS (the MoE, SSM, hybrid and encdec
-    families follow it: tests/test_torch_moe.py::test_archs_include_the_moe_family,
+    """The dense family leads ARCHS (the vlm, MoE, SSM, hybrid and encdec
+    families follow it: tests/test_torch_vlm.py::test_config_fields_match_reference,
+    tests/test_torch_moe.py::test_archs_include_the_moe_family,
     tests/test_torch_ssm.py::test_config_fields_match_reference,
     tests/test_torch_hybrid.py::test_archs_include_the_hybrid_family,
-    tests/test_torch_encdec.py::test_config_fields_match_reference); an
-    arch of a family not ported yet raises."""
+    tests/test_torch_encdec.py::test_config_fields_match_reference); every
+    arch of the reference is ported, and an unknown name raises."""
     assert tconfigs.ARCHS[:len(DENSE)] == DENSE
-    assert all(tconfigs.get_config(a).family in ("moe", "ssm", "hybrid",
-                                                 "encdec")
+    assert all(tconfigs.get_config(a).family in ("vlm", "moe", "ssm",
+                                                 "hybrid", "encdec")
                for a in tconfigs.ARCHS[len(DENSE):])
     assert set(DENSE) <= set(jconfigs.ARCHS)
+    assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS)
     assert all(jconfigs.get_config(a).family == "dense" for a in DENSE)
     with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get_config("qwen2-vl-72b")
+        tconfigs.get_config("qwen3-vl-235b")
 
 
 @pytest.mark.parametrize("arch", NEW)

@@ -219,9 +219,9 @@ def _close_cache(got, want, dtype, what="", fmt="bf16"):
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_match_reference(reduced):
-    """Every field the port carries equals the reference's; the two it
-    does not carry (m_rope_sections, subquadratic) are at their defaults
-    there; param_count equals the reference's: 277.8 M at full width."""
+    """Every field the port carries equals the reference's; the one it
+    does not carry (subquadratic) is at its default there; param_count
+    equals the reference's: 277.8 M at full width."""
     get = "get_reduced_config" if reduced else "get_config"
     j, t = getattr(jconfigs, get)(ARCH), getattr(tconfigs, get)(ARCH)
     carried = {f.name for f in dataclasses.fields(t)}

@@ -11,6 +11,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -167,6 +168,52 @@ def test_plain_gemm_wraps_like_reference(k, packed):
     np.testing.assert_array_equal(want, acc.astype(np.float32) / 8)
     np.testing.assert_array_equal(
         _np(out_fn(_t(x), _t(w), _t(xs), _t(ws))), want)
+
+
+@pytest.mark.parametrize("packed,k,n", [
+    (False, 70, 35), (True, 70, 34), (False, 131073, 5),
+    (True, 2 ** 21 + 1, 6)])
+def test_plain_gemm_in_column_slices_is_bit_identical(monkeypatch, packed,
+                                                      k, n):
+    """A 2-D weight whose float64 copy would pass ref.PLAIN_EXPERT_BYTES
+    (qwen2-vl-72b's [8192, 152064] head: 9.97 GB) is multiplied in column
+    slices into one int32 result, a packed weight cut on word boundaries
+    and each slice unpacked alone.  With the limit patched down to two
+    stored columns' worth (so the last slice of an odd count is one
+    column, or one word), quant_matmul_ref and packed_w4_matmul_ref,
+    accumulator and f32 output, equal the one float64 matmul bit for
+    bit: random operands, an odd N on the int8 path, and accumulators
+    that wrap mod 2^32 (every operand -128; K = 131073 int8, 2^21 + 1
+    packed)."""
+    rng = np.random.default_rng(k + n)
+    stored = n // 2 if packed else n
+    if k > 1000:
+        x = np.full((3, k), -128, np.int8)
+        w = np.full((k, stored), -128, np.int8)
+    else:
+        x, w = _i8(rng, 3, k), _i8(rng, k, stored)
+    xs = (rng.random((3, 1)) * 0.02 + 1e-3).astype(np.float32)
+    ws = (rng.random((1, n)) * 0.02 + 1e-3).astype(np.float32)
+    args = [_t(a) for a in (x, w, xs, ws)]
+    acc_fn = ref.packed_w4_matmul_acc_ref if packed \
+        else ref.quant_matmul_acc_ref
+    out_fn = ref.packed_w4_matmul_ref if packed else ref.quant_matmul_ref
+    want_acc, want_out = acc_fn(*args[:2]), out_fn(*args)
+    calls = []
+    f64 = ref._f64_matmul
+    monkeypatch.setattr(ref, "_f64_matmul",
+                        lambda a, b: calls.append(b.shape) or f64(a, b))
+    monkeypatch.setattr(ref, "PLAIN_EXPERT_BYTES",
+                        8 * (2 if packed else 1) * k * 2)
+    got_acc = acc_fn(*args[:2])
+    assert len(calls) == -(-stored // 2)
+    assert torch.equal(got_acc, want_acc)
+    assert torch.equal(out_fn(*args), want_out)
+    if k > 1000:
+        exact = k * 128 * (8 if packed else 128)
+        wrapped = (exact + 2 ** 31) % 2 ** 32 - 2 ** 31
+        assert wrapped != exact
+        assert bool((got_acc == wrapped).all())
 
 
 # ---------------------------------------------------------------------------
@@ -360,16 +407,30 @@ def test_profiled_launches_by_symbol(kernel, counters):
 
 
 class _FakeEvent:
-    def __init__(self, key, count, device_type="DeviceType.CUDA"):
-        self.key, self.count, self.device_type = key, count, device_type
+    """A raw profiler event (the profile's `kineto_results.events()`)."""
+
+    def __init__(self, name, device_type="DeviceType.CUDA", ns=1000):
+        self._name, self._type, self._ns = name, device_type, ns
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._type
+
+    def duration_ns(self):
+        return self._ns
 
 
 class _FakeProfile:
-    def __init__(self, events):
-        self.events = events
+    """A profile whose raw events are `count` launches of each (key,
+    count, device type) entry."""
 
-    def key_averages(self):
-        return self.events
+    def __init__(self, entries):
+        events = [_FakeEvent(key, *rest)
+                  for key, count, *rest in entries for _ in range(count)]
+        self.profiler = types.SimpleNamespace(
+            kineto_results=types.SimpleNamespace(events=lambda: events))
 
 
 SPIN = "at::cuda::(anonymous namespace)::spin_kernel(long)"
@@ -380,11 +441,40 @@ def test_window_events_take_the_prologue_out(seen):
     """A profile_window's device events without its prologue (however
     many of its launches the profiler kept) and without host entries."""
     kernel = PROFILED[0][0]
-    prof = _FakeProfile([_FakeEvent(SPIN, seen), _FakeEvent(kernel, 210),
-                         _FakeEvent("cudaLaunchKernel", 7, "DeviceType.CPU")])
+    prof = _FakeProfile([(SPIN, seen), (kernel, 210),
+                         ("cudaLaunchKernel", 7, "DeviceType.CPU")])
     got = registry.window_events(prof)
     assert [(e.key, e.count) for e in got] == [(kernel, 210)]
+    assert got[0].device_time_us == 210.0
     assert seen <= registry.PROLOGUE == 2000
+
+
+def test_window_events_count_as_key_averages():
+    """Counted from a profile's raw events, the entries are those
+    `key_averages()` gives, name for name (demangled) and count for count:
+    real events of a CPU profile, each taken here as a device kernel,
+    with one prologue launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    class AsKernel:
+        def __init__(self, e):
+            self.name, self.duration_ns = e.name, e.duration_ns
+
+        def device_type(self):
+            return "DeviceType.CUDA"
+
+    a = torch.zeros(4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(20):
+            a.add_(1)
+            torch.mm(a[None], a[:, None])
+    events = [AsKernel(e) for e in prof.profiler.kineto_results.events()]
+    raw = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(
+            events=lambda: events + [_FakeEvent(SPIN)])))
+    got = {e.key: e.count for e in registry.window_events(raw)}
+    want = {e.key: e.count for e in prof.key_averages()}
+    assert got == want and want["aten::mm"] == 20
 
 
 @pytest.mark.parametrize("seen", [0, 2001])
@@ -392,8 +482,7 @@ def test_window_events_refuse_a_lost_prologue(seen):
     """No prologue launch seen: the profiler's loss may have reached the
     block's own first kernels, and the window raises (as it does for
     more prologue launches than it made)."""
-    prof = _FakeProfile([_FakeEvent(SPIN, seen),
-                         _FakeEvent(PROFILED[0][0], 210)])
+    prof = _FakeProfile([(SPIN, seen), (PROFILED[0][0], 210)])
     with pytest.raises(RuntimeError, match="prologue"):
         registry.window_events(prof)
 

@@ -348,6 +348,20 @@ def test_launch_counter_records_operands_only_inside_capture():
     assert seen[0][1] == {"sub": True}
 
 
+def test_launch_counter_capture_keeps_what_it_is_asked():
+    """capture(keep) records keep(operands, attrs) of each launch and no
+    operand (a prefill's activations are not held alive); the next plain
+    capture() records operands again."""
+    c = common.LaunchCounter("k")
+    x = torch.zeros((3, 5), dtype=torch.int8)
+    with c.capture(lambda ops, attrs: (ops[1].shape[-1], attrs)) as seen:
+        c.launched(x, x[:, :2], vec_w=True)
+    assert seen == [(2, {"vec_w": True})] and c.count == 1
+    with c.capture() as seen:
+        c.launched(x)
+    assert seen[0][0][0] is x and c.captured is None
+
+
 def test_launch_counter_keeps_the_last_launchs_attrs():
     """`last` holds the attrs of the latest launch (a GEMM's load paths),
     inside capture or not; a reset leaves it."""
