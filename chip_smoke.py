@@ -102,10 +102,11 @@ over):
    0), E = 1 against the 2-D entry, and one arctic-shaped stack of
    4.46 GB (E = 128, past 2^31 bytes: size_t expert offsets), each
    timed beside its bound (`phase_moe_gemms`); then full-width
-   granite-moe-1b-a400m (24 layers, 32 experts, vocab 49155; random
-   weights, seed 0) under w4a8 and w8a8 through the gates of 6
-   (`_serve_gates`: 169 small-M launches per replayed decode step, 168
-   tile launches per prefill; the odd vocab's head in w8a8 under both
+   granite-moe-1b-a400m at 12 of its 24 layers (`MOE_LAYERS`, a cut
+   for time; 32 experts, vocab 49155; random weights, seed 0) under
+   w4a8 and w8a8 through the gates of 6 (`_serve_gates`: 85 small-M
+   launches per replayed decode step, 84 tile launches per prefill;
+   the odd vocab's head in w8a8 under both
    formats), `--silvia all` == off, a replayed step's profile, its GEMM
    kernels' time per generate beside their bounds and the step's
    weight-byte bound with every expert read (`phase_moe`);
@@ -137,7 +138,7 @@ over):
    shared x of expert stride 0, wo per expert; the plain versions walk
    them an expert at a time), each timed beside its bound and its
    w-load path (`phase_hybrid_gemms`); then jamba-v0.1-52b at every
-   width, cut to 2 of its 4 scan units (`HYBRID_UNITS`; 16 experts on
+   width, cut to 1 of its 4 scan units (`HYBRID_UNITS`; 16 experts on
    every other layer, 7 SSD mixers and one attention layer per unit,
    untied vocab 65536; random weights from seed 0, built a [K, N] matrix
    at a time by `serve.build_params`, its time and peak memory logged,
@@ -194,12 +195,43 @@ over):
    positions (`image_positions`), through `lm.prefill` (560 tile
    launches at M = 3072; equal rows == the default positions bit for
    bit; the image's positions move the logits) and 31 replays of the
-   captured decode step, bit for bit the per-step loop's.  Each phase's
-   seconds are logged.
+   captured decode step, bit for bit the per-step loop's;
+13. the continuous-batching serve engine (`phase_engine`,
+   `launch/engine.py`): full-width smollm-135m (nothing cut; seed-0
+   weights) under w4a8 and w8a8, 8 slots, max_cache_len 256, segments of
+   16, on a FastForwardClock, serving the port's `synthetic_traffic`
+   from seed 0 (24 Poisson arrivals at 1000 req/s, prompts 16 / 48 / 96 /
+   128, gens 8 / 32 / 64, greedy, top-p and top-k), one request with a
+   stop token it emits and one cut to end mid-segment at the cache's
+   last position (`engine_trace`).  Per (batch bucket, cache-length
+   bucket) one decode step -- decode, sampling, the active mask, the
+   non-finite flag, the position advance -- is captured by `warmup()`
+   and replayed 16 times per segment; prefill runs eagerly per (batch
+   bucket, prompt bucket).  First the batch-invariance gate
+   (`engine_invariance_gate`: scripts/batch_invariance.py at every
+   width the engine serves).  The main path is the trace's run under
+   the profiler (counts from 0 just before it): its GEMM launches,
+   replays included, must be the wrappers' eager prefills plus the
+   captured step's per segment.  Gates: every request's stream equals
+   the port's static `generate` of that request alone, bit for bit
+   (`static_streams`), in the profiled run and in an unprofiled timed
+   run; no run captures a new graph and the graph count is within
+   `graph_bound()`; both GEMM kernels bit for bit against the plain
+   versions at M = 1, 2, 4, 8 and every prefill (bb x prompt bucket)
+   the trace hit (`engine_gemm_gates`); every inactive slot's pages
+   bit-identical across every segment of a third run
+   (`_inactive_pages_gate`).  Logged beside the card's name and power
+   limit: from the timed run output tok/s, requests/s, TTFT and
+   per-token latency p50 / p99, occupancy, segments, graphs and capture
+   ms; from the profiled run its launches, busy share and GEMM share.
+   Then mamba2-2.7b at SSM_LAYERS, w4a8, 8 requests: engine == static,
+   segment graphs by batch bucket only (`phase_engine_ssm`).  Each
+   phase's seconds are logged.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
 launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
-those paths' GEMM time per generate), the nvidia-smi line and, last,
+those paths' GEMM time per generate; the engine path's launches and
+GEMM ms over the profiled run of the trace), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
@@ -1884,6 +1916,10 @@ def phase_dense(wide_us: dict) -> dict:
 # phase 8: the MoE family.  Expert widths (E, K, N): granite's three
 # expert GEMMs, and arctic's on a 4-expert slice of its 128
 GRANITE_EXPERT_KN = [(1024, 512), (512, 1024)]
+# granite-moe-1b-a400m served at half its depth (12 of 24 layers; every
+# width kept): a layer's gates are those of every other; cut when phase
+# 13's gates took the whole run past ~1000 s
+MOE_LAYERS = 12
 ARCTIC_EXPERT_KN = [(7168, 4864), (4864, 7168)]
 EXPERT_M = (1, DECODE_M, 16, 17, PREFILL_M)
 # one stacked weight past 2^31 bytes: arctic-shaped, all 128 experts
@@ -2102,26 +2138,29 @@ def moe_per_generate(cfg, fmt: str, times: dict) -> dict:
 
 
 def phase_moe(times: dict) -> dict:
-    """Phase 8: granite-moe-1b-a400m served at full width (24 layers,
-    d 1024, 32 experts of d_ff 512, vocab 49155; nothing cut; random
-    weights from seed 0), B=8, prompt 128, 32 new tokens, greedy, w4a8
-    and w8a8, bf16 cache, through `_serve_gates` (fused == per-step ==
-    plain-forced, bit for bit; launches counted: 24 x 7 GEMMs per step,
+    """Phase 8: granite-moe-1b-a400m served at full width (d 1024, 32
+    experts of d_ff 512, vocab 49155) and MOE_LAYERS of its 24 layers
+    (random weights from seed 0), B=8, prompt 128, 32 new tokens, greedy,
+    w4a8 and w8a8, bf16 cache, through `_serve_gates` (fused == per-step
+    == plain-forced, bit for bit; launches counted: 7 GEMMs per layer and step,
     the three expert-stacked ones one launch each, and the odd-vocab head
     in w8a8 under both formats); --silvia all == off in tokens; a
     replayed step's profile; the step's weight-byte bound (all 32 experts
     are read every step).  Returns ({GEMM counter: {path: launches}},
     {path: {GEMM counter: its launches, ms and bound_ms per generate}})."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.launch import serve
 
-    cfg = configs.get_config("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(configs.get_config("granite-moe-1b-a400m"),
+                              n_layers=MOE_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(11)
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                             device="cuda")
     launches, per_generate = {}, {}
     for fmt in ("w4a8", "w8a8"):
-        tag = f"granite-moe-1b-a400m {fmt}"
+        tag = f"granite-moe-1b-a400m {cfg.n_layers}L {fmt}"
         t0 = time.perf_counter()
         params = serve.build_params(cfg, fmt, seed=0, device="cuda")
         torch.cuda.synchronize()
@@ -2403,10 +2442,11 @@ def phase_ssm() -> tuple:
 
 # phase 10: the hybrid family
 HYBRID_ARCH = "jamba-v0.1-52b"
-# jamba-v0.1-52b's served path at half its depth (2 of its 4 scan units,
-# 16 layers; every width and every layer kind kept): a unit's gates are
-# those of every other; cut when phase 12 took the whole run past ~1000 s
-HYBRID_UNITS = 2
+# jamba-v0.1-52b's served path at a quarter of its depth (1 of its 4
+# scan units, 8 layers; every width and every layer kind kept): a unit's
+# gates are those of every other; cut to 2 units when phase 12 took the
+# whole run past ~1000 s, to 1 when phase 13's gates did
+HYBRID_UNITS = 1
 # the reduced model against its CPU run: 2 scan units (16 layers), a
 # prompt of three chunks of 16
 HYBRID_CPU_LAYERS, HYBRID_CPU_PROMPT, HYBRID_CPU_STEPS = 16, 40, 3
@@ -3514,6 +3554,440 @@ def phase_vlm() -> tuple:
     return launches, per_generate
 
 
+# phase 13: the continuous-batching engine
+ENGINE_ARCH = "smollm-135m"
+ENGINE_SLOTS, ENGINE_CACHE, ENGINE_SEGMENT = 8, 256, 16
+ENGINE_TRACE = dict(seed=0, n_requests=24, rate=1000.0,
+                    prompt_lens=(16, 48, 96, 128), gen_lens=(8, 32, 64))
+# the request cut to end mid-segment at the cache's end: its prompt cut to
+# CAP_PROMPT tokens, max_new_tokens = ENGINE_CACHE - CAP_PROMPT (135 tokens
+# after the first: 8 segments and 7 steps of a ninth, whose other 9 steps
+# run past the cache)
+CAP_PROMPT = 120
+# mamba2 through the engine: 8 requests at SSM_LAYERS
+ENGINE_SSM_REQUESTS = 8
+
+
+def engine_trace(cfg):
+    """The phase's trace: the port's synthetic_traffic from seed 0 (24
+    Poisson arrivals at 1000 req/s, prompts of 16 / 48 / 96 / 128, gens
+    of 8 / 32 / 64; half greedy, a quarter top-p 0.95 at temperature 0.8,
+    a quarter top-k 50 at 1.0), the first 128-token request cut to end at
+    the cache's last position (CAP_PROMPT).  Returns (requests, the cut
+    one)."""
+    from repro_torch.launch import scheduler
+    sp = scheduler.SamplingParams
+    reqs = scheduler.synthetic_traffic(
+        vocab=cfg.vocab, sampling_mix=(None, None,
+                                       sp(temperature=0.8, top_p=0.95,
+                                          seed=1),
+                                       sp(temperature=1.0, top_k=50,
+                                          seed=2)), **ENGINE_TRACE)
+    cap = next(r for r in reqs if r.prompt_len == 128)
+    cap.prompt = cap.prompt[:CAP_PROMPT]
+    cap.max_new_tokens = ENGINE_CACHE - CAP_PROMPT
+    return reqs, cap
+
+
+def static_streams(serve, params, cfg, reqs, cache_len=None) -> dict:
+    """Each request's stream from the port's static `generate` of that
+    request alone (B=1, cache_len = prompt + max_new_tokens, or the one
+    `cache_len` given; sampled ones with sampling= and rids=), on the
+    card: {rid: tokens}.  Sorted so that requests sharing a captured
+    step's key run back to back."""
+    out = {}
+    for r in sorted(reqs, key=lambda r: (
+            cache_len or r.prompt_len + r.max_new_tokens,
+            r.sampling is None, -r.max_new_tokens)):
+        out[r.rid] = serve.generate(
+            params, torch.as_tensor(r.prompt[None], device="cuda"), cfg,
+            gen=r.max_new_tokens,
+            cache_len=cache_len or r.prompt_len + r.max_new_tokens,
+            sampling=[r.sampling], rids=[r.rid])[0].cpu().numpy()
+    return out
+
+
+def engine_gemm_gates(ms, kns) -> int:
+    """Both GEMM kernels bit for bit against their plain versions (int32
+    accumulator and f32 output) at every M the engine gave them and every
+    (K, N) of the model; returns the shapes gated."""
+    from repro_torch.kernels import packed_matmul, quant_matmul, ref
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    n = 0
+    for m in sorted(ms):
+        for k, nn in kns:
+            x = torch.randint(-128, 128, (m, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            xs = torch.rand((m, 1), generator=gen, device="cuda") * .02 + 1e-3
+            ws = torch.rand((1, nn), generator=gen, device="cuda") * .02 + 1e-3
+            for acc, out, acc_r, out_r, cols in (
+                    (quant_matmul.quant_matmul_acc, quant_matmul.quant_matmul,
+                     ref.quant_matmul_acc_ref, ref.quant_matmul_ref, nn),
+                    (packed_matmul.packed_w4_matmul_acc,
+                     packed_matmul.packed_w4_matmul,
+                     ref.packed_w4_matmul_acc_ref, ref.packed_w4_matmul_ref,
+                     nn // 2)):
+                w = torch.randint(-128, 128, (k, cols), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                if not torch.equal(acc(x, w), acc_r(x, w)) or \
+                        not torch.equal(out(x, w, xs, ws),
+                                        out_r(x, w, xs, ws)):
+                    raise AssertionError(f"{acc.__name__} M={m} K={k} "
+                                         f"N={nn}: not bit-identical to the "
+                                         "plain version")
+                n += 1
+    return n
+
+
+def _percentiles(xs) -> str:
+    import numpy as np
+    return (f"p50 {np.percentile(xs, 50) * 1e3:.1f} ms, p99 "
+            f"{np.percentile(xs, 99) * 1e3:.1f} ms")
+
+
+def _engine_run(eng, reqs, clock_cls):
+    """Serve `reqs` to the end: (streams, seconds on the host clock)."""
+    clock = clock_cls()
+    t0 = time.perf_counter()
+    out = eng.run(reqs, clock)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _check_streams(tag, out, want, reqs, stop_at=None) -> None:
+    for r in reqs:
+        w = want[r.rid]
+        if stop_at is not None and r.rid == stop_at[0]:
+            w = w[:stop_at[1] + 1]
+        if not (len(out[r.rid]) == len(w) and (out[r.rid] == w).all()):
+            raise AssertionError(
+                f"{tag}: request {r.rid} (prompt {r.prompt_len}, "
+                f"{r.max_new_tokens} new, sampling {r.sampling}) differs "
+                f"from its static generate: {out[r.rid][:12].tolist()} vs "
+                f"{w[:12].tolist()}")
+
+
+def _again(reqs, offset: int, keep_stops: bool = False) -> list:
+    """The trace's requests afresh under ids moved by `offset` (an engine
+    refuses a rid it has seen), with their stop tokens or none."""
+    import dataclasses
+    return [dataclasses.replace(
+        r, rid=r.rid + offset, tokens=[], first_token_time=None,
+        finish_time=None, outcome=None,
+        stop_tokens=r.stop_tokens if keep_stops else None) for r in reqs]
+
+
+def _inactive_pages_gate(eng) -> list:
+    """Wrap eng._begin_segment: before each segment, keep every inactive
+    slot's pages; after it, they must be bit-identical.  Returns the list
+    the wrapper appends (segment, slots checked) to."""
+    seen, begin = [], eng._begin_segment
+    spec = eng._spec
+
+    def wrapped():
+        idle = [int(s) for s in (~eng._active).nonzero()[0]]
+        keep = {k: [t.select(spec.batch_axes[i], s).clone() for s in idle]
+                for i, (k, t) in enumerate(eng._cache.items())}
+        pending = begin()
+        torch.cuda.synchronize()
+        for i, (k, t) in enumerate(eng._cache.items()):
+            for s, old in zip(idle, keep[k]):
+                if not torch.equal(t.select(spec.batch_axes[i], s), old):
+                    raise AssertionError(f"engine: inactive slot {s}'s "
+                                         f"{k} page changed in a segment")
+        seen.append((eng.segments, len(idle)))
+        return pending
+
+    eng._begin_segment = wrapped
+    return seen
+
+
+def engine_invariance_gate(smi: str) -> None:
+    """scripts/batch_invariance.py's gate on the card: the port's
+    batch-sensitive reductions (RMSNorm, the SSD decode contraction,
+    top-p's prefix sum) at every width of every architecture the engine
+    serves, prefill rows against bucketed ones, decode attention per
+    head layout, and one model per registered family at full width, row
+    alone against row in a batch: every count 0.  The reductions' batch
+    invariance on CUDA rests on ATen's launch heuristics
+    (`common.row_reduce`), which a torch upgrade may change."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "batch_invariance", ROOT / "scripts" / "batch_invariance.py")
+    bi = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bi)
+    t0 = time.perf_counter()
+    res, bad = bi.gate(torch.device("cuda"))
+    if bad:
+        raise AssertionError(f"engine: not batch-invariant on the card: "
+                             f"{bad}")
+    log(f"batch invariance ({smi}, torch {res['torch']}): the port's "
+        f"reductions at every served width, {len(res['port'])} cases x B "
+        f"in {bi.BATCHES}, {len(res['prefill'])} prefill cases, "
+        f"{res['attention']['cases']} attention cases and the models "
+        f"{sorted(res['models'])}: every row == the row alone, bit for "
+        f"bit; PyTorch's own forms, differing elements by B: "
+        f"{res['torch_forms']}; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_engine() -> dict:
+    """Phase 13: the continuous-batching engine (`launch/engine.py`).
+    First `engine_invariance_gate`.  Then smollm-135m at full width (30
+    layers, nothing cut; random weights from seed 0) under w4a8 and
+    w8a8, n_slots 8, max_cache_len 256, segment_len 16, on a
+    FastForwardClock, serving `engine_trace` (24 requests: greedy, top-p
+    and top-k; one with a stop token it emits, one ending mid-segment at
+    the cache's end).  The main path is the trace's run under the
+    profiler, every count set to 0 just before it: its GEMM launches,
+    graph replays included, must be the wrappers' eager prefills plus
+    gemms_per_step x segment_len per segment.  Gates: every request's
+    stream equals the port's static `generate` of that request alone,
+    bit for bit (`static_streams`), in the profiled run and in an
+    unprofiled timed run of the same trace; after `warmup()` no run
+    captures a new graph and the graph count is at most `graph_bound()`;
+    both GEMM kernels bit for bit against their plain versions at the
+    engine's M = 1, 2, 4, 8 and every prefill (bb x prompt bucket) the
+    trace hit (`engine_gemm_gates`); inactive slots' pages bit-identical
+    across every segment of a third run (`_inactive_pages_gate`).
+    Logged beside the card's name and power limit: from the timed run
+    output tok/s and requests/s, TTFT and per-token latency p50 / p99,
+    occupancy, segments, graphs and capture ms; from the profiled run
+    its launches (per segment, the prefills included), the busy share
+    and the GEMMs' share of device time.  Then mamba2-2.7b at
+    SSM_LAYERS, w4a8, ENGINE_SSM_REQUESTS requests: engine == static,
+    and its graphs grow with batch buckets only (no length axis).
+    Returns {path: {GEMM counter: launches of the profiled run,
+    "segments": its segments, "gemm_ms": its GEMMs' device ms}} for the
+    `kernels` line."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import engine, scheduler, serve
+
+    smi = smi_line()
+    engine_invariance_gate(smi)
+    cfg = configs.get_config(ENGINE_ARCH)
+    kns = list(dict.fromkeys(MAIN_KN)) + [(cfg.d_model, cfg.vocab)]
+    paths = {}
+    for fmt in ("w4a8", "w8a8"):
+        tag = f"engine {ENGINE_ARCH} {fmt}"
+        name = _gemm_name(fmt)
+        t_part = [time.perf_counter()]
+        secs = {}
+
+        def part(what):   # seconds of each part of the phase, for the log
+            now = time.perf_counter()
+            secs[what] = round(now - t_part[0], 1)
+            t_part[0] = now
+
+        params = serve.build_params(cfg, fmt, seed=0, device="cuda")
+        reqs, cap = engine_trace(cfg)
+        part("build")
+        want = static_streams(serve, params, cfg, reqs)
+        part("static streams")
+        static_s = secs["static streams"]
+        # the stop-token request: the first greedy one of 32+ tokens
+        # (not the cut one), stopping at a token of its own stream that
+        # occurs first at index >= 5
+        stop = next(r for r in reqs if r.sampling is None and r is not cap
+                    and r.max_new_tokens >= 32)
+        w = want[stop.rid]
+        at = next(i for i in range(5, len(w)) if w[i] not in w[:i])
+        stop.stop_tokens = (int(w[at]),)
+        serve.decode_cache_clear()
+        eng = engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
+                                 max_cache_len=ENGINE_CACHE,
+                                 segment_len=ENGINE_SEGMENT)
+        t0 = time.perf_counter()
+        n_warm = eng.warmup(prompt_lens=sorted({r.prompt_len
+                                                for r in reqs}))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        part("warmup")
+        graphs = set(eng._graphs)
+        small = f"{name}_small_m"
+
+        def want_of(trace, off):
+            """The static streams of `reqs` moved to rids + off: a
+            sampled request's key folds in its rid, so those are
+            generated anew (over one cache length, one capture)."""
+            new = static_streams(serve, params, cfg,
+                                 [r for r in trace if r.sampling],
+                                 ENGINE_CACHE) if off else {}
+            return {r.rid: new.get(r.rid, want[r.rid - off]) for r in trace}
+
+        per_seg = gemms_per_step(cfg) * ENGINE_SEGMENT
+        # the main path, profiled: every count from 0 just before the run;
+        # the wrappers count the eager prefills, the profiler every launch,
+        # the captured segments' replays included.  Every segment replays
+        # its step ENGINE_SEGMENT times, so the run must launch the
+        # prefills' GEMMs and per_seg small-M GEMMs per segment.  The
+        # profiler has been seen to drop ~1% of a profile's kernel events:
+        # a run it counts short of that (and over nothing) is driven
+        # again, on the same trace under new request ids, three runs at
+        # most
+        for attempt in range(1, 4):
+            trace = _again(reqs, 1000 * attempt, keep_stops=True) \
+                if attempt > 1 else reqs
+            seg0 = eng.segments
+            for c in registry.LAUNCH_COUNTERS:
+                c.reset()
+            with registry.profile_window() as prof:
+                out, prof_s = _engine_run(eng, trace,
+                                          scheduler.FastForwardClock)
+            counts = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
+            events = [e for e in registry.window_events(prof)
+                      if e.device_time_us > 0]
+            launched = registry.profiled_launches(
+                {e.key: e.count for e in events})
+            segs = eng.segments - seg0
+            expect = {k: counts[k] + segs * per_seg for k in (name, small)}
+            if not any(launched[k] < n for k, n in expect.items()) or \
+                    attempt == 3 or \
+                    any(launched[k] > n for k, n in expect.items()):
+                break
+            log(f"{tag} (profiled), run {attempt}: launches {launched} "
+                f"short of {expect}; driven again")
+        if {k: launched[k] for k in expect} != expect or \
+                not counts[name] or counts[name] == counts[small]:
+            raise AssertionError(f"{tag}: the profiled run launched "
+                                 f"{launched}, expected {expect} (wrappers:"
+                                 f" {counts}, {segs} segments)")
+        part(f"profiled run{'s' * (attempt > 1)}")
+        off = trace[0].rid - reqs[0].rid
+        _check_streams(tag, out, want_of(trace, off), trace,
+                       (stop.rid + off, at))
+        gemm = [e for e in events
+                if registry.profiled_launches({e.key: 1})[name]]
+        dev_ms = sum(e.device_time_us for e in events) / 1e3
+        gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
+        n_launch = sum(e.count for e in events)
+        log(f"{tag} profiled main run ({smi}; run {attempt} of 3): "
+            f"{segs} segments of {ENGINE_SEGMENT} steps and the prefills "
+            f"in {prof_s * 1e3:.1f} ms on the host, device {dev_ms:.2f} "
+            f"ms in {n_launch} launches ({n_launch / segs:.0f} per segment"
+            f", prefills included), busy "
+            f"{100 * dev_ms / (prof_s * 1e3):.1f}%, GEMMs {gemm_ms:.2f} ms "
+            f"({100 * gemm_ms / dev_ms:.1f}% of device time); GEMM "
+            f"launches {launched[name]} of "
+            f"{name} ({launched[small]} small-M), as expected: the "
+            f"wrappers' eager prefills {counts[name]} ({counts[small]} "
+            f"small-M) + {segs} x {per_seg}")
+        for e in sorted(events, key=lambda e: e.device_time_us,
+                        reverse=True)[:6]:
+            log(f"    {e.device_time_us / 1e3:9.3f} ms  {e.count:7d} calls"
+                f"  {e.device_time_us / e.count:7.2f} us/call  "
+                f"{e.key[:70]}")
+        if eng._graphs != graphs:
+            raise AssertionError(f"{tag}: the run added graphs "
+                                 f"{sorted(eng._graphs - graphs, key=str)}")
+        # its time, unprofiled: the same trace again, under new ids
+        trace = _again(reqs, 10000, keep_stops=True)
+        seg0, done0 = eng.segments, len(eng.finished)
+        out, run_s = _engine_run(eng, trace, scheduler.FastForwardClock)
+        part("timed run")
+        _check_streams(tag + " (timed run)", out, want_of(trace, 10000),
+                       trace, (stop.rid + 10000, at))
+        part("its sampled static streams")
+        fin = eng.finished[done0:]
+        info = eng.cache_info()
+        if info["graphs"] > info["graph_bound"] or eng._graphs != graphs:
+            raise AssertionError(f"{tag}: {info['graphs']} graphs (bound "
+                                 f"{info['graph_bound']}), after warmup "
+                                 f"{len(graphs)}")
+        if not all(r.outcome == "ok" for r in eng.finished):
+            raise AssertionError(f"{tag}: outcomes "
+                                 f"{[r.outcome for r in eng.finished]}")
+        toks = sum(len(r.tokens) for r in fin)
+        ttft = [r.first_token_time - r.arrival_time for r in fin]
+        tpot = [(r.finish_time - r.first_token_time) / (len(r.tokens) - 1)
+                for r in fin if len(r.tokens) > 1]
+        prefills = sorted(k for k in eng._graphs if k[0] == "prefill")
+        n_gemm = engine_gemm_gates(
+            {1, 2, 4, 8} | {bb * sb for _, bb, sb, _ in prefills}, kns)
+        part("GEMM gates")
+        log(f"{tag} ({smi}), timed run (unprofiled): {len(fin)} requests, "
+            f"{toks} tokens in {run_s:.3f} s: {toks / run_s:.1f} output "
+            f"tok/s, {len(fin) / run_s:.2f} requests/s; TTFT "
+            f"{_percentiles(ttft)}; per-token latency {_percentiles(tpot)}; "
+            f"occupancy {100 * np.mean(eng.occupancy[seg0:]):.1f}% over "
+            f"{eng.segments - seg0} segments of {ENGINE_SEGMENT}; "
+            f"{info['captured']} graphs captured in "
+            f"{info['capture_ms']:.1f} ms ({len(info['graph_keys'])} shape "
+            f"keys, bound {info['graph_bound']}), warmup {warm_s:.1f} s "
+            f"({n_warm} keys), none after it; compactions "
+            f"{eng.compactions} over the runs; every stream of both runs "
+            f"== its static generate ({static_s:.1f} s for the 24), stop "
+            f"token at index {at} of request {stop.rid}, request {cap.rid} "
+            f"ended at the cache's end; GEMM gates: {n_gemm} (kernel, M, "
+            f"K, N) bit for bit at M = 1, 2, 4, 8 and the prefills "
+            f"{[(bb, sb) for _, bb, sb, _ in prefills]}")
+        # a third run, every segment checked for its inactive slots
+        seen = _inactive_pages_gate(eng)
+        _engine_run(eng, _again(reqs, 20000), scheduler.FastForwardClock)
+        del eng._begin_segment
+        if eng._graphs != graphs or not any(n for _, n in seen):
+            raise AssertionError(f"{tag}: third run: graphs "
+                                 f"{len(eng._graphs)}, idle checks {seen}")
+        part("inactive-pages run")
+        log(f"{tag}: inactive slots' pages unchanged in every segment of a "
+            f"third run ({sum(n for _, n in seen)} slot checks); the "
+            f"phase's seconds: {secs}")
+        paths[f"engine {fmt}"] = {name: launched[name],
+                                  small: launched[small], "segments": segs,
+                                  "gemm_ms": gemm_ms}
+        del params, eng, want, out
+        serve.decode_cache_clear()
+        torch.cuda.empty_cache()
+    phase_engine_ssm()
+    return paths
+
+
+def phase_engine_ssm() -> None:
+    """mamba2-2.7b at SSM_LAYERS (every width), w4a8, through the engine:
+    ENGINE_SSM_REQUESTS requests of the engine trace's mix, each stream
+    == its static generate, bit for bit; the constant-size state has no
+    length axis, so every segment key has t_b None and the graphs grow
+    with batch buckets only."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import engine, scheduler, serve
+
+    cfg = dataclasses.replace(configs.get_config(SSM_ARCH),
+                              n_layers=SSM_LAYERS)
+    params = serve.build_params(cfg, "w4a8", seed=0, device="cuda")
+    reqs, _ = engine_trace(cfg)
+    reqs = [r for r in reqs if r.max_new_tokens <= 64][:ENGINE_SSM_REQUESTS]
+    want = static_streams(serve, params, cfg, reqs)
+    serve.decode_cache_clear()
+    eng = engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
+                             max_cache_len=ENGINE_CACHE,
+                             segment_len=ENGINE_SEGMENT)
+    eng.warmup(prompt_lens=sorted({r.prompt_len for r in reqs}))
+    graphs = set(eng._graphs)
+    out, run_s = _engine_run(eng, reqs, scheduler.FastForwardClock)
+    tag = f"engine {SSM_ARCH} {SSM_LAYERS}L w4a8"
+    _check_streams(tag, out, want, reqs)
+    seg = [k for k in eng._graphs if k[0] == "segment"]
+    if eng._graphs != graphs or eng.len_buckets or \
+            any(k[2] is not None for k in seg) or \
+            len(seg) > len(eng.batch_buckets):
+        raise AssertionError(f"{tag}: segment graphs {sorted(seg, key=str)}"
+                             f" against batch buckets {eng.batch_buckets}")
+    toks = sum(len(r.tokens) for r in eng.finished)
+    log(f"{tag} ({smi_line()}): {len(reqs)} requests, {toks} tokens in "
+        f"{run_s:.3f} s ({toks / run_s:.1f} tok/s), {eng.segments} segments"
+        f", {len(seg)} segment graphs (batch buckets "
+        f"{list(eng.batch_buckets)}, no length axis), capture "
+        f"{eng.cache_info()['capture_ms']:.1f} ms; every stream == its "
+        "static generate")
+    del params, eng
+    serve.decode_cache_clear()
+    torch.cuda.empty_cache()
+
+
 def _small_m_back_to_back_us(res: dict) -> float:
     """The small-M kernel's mean time per decode launch, back to back
     (phase_kernels' CUDA-event timing, L2 spilled), weighted as one
@@ -3688,6 +4162,7 @@ def main() -> int:
     hyb, hyb_gen = phase("hybrid: jamba-v0.1-52b", phase_hybrid)
     enc, enc_gen = phase("encoder-decoder: whisper-small", phase_encdec)
     vlm, vlm_gen = phase("vlm: qwen2-vl-72b", phase_vlm)
+    eng = phase("serve engine: smollm-135m, mamba2-2.7b", phase_engine)
     for paths_of in (moe, ssm, hyb, enc, vlm):
         for k, paths in paths_of.items():
             other.setdefault(k, {}).update(paths)
@@ -3703,6 +4178,12 @@ def main() -> int:
                     if e["name"] in rows}
             if path:
                 e[key] = path
+        path = {tag: {"launches": rows[e["name"]],
+                      "segments": rows["segments"],
+                      "gemm_ms": rows["gemm_ms"]}
+                for tag, rows in eng.items() if e["name"] in rows}
+        if path:
+            e["engine_path_per_trace"] = path
     log(f"== total: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,7 +1,7 @@
-"""Serving entry point: quantized weights + batched prefill / greedy decode.
+"""Serving entry point: quantized weights + batched prefill / decode.
 
-Port of `repro/launch/serve.py` (greedy `generate`, its decode-bundle
-cache and the CLI):
+Port of `repro/launch/serve.py` (`generate` with per-request sampling,
+its decode-bundle cache and the CLI):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --quant w4a8 --batch 8 --prompt-len 128 --gen 32 --device cuda \\
@@ -64,7 +64,15 @@ CLI has no flag for them.
   (cfg, pass set, lowering fingerprint, device), of
   ``$REPRO_DECODE_CACHE_SIZE`` bundles (default 16).
 
-Sampling is greedy only.
+Sampling: `generate(..., sampling=[SamplingParams or None per row],
+rids=...)` draws each sampled row's tokens as the reference's does
+(launch/sampling.py: temperature, top-k, top-p, Gumbel-max under the
+counter-based key of (seed, rid, token index)); greedy rows of a sampled
+batch take the argmax.  The captured step has a sampled variant, its
+sampling operand in static buffers; an all-greedy batch keeps the greedy
+step untouched.  For ragged multi-request traffic, use the
+continuous-batching engine (launch/engine.py), whose streams equal
+`generate`'s of each request alone, bit for bit.
 """
 from __future__ import annotations
 
@@ -82,6 +90,7 @@ from repro_torch import configs
 from repro_torch import core as silvia
 from repro_torch import device as device_lib
 from repro_torch.kernels import registry
+from repro_torch.launch import sampling as sampling_lib
 from repro_torch.models import lm
 from repro_torch.quant.qtensor import QTensor, quantize_weight, serving_format
 
@@ -161,103 +170,166 @@ def _pin_lowerings(fn, census: dict):
 
 
 class _CapturedStep:
-    """One greedy decode step over static buffers: the token and position
-    it reads, the cache it updates in place (whatever `lm.init_cache`
-    gives: the KV cache, the ssm family's {ssm, conv} state, or the
-    hybrid family's flat dict of both, or the encdec family's self KV and
-    cross K/V of `s_enc` positions), the tokens (and logits rows) it
-    writes at a device-side step index, for up to `n_steps` steps.  On
-    CUDA the step is captured in a CUDA graph and each replay is one
-    decode step; nothing on the host changes between replays.  On
-    the CPU there is no graph and `run` calls the step eagerly
-    (`generate` never builds one there; the CPU tests check the buffers'
-    bookkeeping this way).
+    """One decode step over static buffers, the one captured step of both
+    the static path (`generate`, through `_DecodeBundle.captured` and
+    `run`) and the serve engine (one per batch and cache bucket, over
+    views of its slot state, through `replay`).  It updates `state` in
+    place: whatever `lm.init_cache` gives, the KV cache, the ssm
+    family's {ssm, conv} state, the hybrid family's flat dict of both, or
+    the encdec family's self KV and cross K/V.  `bufs` holds the device
+    buffers it reads and writes in place:
 
-    What it holds on the device: the params tree (the graph reads the
-    weights at their addresses), a KV cache of `cache_len` positions
-    (29.5 MB for smollm-135m at B=8, cache_len 160; an int8 cache's
-    float32 scales are static buffers too, which the step updates in
-    place with the values) or an ssm state (1.359 GB for mamba2-2.7b at
-    B=8, whatever cache_len; jamba-v0.1-52b's 28 mixers' 0.129 GB and its
-    4 attention layers' 21 MB of KV at cache_len 160; whisper-small's
-    0.442 GB of cross K/V at B=8 and 1500 frames), the tokens [B,
-    n_steps] int32, with return_logits the logits rows [B, n_steps, V]
-    float32 (48.8 MB at B=8, n_steps 31), and the graph's private pool
-    of one step's intermediates."""
+      tok [B, 1] int64   the token each row reads, then the one it chose
+      pos [B] int64      each row's position, advanced after the step
+      toks [B, n] int32  the chosen tokens, at column `step`
+      step [1] int64     the device-side step index, advanced
+      logits             [B, n, V] float32 rows at column `step`, or None
+      samp               the sampling operand (sampling.PAGE_LEAVES): each
+                         row samples under its own policy; None: argmax
+      act [B] bool       or None (every row active): an inactive row
+                         keeps its state and position and emits token 0
+      bad [B] bool       with act: set where an active row's logits went
+                         non-finite
 
-    def __init__(self, decode, params, cfg, batch: int, cache_len: int,
-                 n_steps: int, return_logits: bool, device: torch.device,
-                 s_enc: int | None = None):
-        self.key = _step_key(params, batch, cache_len, return_logits, s_enc)
-        self.n_steps = n_steps
-        self.leaves = pytree.tree_leaves(params)   # kept alive: see above
-        self.cache = lm.init_cache(cfg, batch, cache_len, device=device,
-                                   s_enc=s_enc)
+    On CUDA the step is captured in a CUDA graph and each replay is one
+    decode step; nothing on the host changes between replays.  One eager
+    step on a side stream comes first: it builds and loads every kernel,
+    fills the per-device caches and runs the SILVIA trace, none of which
+    may happen under capture; with `act` it runs with every row inactive,
+    which leaves the state as it was (the masked writes write back what
+    they held).  On the CPU there is no graph and a replay calls the step
+    eagerly (`generate` never builds one there; the CPU tests check the
+    buffers' bookkeeping this way).
 
-        def zeros(*shape, dtype=torch.int64):
-            return torch.zeros(shape, dtype=dtype, device=device)
+    What the static path's step holds on the device (`static`): the
+    params tree (the graph reads the weights at their addresses), a KV
+    cache of `cache_len` positions (29.5 MB for smollm-135m at B=8,
+    cache_len 160; an int8 cache's float32 scales are static buffers
+    too, which the step updates in place with the values) or an ssm
+    state (1.359 GB for mamba2-2.7b at B=8, whatever cache_len;
+    jamba-v0.1-52b's 28 mixers' 0.129 GB and its 4 attention layers' 21
+    MB of KV at cache_len 160; whisper-small's 0.442 GB of cross K/V at
+    B=8 and 1500 frames), the tokens [B, n_steps] int32, with
+    return_logits the logits rows [B, n_steps, V] float32 (48.8 MB at
+    B=8, n_steps 31), and the graph's private pool of one step's
+    intermediates."""
 
-        self.tok, self.pos, self.step = zeros(batch, 1), zeros(batch), \
-            zeros(1)
-        self.toks = zeros(batch, n_steps, dtype=torch.int32)
-        self.logits = zeros(batch, n_steps, cfg.vocab,
-                            dtype=torch.float32) if return_logits else None
+    def __init__(self, decode, params, state, bufs: dict,
+                 device: torch.device, key=None):
+        self.key, self.cache, self.leaves = key, state, \
+            pytree.tree_leaves(params)            # kept alive: see above
+        self.tok, self.pos, self.toks, self.logits, self.samp = (
+            bufs.get(k) for k in ("tok", "pos", "toks", "logits", "samp"))
+        self.n_steps = self.toks.shape[1]
+        act, bad = bufs.get("act"), bufs.get("bad")
+        self.step = step_idx = bufs["step"]
 
         def step():
-            logits, _ = decode(params, self.tok, self.cache, self.pos)
+            if act is None:
+                logits, _ = decode(params, self.tok, state, self.pos)
+            else:
+                logits, _ = decode(params, self.tok, state, self.pos, act)
             last = logits[:, -1, :]
-            nxt = last.argmax(dim=-1)[:, None]
-            self.toks.index_copy_(1, self.step, nxt.to(torch.int32))
+            if self.samp is None:
+                nxt = last.argmax(dim=-1)
+            else:
+                key, temp, top_k, top_p, plen = self.samp
+                nxt = sampling_lib.sample(last, key, temp, top_k, top_p,
+                                          self.pos - plen + 1)
+            if act is not None:
+                nxt = torch.where(act, nxt, 0)
+                bad.logical_or_(act & ~torch.isfinite(last).all(dim=-1))
+            self.toks.index_copy_(1, step_idx, nxt[:, None].to(torch.int32))
             if self.logits is not None:
-                self.logits.index_copy_(1, self.step, last[:, None, :])
-            self.tok.copy_(nxt)
-            self.pos.add_(1)
-            self.step.add_(1)
+                self.logits.index_copy_(1, step_idx, last[:, None, :])
+            self.tok.copy_(nxt[:, None])
+            if act is None:
+                self.pos.add_(1)
+            else:
+                self.pos.copy_(torch.where(act, self.pos + 1, self.pos))
+            step_idx.add_(1)
 
         self.graph, self.capture_ms, self._replay = None, 0.0, step
         if device.type != "cuda":
             return
-        with torch.cuda.device(device):
-            # one eager step on a side stream first: it builds and loads
-            # every kernel, fills the per-device caches and runs the SILVIA
-            # trace, none of which may happen under capture
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                step()
-            torch.cuda.current_stream().wait_stream(side)
-            t0 = time.perf_counter()
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                step()
-            self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self._replay = self.graph.replay
+        saved = {k: bufs[k].clone() for k in ("tok", "pos", "act", "step")
+                 if bufs.get(k) is not None}
+        if act is not None:
+            act.zero_()
+        try:
+            with torch.cuda.device(device):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    step()
+                torch.cuda.current_stream().wait_stream(side)
+                t0 = time.perf_counter()
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph):
+                    step()
+                self.capture_ms = (time.perf_counter() - t0) * 1e3
+            self._replay = self.graph.replay
+        finally:
+            for k, t in saved.items():
+                bufs[k].copy_(t)
 
-    def run(self, tok, cache: dict, start: int, n_steps: int):
-        """n_steps decode steps after a prefill that left `cache` and
-        chose `tok` [B,1] for position `start`: ([B, n_steps] int32
-        tokens, [B, n_steps, V] f32 logits or None)."""
+    @classmethod
+    def static(cls, decode, params, cfg, batch: int, cache_len: int,
+               n_steps: int, return_logits: bool, device: torch.device,
+               s_enc: int | None = None, sampled: bool = False):
+        """The static path's step: its own cache and buffers, every row
+        active."""
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        bufs = {"tok": zeros(batch, 1), "pos": zeros(batch),
+                "step": zeros(1),
+                "toks": zeros(batch, n_steps, dtype=torch.int32),
+                "logits": zeros(batch, n_steps, cfg.vocab,
+                                dtype=torch.float32)
+                if return_logits else None,
+                "samp": sampling_lib.null_operand(batch, device)
+                if sampled else None}
+        return cls(decode, params,
+                   lm.init_cache(cfg, batch, cache_len, device=device,
+                                 s_enc=s_enc), bufs, device,
+                   key=_step_key(params, batch, cache_len, return_logits,
+                                 s_enc, sampled))
+
+    def replay(self, n_steps: int) -> None:
+        for _ in range(n_steps):
+            self._replay()
+
+    def run(self, tok, cache: dict, start: int, n_steps: int, samp=None):
+        """The static path: n_steps decode steps after a prefill that left
+        `cache` and chose `tok` [B,1] for position `start`: ([B, n_steps]
+        int32 tokens, [B, n_steps, V] f32 logits or None).  A sampled
+        step takes the batch's sampling operand `samp`."""
         if n_steps > self.n_steps:
             raise ValueError(f"{n_steps} steps, buffers for {self.n_steps}")
+        if (samp is None) != (self.samp is None):
+            raise ValueError("a sampled step takes a sampling operand, a "
+                             "greedy one none")
+        for buf, t in zip(self.samp or (), samp or ()):
+            buf.copy_(t)
         for k, t in self.cache.items():
             t.copy_(cache[k])
         self.tok.copy_(tok)
         self.pos.fill_(start)
         self.step.zero_()
-        for _ in range(n_steps):
-            self._replay()
+        self.replay(n_steps)
         logits = None if self.logits is None \
             else self.logits[:, :n_steps].clone()
         return self.toks[:, :n_steps].clone(), logits
 
 
 def _step_key(params, batch: int, cache_len: int, return_logits: bool,
-              s_enc: int | None):
+              s_enc: int | None, sampled: bool = False):
     # the params tree by the identity of its leaves, which a captured step
     # keeps alive, so a second tree never replays the first one's weights;
     # s_enc, the width of an encdec cache's cross K/V buffers
     return (tuple(id(t) for t in pytree.tree_leaves(params)), batch,
-            cache_len, return_logits, s_enc)
+            cache_len, return_logits, s_enc, sampled)
 
 
 class _DecodeBundle:
@@ -278,19 +350,20 @@ class _DecodeBundle:
 
     def captured(self, params, batch: int, cache_len: int,
                  return_logits: bool, n_steps: int, device,
-                 s_enc: int | None = None) -> _CapturedStep:
+                 s_enc: int | None = None,
+                 sampled: bool = False) -> _CapturedStep:
         """The captured step for this params tree and these shapes.  The
         bundle keeps one: another params tree, batch, cache_len,
-        return_logits or cross K/V width s_enc, or more steps than its
-        buffers hold, drops it and captures anew."""
+        return_logits, cross K/V width s_enc or sampled variant, or more
+        steps than its buffers hold, drops it and captures anew."""
         s = self.step
         if s is None or s.key != _step_key(params, batch, cache_len,
-                                           return_logits, s_enc) \
+                                           return_logits, s_enc, sampled) \
                 or s.n_steps < n_steps:
             self.step = None    # the old graph, weights and buffers first
-            self.step = _CapturedStep(self.decode, params, self.cfg, batch,
-                                      cache_len, n_steps, return_logits,
-                                      device, s_enc)
+            self.step = _CapturedStep.static(
+                self.decode, params, self.cfg, batch, cache_len, n_steps,
+                return_logits, device, s_enc, sampled)
             self.captures += 1
         return self.step
 
@@ -319,8 +392,10 @@ def get_decode_step(cfg, silvia_passes: str = "off", device="cuda"):
 
 def generate(params, prompts, cfg, *, gen: int, cache_len: int,
              silvia_passes: str = "off", fused: bool = True,
-             return_logits: bool = False, device="cuda"):
-    """Greedy generation: prefill, its argmax, then gen-1 decode steps.
+             return_logits: bool = False, device="cuda", sampling=None,
+             rids=None):
+    """Generation: prefill, its first token, then gen-1 decode steps
+    (greedy by default).
 
     prompts: [B,S] int tokens (tensor or numpy); for the encdec family a
     tuple (features [B,S_enc,d], dec_tokens [B,S]), as the reference's
@@ -331,7 +406,11 @@ def generate(params, prompts, cfg, *, gen: int, cache_len: int,
     from, [B, gen, V].  silvia_passes picks a SILVIA_PASS_SETS entry for
     the decode step.  fused=True on a CUDA device replays one captured
     decode step (module docstring); fused=False, and any CPU run, is the
-    per-step loop.  Both give the same tokens and logits, bit for bit."""
+    per-step loop.  Both give the same tokens and logits, bit for bit.
+    `sampling` takes one scheduler.SamplingParams (or None = greedy) per
+    row, with `rids` giving each row's request id for its key (default:
+    the row index): the static reference the engine's sampled streams
+    are held to.  An all-greedy batch takes the greedy step untouched."""
     dev = device_lib.resolve(device)
     s_enc = None
     if cfg.family == "encdec":
@@ -344,14 +423,24 @@ def generate(params, prompts, cfg, *, gen: int, cache_len: int,
         raise ValueError(f"need gen >= 1 and cache_len >= prompt + gen - 1 "
                          f"(got gen={gen}, cache_len={cache_len}, "
                          f"prompt={s})")
+    samp = None if sampling is None else \
+        sampling_lib.static_operand(sampling, s, rids, device=dev)
     logits, cache = lm.prefill(params, prompts, cfg, cache_len=cache_len)
     bundle = _decode_bundle(cfg, silvia_passes, dev)
     last = logits[:, -1, :]
-    tok = last.argmax(dim=-1)[:, None]
+
+    def choose(last, i):
+        if samp is None:
+            return last.argmax(dim=-1)[:, None]
+        key, temp, top_k, top_p, _ = samp
+        t = torch.full((b,), i, dtype=torch.int64, device=dev)
+        return sampling_lib.sample(last, key, temp, top_k, top_p, t)[:, None]
+
+    tok = choose(last, 0)
     if fused and dev.type == "cuda" and gen > 1:
         step = bundle.captured(params, b, cache_len, return_logits, gen - 1,
-                               dev, s_enc)
-        toks, seen = step.run(tok, cache, s, gen - 1)
+                               dev, s_enc, sampled=samp is not None)
+        toks, seen = step.run(tok, cache, s, gen - 1, samp)
         toks = torch.cat([tok.to(torch.int32), toks], dim=1)
         if return_logits:
             return toks, torch.cat([last[:, None], seen], dim=1)
@@ -360,7 +449,7 @@ def generate(params, prompts, cfg, *, gen: int, cache_len: int,
     pos = torch.full((b,), s, dtype=torch.int64, device=dev)
     for i in range(gen - 1):
         logits, _ = bundle.decode(params, tok, cache, pos + i)
-        tok = logits[:, -1, :].argmax(dim=-1)[:, None]
+        tok = choose(logits[:, -1, :], i + 1)
         out.append(tok)
         seen.append(logits[:, -1, :])
     toks = torch.cat(out, dim=1).to(torch.int32)

@@ -58,21 +58,37 @@ def _project_kv(p, x, cfg: ModelConfig):
 
 def _gqa_scores(q, k):
     """q: [B,S,H,D], k: [B,T,KV,D] -> float32 scores [B,KV,G,S,T]; head h
-    uses kv head h // G (G = H // KV)."""
+    uses kv head h // G (G = H // KV).
+
+    A decode step (S = 1) takes each score as the products' row sum over
+    D (`common.row_sum`), in an order that depends neither on the batch
+    nor on T: cuBLAS's batched product for the einsum picks its
+    algorithm from both, and the serve engine's rows (B = its batch
+    bucket, T = its cache bucket) must equal the static path's (B = 1,
+    T = cache_len) bit for bit (ROADMAP C10)."""
     b, s, h, d = q.shape
     kv = k.shape[2]
-    q = q.reshape(b, s, kv, h // kv, d)
-    return torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32),
-                        k.to(torch.float32))
+    q = q.reshape(b, s, kv, h // kv, d).to(torch.float32)
+    if s == 1:
+        prod = q.permute(0, 2, 3, 1, 4) \
+            * k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+        return common.row_sum(prod)[:, :, :, None, :]     # [B,KV,G,1,T]
+    return torch.einsum("bskgd,btkd->bkgst", q, k.to(torch.float32))
 
 
 def _gqa_out(w, v):
     """w: [B,KV,G,S,T], v: [B,T,KV,D] -> [B,S,H*D] in v's dtype (float32
-    accumulation, one rounding)."""
+    accumulation, one rounding).  A decode step sums the products over T
+    in a tree that neither the batch nor zero weights appended to T (the
+    masked positions up to a longer cache) change (`_gqa_scores`)."""
     b, kv, g, s, t = w.shape
-    o = torch.einsum("bkgst,btkd->bskgd", w.to(torch.float32),
-                     v.to(torch.float32))
-    return o.reshape(b, s, kv * g * o.shape[-1]).to(v.dtype)
+    dtype, w, v = v.dtype, w.to(torch.float32), v.to(torch.float32)
+    if s == 1:
+        prod = w[:, :, :, 0, :, None] * v.permute(0, 2, 1, 3)[:, :, None]
+        o = common.tail_sum_(prod, dim=-2)                # [B,KV,G,D]
+    else:
+        o = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return o.reshape(b, s, kv * g * o.shape[-1]).to(dtype)
 
 
 def _kv_quantize(t):
@@ -184,23 +200,35 @@ def _write_prefill(cache, k, v):
         cache[f"{name}_s"][:, s:] = 1e-8
 
 
-def _cache_insert(cache, name: str, new, at, rows):
-    """Rows `rows` of new [B,C,KV,D] into cache[name] at the indices `at`
-    (per row: positions pos..pos+C-1), in place; into an int8 cache
-    quantized per position, its scales into cache[name + "_s"]."""
+def _cache_insert(cache, name: str, new, at, active):
+    """new [B,C,KV,D] into cache[name] at the indices `at` (per row:
+    C positions), in place; into an int8 cache quantized per position,
+    its scales into cache[name + "_s"].  Every row computes its write;
+    a row off `active` ([B] bool, or None: all on) writes back what it
+    held, as the reference's `_mask_inactive` keeps its old rows: static
+    shapes, no boolean indexing, so the write can be captured in a CUDA
+    graph."""
+    def put(t, value):
+        if active is not None:
+            keep = active.reshape((-1,) + (1,) * (value.ndim - 1))
+            value = torch.where(keep, value, t[at])
+        t[at] = value
+
     if f"{name}_s" in cache:
         new, scale = _kv_quantize(new)
-        cache[f"{name}_s"][at] = scale[rows]
-    cache[name][at] = new[rows]
+        put(cache[f"{name}_s"], scale)
+    put(cache[name], new)
 
 
 def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
     """Decode C new tokens against the cache: x_t [B, C, d]; pos [B] int
     position of the FIRST new token per row; active: optional [B] bool
-    slot mask -- inactive rows leave their cache untouched.
+    slot mask -- inactive rows leave their cache untouched (they write
+    back what they held: `_cache_insert`).
 
-    Token c of row b is written (in place) at cache position pos[b]+c and
-    attends causally to positions <= pos[b]+c.  An int8 cache takes the
+    Token c of row b is written (in place) at cache position pos[b]+c
+    (the start clamped to S_max - C, as XLA clamps it) and attends
+    causally to positions <= pos[b]+c.  An int8 cache takes the
     new rows quantized, scales too, and is then dequantized whole for
     the attention: a token attends over its own dequantized key, as in
     the reference.  Under cfg.m_rope_sections the rotation takes the
@@ -216,12 +244,17 @@ def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
         q = common.apply_rope(q, posq, cfg.rope_theta, cfg.m_rope_sections)
         k_t = common.apply_rope(k_t, posq, cfg.rope_theta,
                                 cfg.m_rope_sections)
-    rows = torch.arange(b, device=x_t.device)
-    if active is not None:
-        rows = rows[active]
-    at = (rows[:, None], qpos[rows])
-    _cache_insert(cache, "k", k_t, at, rows)
-    _cache_insert(cache, "v", v_t, at, rows)
+    # the write starts at pos clamped to [0, S_max - C], as XLA clamps
+    # the start of the reference's dynamic_update_slice: a slot that
+    # finished mid-segment and runs on past the cache overwrites only its
+    # own last rows, which no later request reads unwritten
+    t_max = cache["k"].shape[1]
+    start = torch.clamp(pos, 0, t_max - c)
+    at = (torch.arange(b, device=x_t.device)[:, None],
+          start[:, None] + torch.arange(c, device=pos.device,
+                                        dtype=pos.dtype))
+    _cache_insert(cache, "k", k_t, at, active)
+    _cache_insert(cache, "v", v_t, at, active)
     if "k_s" in cache:
         k = _kv_dequant(cache["k"], cache["k_s"], x_t.dtype)
         v = _kv_dequant(cache["v"], cache["v_s"], x_t.dtype)

@@ -38,7 +38,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import blocks, common, mlp, ssm
+from repro_torch.models import blocks, common, mlp, slot_state, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qtensor import qmatmul
 
@@ -407,3 +407,20 @@ def encdec_decode_step(params, token_t, cache, pos, cfg: ModelConfig,
                   cache=layer_cache, pos=pos, active=active)
     x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return _lm_head(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# slot-state registry (models/slot_state.py)
+# ---------------------------------------------------------------------------
+# The serve engine builds, slices, scatters and compacts per-slot decode
+# state through these registrations, as the reference's lm.py:384-392;
+# the axis layout is probed from init_cache.  Chunked prefill is for the
+# pure-KV families only: SSM / hybrid state updates are sequential, and
+# feeding their prompts C tokens at a time through the decode path would
+# change the reduction order.  The encdec family is registered with its
+# engine path (ROADMAP A6, engine slice 2: the encdec family and image
+# prompts through the engine).
+for _fam in ("dense", "vlm", "moe"):
+    slot_state.register(_fam, init_cache)
+for _fam in ("ssm", "hybrid"):
+    slot_state.register(_fam, init_cache, prefill_chunkable=False)

@@ -254,7 +254,12 @@ def ssd_decode(p, x_t, state, cfg: ModelConfig, active=None):
                               state["ssm"])
         new_conv = torch.where(active[:, None, None], new_conv,
                                state["conv"])
-    y = torch.einsum("bhn,bhpn->bhp", chh, new_ssm)
+    # C . h over N as products and a batch-invariant row sum: cuBLAS's
+    # batched product for this einsum sums in another order for one row
+    # than for a batch of them, and the serve engine's rows must not
+    # depend on their batch mates (measured on the card: ~3% of the
+    # outputs differ between B=1 and B=2..8)
+    y = common.row_sum(chh[:, :, None, :] * new_ssm)        # [B,H,P]
     y = y + p["D"][None, :, None] * xf
     y = y.reshape(b, 1, d_inner)
     y = y * _silu(z.to(torch.float32))

@@ -845,3 +845,38 @@ def test_cuda_hybrid_fused_decode_matches_stepwise(cuda, fmt):
                                device=cuda, return_logits=True)
     assert torch.equal(plain[0], out[0][0]) and \
         torch.equal(plain[1], out[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["w8a8", "w4a8"])
+def test_cuda_engine_matches_static_generate(cuda, fmt):
+    """The serve engine's captured segment steps on the card: ragged
+    greedy and sampled requests through 2 slots (evictions, compaction,
+    captures at several (bb, t_b)), each stream equal to the static
+    `generate` of that request alone (its own captured step), bit for
+    bit; after warmup() the run captures nothing new."""
+    from repro_torch.launch import scheduler, serve
+    from repro_torch.launch.engine import ServeEngine
+    serve.decode_cache_clear()
+    cfg, params = _served(cuda, fmt)
+    sp = scheduler.SamplingParams(temperature=0.9, top_k=8, seed=11)
+    rng = np.random.default_rng(3)
+    reqs = [scheduler.Request(rid=i, prompt=rng.integers(0, cfg.vocab, s),
+                              max_new_tokens=g, sampling=(None, sp)[i % 2])
+            for i, (s, g) in enumerate(((5, 3), (12, 8), (9, 1), (16, 6),
+                                        (20, 11)))]
+    eng = ServeEngine(params, cfg, n_slots=2, max_cache_len=32,
+                      segment_len=4, device=cuda)
+    eng.warmup(prompt_lens=[r.prompt_len for r in reqs])
+    graphs = set(eng._graphs)
+    assert eng.cache_info()["captured"] == len(eng.batch_buckets) * \
+        len(eng.len_buckets)
+    out = eng.run(reqs)
+    assert eng._graphs == graphs and eng.compactions >= 1
+    for r in reqs:
+        want = serve.generate(params, r.prompt[None], cfg,
+                              gen=r.max_new_tokens,
+                              cache_len=r.prompt_len + r.max_new_tokens,
+                              device=cuda, sampling=[r.sampling],
+                              rids=[r.rid])[0].cpu().numpy()
+        np.testing.assert_array_equal(out[r.rid], want)

@@ -298,7 +298,7 @@ def test_cache_insert_bit_exact(c):
     rows = torch.arange(b)
     qpos = torch.from_numpy(pos).long()[:, None] + torch.arange(c)
     tattn._cache_insert(cache, "k", torch.from_numpy(new),
-                        (rows[:, None], qpos), rows)
+                        (rows[:, None], qpos), None)     # every row active
     np.testing.assert_array_equal(cache["k"].numpy(), np.asarray(jq))
     np.testing.assert_array_equal(cache["k_s"].numpy().view(np.int32),
                                   np.asarray(js).view(np.int32))
