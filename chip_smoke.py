@@ -225,13 +225,40 @@ over):
    per-token latency p50 / p99, occupancy, segments, graphs and capture
    ms; from the profiled run its launches, busy share and GEMM share.
    Then mamba2-2.7b at SSM_LAYERS, w4a8, 8 requests: engine == static,
-   segment graphs by batch bucket only (`phase_engine_ssm`).  Each
+   segment graphs by batch bucket only (`phase_engine_ssm`);
+14. the engine's admission paths (`phase_engine_admission`): first
+   scripts/batch_invariance.py's S > 1 attention cases (the chunk step
+   against full prefill, whisper's encoder at each bucket and the
+   decoder prefill's cross-attention over the padded page, against the
+   request alone; `admission_invariance_gate`).  Then full-width
+   smollm-135m, w4a8, 8 slots, max_cache_len 256 (length buckets from
+   128), segments of 16, serving the port's `shared_prefix_traffic`
+   from seed 0 (48 requests over 4 prefixes of 64 tokens, tails 4 / 8 /
+   16, gens 2 / 8 / 16 / 32, zipf 1.4: the reference's prefix-reuse
+   row) and then 2 exact repeats (`admission_traffic`) through four
+   engines: full prefill, cold chunked (prefill_chunk 16), warm
+   (prefill_chunk 16, prefix_cache 256, admit_token_budget 128) and
+   full prefill with prefix_cache 256.  Gates: warm == cold, chunked ==
+   full == each request's static `generate`, pooled full == full, bit
+   for bit; the repeats' admission launches nothing (profiled); one
+   profiled chunked admission launches 210 GEMMs per chunk launch at M
+   = bb x 16 (the tile from bb = 2); no capture after `warmup()`;
+   both GEMMs bit for bit at every M.  Then full-width whisper-small,
+   w4a8, enc_len 1500, 8 slots, max_cache_len 128 (`whisper_traffic`:
+   12 requests of 1500 / 1000 / 500 / 200 frames, prompts of 4-8
+   tokens): every stream == its static `generate` in a profiled run
+   (the encoder at ragged M = bb x eb through the engine), inactive
+   slots' pages unchanged, and a pooled engine (prefix_cache 8) whose
+   exact repeat is admitted with no launch (`phase_engine_whisper`).
+   Hit rate, tokens skipped, deferrals, capture ms, tok/s, TTFT and the
+   device-to-host copy time of `extract_row_pages` are logged.  Each
    phase's seconds are logged.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
 launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
-those paths' GEMM time per generate; the engine path's launches and
-GEMM ms over the profiled run of the trace), the nvidia-smi line and, last,
+those paths' GEMM time per generate; the engine paths' launches and
+GEMM ms over the profiled runs: phase 13's trace, phase 14's chunked
+admission and whisper trace), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
@@ -3607,10 +3634,11 @@ def static_streams(serve, params, cfg, reqs, cache_len=None) -> dict:
     return out
 
 
-def engine_gemm_gates(ms, kns) -> int:
-    """Both GEMM kernels bit for bit against their plain versions (int32
-    accumulator and f32 output) at every M the engine gave them and every
-    (K, N) of the model; returns the shapes gated."""
+def engine_gemm_gates(ms, kns, packed: bool = True) -> int:
+    """Both GEMM kernels (the int8 one alone without `packed`) bit for bit
+    against their plain versions (int32 accumulator and f32 output) at
+    every M the engine gave them and every (K, N) of the model; returns
+    the shapes gated."""
     from repro_torch.kernels import packed_matmul, quant_matmul, ref
     gen = torch.Generator(device="cuda").manual_seed(77)
     n = 0
@@ -3626,7 +3654,7 @@ def engine_gemm_gates(ms, kns) -> int:
                     (packed_matmul.packed_w4_matmul_acc,
                      packed_matmul.packed_w4_matmul,
                      ref.packed_w4_matmul_acc_ref, ref.packed_w4_matmul_ref,
-                     nn // 2)):
+                     nn // 2))[:2 if packed else 1]:
                 w = torch.randint(-128, 128, (k, cols), generator=gen,
                                   device="cuda", dtype=torch.int8)
                 if not torch.equal(acc(x, w), acc_r(x, w)) or \
@@ -3717,7 +3745,7 @@ def engine_invariance_gate(smi: str) -> None:
     bi = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bi)
     t0 = time.perf_counter()
-    res, bad = bi.gate(torch.device("cuda"))
+    res, bad = bi.gate(torch.device("cuda"), s_cases=False)
     if bad:
         raise AssertionError(f"engine: not batch-invariant on the card: "
                              f"{bad}")
@@ -3988,6 +4016,541 @@ def phase_engine_ssm() -> None:
     torch.cuda.empty_cache()
 
 
+# phase 14: the engine's admission paths
+# smollm-135m's shared-prefix trace: the reference's full-size prefix-reuse
+# row (benchmarks/serve_throughput.py), from seed 0
+ADMIT_TRACE = dict(seed=0, n_requests=48, rate=100.0, n_prefixes=4,
+                   prefix_len=64, tail_lens=(4, 8, 16), gen_lens=(2, 8, 16, 32),
+                   zipf_a=1.4)
+ADMIT_CHUNK, ADMIT_POOL, ADMIT_BUDGET = 16, 256, 128
+# the smallest cache-length bucket: the trace's requests need 70-128
+# positions, so two buckets (128, 256) cover it with half the captures
+ADMIT_MIN_LEN = 128
+# the profiled cold chunked admission: the trace's first requests again,
+# one admission round of one batch bucket
+ADMIT_PROFILED = 8
+# the trace's requests repeated exactly once the trace has finished
+ADMIT_REPEATS = (0, 1)
+# whisper-small through the engine: 12 requests at 1000 req/s, frames
+# cycling over WHISPER_FRAMES, decoder prompts of 4-8 tokens, gens 16 / 32
+WHISPER_REQUESTS, WHISPER_RATE = 12, 1000.0
+WHISPER_FRAMES = (1500, 1000, 500, 200)
+WHISPER_CACHE, WHISPER_POOL = 128, 8
+
+
+def admission_traffic(cfg):
+    """The shared-prefix trace (ADMIT_TRACE) and its ADMIT_REPEATS exact
+    repeats under new ids: (trace, repeats)."""
+    import dataclasses
+
+    from repro_torch.launch import scheduler
+    reqs = scheduler.shared_prefix_traffic(vocab=cfg.vocab, **ADMIT_TRACE)
+    reps = [dataclasses.replace(reqs[i], rid=500 + i, tokens=[])
+            for i in ADMIT_REPEATS]
+    return reqs, reps
+
+
+def whisper_traffic(cfg):
+    """WHISPER_REQUESTS requests, Poisson arrivals at WHISPER_RATE req/s
+    and everything else seeded from 0: frame counts cycling over
+    WHISPER_FRAMES (seeded float32 features on the host), decoder
+    prompts of 4-8 tokens, gens 16 / 32."""
+    import numpy as np
+
+    from repro_torch.launch import scheduler
+    rng = np.random.default_rng(0)
+    t, reqs = 0.0, []
+    for i in range(WHISPER_REQUESTS):
+        t += rng.exponential(1.0 / WHISPER_RATE)
+        frames = WHISPER_FRAMES[i % len(WHISPER_FRAMES)]
+        reqs.append(scheduler.Request(
+            rid=i, arrival_time=t, max_new_tokens=(16, 32)[i % 2],
+            prompt=rng.integers(0, cfg.vocab, int(rng.integers(4, 9)))
+            .astype(np.int32),
+            features=rng.standard_normal((frames, cfg.d_model))
+            .astype(np.float32)))
+    return reqs
+
+
+def _gemms_bound_ms(calls) -> float:
+    """The least time of a list of GEMM calls, (M, K, N, packed) each:
+    the sum of their `bound_ms` (packed weights take K * N / 2 bytes)."""
+    return sum(bound_ms(m, k, n, k * n // (2 if packed else 1))[0]
+               for m, k, n, packed in calls)
+
+
+def chunk_gemms(cfg, m: int) -> list:
+    """The GEMM calls of one chunk launch (or decode step) of a dense
+    model at M = m, w4a8: 7 per layer (MAIN_KN's shapes at smollm's
+    widths); the tied head is no GEMM call."""
+    d, f = cfg.d_model, cfg.d_ff
+    kv = cfg.n_kv * cfg.head_dim
+    per = [(d, d), (d, kv), (d, kv), (d, d), (d, f), (d, f), (f, d)]
+    return [(m, k, n, True) for k, n in per] * cfg.n_layers
+
+
+def whisper_gemms(cfg, prefills, seg_bbs, steps: int) -> list:
+    """The GEMM calls of whisper's engine run, w4a8 (the odd-width head
+    w8a8): per prefill (bb, eb, sb) the encoder's six per layer and the
+    cross k, v per decoder layer at M = bb x eb, the decoder's eight per
+    layer at M = bb x sb, the head at M = bb; per segment `steps` decode
+    steps of the decoder's eight per layer and the head at M = bb."""
+    d, f, vocab = cfg.d_model, cfg.d_ff, cfg.vocab
+    enc = [(d, d)] * 4 + [(d, f), (f, d)]
+    dec = [(d, d)] * 6 + [(d, f), (f, d)]
+    calls = []
+    for bb, eb, sb in prefills:
+        calls += [(bb * eb, k, n, True) for k, n in enc] * cfg.n_layers
+        calls += [(bb * eb, d, d, True)] * 2 * cfg.n_decoder_layers
+        calls += [(bb * sb, k, n, True) for k, n in dec] \
+            * cfg.n_decoder_layers
+        calls.append((bb, d, vocab, False))
+    for bb in seg_bbs:
+        calls += ([(bb, k, n, True) for k, n in dec] * cfg.n_decoder_layers
+                  + [(bb, d, vocab, False)]) * steps
+    return calls
+
+
+def _chunk_tally(eng) -> dict:
+    """Wrap every chunk step of `eng` to count its launches by batch
+    bucket: {bb: launches} (filled as the engine runs)."""
+    tally = collections.Counter()
+    for (_, bb, _, _), step in eng._chunks.items():
+        def run(*a, _run=step.run, _bb=bb):
+            tally[_bb] += 1
+            return _run(*a)
+        step.run = run
+    return tally
+
+
+@contextlib.contextmanager
+def _timed_pages(spec):
+    """Inside the block, time every `extract_row_pages` of `spec` (the
+    device-to-host copy and its wait; the spec is shared by every engine
+    of its config): yields the list of (ms, bytes) it appends to."""
+    seen, extract = [], spec.extract_row_pages
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        pages = extract(*a, **kw)
+        seen.append(((time.perf_counter() - t0) * 1e3,
+                     sum(p.numel() * p.element_size() for p in pages
+                         if p is not None)))
+        return pages
+    object.__setattr__(spec, "extract_row_pages", timed)
+    try:
+        yield seen
+    finally:
+        object.__delattr__(spec, "extract_row_pages")
+
+
+def _profiled_run(eng, reqs, clock_cls):
+    """Serve `reqs` under the profiler, every count from 0 just before:
+    (streams, host seconds, the wrappers' counts, device launches per
+    wrapper counter, the window's device kernels)."""
+    from repro_torch.kernels import registry
+    for c in registry.LAUNCH_COUNTERS:
+        c.reset()
+    with registry.profile_window() as prof:
+        out, secs = _engine_run(eng, reqs, clock_cls)
+    counts = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
+    events = [e for e in registry.window_events(prof)
+              if e.device_time_us > 0]
+    return out, secs, counts, registry.profiled_launches(
+        {e.key: e.count for e in events}), events
+
+
+def _profiled_admit(eng, reqs, clock_cls):
+    """Submit `reqs` (arrived) and run ONE admission round under the
+    profiler, every count from 0 just before; then serve them to the end
+    outside it: (streams, the wrappers' counts, device launches per
+    wrapper counter, the window's device kernels)."""
+    import dataclasses
+
+    from repro_torch.kernels import registry
+    for r in reqs:                       # arrived when the round runs
+        eng.submit(dataclasses.replace(r, arrival_time=0.0))
+    clock = clock_cls()
+    for c in registry.LAUNCH_COUNTERS:
+        c.reset()
+    with registry.profile_window() as prof:
+        eng._admit(clock.now(), clock)
+        torch.cuda.synchronize()
+    counts = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
+    events = [e for e in registry.window_events(prof)
+              if e.device_time_us > 0]
+    out = eng.run((), clock)
+    return out, counts, registry.profiled_launches(
+        {e.key: e.count for e in events}), events
+
+
+def _run_stats(eng, fin, secs) -> str:
+    toks = sum(len(r.tokens) for r in fin)
+    ttft = [r.first_token_time - r.arrival_time for r in fin]
+    return (f"{len(fin)} requests, {toks} tokens in {secs:.3f} s: "
+            f"{toks / secs:.1f} output tok/s; TTFT {_percentiles(ttft)}")
+
+
+def admission_invariance_gate(smi: str) -> None:
+    """scripts/batch_invariance.py's S > 1 cases first
+    (`s_attention_cases`: the chunk step against full prefill per
+    chunkable head layout, whisper's encoder at each bucket against its
+    frames, the decoder prefill's cross-attention over the padded page
+    against the frames, in the port's forms): every count 0; the
+    einsum's counts for whisper's decoder logged beside (ROADMAP C12)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "batch_invariance", ROOT / "scripts" / "batch_invariance.py")
+    bi = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bi)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    res = bi.s_attention_cases(dev, 2)
+    bad = [k for k, n in res.items() if n]
+    if bad:
+        raise AssertionError(f"admission: S > 1 attention not invariant on "
+                             f"the card: { {k: res[k] for k in bad} }")
+    ein = bi.s_attention_cases(dev, 1, fixed=False, chunkable=("encdec",))
+    log(f"admission invariance ({smi}): {len(res)} S > 1 attention cases "
+        f"(chunk, encoder, cross), every row == the row alone, bit for "
+        f"bit; the einsum form for whisper's decoder would differ in "
+        f"{ {k: n for k, n in ein.items() if n and 'encoder' not in k} } "
+        f"elements; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_engine_admission() -> dict:
+    """Phase 14: the engine's admission paths.  First the S > 1
+    invariance cases (`admission_invariance_gate`).  Then (a)
+    smollm-135m at full width (30 layers, nothing cut; seed-0 weights),
+    w4a8, 8 slots, max_cache_len 256, segments of 16, on a
+    FastForwardClock, serving the shared-prefix trace
+    (`admission_traffic`: 48 requests over 4 prefixes of 64 tokens, then
+    2 exact repeats once the trace has finished) through four engines:
+    full prefill; cold chunked (prefill_chunk 16); warm (prefill_chunk
+    16, prefix_cache 256, admit_token_budget 128); full prefill with
+    prefix_cache 256 (terminal hits).  Gates: every warm stream == its
+    cold stream, chunked == full == the static `generate` of each
+    request alone, and the terminal engine's == full's, bit for bit;
+    each repeat makes no prefill and no chunk launch (the wrappers' and
+    the profiler's counts in a `registry.profile_window`: the repeats'
+    GEMM launches are their decode segments' only); no capture after
+    `warmup()` and graphs <= `graph_bound()`; the cold chunked trace
+    profiled, its GEMM launches == the chunk steps' (210 per launch, at
+    M = bb x 16: the tile for bb >= 2) + the segments'; both GEMM
+    kernels bit for bit against their plain versions at every M the
+    engines gave them.  (b) whisper-small at full width (12 + 12 layers),
+    w4a8, enc_len 1500, 8 slots, max_cache_len 128, segments of 16
+    (`whisper_traffic`: 12 requests of 1500 / 1000 / 500 / 200 frames):
+    every stream == its static `generate`, bit for bit, in a profiled
+    run whose GEMM launches are the wrappers' eager prefills + the
+    segments' 96 + 1 per step, with every inactive slot's pages
+    unchanged in every segment; a pooled engine (prefix_cache 8)
+    serves the trace and then the repeat with no prefill launch, the
+    repeat's stream == its cold stream; both GEMMs bit for bit at every
+    M of its prefills.  Logged beside the card's name and power limit:
+    hit rate, prefill tokens skipped, deferrals, graphs and capture ms,
+    output tok/s and TTFT p50 / p99 cold and warm, the device-to-host
+    copy time of `extract_row_pages`, the encoder buckets used.
+    Returns {path: {GEMM counter: launches, "segments", "gemm_ms"}} of
+    the profiled runs for the `kernels` line."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch import engine, scheduler, serve
+
+    smi = smi_line()
+    admission_invariance_gate(smi)
+    cfg = configs.get_config(ENGINE_ARCH)
+    fmt, name = "w4a8", _gemm_name("w4a8")
+    small = f"{name}_small_m"
+    kns = list(dict.fromkeys(MAIN_KN))
+    paths = {}
+    t_part, secs = [time.perf_counter()], {}
+
+    def part(what):
+        now = time.perf_counter()
+        secs[what] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    params = serve.build_params(cfg, fmt, seed=0, device="cuda")
+    reqs, reps = admission_traffic(cfg)
+    want = static_streams(serve, params, cfg, reqs)
+    part("build, static streams")
+    plens = sorted({r.prompt_len for r in reqs})
+    per_step = gemms_per_step(cfg)
+    configs_kw = {"full": {}, "cold": {"prefill_chunk": ADMIT_CHUNK},
+                  "warm": {"prefill_chunk": ADMIT_CHUNK,
+                           "prefix_cache": ADMIT_POOL,
+                           "admit_token_budget": ADMIT_BUDGET},
+                  "terminal": {"prefix_cache": ADMIT_POOL}}
+    outs, ms = {}, set()
+    for label, kw in configs_kw.items():
+        tag = f"admission {ENGINE_ARCH} {fmt} {label}"
+        serve.decode_cache_clear()
+        eng = engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
+                                 max_cache_len=ENGINE_CACHE,
+                                 segment_len=ENGINE_SEGMENT,
+                                 min_len_bucket=ADMIT_MIN_LEN, **kw)
+        t0 = time.perf_counter()
+        n_warm = eng.warmup(prompt_lens=plens)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        graphs = set(eng._graphs)
+        tally = _chunk_tally(eng)
+        with _timed_pages(eng._spec) as pages:
+            out, run_s = _engine_run(eng, _again(reqs, 0),
+                                     scheduler.FastForwardClock)
+        fin = list(eng.finished)
+        _check_streams(tag, out, want, reqs)
+        sites = dict(eng._site_counts)
+        hit = "prefix_cache" in kw
+        if hit:
+            # the repeats' admission, profiled: no launch at all
+            rep_out, counts, launched, _ = _profiled_admit(
+                eng, reps, scheduler.FastForwardClock)
+            _check_streams(tag + " repeats", rep_out,
+                           {r.rid: want[r.rid - 500] for r in reps}, reps)
+            if eng._site_counts != {**sites,
+                                    "segment": eng._site_counts["segment"]} \
+                    or any(launched.values()) or any(counts.values()):
+                raise AssertionError(
+                    f"{tag}: the repeats' admission launched {launched} "
+                    f"(wrappers {counts}; sites {eng._site_counts} from "
+                    f"{sites})")
+        info = eng.cache_info()
+        if info["graphs"] > info["graph_bound"] or eng._graphs != graphs:
+            raise AssertionError(f"{tag}: graphs {sorted(eng._graphs, key=str)}"
+                                 f" (bound {info['graph_bound']}), after "
+                                 f"warmup {len(graphs)}")
+        ms |= {k[1] * k[2] for k in eng._graphs if k[0] in ("chunk",
+                                                             "prefill")}
+        outs[label] = out
+        pc = info.get("prefix_cache")
+        log(f"{tag} ({smi}): {_run_stats(eng, fin, run_s)}; "
+            f"{eng.segments} segments, launch sites {sites}, chunk "
+            f"launches by batch bucket {dict(tally)}; warmup {warm_s:.1f} "
+            f"s ({n_warm} keys), {info['captured']} graphs captured in "
+            f"{info['capture_ms']:.1f} ms, {info['graphs']} keys (bound "
+            f"{info['graph_bound']}), none after warmup; admission "
+            f"{info['admission']}"
+            + ("" if pc is None else
+               f"; pool: hit rate {pc['hit_rate']:.3f} ({pc['hits']} hits,"
+               f" {pc['misses']} misses), {pc['tokens_skipped']} prefill "
+               f"tokens skipped, {pc['pages_resident']} pages resident, "
+               f"{pc['insertions']} inserted")
+            + ("" if not pages else
+               f"; extract_row_pages {len(pages)} calls, "
+               f"{np.mean([b for _, b in pages]) / 1e6:.2f} MB and "
+               f"{np.mean([t for t, _ in pages]):.2f} ms each (device to "
+               f"pinned host)")
+            + (f"; the {len(reps)} exact repeats admitted with no "
+               "launch (profiled), their streams their first serving's"
+               if hit else ""))
+        if label == "cold":
+            # the chunk path profiled: one admission round of the trace's
+            # first requests again, under new ids
+            trace = _again(reqs[:ADMIT_PROFILED], 1000)
+            tally.clear()
+            out2, counts, launched, events = _profiled_admit(
+                eng, trace, scheduler.FastForwardClock)
+            chunk_n = sum(tally.values())
+            tile = sum(n for bb, n in tally.items() if bb > 1) * per_step
+            lone = tally.get(1, 0) * per_step
+            expect = {name: tile + lone, small: lone}
+            if {k: launched[k] for k in expect} != expect or counts[name] \
+                    or not tile:
+                raise AssertionError(f"{tag} (profiled): launched "
+                                     f"{launched}, expected {expect} "
+                                     f"(wrappers {counts}, chunk launches "
+                                     f"{dict(tally)})")
+            _check_streams(tag + " (profiled)", out2,
+                           {r.rid + 1000: want[r.rid] for r in reqs}, trace)
+            gemm = [e for e in events if registry_launches(e)[name]]
+            dev_ms = sum(e.device_time_us for e in events) / 1e3
+            gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
+            bound = sum(_gemms_bound_ms(chunk_gemms(cfg, bb * ADMIT_CHUNK))
+                        * n for bb, n in tally.items())
+            log(f"{tag} profiled ({smi}): one admission of the first "
+                f"{len(trace)} requests again, {chunk_n} chunk launches "
+                f"{dict(tally)} (M = bb x {ADMIT_CHUNK}): device "
+                f"{dev_ms:.2f} ms, GEMMs {gemm_ms:.2f} ms "
+                f"({gemm_ms / chunk_n:.3f} ms per chunk launch; their "
+                f"bound {bound:.3f} ms, {100 * bound / gemm_ms:.1f}%); GEMM "
+                f"launches {launched[name]} of {name} ({launched[small]} "
+                f"small-M), as expected: {per_step} per chunk launch")
+            paths[f"admission chunked {fmt}"] = {
+                name: launched[name], small: launched[small],
+                "chunk_launches": chunk_n, "gemm_ms": gemm_ms,
+                "bound_ms": bound}
+        del eng
+        torch.cuda.empty_cache()
+        part(label)
+    for a, b in (("cold", "full"), ("warm", "cold"), ("terminal", "full")):
+        for r in reqs:
+            if not np.array_equal(outs[a][r.rid], outs[b][r.rid]):
+                raise AssertionError(f"admission: {a} request {r.rid} "
+                                     f"differs from {b}")
+    n_gemm = engine_gemm_gates(ms | {1, 2, 4, 8}, kns)
+    part("GEMM gates")
+    log(f"admission {ENGINE_ARCH}: every stream of the four engines == "
+        f"its static generate, warm == cold, chunked == full, terminal == "
+        f"full, bit for bit; GEMM gates: {n_gemm} (kernel, M, K, N) bit "
+        f"for bit at M = {sorted(ms | {1, 2, 4, 8})}; seconds {secs}")
+    del params, want, outs
+    serve.decode_cache_clear()
+    torch.cuda.empty_cache()
+    paths.update(phase_engine_whisper(smi))
+    return paths
+
+
+def registry_launches(event) -> dict:
+    from repro_torch.kernels import registry
+    return registry.profiled_launches({event.key: 1})
+
+
+def phase_engine_whisper(smi: str) -> dict:
+    """Phase 14 (b): whisper-small through the engine (see
+    `phase_engine_admission`)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch import engine, scheduler, serve
+
+    cfg = configs.get_config(ENCDEC_ARCH)
+    fmt, name = "w4a8", _gemm_name("w4a8")
+    head = _gemm_name("w8a8" if cfg.vocab % 2 else fmt)
+    tag = f"admission {ENCDEC_ARCH} {fmt}"
+    t0 = time.perf_counter()
+    params = serve.build_params(cfg, fmt, seed=0, device="cuda",
+                                max_seq=ENC_FRAMES)
+    reqs = whisper_traffic(cfg)
+    want = {}
+    for r in sorted(reqs, key=lambda r: (r.prompt_len + r.max_new_tokens,
+                                         r.features.shape[0])):
+        want[r.rid] = serve.generate(
+            params, (torch.as_tensor(r.features[None], device="cuda"),
+                     torch.as_tensor(r.prompt[None], device="cuda")), cfg,
+            gen=r.max_new_tokens,
+            cache_len=r.prompt_len + r.max_new_tokens)[0].cpu().numpy()
+    static_s = time.perf_counter() - t0
+    serve.decode_cache_clear()
+    eng = engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
+                             max_cache_len=WHISPER_CACHE,
+                             segment_len=ENGINE_SEGMENT, enc_len=ENC_FRAMES)
+    t0 = time.perf_counter()
+    n_warm = eng.warmup(prompt_lens=sorted({r.prompt_len for r in reqs}))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    graphs = set(eng._graphs)
+    shapes, prefill = [], eng._prefill
+
+    def seen(inputs, lens, t_pre):
+        shapes.append(tuple(inputs[0].shape[:2]) + (inputs[1].shape[1],))
+        return prefill(inputs, lens, t_pre)
+    eng._prefill = seen
+    seg_bbs, seg_step = [], eng._segment_step
+
+    def seg_seen(bb, t_b):
+        seg_bbs.append(bb)
+        return seg_step(bb, t_b)
+    eng._segment_step = seg_seen
+    idle = _inactive_pages_gate(eng)
+    out, run_s, counts, launched, events = _profiled_run(
+        eng, _again(reqs, 0), scheduler.FastForwardClock)
+    del eng._begin_segment
+    _check_streams(tag, out, want, reqs)
+    segs = eng.segments
+    per = {name: gemms_per_step(cfg), head: 1} if head != name else \
+        {name: gemms_per_step(cfg) + 1}
+    expect = {f"{k}_small_m": counts[f"{k}_small_m"]
+              + segs * n * ENGINE_SEGMENT for k, n in per.items()}
+    expect[name] = counts[name] + (expect[f"{name}_small_m"]
+                                   - counts[f"{name}_small_m"])
+    if any(launched[k] != n for k, n in expect.items()) or not counts[name]:
+        raise AssertionError(f"{tag}: the profiled run launched {launched},"
+                             f" expected {expect} (wrappers {counts}, "
+                             f"{segs} segments)")
+    info = eng.cache_info()
+    if info["graphs"] > info["graph_bound"] or eng._graphs != graphs or \
+            not any(n for _, n in idle):
+        raise AssertionError(f"{tag}: graphs {len(eng._graphs)} (bound "
+                             f"{info['graph_bound']}, after warmup "
+                             f"{len(graphs)}), idle checks {idle}")
+    gemm = [e for e in events if registry_launches(e)[name]
+            or registry_launches(e)[head]]
+    gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
+    dev_ms = sum(e.device_time_us for e in events) / 1e3
+    bound = _gemms_bound_ms(whisper_gemms(cfg, shapes, seg_bbs,
+                                          ENGINE_SEGMENT))
+    ebs = sorted({eb for _, eb, _ in shapes})
+    log(f"{tag} ({smi}), profiled: {_run_stats(eng, list(eng.finished), run_s)}"
+        f"; {segs} segments; every stream == its static generate "
+        f"({static_s:.1f} s for the {len(reqs)}), bit for bit; inactive "
+        f"slots' pages unchanged ({sum(n for _, n in idle)} slot checks); "
+        f"prefills (bb, eb, sb) {shapes}, encoder buckets used {ebs} of "
+        f"{list(eng.enc_buckets)}; device {dev_ms:.2f} ms, GEMMs "
+        f"{gemm_ms:.2f} ms (their bound {bound:.3f} ms, "
+        f"{100 * bound / gemm_ms:.1f}%; segment batch buckets {seg_bbs}), "
+        f"GEMM launches {launched} = the wrappers' eager "
+        f"prefills {counts} + {segs} x {ENGINE_SEGMENT} steps x {per}; "
+        f"warmup {warm_s:.1f} s ({n_warm} keys), {info['captured']} graphs"
+        f" captured in {info['capture_ms']:.1f} ms, bound "
+        f"{info['graph_bound']}, none after warmup")
+    path = {f"admission whisper {fmt}": {
+        k: launched[k] for k in (name, f"{name}_small_m", head,
+                                 f"{head}_small_m")}
+        | {"segments": segs, "gemm_ms": gemm_ms, "bound_ms": bound}}
+    del eng
+    torch.cuda.empty_cache()
+    # the pool: the trace (its captures at first use: no warmup), then
+    # the exact repeat of the last 1500-frame request still pooled (the
+    # pool holds WHISPER_POOL of the trace's 12 terminal entries)
+    pool = engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
+                              max_cache_len=WHISPER_CACHE,
+                              segment_len=ENGINE_SEGMENT, enc_len=ENC_FRAMES,
+                              prefix_cache=WHISPER_POOL)
+    with _timed_pages(pool._spec) as pages:
+        out, _ = _engine_run(pool, _again(reqs, 0),
+                             scheduler.FastForwardClock)
+    _check_streams(tag + " pooled", out, want, reqs)
+    src = [r for r in reqs if r.features.shape[0] == ENC_FRAMES
+           and pool._prefix.peek_cached_tokens(r) == r.prompt_len][-1]
+    reps = _again([src], 100)
+    n_pre = pool._site_counts["prefill"]
+    rep_out, counts, launched, _ = _profiled_admit(
+        pool, reps, scheduler.FastForwardClock)
+    if pool._site_counts["prefill"] != n_pre or any(counts.values()) or \
+            any(launched.values()) or \
+            not np.array_equal(rep_out[reps[0].rid], want[src.rid]):
+        raise AssertionError(f"{tag} pooled: the repeat's admission "
+                             f"launched {launched} (wrappers {counts}), "
+                             f"prefills {pool._site_counts['prefill']} from "
+                             f"{n_pre}")
+    pc = pool.cache_info()["prefix_cache"]
+    log(f"{tag} pooled (prefix_cache {WHISPER_POOL}): every stream == its "
+        f"static generate; the repeat of request {src.rid} "
+        f"({ENC_FRAMES} frames) == its cold stream, admitted with no "
+        f"launch (profiled); pool "
+        f"{pc['hits']} hits, {pc['misses']} misses, {pc['pages_resident']} "
+        f"terminal entries; extract_row_pages {len(pages)} calls, "
+        f"{np.mean([b for _, b in pages]) / 1e6:.1f} MB and "
+        f"{np.mean([t for t, _ in pages]):.2f} ms each (device to pinned "
+        "host)")
+    ms = {bb * eb for bb, eb, _ in shapes} | {bb * sb for bb, _, sb in shapes}
+    n_gemm = engine_gemm_gates(
+        ms | {1, 2, 4, 8}, [(cfg.d_model, cfg.d_model),
+                            (cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)])
+    n_gemm += engine_gemm_gates({1, 2, 4, 8}, [(cfg.d_model, cfg.vocab)],
+                                packed=False)
+    log(f"{tag}: GEMM gates {n_gemm} (kernel, M, K, N) bit for bit at M = "
+        f"{sorted(ms | {1, 2, 4, 8})} (the head (768, {cfg.vocab}) in "
+        "quant_matmul only: its odd width is w8a8 under w4a8)")
+    del pool, params
+    serve.decode_cache_clear()
+    torch.cuda.empty_cache()
+    return path
+
+
 def _small_m_back_to_back_us(res: dict) -> float:
     """The small-M kernel's mean time per decode launch, back to back
     (phase_kernels' CUDA-event timing, L2 spilled), weighted as one
@@ -4163,6 +4726,8 @@ def main() -> int:
     enc, enc_gen = phase("encoder-decoder: whisper-small", phase_encdec)
     vlm, vlm_gen = phase("vlm: qwen2-vl-72b", phase_vlm)
     eng = phase("serve engine: smollm-135m, mamba2-2.7b", phase_engine)
+    eng.update(phase("serve engine admission: chunked prefill, the prefix "
+                     "cache, whisper-small", phase_engine_admission))
     for paths_of in (moe, ssm, hyb, enc, vlm):
         for k, paths in paths_of.items():
             other.setdefault(k, {}).update(paths)
@@ -4179,8 +4744,9 @@ def main() -> int:
             if path:
                 e[key] = path
         path = {tag: {"launches": rows[e["name"]],
-                      "segments": rows["segments"],
-                      "gemm_ms": rows["gemm_ms"]}
+                      **{k: v for k, v in rows.items()
+                         if k in ("segments", "chunk_launches", "gemm_ms",
+                                  "bound_ms")}}
                 for tag, rows in eng.items() if e["name"] in rows}
         if path:
             e["engine_path_per_trace"] = path

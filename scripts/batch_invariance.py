@@ -25,9 +25,23 @@ elements that differ (0 is invariant):
   decode step over cache_len alone against t_b in a batch, a 1500-key
   cache against 2048, and a prefill of L positions alone against the
   prompt bucket in a batch of 8;
+* `attention_s`: the attention of the engine's admission paths, whose
+  queries are many (S > 1), per head layout: chunked prefill's C = 16
+  queries over the prefill state's t_pre keys in a batch of 8 against
+  the same positions of a full prefill of the row alone (the chunkable
+  families' layouts); whisper's encoder over a ragged
+  row's L frames padded to its bucket eb in a batch, against the L
+  frames alone; and the decoder prefill's cross-attention over the
+  slot's enc_len = 1500 frames, masked to L, against L frames alone;
 * `models`: a prefill and 7 decode steps of one architecture per
   registered family at full width and a few layers, row 0 alone against
-  row 0 in a batch of 8 at the engine's bucketed shapes.
+  row 0 in a batch of 8 at the engine's bucketed shapes (whisper: its
+  features padded to the encoder bucket and the cross K/V to enc_len).
+
+`softmax_pad` (not gated) counts what `torch.softmax` alone gives a row
+of L scores against the same row with masked scores appended, and
+`einsum_s` (not gated) what the einsum form would give whisper's
+decoder in the `attention_s` cases (ROADMAP C12).
 
 `gate(dev)` returns the result and the cases that are not invariant
 among the port's forms; chip_smoke.py phase 13 fails on any.
@@ -53,10 +67,18 @@ BATCHES = (2, 4, 8, 16)
 # one architecture per registered family for the model cases, with the
 # layers it keeps (a hybrid keeps one scan unit: every layer kind)
 MODEL_ARCHS = {"dense": ("smollm-135m", 4, "w8a8"),
+               "encdec": ("whisper-small", 2, "w4a8"),
                "vlm": ("qwen2-vl-72b", 1, "w4a8"),
                "moe": ("granite-moe-1b-a400m", 2, "w8a8"),
                "ssm": ("mamba2-2.7b", 2, "w4a8"),
                "hybrid": ("jamba-v0.1-52b", 8, "w4a8")}
+
+
+# the engine's S > 1 cases: the prefill chunk, whisper's frames and the
+# slot's cross K/V width (chip_smoke.py phase 13's whisper engine)
+CHUNK = 16
+ENC_FRAMES = (200, 500, 1000, 1500)
+ENC_LEN = 1500
 
 
 def _diff(a, b) -> int:
@@ -90,6 +112,12 @@ def _port_cases(dev) -> dict:
                 lambda x, w=w: common.rms_norm(x.bfloat16(), w), [(1, d)])
             cases[f"rms_norm prefill [B, 48, {d}]"] = (
                 lambda x, w=w: common.rms_norm(x.bfloat16(), w), [(48, d)])
+            if cfg.norm == "layernorm":
+                b0 = torch.zeros(d, device=dev)
+                for s in (1, 5):
+                    cases[f"layer_norm [B, {s}, {d}]"] = (
+                        lambda x, w=w, b0=b0: common.layer_norm(
+                            x.bfloat16(), w, b0), [(s, d)])
         cases[f"row_cumsum over V = {cfg.vocab}"] = (
             lambda x: common.row_cumsum(torch.softmax(x, -1)),
             [(cfg.vocab,)])
@@ -213,16 +241,143 @@ def attention_cases(dev, draws: int) -> dict:
                        for s in ((8, sb, h, d), (8, sb, kv, d),
                                  (8, sb, kv, d)))
             pos = torch.arange(sb, device=dev).expand(8, -1)
-            many = attention._attend(q, k, v, cfg, torch.bfloat16, pos, pos)
+            fixed = cfg.family == "encdec"      # the decoder's form
+            many = attention._attend(q, k, v, cfg, torch.bfloat16, pos, pos,
+                                     fixed=fixed)
             n = 0
             for j in range(8):
                 one = attention._attend(
                     q[j:j + 1, :length], k[j:j + 1, :length],
                     v[j:j + 1, :length], cfg, torch.bfloat16,
-                    pos[:1, :length], pos[:1, :length])
+                    pos[:1, :length], pos[:1, :length], fixed=fixed)
                 n += _diff(one, many[j:j + 1, :length])
             out[f"{arch} prefill {length}/8x{sb}"] = n
     return out
+
+
+def _layouts(families=None) -> dict:
+    """{(H, KV, D): (arch, cfg)}: one served architecture per attention
+    head layout (of the given families)."""
+    out = {}
+    for arch, cfg in served_configs().items():
+        if cfg.family != "ssm" and (families is None
+                                    or cfg.family in families):
+            out.setdefault((cfg.n_heads, cfg.n_kv, cfg.head_dim),
+                           (arch, cfg))
+    return out
+
+
+def s_attention_cases(dev, draws: int, fixed: bool = True,
+                      chunkable=("dense", "vlm", "moe")) -> dict:
+    """The S > 1 attention of the engine's admission paths, each row's
+    output against the row alone: {case: differing elements}.
+
+    * `chunk`: queries [kC, (k+1)C) of a prompt of L tokens over the
+      prefill state's t_pre keys (garbage past the row's own positions,
+      masked causally) in a batch of 8, every chunk k, against positions
+      [0, L) of a causal prefill of the L tokens alone, per layout of
+      the `chunkable` families (the einsum form: the port's);
+    * `encoder`: whisper's bidirectional encoder attention over a row's L
+      frames padded to its bucket eb (`kv_lengths`) in a batch, against
+      the L frames alone;
+    * `cross`: the decoder prefill's 8 queries over the slot's 1500-frame
+      cross K/V masked to L frames, in a batch, against 5 queries over
+      the L frames alone, in the fixed-order form (`attention._attend(
+      fixed=True)`, the port's) or, with fixed=False, the einsum.
+
+    The encoder keeps the einsum, which these cases hold invariant on
+    the card."""
+    from repro_torch.launch import scheduler
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    for (h, kv, d), (arch, cfg) in _layouts(chunkable).items():
+        for length, t in ((20, 32), (64, 64), (100, 128), (100, 256)):
+            n = 0
+            for _ in range(draws):
+                q, k, v = randn(8, t, h, d), randn(8, t, kv, d), \
+                    randn(8, t, kv, d)
+                pos = torch.arange(t, device=dev)
+                one = attention._attend(
+                    q[:1, :length], k[:1, :length], v[:1, :length], cfg,
+                    bf, pos[None, :length], pos[None, :length])
+                for c0 in range(0, length, CHUNK):
+                    qp = (c0 + torch.arange(CHUNK, device=dev)).expand(8, -1)
+                    many = attention._attend(q[:, c0:c0 + CHUNK], k, v, cfg,
+                                             bf, qp, pos.expand(8, -1))
+                    m = min(CHUNK, length - c0)
+                    n += _diff(one[:, c0:c0 + m], many[:1, :m])
+            out[f"{arch} chunk {length}/8x{t}"] = n
+    enc = _layouts(("encdec",))
+    b = 8 if dev.type == "cuda" else 2
+    for (h, kv, d), (arch, cfg) in enc.items():
+        for length in ENC_FRAMES:
+            eb = scheduler.bucket_pow2(length, minimum=8, maximum=ENC_LEN)
+            lens = torch.randint(eb // 2 + 1, eb + 1, (b,), generator=g,
+                                 device=dev)
+            lens[0] = length
+            q, k, v = randn(b, eb, h, d), randn(b, eb, kv, d), \
+                randn(b, eb, kv, d)
+            many = attention._attend(q, k, v, cfg, bf,
+                                     valid=attention._valid(lens, eb, dev))
+            one = attention._attend(q[:1, :length], k[:1, :length],
+                                    v[:1, :length], cfg, bf)
+            out[f"{arch} encoder {length}/{b}x{eb}"] = _diff(
+                one, many[:1, :length])
+            q, k, v = randn(b, 8, h, d), randn(b, ENC_LEN, kv, d), \
+                randn(b, ENC_LEN, kv, d)
+            many = attention._attend(q, k, v, cfg, bf,
+                                     valid=attention._valid(lens, ENC_LEN,
+                                                            dev),
+                                     fixed=fixed)
+            one = attention._attend(q[:1, :5], k[:1, :length],
+                                    v[:1, :length], cfg, bf, fixed=fixed)
+            out[f"{arch} cross {length}/{b}x{ENC_LEN}"] = _diff(
+                one, many[:1, :5])
+    return out
+
+
+def softmax_pad_cases(dev) -> dict:
+    """torch.softmax of a row of L scores against the same row with
+    -1e30 scores appended up to T: {f"{L}/{T}": differing elements}
+    (PyTorch's own form, for comparison)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for length in (24, 200, 500, 1000, 1500):
+        for t in (256, 1024, 1500, 2048):
+            if t < length:
+                continue
+            x = torch.randn((64, t), generator=g, device=dev)
+            x[:, length:] = -1e30
+            out[f"{length}/{t}"] = _diff(torch.softmax(x[:, :length], -1),
+                                         torch.softmax(x, -1)[:, :length])
+    return out
+
+
+def _encdec_model_case(params, cfg, dev) -> dict:
+    """Whisper through the engine's shapes: row 0's features (L frames)
+    padded to the encoder bucket in a batch of 8 with `enc_lengths`, its
+    cross K/V padded to enc_len, its decoder prompt to the prompt bucket,
+    against its features and prompt alone."""
+    cuda = dev.type == "cuda"
+    length, eb, pad, cache = (300, 512, ENC_LEN, 128) if cuda else \
+        (9, 16, 24, 64)
+    g = torch.Generator(device=dev).manual_seed(6)
+    feats = torch.randn((8, eb, cfg.d_model), generator=g, device=dev)
+    enc = torch.randint(eb // 2 + 1, eb + 1, (8,), generator=g, device=dev)
+    enc[0] = length
+    dec = torch.randint(0, cfg.vocab, (8, 8), generator=g, device=dev)
+    lens = torch.tensor([5, 8, 3, 6, 7, 8, 4, 2], device=dev)
+    l1, c1 = lm.prefill(params, (feats[:1, :length], dec[:1, :5]), cfg,
+                        cache_len=5 + 16)
+    l8, c8 = lm.prefill(params, (feats, dec), cfg, cache_len=cache,
+                        last_positions=lens - 1, enc_lengths=enc,
+                        enc_pad=pad)
+    return l1, c1, l8, c8, lens
 
 
 def model_cases(dev) -> dict:
@@ -236,14 +391,19 @@ def model_cases(dev) -> dict:
         arch, layers, fmt = MODEL_ARCHS[fam]
         cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers) \
             if dev.type == "cuda" else configs.get_reduced_config(arch)
+        if fam == "encdec" and dev.type == "cuda":
+            cfg = dataclasses.replace(cfg, n_decoder_layers=layers)
         params = serve.build_params(cfg, fmt, seed=0, device=dev)
-        g = torch.Generator(device=dev).manual_seed(2)
-        prompts = torch.randint(0, cfg.vocab, (8, 64), generator=g,
-                                device=dev)
-        lens = torch.tensor([48, 64, 3, 5, 63, 7, 9, 11], device=dev)
-        l1, c1 = lm.prefill(params, prompts[:1, :48], cfg, cache_len=64)
-        l8, c8 = lm.prefill(params, prompts, cfg, cache_len=128,
-                            last_positions=lens - 1)
+        if fam == "encdec":
+            l1, c1, l8, c8, lens = _encdec_model_case(params, cfg, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(2)
+            prompts = torch.randint(0, cfg.vocab, (8, 64), generator=g,
+                                    device=dev)
+            lens = torch.tensor([48, 64, 3, 5, 63, 7, 9, 11], device=dev)
+            l1, c1 = lm.prefill(params, prompts[:1, :48], cfg, cache_len=64)
+            l8, c8 = lm.prefill(params, prompts, cfg, cache_len=128,
+                                last_positions=lens - 1)
         n_pre, n_dec = _diff(l1[0], l8[0]), 0        # [1, V] each
         t1 = l1[:, -1].argmax(-1)[:, None]
         t8 = l8[:, -1].argmax(-1)[:, None]
@@ -263,9 +423,10 @@ def model_cases(dev) -> dict:
     return out
 
 
-def gate(dev, draws: int = 2) -> tuple:
+def gate(dev, draws: int = 2, s_cases: bool = True) -> tuple:
     """(result, the port's cases that differ): every count of the port's
-    forms, the prefill rows, the attention and the models must be 0."""
+    forms, the prefill rows, the attention (the S > 1 cases unless
+    `s_cases` is False) and the models must be 0."""
     res = {"device": torch.cuda.get_device_name(0) if dev.type == "cuda"
            else "cpu", "torch": torch.__version__,
            "port": batch_cases(dev, draws, _port_cases(dev)),
@@ -274,10 +435,22 @@ def gate(dev, draws: int = 2) -> tuple:
     att = attention_cases(dev, draws)
     res["attention"] = {"cases": len(att),
                         "differing": {k: n for k, n in att.items() if n}}
+    att_s = s_attention_cases(dev, draws) if s_cases else {}
+    res["attention_s"] = {"cases": len(att_s),
+                          "differing": {k: n for k, n in att_s.items()
+                                        if n}}
+    res["softmax_pad"] = softmax_pad_cases(dev)
+    if s_cases:
+        # what the einsum would give the encdec decoder's S > 1 attention
+        # (ROADMAP C12; not gated: the port sums those in the fixed order)
+        ein = s_attention_cases(dev, 1, fixed=False, chunkable=("encdec",))
+        res["einsum_s"] = {k: n for k, n in ein.items()
+                           if "encoder" not in k}
     res["models"] = model_cases(dev)
     bad = [k for k, v in res["port"].items() if any(v.values())]
     bad += [f"prefill {k}" for k, n in res["prefill"].items() if n]
     bad += [f"attention {k}" for k in res["attention"]["differing"]]
+    bad += [f"attention_s {k}" for k in res["attention_s"]["differing"]]
     bad += [f"model {k}" for k, v in res["models"].items()
             if any(v.values())]
     return res, bad

@@ -37,9 +37,26 @@ ever-changing request mix:
   masked writes of `attention.attn_decode`, `ssm.ssd_decode`).  KV pages
   are reused WITHOUT scrubbing (the causal mask zeroes stale positions
   exactly); constant-size pages are reset on admit.
-* **full prefill per (batch bucket, prompt bucket)**, eager, as the
-  static path's (capturing it is ROADMAP B2), then one scatter into the
-  free slots.
+* **admission**: full prefill per (batch bucket, prompt bucket[,
+  encoder bucket]), eager, as the static path's (capturing it is ROADMAP
+  B2), then one scatter into the free slots; or, with `prefill_chunk`,
+  **chunked prefill**: the prompt fed through the decode step
+  `prefill_chunk` tokens at a time, one chunk step captured per (batch
+  bucket, chunk, prefill cache length) over a static prefill state of
+  that shape (`_ChunkStep`), so one long prompt holds the slots for
+  chunk-sized launches only.  The **encdec family** (whisper) takes
+  per-request ragged `features`: grouped by encoder-length bucket, the
+  encoder runs at the bucket's width with the real frame counts masking
+  the padding, and the cross K/V page is padded to the engine's
+  `enc_len` (one constant page shape per slot).
+* **the cross-request prefix cache** (launch/prefix_cache.py,
+  `prefix_cache`): an exact repeat copies its pooled pages and first
+  token into the slot and makes no prefill launch; on a chunked engine a
+  request resumes at its first uncached chunk, and a chunk launch is
+  skipped once every row is past it.  Pooled pages are written into the
+  live slot state in place.  `admit_token_budget` caps the uncached
+  prompt tokens one admission round prefills (the head request always
+  proceeds), deferring the rest in arrival order.
 * **per-request sampling** (launch/sampling.py) inside the captured step;
   greedy rows take the argmax.
 * **stop tokens**, **slot compaction** (surviving slots remapped downward
@@ -54,18 +71,28 @@ written by its own request, and masked scores are exact zeros after the
 softmax; SSM state is masked wholesale; the MoE routes per token; the
 GEMM kernels accumulate in int32; and no reduction on the path changes
 its order with the number of rows (CUDA's reduce, scan and batched-GEMM
-kernels do: RMSNorm's mean, the SSD decode contraction, top-p's prefix
-sum and decode attention's sums go through `common.row_sum` / `row_mean`
-/ `row_cumsum`, which pin the row count the kernel sees and sum a masked
-key axis in a tree that zeros appended to it do not change;
-scripts/batch_invariance.py gates them).  So every request's stream
-equals `serve.generate` of that request alone, bit for bit
-(tests/test_torch_engine.py; chip_smoke.py phase 13 on the card).
+kernels do: RMSNorm's and LayerNorm's means, the SSD decode
+contraction, top-p's prefix sum and decode attention's sums go through
+`common.row_sum` / `row_mean` / `row_cumsum`, which pin the row count
+the kernel sees and sum a masked key axis in a tree that zeros appended
+to it do not change; scripts/batch_invariance.py gates them).  So every
+request's stream equals `serve.generate` of that request alone, bit for
+bit (tests/test_torch_engine.py, test_torch_engine_prefix.py,
+test_torch_engine_encdec.py; chip_smoke.py phases 13-14 on the card).
+
+Chunked prefill, warm (prefix-cache) admission and ragged encoder
+features keep the exactness: a chunk's attention rows, a page copied
+from the pool and a padded encoder row are bitwise what the cold, full
+and unpadded runs compute.  Their attention has many queries (S > 1)
+over a key length that differs from the static path's: the encdec
+decoder's prefill attention sums in a fixed order (`attention._attend(
+fixed=True)`, ROADMAP C12); the chunk step and the encoder keep the
+einsum, which scripts/batch_invariance.py's `attention_s` cases hold
+invariant on the card.
 
 Not ported yet (each keyword keeps its place in the signature and raises
-with its ROADMAP A6 item): the mesh, `spec_decode`, `prefix_cache`,
-`prefill_chunk`, `admit_token_budget`, chaos injection and recovery,
-the score / embed methods, and the encdec family (`enc_len`).
+with its ROADMAP A6 item): the score / embed methods, chaos injection,
+recovery and replay, `spec_decode`, and the mesh.
 """
 from __future__ import annotations
 
@@ -75,10 +102,12 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import device as device_lib
 from repro_torch.kernels import registry
 from repro_torch.launch import methods as smethods
+from repro_torch.launch import prefix_cache as pfx
 from repro_torch.launch import resilience as res
 from repro_torch.launch import sampling
 from repro_torch.launch import scheduler
@@ -87,13 +116,6 @@ from repro_torch.models import lm, slot_state
 
 # ROADMAP.md A6, the engine's remaining slices, in order
 _LATER = {
-    "encdec": "engine slice 2 (the encdec family and image prompts)",
-    "prefill_chunk": "engine slice 3 (chunked prefill and the prefix "
-                     "cache)",
-    "prefix_cache": "engine slice 3 (chunked prefill and the prefix "
-                    "cache)",
-    "admit_token_budget": "engine slice 3 (chunked prefill and the "
-                          "prefix cache)",
     "methods": "engine slice 4 (the score and embed methods)",
     "chaos": "engine slice 5 (chaos, recovery, replay, drain, snapshot)",
     "spec_decode": "engine slice 6 (speculative decoding)",
@@ -136,6 +158,54 @@ def _engine_bundle(cfg, silvia_passes: str, device) -> _EngineBundle:
         (cfg, silvia_passes, fp, "engine", None, dev), build)
 
 
+class _ChunkStep:
+    """One chunk of chunked prefill: `decode` ([bb, c] tokens at positions
+    pos .. pos + c - 1 per row, the `active` rows writing) over a static
+    prefill state of (bb, t_pre), its own static token, position and
+    active buffers.  On CUDA the step is captured in a CUDA graph
+    (`serve.capture`: its eager step runs with every row inactive, which
+    leaves the state as it was); each `run` loads the buffers and replays
+    it, and the [bb, c, V] logits it returns live in the graph's pool
+    until the next replay.  On the CPU `run` calls the step eagerly.  A
+    failed capture raises."""
+
+    def __init__(self, decode, params, spec, bb: int, c: int, t_pre: int,
+                 device: torch.device):
+        self.state = spec.init_state(bb, t_pre, device)
+        self.tok = torch.zeros((bb, c), dtype=torch.int64, device=device)
+        self.pos = torch.zeros((bb,), dtype=torch.int64, device=device)
+        self.act = torch.zeros((bb,), dtype=torch.bool, device=device)
+        self.leaves = pytree.tree_leaves(params)    # the graph reads them
+
+        def step():
+            return decode(params, self.tok, self.state, self.pos,
+                          self.act)[0]
+
+        self._step, self.graph, self.logits, self.capture_ms = \
+            step, None, None, 0.0
+        if device.type == "cuda":
+            self.graph, self.logits, self.capture_ms = serve.capture(
+                step, device)
+
+    def reset(self) -> None:
+        """Fresh (zero) prefill state, as the reference's init_state per
+        admission: no page of an earlier admission survives into this
+        one's rows."""
+        for t in pytree.tree_leaves(self.state):
+            t.zero_()
+
+    def run(self, toks: np.ndarray, start: int, act: np.ndarray):
+        """Chunk tokens [bb, c] at positions start.., rows `act` [bb]
+        writing: the [bb, c, V] float32 logits."""
+        self.tok.copy_(torch.from_numpy(np.ascontiguousarray(toks)))
+        self.pos.fill_(start)
+        self.act.copy_(torch.from_numpy(np.ascontiguousarray(act)))
+        if self.graph is None:
+            return self._step()
+        self.graph.replay()
+        return self.logits
+
+
 @dataclasses.dataclass
 class _PendingSegment:
     """A dispatched-but-not-harvested decode segment (step_begin /
@@ -157,18 +227,33 @@ class ServeEngine:
     segment_len:    decode steps per segment.
     silvia_passes:  serve.SILVIA_PASS_SETS key ("off" | "add" | "muladd"
                     | "all").
+    prefill_chunk:  if set (a power of two dividing max_cache_len),
+                    prompts are prefilled through the decode step this
+                    many tokens per launch (`_ChunkStep`); None uses one
+                    bucketed full prefill.  Only for families whose slot
+                    state is prefill-chunkable.
+    enc_len:        encdec families only: the longest encoder input; every
+                    request carries `features` of [1..enc_len, d_model].
     min_len_bucket / min_batch_bucket: smallest cache-length / batch
                     buckets (both clamped to the physical maxima).
     resilience:     ResilienceConfig (queue bound, shed policy, default
                     TTL); None = defaults (unbounded queue, no TTL).
     chaos:          None, or "env" while $REPRO_CHAOS is unset (fault
                     injection is not ported yet).
+    prefix_cache:   if set, the page capacity of the cross-request prefix
+                    cache (launch/prefix_cache.py): admission reuses
+                    pooled prefix pages instead of re-prefilling cached
+                    prompt prefixes, bit-identically.  None disables it.
+    admit_token_budget: each admission round prefills at most this many
+                    UNCACHED prompt tokens (the head-of-queue request
+                    always proceeds); the overflow is deferred back to
+                    the queue in arrival order, counted in
+                    cache_info()["admission"]["deferrals"].
     device:         where the slot state lives and the steps run; "cuda"
                     by default (raises without CUDA, as every entry
                     point of the port).
-    prefill_chunk, enc_len, prefix_cache, admit_token_budget,
-    spec_decode:    the reference's; not ported yet (each raises with
-                    its ROADMAP item when set).
+    spec_decode:    the reference's; not ported yet (raises with its
+                    ROADMAP item when set).
     """
 
     def __init__(self, params, cfg, *, n_slots: int = 8,
@@ -182,22 +267,34 @@ class ServeEngine:
                  prefix_cache: Optional[int] = None,
                  admit_token_budget: Optional[int] = None,
                  spec_decode=None, device="cuda"):
-        if cfg.family == "encdec" or enc_len is not None:
-            raise _not_yet("the encdec family (enc_len, features)",
-                           "encdec")
-        for name, value in (("prefill_chunk", prefill_chunk),
-                            ("prefix_cache", prefix_cache),
-                            ("admit_token_budget", admit_token_budget),
-                            ("spec_decode", spec_decode)):
-            if value is not None:
-                raise _not_yet(name, name)
+        if cfg.family == "encdec" and enc_len is None:
+            raise ValueError("encdec serving needs enc_len (the fixed "
+                             "encoder length of every request's features)")
+        if cfg.family != "encdec" and enc_len is not None:
+            raise ValueError(f"enc_len is encdec-only, got family "
+                             f"{cfg.family!r}")
+        if spec_decode is not None:
+            raise _not_yet("spec_decode", "spec_decode")
         if chaos not in (None, "env") or (
                 chaos == "env" and os.environ.get("REPRO_CHAOS")):
             raise _not_yet("fault injection (chaos)", "chaos")
+        init_kwargs = {"s_enc": enc_len} if enc_len is not None else {}
         # raises with registry guidance for unregistered families
-        self._spec = slot_state.spec_for(cfg)
+        self._spec = slot_state.spec_for(cfg, **init_kwargs)
         if segment_len < 1:
             raise ValueError("segment_len must be >= 1")
+        if prefill_chunk is not None and not self._spec.prefill_chunkable:
+            raise ValueError(
+                f"family {cfg.family!r} slot state is not prefill-chunkable "
+                "(models/slot_state.py): use full prefill (prefill_chunk="
+                "None)")
+        if prefill_chunk is not None and prefill_chunk & (prefill_chunk - 1):
+            raise ValueError("prefill_chunk must be a power of two")
+        if prefill_chunk is not None and max_cache_len % prefill_chunk:
+            # a prompt bucket clamped to the cap must still split into
+            # whole chunks, or the prompt tail would be silently dropped
+            raise ValueError("max_cache_len must be a multiple of "
+                             "prefill_chunk")
         self.device = device_lib.resolve(device)
         self.params = params
         self.cfg = cfg
@@ -205,16 +302,26 @@ class ServeEngine:
         self.max_cache_len = max_cache_len
         self.segment_len = segment_len
         self.silvia_passes = silvia_passes
+        self.prefill_chunk = prefill_chunk
+        self.enc_len = enc_len
         self.min_len_bucket = min(min_len_bucket, max_cache_len)
         self.min_batch_bucket = min(min_batch_bucket, n_slots)
         self._adm_floor = 1
-        # smallest prompt bucket: avoids degenerate tiny prefill shapes
-        self.min_prompt_bucket = min(8, max_cache_len)
+        # smallest prompt bucket: chunked prefill needs chunk-aligned
+        # buckets; full prefill just avoids degenerate tiny shapes
+        self.min_prompt_bucket = min(prefill_chunk or 8, max_cache_len)
         self.batch_buckets = scheduler.bucket_set(self.min_batch_bucket,
                                                   n_slots)
         self.len_buckets = scheduler.bucket_set(self.min_len_bucket,
                                                 max_cache_len) \
             if self._spec.has_length_axis else ()
+        # encdec: encoder-length buckets for RAGGED features.  The encoder
+        # runs at the request's bucket width; the cross-KV page is padded
+        # to the full enc_len (slot pages have ONE constant shape) and the
+        # padding is masked to exact softmax zeros, so a short request is
+        # bit-identical to itself unpadded
+        self.enc_buckets = scheduler.bucket_set(min(8, enc_len), enc_len) \
+            if enc_len is not None else ()
         self._lowerings = dict(registry.fingerprint(self.device))
         self._bundle = _engine_bundle(cfg, silvia_passes, self.device)
         self._queue = scheduler.RequestQueue()
@@ -235,6 +342,7 @@ class ServeEngine:
             "step": torch.zeros((1,), dtype=torch.int64, device=dev),
         }
         self._segments: Dict[tuple, serve._CapturedStep] = {}
+        self._chunks: Dict[tuple, _ChunkStep] = {}
         self._tok = np.zeros((n_slots, 1), np.int64)
         self._pos = np.zeros((n_slots,), np.int64)
         self._active = np.zeros((n_slots,), bool)
@@ -248,7 +356,7 @@ class ServeEngine:
         self._graphs: set = set()
         self._res = resilience if resilience is not None \
             else res.ResilienceConfig()
-        self._site_counts = {"segment": 0, "prefill": 0}
+        self._site_counts = {"segment": 0, "prefill": 0, "chunk": 0}
         self._admitting: List[scheduler.Request] = []
         self._rids: set = set()
         self._results: Dict[int, res.RequestResult] = {}
@@ -258,6 +366,24 @@ class ServeEngine:
             "shed", "expired_queued", "expired_inflight", "failed",
             "quarantined", "duplicate_rejects", "cancelled_queued",
             "cancelled_inflight")}
+        # -- cross-request prefix cache (launch/prefix_cache.py) --
+        self._prefix: Optional[pfx.PrefixCache] = None
+        if prefix_cache is not None:
+            # chain (per-chunk) sharing needs EVERY leaf length-paged:
+            # resuming mid-prompt would otherwise skip the sequential
+            # updates a constant-size leaf accumulated over the skipped
+            # chunks.  Families with any constant-size state still share
+            # at exact-full-prompt (terminal) granularity
+            chain_ok = prefill_chunk is not None and all(
+                la is not None for la in self._spec.length_axes)
+            self._prefix = pfx.PrefixCache(
+                prefix_cache, chunk=prefill_chunk, chain_ok=chain_ok,
+                salt=f"{cfg.family}:{prefill_chunk}")
+        # keys pinned in the pool per slot, released at eviction
+        self._slot_pins: List[tuple] = [()] * n_slots
+        # -- admission fairness (token budget) --
+        self._admit_budget = admit_token_budget
+        self._deferrals = 0
 
     # -- request lifecycle --------------------------------------------------
 
@@ -278,7 +404,17 @@ class ServeEngine:
             raise ValueError(
                 f"request {req.rid}: prompt+gen {req.served_len} exceeds "
                 f"max_cache_len {self.max_cache_len}")
-        if req.features is not None:
+        if self.cfg.family == "encdec":
+            shape = None if req.features is None \
+                else np.asarray(req.features).shape
+            if shape is None or len(shape) != 2 \
+                    or shape[1] != self.cfg.d_model \
+                    or not 1 <= shape[0] <= self.enc_len:
+                raise ValueError(
+                    f"request {req.rid}: encdec serving needs features of "
+                    f"shape [1..enc_len={self.enc_len}, "
+                    f"{self.cfg.d_model}], got {shape}")
+        elif req.features is not None:
             raise ValueError(f"request {req.rid}: features are encdec-only "
                              f"(family {self.cfg.family!r})")
         if req.deadline is None and self._res.default_ttl_s is not None:
@@ -323,6 +459,9 @@ class ServeEngine:
         self._pos[slot] = 0
         self._tok[slot] = 0
         sampling.clear_row(self._samp, slot)
+        if self._prefix is not None and self._slot_pins[slot]:
+            self._prefix.release(self._slot_pins[slot])
+        self._slot_pins[slot] = ()
 
     @staticmethod
     def _stopped(req: scheduler.Request, tok: int) -> bool:
@@ -355,6 +494,7 @@ class ServeEngine:
         self._active = self._active[perm]
         self._remaining = self._remaining[perm]
         self._slot_req = [self._slot_req[i] for i in perm]
+        self._slot_pins = [self._slot_pins[i] for i in perm]
         self.compactions += 1
         return True
 
@@ -362,20 +502,54 @@ class ServeEngine:
         self._compact()
         free = [i for i in range(self.n_slots) if not self._active[i]]
         ready = self._queue.pop_ready(now, limit=len(free))
+        if ready and self._admit_budget is not None:
+            ready = self._defer_over_budget(ready)
         if not ready:
             return 0
         # popped but not yet registered in a slot
         self._admitting = list(ready)
-        # group by prompt bucket: one prefill shape per (batch bucket,
-        # prompt bucket) covers the mix
-        groups: Dict[int, List[scheduler.Request]] = {}
+        # group by (prompt bucket, enc bucket): one prefill shape per
+        # (batch bucket, prompt bucket[, enc bucket]) covers the mix
+        groups: Dict[tuple, List[scheduler.Request]] = {}
         for r in ready:
-            groups.setdefault(self._prompt_bucket(r.prompt_len),
-                              []).append(r)
-        for sb, group in sorted(groups.items()):
-            self._admit_group(group, sb, free, clock)
+            groups.setdefault((self._prompt_bucket(r.prompt_len),
+                               self._enc_bucket(r)), []).append(r)
+        for (sb, eb), group in sorted(
+                groups.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0)):
+            self._admit_group(group, sb, eb, free, clock)
         self._admitting = []
         return len(ready)
+
+    def _enc_bucket(self, r: scheduler.Request) -> Optional[int]:
+        if self.cfg.family != "encdec":
+            return None
+        return scheduler.bucket_pow2(int(np.asarray(r.features).shape[0]),
+                                     minimum=self.enc_buckets[0],
+                                     maximum=self.enc_len)
+
+    def _defer_over_budget(
+            self, ready: List[scheduler.Request]) -> List[scheduler.Request]:
+        """Admission fairness: take ready requests in queue order until
+        their summed UNCACHED prompt tokens exceed admit_token_budget,
+        then defer the rest back to the queue (ordered re-insertion keeps
+        arrival order).  The head request always proceeds: an
+        over-budget prompt would stall behind the budget forever
+        otherwise.  With the prefix cache on, a request costs its
+        uncached tail only (a peek: the probe moves no counter and no LRU
+        order)."""
+        take, spent = [], 0
+        for r in ready:
+            cost = r.prompt_len
+            if self._prefix is not None:
+                cost -= min(self._prefix.peek_cached_tokens(r), cost)
+            if take and spent + cost > self._admit_budget:
+                break
+            take.append(r)
+            spent += cost
+        for r in ready[len(take):]:
+            self._deferrals += 1
+            self._queue.submit(r)
+        return take
 
     def _prompt_bucket(self, n: int) -> int:
         return scheduler.bucket_pow2(n, minimum=self.min_prompt_bucket,
@@ -389,69 +563,130 @@ class ServeEngine:
         return scheduler.bucket_pow2(sb, minimum=self.min_len_bucket,
                                      maximum=self.max_cache_len)
 
-    def _prefill_inputs(self, group: List[scheduler.Request], bb: int,
-                        sb: int):
+    @staticmethod
+    def _prompt_page(group: List[scheduler.Request], bb: int, sb: int):
+        """(prompts [bb, sb] right-padded with 0, lens [bb]) on the host;
+        padding rows have length 1."""
         prompts = np.zeros((bb, sb), np.int64)
         lens = np.ones((bb,), np.int64)
         for i, r in enumerate(group):
             prompts[i, :r.prompt_len] = r.prompt
             lens[i] = r.prompt_len
-        return torch.as_tensor(prompts, device=self.device), lens
+        return prompts, lens
+
+    def _prefill_inputs(self, group: List[scheduler.Request], bb: int,
+                        sb: int, eb: Optional[int] = None):
+        prompts, lens = self._prompt_page(group, bb, sb)
+        tokens = torch.as_tensor(prompts, device=self.device)
+        if self.cfg.family != "encdec":
+            return tokens, lens
+        # ragged features, right-padded to the group's enc bucket; the
+        # real frame counts ride along and mask the padding to exact
+        # zeros inside the encoder and the cross-attention
+        eb = eb or self.enc_len
+        feats = np.zeros((bb, eb, self.cfg.d_model), np.float32)
+        enc_lens = np.ones((bb,), np.int64)
+        for i, r in enumerate(group):
+            f = np.asarray(r.features, np.float32)
+            feats[i, :f.shape[0]] = f
+            enc_lens[i] = f.shape[0]
+        return (torch.as_tensor(feats, device=self.device), tokens,
+                torch.as_tensor(enc_lens, device=self.device)), lens
+
+    def _warmup_prefill_inputs(self, bb: int, sb: int,
+                               eb: Optional[int] = None):
+        tokens = torch.zeros((bb, sb), dtype=torch.int64, device=self.device)
+        if self.cfg.family != "encdec":
+            return tokens
+        eb = eb or self.enc_len
+        return (torch.zeros((bb, eb, self.cfg.d_model), dtype=torch.float32,
+                            device=self.device), tokens,
+                torch.full((bb,), eb, dtype=torch.int64, device=self.device))
 
     def _prefill(self, inputs, lens: np.ndarray, t_pre: int):
-        """One bucketed prefill: (tok0 [bb] greedy, last [bb, V] f32,
-        the prefilled rows' state, bad0 [bb])."""
-        logits, rows = lm.prefill(
-            self.params, inputs, self.cfg, cache_len=t_pre,
-            last_positions=torch.as_tensor(lens - 1, device=self.device))
+        """One bucketed full prefill: (tok0 [bb] greedy, last [bb, V] f32,
+        the prefilled rows' state, bad0 [bb]).  encdec inputs are
+        (features, tokens, enc_lengths); its cross K/V come out padded to
+        enc_len."""
+        last_pos = torch.as_tensor(lens - 1, device=self.device)
+        if self.cfg.family == "encdec":
+            audio, tokens, enc_lens = inputs
+            logits, rows = lm.prefill(
+                self.params, (audio, tokens), self.cfg, cache_len=t_pre,
+                last_positions=last_pos, enc_lengths=enc_lens,
+                enc_pad=self.enc_len)
+        else:
+            logits, rows = lm.prefill(self.params, inputs, self.cfg,
+                                      cache_len=t_pre,
+                                      last_positions=last_pos)
         last = logits[:, -1, :]
         return (last.argmax(dim=-1), last, rows,
                 ~torch.isfinite(last).all(dim=-1))
 
+    def _graph_key(self, bb: int, sb: int, t_pre: int,
+                   eb: Optional[int]) -> tuple:
+        """The census key of a full prefill, or of the chunk step a
+        chunked engine prefills (bb, sb) with."""
+        if self.prefill_chunk is not None:
+            return ("chunk", bb, min(self.prefill_chunk, sb), t_pre)
+        return ("prefill", bb, sb, t_pre) + (() if eb is None else (eb,))
+
     def _admit_group(self, group: List[scheduler.Request], sb: int,
-                     free: List[int], clock: scheduler.Clock) -> None:
+                     eb: Optional[int], free: List[int],
+                     clock: scheduler.Clock) -> None:
         g = len(group)
         t_pre = self._prefill_bucket(sb)
-        bb = scheduler.bucket_pow2(g, minimum=self._adm_floor,
-                                   maximum=self.n_slots)
-        inputs, lens = self._prefill_inputs(group, bb, sb)
-        self._graphs.add(("prefill", bb, sb, t_pre))
-        tok0, last, rows, bad0 = self._guarded("prefill", self._prefill,
-                                               inputs, lens, t_pre)
-        if any(not sampling.is_greedy(r) for r in group):
-            # sampled first tokens from the final prefill rows at
-            # generated-token index 0, on the device in one batched call
-            # (per-row: bitwise what each row would sample alone)
-            page = sampling.host_page(bb)
-            for i, r in enumerate(group):
-                sampling.write_row(page, i, r)
-            key, temp, top_k, top_p, _ = sampling.operand(page, bb,
-                                                          self.device)
-            tok0 = sampling.sample(last, key, temp, top_k, top_p,
-                                   torch.zeros_like(top_k))
-        tok0 = tok0.cpu().numpy()
-        bad0 = bad0.cpu().numpy()
-        slots = np.asarray([free.pop(0) for _ in range(g)], np.int64)
-        # scatter the admitted pages into their slots; leaves without a
-        # length axis (SSM / conv state) are reset wholesale
-        self._spec.admit(self._cache, rows, slots, g, t_pre=t_pre)
-        del rows
-        # registration time is read AFTER the admitting prefill (the
-        # device sync above), so a request's TTFT includes its prefill
-        self._register_admitted(group, tok0, bad0, slots, free,
-                                clock.now())
+        if self._prefix is None:
+            bb = scheduler.bucket_pow2(g, minimum=self._adm_floor,
+                                       maximum=self.n_slots)
+            if self.prefill_chunk is None:
+                inputs, lens = self._prefill_inputs(group, bb, sb, eb)
+                self._graphs.add(self._graph_key(bb, sb, t_pre, eb))
+                tok0, last, rows, bad0 = self._guarded(
+                    "prefill", self._prefill, inputs, lens, t_pre)
+            else:
+                tok0, last, rows, bad0 = self._chunked_prefill(
+                    *self._prompt_page(group, bb, sb), t_pre)
+            tok0 = tok0.cpu().numpy()
+            bad0 = bad0.cpu().numpy()
+            slots = np.asarray([free.pop(0) for _ in range(g)], np.int64)
+            # scatter the admitted pages into their slots; leaves without
+            # a length axis (SSM / conv state, cross K/V) are reset whole
+            self._spec.admit(self._cache, rows, slots, g, t_pre=t_pre)
+            del rows
+            pins: List[tuple] = [()] * g
+        elif self.prefill_chunk is not None:
+            tok0, bad0, slots, pins, last = self._prefix_admit_chunked(
+                group, sb, t_pre, free)
+        else:
+            tok0, bad0, slots, pins, last = self._prefix_admit_full(
+                group, sb, eb, t_pre, free)
+        # registration time is read AFTER the admitting launches (the
+        # device syncs above), so a request's TTFT includes its prefill:
+        # the time a prefix hit saves
+        self._register_admitted(group, tok0, bad0, slots, pins, free,
+                                clock.now(), last)
 
     def _register_admitted(self, group: List[scheduler.Request],
                            tok0: np.ndarray, bad0: np.ndarray,
-                           slots: np.ndarray, free: List[int],
-                           now: float) -> None:
+                           slots: np.ndarray, pins: List[tuple],
+                           free: List[int], now: float, last) -> None:
         """Per-request bookkeeping once a group's pages are in their
-        slots: quarantine, the first token, the fresh stream's start."""
+        slots, shared by the cold and the prefix-cache admissions:
+        quarantine, the first token, the fresh stream's start.  `last`
+        gives each row's final prefill logits (a [bb, V] tensor or an
+        {index: row} dict); a sampled request's first token is sampled
+        from its row (sampled requests never take the terminal-hit
+        shortcut, so their row is always there)."""
+        tok0 = np.array(tok0).reshape(-1)
         for i, r in enumerate(group):
             slot = int(slots[i])
             self._admitting = [x for x in self._admitting if x is not r]
             self._method_admits[r.method] += 1
             if bad0[i]:
+                # the slot never owned its pins: release them directly
+                if self._prefix is not None and pins[i]:
+                    self._prefix.release(pins[i])
                 self._robust["quarantined"] += 1
                 self._finish(r, now, res.FAILED,
                              "non-finite logits at prefill")
@@ -459,6 +694,14 @@ class ServeEngine:
                 free.append(slot)
                 free.sort()
                 continue
+            # pins transfer to the slot BEFORE any eviction below, so
+            # _evict is the single release point for owned pins
+            self._slot_pins[slot] = tuple(pins[i])
+            if not sampling.is_greedy(r):
+                # the first token at generated-token index 0, sampled from
+                # this row alone (the sampler is per-row: bitwise the
+                # batch row's); the pool keeps the GREEDY token
+                tok0[i] = sampling.expected_token(r, last[i], 0)
             sampling.write_row(self._samp, slot, r)
             r.tokens = [int(tok0[i])]
             r.first_token_time = now
@@ -474,6 +717,218 @@ class ServeEngine:
             self._pos[slot] = r.prompt_len
             self._tok[slot] = tok0[i]
             self._remaining[slot] = r.max_new_tokens - 1
+
+    # -- the prefix cache ---------------------------------------------------
+
+    def _concat_pages(self, entries: List[pfx.Entry]) -> list:
+        """Consecutive chain entries' pages concatenated along each leaf's
+        length axis, on the host (chain entries exist only for
+        all-length-paged families, so no leaf is None)."""
+        out = []
+        for j, la in enumerate(self._spec.length_axes):
+            ps = [e.pages[j] for e in entries]
+            out.append(ps[0] if len(ps) == 1 else torch.cat(ps, dim=la))
+        return out
+
+    def _chunk_pages(self, span: list, j: int, c: int) -> list:
+        """Chunk j of an extracted multi-chunk span, on the host."""
+        return [None if p is None else
+                p.narrow(la, j * c, c).clone()
+                for la, p in zip(self._spec.length_axes, span)]
+
+    def _prefix_admit_full(self, group: List[scheduler.Request], sb: int,
+                           eb: Optional[int], t_pre: int,
+                           free: List[int]):
+        """Prefix-cache admission for full-prefill engines (every family,
+        sequential-state ones included): an exact repeat (terminal hit)
+        copies its pooled pages -- KV rows plus constant-size state
+        snapshots -- into the slot, in place, and makes NO prefill
+        launch; the misses prefill as one smaller bucketed sub-group
+        (batch composition cannot perturb a row) and donate their pages
+        to the pool."""
+        g = len(group)
+        slots = np.asarray([free.pop(0) for _ in range(g)], np.int64)
+        tok0 = np.zeros((g,), np.int64)
+        bad0 = np.zeros((g,), bool)
+        pins: List[tuple] = [()] * g
+        last: Dict[int, torch.Tensor] = {}
+        miss_idx: List[int] = []
+        for i, r in enumerate(group):
+            # a sampled request needs its final logits row, which pooled
+            # pages don't carry: it always takes the prefill path (and
+            # still donates its pages for later greedy hits)
+            hit = self._prefix.lookup(r) if sampling.is_greedy(r) else None
+            if hit is None or hit.terminal is None:
+                miss_idx.append(i)
+                continue
+            ent = hit.terminal
+            self._spec.write_row_pages(self._cache, int(slots[i]), 0,
+                                       ent.pages)
+            tok0[i] = ent.tok0
+            pins[i] = self._prefix.pin([ent.key])
+            self._prefix.note_skip(r.prompt_len)
+        if miss_idx:
+            sub = [group[i] for i in miss_idx]
+            bb = scheduler.bucket_pow2(len(sub), minimum=self._adm_floor,
+                                       maximum=self.n_slots)
+            inputs, lens = self._prefill_inputs(sub, bb, sb, eb)
+            self._graphs.add(self._graph_key(bb, sb, t_pre, eb))
+            stok0, slast, rows, sbad0 = self._guarded(
+                "prefill", self._prefill, inputs, lens, t_pre)
+            stok0 = stok0.cpu().numpy()
+            sbad0 = sbad0.cpu().numpy()
+            sub_slots = slots[np.asarray(miss_idx, np.int64)]
+            self._spec.admit(self._cache, rows, sub_slots, len(sub),
+                             t_pre=t_pre)
+            for j, i in enumerate(miss_idx):
+                tok0[i] = stok0[j]
+                bad0[i] = sbad0[j]
+                last[i] = slast[j]
+                if not sbad0[j]:
+                    r = group[i]
+                    self._prefix.insert_terminal(
+                        r, self._spec.extract_row_pages(
+                            rows, j, 0, r.prompt_len), int(stok0[j]))
+        return tok0, bad0, slots, pins, last
+
+    def _prefix_admit_chunked(self, group: List[scheduler.Request],
+                              sb: int, t_pre: int, free: List[int]):
+        """Prefix-cache admission for chunked-prefill engines: each row
+        resumes at its first uncached chunk -- pooled chunk pages are
+        copied in below the resume point (copy-on-write: everything at or
+        past it is computed into the row's private pages) -- and a chunk
+        launch is skipped outright once every row is past it.  The rows
+        that do run go through the SAME captured ("chunk", bb, c, t_pre)
+        step as a cold admission; copied pages are bitwise what this
+        row's own chunks would have written (KV purity), and masking
+        hides batch composition, so the harvested logits -- and every
+        later token -- are bit-identical to the cold path."""
+        g = len(group)
+        bb = scheduler.bucket_pow2(g, minimum=self._adm_floor,
+                                   maximum=self.n_slots)
+        c = min(self.prefill_chunk, sb)
+        n_chunks = sb // c
+        prompts, lens = self._prompt_page(group, bb, sb)
+        last_chunk = (lens - 1) // c
+        step = self._chunk_step(bb, c, t_pre)
+        step.reset()
+        cache = step.state
+        resume = np.full((bb,), n_chunks, np.int64)  # padding: never runs
+        term: List[Optional[pfx.Entry]] = [None] * g
+        n_chain = [0] * g
+        pin_keys: List[List[bytes]] = [[] for _ in range(g)]
+        for i, r in enumerate(group):
+            hit = self._prefix.lookup(r)
+            if hit.terminal is not None and sampling.is_greedy(r):
+                # the terminal shortcut is greedy-only: the pooled tok0 is
+                # the argmax token.  A sampled request still rides any
+                # chain hits below and re-runs its final chunk, which
+                # recovers the logits row its tok0 is sampled from
+                self._spec.write_row_pages(cache, i, 0, hit.terminal.pages)
+                term[i] = hit.terminal
+                pin_keys[i].append(hit.terminal.key)
+                self._prefix.note_skip(r.prompt_len)
+                continue
+            if hit.chain:
+                # one write per leaf for the whole cached span
+                self._spec.write_row_pages(cache, i, 0,
+                                           self._concat_pages(hit.chain))
+                pin_keys[i].extend(ent.key for ent in hit.chain)
+            n_chain[i] = len(hit.chain)
+            # resume at the first uncached chunk; a chain covering the
+            # final chunk still re-runs it (rewriting identical bits) to
+            # recover the first-token logits
+            resume[i] = min(len(hit.chain), int(last_chunk[i]))
+            self._prefix.note_skip(int(resume[i]) * c)
+        last: Dict[int, torch.Tensor] = {}
+        for k in range(n_chunks):
+            act = (resume <= k) & (k <= last_chunk)
+            act[g:] = False
+            if not act.any():
+                continue    # every row is past this chunk: no launch
+            self._graphs.add(("chunk", bb, c, t_pre))
+            logits = self._guarded("chunk", step.run,
+                                   prompts[:, k * c:(k + 1) * c], k * c, act)
+            hit_rows = np.nonzero((last_chunk == k) & act)[0]
+            if hit_rows.size:
+                # gathered into a fresh tensor: the next replay rewrites
+                # the step's logits
+                sel = logits[torch.as_tensor(hit_rows, device=self.device),
+                             torch.as_tensor((lens[hit_rows] - 1) % c,
+                                             device=self.device)]
+                for j, b in enumerate(hit_rows):
+                    last[int(b)] = sel[j]
+        tok0 = np.zeros((g,), np.int64)
+        bad0 = np.zeros((g,), bool)
+        for i in range(g):
+            if term[i] is not None:
+                tok0[i] = term[i].tok0
+                continue
+            tok0[i] = int(last[i].argmax())
+            bad0[i] = not bool(torch.isfinite(last[i]).all())
+        # donate computed pages back to the pool (never from a failed
+        # launch: an exception above unwinds before this point)
+        for i in range(g):
+            if term[i] is not None or bad0[i]:
+                continue
+            r = group[i]
+            # ONE extraction (one device-to-host wait) per miss row: the
+            # terminal pages cover [0, prompt_len), and chain chunk pages
+            # are host-side slices of them
+            full = self._spec.extract_row_pages(cache, i, 0, r.prompt_len)
+            n_full = r.prompt_len // c
+            if self._prefix.chain_ok and n_full > n_chain[i]:
+                keys = self._prefix.chain_keys(r.prompt, req=r)
+                for k in range(n_chain[i], n_full):
+                    self._prefix.insert_chain(
+                        keys[k], self._chunk_pages(full, k, c))
+            self._prefix.insert_terminal(r, full, int(tok0[i]))
+        pins = [self._prefix.pin(pk) for pk in pin_keys]
+        slots = np.asarray([free.pop(0) for _ in range(g)], np.int64)
+        self._spec.admit(self._cache, cache, slots, g, t_pre=t_pre)
+        return tok0, bad0, slots, pins, last
+
+    # -- chunked prefill ----------------------------------------------------
+
+    def _chunk_step(self, bb: int, c: int, t_pre: int) -> _ChunkStep:
+        """The chunk step of (bb, c, t_pre), captured at first use."""
+        key = ("chunk", bb, c, t_pre)
+        s = self._chunks.get(key)
+        if s is None:
+            s = _ChunkStep(self._bundle.decode_fn, self.params, self._spec,
+                           bb, c, t_pre, self.device)
+            self._chunks[key] = s
+        return s
+
+    def _chunked_prefill(self, prompts: np.ndarray, lens: np.ndarray,
+                         t_pre: int):
+        """Prefill through the decode step, `prefill_chunk` tokens per
+        launch of the captured chunk step.  Only each row's
+        last-real-position logits are needed: they are gathered per chunk,
+        so one [bb, c, V] block is ever live.  Returns (tok0 [bb], last
+        [bb, V], the prefill state, bad0 [bb])."""
+        bb, sb = prompts.shape
+        c = min(self.prefill_chunk, sb)
+        assert sb % c == 0, (sb, c)
+        step = self._chunk_step(bb, c, t_pre)
+        step.reset()
+        active = np.ones((bb,), bool)
+        last: List[Optional[torch.Tensor]] = [None] * bb
+        self._graphs.add(("chunk", bb, c, t_pre))
+        for k in range(sb // c):
+            logits = self._guarded("chunk", step.run,
+                                   prompts[:, k * c:(k + 1) * c], k * c,
+                                   active)
+            hit = np.nonzero((lens - 1) // c == k)[0]
+            if hit.size:
+                sel = logits[torch.as_tensor(hit, device=self.device),
+                             torch.as_tensor((lens[hit] - 1) % c,
+                                             device=self.device)]
+                for j, b in enumerate(hit):
+                    last[b] = sel[j]
+        stack = torch.stack(last)
+        return (stack.argmax(dim=-1), stack, step.state,
+                ~torch.isfinite(stack).all(dim=-1))
 
     # -- decode segments ----------------------------------------------------
 
@@ -515,7 +970,6 @@ class ServeEngine:
         segment_len times; returns without syncing on the device."""
         bb, t_b = self._segment_shape()
         n_steps = self.segment_len
-        step = self._segment_step(bb, t_b)
         b = self._bufs
         for name, host in (("tok", self._tok), ("pos", self._pos),
                            ("act", self._active)):
@@ -524,6 +978,9 @@ class ServeEngine:
             buf[:bb].copy_(torch.from_numpy(leaf[:bb]))
         b["bad"].zero_()
         b["step"].zero_()
+        # captured at first use AFTER the buffers are loaded: the capture's
+        # eager step writes its token at the step index
+        step = self._segment_step(bb, t_b)
         self._guarded("segment", step.replay, n_steps)
         self.segments += 1
         self.occupancy.append(float(np.sum(self._active)) / self.n_slots)
@@ -679,10 +1136,16 @@ class ServeEngine:
         return self._queue.next_arrival(now)
 
     def admission_plan(self) -> int:
-        """Host-side admission planning safe to run while a segment is in
-        flight.  The reference warms the prefix cache's digests here;
-        there is no prefix cache yet, so there is nothing to plan."""
-        return 0
+        """Host-side admission planning that is safe to run while a
+        dispatched segment is in flight (between step_begin and
+        step_finish): precompute and memoize the prefix-cache digests of
+        queued requests, so the NEXT admission starts with its sha256
+        work done.  No launch, no admission decision, no LRU change.
+        Returns the number of requests whose digests were warmed."""
+        if self._prefix is None:
+            return 0
+        return sum(1 for r in self._queue.pending()
+                   if self._prefix.warm_digest(r))
 
     def run(self, requests: Sequence[scheduler.Request] = (),
             clock: Optional[scheduler.Clock] = None) -> Dict[int, np.ndarray]:
@@ -714,19 +1177,22 @@ class ServeEngine:
     def graph_bound(self) -> int:
         """Upper bound on distinct graphs: the captured segment grid
         (batch buckets only for constant-size state) plus one prefill
-        shape per (admission batch bucket, prompt bucket) -- what
-        `warmup()` walks.  (The reference's bound also counts the chunk
-        and embed grids of paths not ported yet.)"""
+        shape -- or captured chunk step -- per (admission batch bucket,
+        prompt bucket[, enc bucket]): what `warmup()` walks.  (The
+        reference's bound also counts the single-token chunk and embed
+        grids of the score, embed and recovery paths, not ported yet.)"""
+        enc = max(1, len(self.enc_buckets))
         seg = len(self.batch_buckets) * max(1, len(self.len_buckets))
         return seg + len(self.admission_batch_buckets) \
-            * len(self.prompt_buckets)
+            * len(self.prompt_buckets) * enc
 
     def warmup(self, prompt_lens: Optional[Sequence[int]] = None) -> int:
         """Capture the (batch bucket x length bucket) segment grid and,
-        when the expected prompt lengths are given, run the prefill
-        shapes they map to once (kernels built and loaded, the allocator
-        warm); returns the number of graphs added.  Call it with no
-        request in flight."""
+        when the expected prompt lengths are given, the admissions they
+        map to: each full-prefill shape run once (kernels built and
+        loaded, the allocator warm), every encoder bucket of an encdec
+        engine, or each chunk step captured.  Returns the number of
+        graphs added.  Call it with no request in flight."""
         if self._active.any():
             raise RuntimeError("warmup() with requests in flight")
         n = 0
@@ -738,25 +1204,36 @@ class ServeEngine:
                     n += 1
         if prompt_lens is None:
             return n
+        sbs = sorted({self._prompt_bucket(pl) for pl in prompt_lens})
+        # encdec admission groups ragged features by enc bucket: warm
+        # every bucket, or ragged traffic meets the smaller ones mid-run
         for bb in self.admission_batch_buckets:
-            for sb in sorted({self._prompt_bucket(pl)
-                              for pl in prompt_lens}):
-                t_pre = self._prefill_bucket(sb)
-                key = ("prefill", bb, sb, t_pre)
-                if key in self._graphs:
-                    continue
-                inputs = torch.zeros((bb, sb), dtype=torch.int64,
-                                     device=self.device)
-                out = self._prefill(inputs, np.ones((bb,), np.int64), t_pre)
-                out[0].cpu()
-                self._graphs.add(key)
-                n += 1
+            for sb in sbs:
+                for eb in (self.enc_buckets or (None,)):
+                    t_pre = self._prefill_bucket(sb)
+                    key = self._graph_key(bb, sb, t_pre, eb)
+                    if key in self._graphs:
+                        continue
+                    lens = np.ones((bb,), np.int64)
+                    if self.prefill_chunk is None:
+                        out = self._prefill(
+                            self._warmup_prefill_inputs(bb, sb, eb), lens,
+                            t_pre)
+                    else:
+                        out = self._chunked_prefill(
+                            np.zeros((bb, sb), np.int64), lens, t_pre)
+                    out[0].cpu()
+                    self._graphs.add(key)
+                    n += 1
         return n
 
     def cache_info(self) -> dict:
         """The graph census (engine shape keys, bounded by the bucket
-        sets), capture time, the lowering census every graph was captured
-        under, the decode-bundle LRU, and the robustness counters."""
+        sets), the captured segment and chunk steps and their capture
+        time, the lowering census every graph was captured under, the
+        decode-bundle LRU, the robustness counters, the admission budget
+        and, with the prefix cache on, its counters."""
+        steps = list(self._segments.values()) + list(self._chunks.values())
         info = {
             "family": self.cfg.family,
             "has_length_axis": self._spec.has_length_axis,
@@ -764,11 +1241,11 @@ class ServeEngine:
             "graph_bound": self.graph_bound(),
             "graph_keys": sorted(self._graphs,
                                  key=lambda k: tuple(str(x) for x in k)),
-            "captured": sum(s.graph is not None
-                            for s in self._segments.values()),
-            "capture_ms": sum(s.capture_ms for s in self._segments.values()),
+            "captured": sum(s.graph is not None for s in steps),
+            "capture_ms": sum(s.capture_ms for s in steps),
             "batch_buckets": list(self.batch_buckets),
             "len_buckets": list(self.len_buckets),
+            "enc_buckets": list(self.enc_buckets),
             "compactions": self.compactions,
             "segments": self.segments,
             "methods": {"admits": dict(self._method_admits)},
@@ -776,12 +1253,18 @@ class ServeEngine:
             "decode_bundle_lru": serve.decode_cache_info(),
             "robustness": dict(self._robust),
             "dispatch_sites": dict(self._site_counts),
+            "admission": {
+                "token_budget": self._admit_budget,
+                "deferrals": self._deferrals,
+            },
             "resilience": {
                 "max_queue": self._res.max_queue,
                 "shed_policy": self._res.shed_policy,
                 "default_ttl_s": self._res.default_ttl_s,
             },
         }
+        if self._prefix is not None:
+            info["prefix_cache"] = self._prefix.info()
         if hasattr(self._bundle.decode_fn, "cache_info"):
             info["silvia"] = self._bundle.decode_fn.cache_info()
         return info

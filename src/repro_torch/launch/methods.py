@@ -5,7 +5,7 @@ Port of `repro/launch/methods.py`, its generate part: `METHODS` and
 max_new_tokens, greedy or sampled per request); ``score`` and ``embed``
 (`score_request`, `embed_request`, their result decoding and their
 engine paths, with `lm.embed_pool`) come with the engine's methods
-slice (ROADMAP A6, engine slice 3).
+slice (ROADMAP A6, engine slice 4).
 """
 from __future__ import annotations
 

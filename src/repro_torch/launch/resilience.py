@@ -9,7 +9,7 @@ dispatch; expired in-flight requests are cancelled by slot eviction
 between segments, keeping their partial tokens.  Fault injection
 (`ChaosSchedule`, `chaos_from_env`), recovery as replay and
 snapshot / restore come with the engine's resilience slice (ROADMAP A6,
-engine slice 4).
+engine slice 5).
 """
 from __future__ import annotations
 

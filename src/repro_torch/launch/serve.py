@@ -169,6 +169,25 @@ def _pin_lowerings(fn, census: dict):
     return pinned
 
 
+def capture(step, device: torch.device):
+    """Capture `step()` in a CUDA graph: one eager call on a side stream
+    first (it builds and loads every kernel, fills the per-device caches
+    and runs the SILVIA trace, none of which may happen under capture),
+    then the capture.  Returns (graph, what the captured call returned,
+    capture ms); a failed capture raises."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
+        return graph, out, (time.perf_counter() - t0) * 1e3
+
+
 class _CapturedStep:
     """One decode step over static buffers, the one captured step of both
     the static path (`generate`, through `_DecodeBundle.captured` and
@@ -257,17 +276,7 @@ class _CapturedStep:
         if act is not None:
             act.zero_()
         try:
-            with torch.cuda.device(device):
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    step()
-                torch.cuda.current_stream().wait_stream(side)
-                t0 = time.perf_counter()
-                self.graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.graph):
-                    step()
-                self.capture_ms = (time.perf_counter() - t0) * 1e3
+            self.graph, _, self.capture_ms = capture(step, device)
             self._replay = self.graph.replay
         finally:
             for k, t in saved.items():

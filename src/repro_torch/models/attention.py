@@ -36,6 +36,9 @@ from repro_torch.quant.qtensor import qmatmul
 from repro_torch.quant.quantize import quantize_compiled
 
 _NEG = -1e30
+# the most bytes of [.., S, T, D] products a fixed-order S > 1 attention
+# holds at once (`_query_blocks`)
+PRODUCT_BYTES = 256 << 20
 
 
 def _project_q(p, x, cfg: ModelConfig):
@@ -56,16 +59,25 @@ def _project_kv(p, x, cfg: ModelConfig):
             v.reshape(b, s, cfg.n_kv, cfg.head_dim))
 
 
-def _gqa_scores(q, k):
+def _query_blocks(s: int, per_query: int):
+    """(start, stop) query blocks whose products stay within
+    PRODUCT_BYTES, `per_query` bytes each."""
+    qb = max(1, PRODUCT_BYTES // max(per_query, 1))
+    return [(i, min(i + qb, s)) for i in range(0, s, qb)]
+
+
+def _gqa_scores(q, k, fixed: bool = False):
     """q: [B,S,H,D], k: [B,T,KV,D] -> float32 scores [B,KV,G,S,T]; head h
     uses kv head h // G (G = H // KV).
 
-    A decode step (S = 1) takes each score as the products' row sum over
-    D (`common.row_sum`), in an order that depends neither on the batch
-    nor on T: cuBLAS's batched product for the einsum picks its
-    algorithm from both, and the serve engine's rows (B = its batch
-    bucket, T = its cache bucket) must equal the static path's (B = 1,
-    T = cache_len) bit for bit (ROADMAP C10)."""
+    A decode step (S = 1), and with `fixed` any S, takes each score as
+    the products' row sum over D (`common.row_sum`), in an order that
+    depends neither on the batch nor on S or T: cuBLAS's batched product
+    for the einsum picks its algorithm from all of them, and the serve
+    engine's rows (B = its batch bucket, T = its cache bucket or the
+    encdec slot's padded cross K/V) must equal the static path's (B = 1,
+    T = cache_len or the request's frames) bit for bit (ROADMAP C10,
+    C12).  The fixed S > 1 form runs over query blocks (`PRODUCT_BYTES`)."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     q = q.reshape(b, s, kv, h // kv, d).to(torch.float32)
@@ -73,19 +85,33 @@ def _gqa_scores(q, k):
         prod = q.permute(0, 2, 3, 1, 4) \
             * k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
         return common.row_sum(prod)[:, :, :, None, :]     # [B,KV,G,1,T]
+    if fixed:
+        qp = q.permute(0, 2, 3, 1, 4)                     # [B,KV,G,S,D]
+        kf = k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None, None]
+        per = b * h * k.shape[1] * d * 4
+        return torch.cat([common.row_sum(qp[:, :, :, i:j, None, :] * kf)
+                          for i, j in _query_blocks(s, per)], dim=3)
     return torch.einsum("bskgd,btkd->bkgst", q, k.to(torch.float32))
 
 
-def _gqa_out(w, v):
+def _gqa_out(w, v, fixed: bool = False):
     """w: [B,KV,G,S,T], v: [B,T,KV,D] -> [B,S,H*D] in v's dtype (float32
-    accumulation, one rounding).  A decode step sums the products over T
-    in a tree that neither the batch nor zero weights appended to T (the
-    masked positions up to a longer cache) change (`_gqa_scores`)."""
+    accumulation, one rounding).  A decode step, and with `fixed` any S,
+    sums the products over T in a tree that neither the batch nor zero
+    weights appended to T (the masked positions up to a longer cache or
+    cross K/V page) change (`_gqa_scores`); the fixed S > 1 form runs
+    over query blocks."""
     b, kv, g, s, t = w.shape
     dtype, w, v = v.dtype, w.to(torch.float32), v.to(torch.float32)
     if s == 1:
         prod = w[:, :, :, 0, :, None] * v.permute(0, 2, 1, 3)[:, :, None]
         o = common.tail_sum_(prod, dim=-2)                # [B,KV,G,D]
+    elif fixed:
+        vf = v.permute(0, 2, 1, 3)[:, :, None, None]      # [B,KV,1,1,T,D]
+        per = b * kv * g * t * v.shape[-1] * 4
+        o = torch.cat([common.tail_sum_(w[:, :, :, i:j, :, None] * vf, -2)
+                       for i, j in _query_blocks(s, per)], dim=3)
+        o = o.permute(0, 3, 1, 2, 4)                      # [B,S,KV,G,D]
     else:
         o = torch.einsum("bkgst,btkd->bskgd", w, v)
     return o.reshape(b, s, kv * g * o.shape[-1]).to(dtype)
@@ -109,19 +135,20 @@ def _kv_dequant(q, scale, dtype):
 
 
 def _attend(q, k, v, cfg: ModelConfig, dtype, qpos=None, kpos=None,
-            valid=None):
+            valid=None, fixed: bool = False):
     """GQA of q [B,S,H,D] over k, v [B,T,KV,D]: [B,S,H*D] in v's dtype;
     softmax weights in `dtype`.  Causal where qpos [B,S] and kpos [B,T]
     are given (key t is seen where kpos <= qpos); keys off `valid` [B,T]
     bool are masked.  A masked score is -1e30, so a row with no key left
-    gets a uniform, finite softmax."""
-    scores = _gqa_scores(q, k) * (1.0 / math.sqrt(cfg.head_dim))
+    gets a uniform, finite softmax.  fixed: the fixed-order products for
+    S > 1 too (`_gqa_scores`)."""
+    scores = _gqa_scores(q, k, fixed) * (1.0 / math.sqrt(cfg.head_dim))
     if qpos is not None:
         mask = qpos[:, None, None, :, None] >= kpos[:, None, None, None, :]
         scores = scores.masked_fill(~mask, _NEG)
     if valid is not None:
         scores = scores.masked_fill(~valid[:, None, None, None, :], _NEG)
-    return _gqa_out(torch.softmax(scores, dim=-1).to(dtype), v)
+    return _gqa_out(torch.softmax(scores, dim=-1).to(dtype), v, fixed)
 
 
 def _valid(lengths, t: int, device):
@@ -141,7 +168,7 @@ def _attn_chunked(q, k, v, srcpos, cfg: ModelConfig, q_chunk: int):
 
 
 def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None,
-              causal: bool = True, kv_lengths=None):
+              causal: bool = True, kv_lengths=None, fixed: bool = False):
     """Self-attention over the full sequence (prefill; the encoder).
 
     positions: [B,S] int, or [3,B,S] under cfg.m_rope_sections (the
@@ -156,7 +183,8 @@ def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None,
     of row b's softmax, so a right-padded row attends as it would
     unpadded.  With cfg.attn_q_chunk = c, causal, and S > c a multiple
     of c, the queries run in chunks of c (`_attn_chunked`), as the
-    reference's (which then ignores kv_lengths).  Returns [B,S,d]."""
+    reference's (which then ignores kv_lengths).  fixed: the fixed-order
+    sums (`_attend`; the encdec decoder's).  Returns [B,S,d]."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(
@@ -176,7 +204,7 @@ def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None,
         valid = None if kv_lengths is None else \
             _valid(kv_lengths, s, x.device)
         qpos, kpos = (srcpos, srcpos) if causal else (None, None)
-        o = _attend(q, k, v, cfg, x.dtype, qpos, kpos, valid)
+        o = _attend(q, k, v, cfg, x.dtype, qpos, kpos, valid, fixed)
     out = qmatmul(o, p["wo"])
     if cache is not None:
         _write_prefill(cache, k, v)
@@ -272,7 +300,10 @@ def attn_cross(p, x, memory, cfg: ModelConfig, mem_kv=None,
     memory's projection is skipped and `len` masks the padded tail
     unless enc_lengths [B] is given.  Memory positions >= a row's length
     get a softmax weight of exactly 0; a row of length 0 gets a uniform,
-    finite softmax (never NaN).  The K/V is only read."""
+    finite softmax (never NaN).  The K/V is only read.  The sums are
+    fixed-order at every S (`_attend(fixed=True)`): the engine's prefill
+    attends over its slot's page padded to enc_len, the static path over
+    the request's frames (ROADMAP C12)."""
     q = _project_q(p, x, cfg)
     if mem_kv is None:
         k, v = _project_kv(p, memory, cfg)
@@ -282,7 +313,8 @@ def attn_cross(p, x, memory, cfg: ModelConfig, mem_kv=None,
             enc_lengths = mem_kv.get("len")
     valid = None if enc_lengths is None else \
         _valid(enc_lengths, k.shape[1], x.device)
-    return qmatmul(_attend(q, k, v, cfg, x.dtype, valid=valid), p["wo"])
+    return qmatmul(_attend(q, k, v, cfg, x.dtype, valid=valid, fixed=True),
+                   p["wo"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device):

@@ -180,7 +180,9 @@ def dec_block(p, x, cfg: ModelConfig, *, memory=None, mode="prefill",
     if mode == "decode":
         a = attn.attn_decode(p["self"], h, self_c, pos, cfg, active=active)
     elif mode == "prefill":
-        a = attn.attn_full(p["self"], h, cfg, cache=self_c)
+        # fixed-order sums: the engine prefills a prompt bucket in a batch
+        # bucket, the static path the prompt alone (ROADMAP C12)
+        a = attn.attn_full(p["self"], h, cfg, cache=self_c, fixed=True)
         k, v = attn._project_kv(p["cross"], memory, cfg)
         s_enc = k.shape[1]
         cache["cross_k"][:, :s_enc] = k

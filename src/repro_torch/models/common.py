@@ -100,10 +100,11 @@ def rms_norm(x, weight, eps: float = 1e-5):
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     """As the reference's: statistics in float32, the variance the mean of
     the squared deviations (written out, as jnp.var computes it, not
-    F.layer_norm's fused form), `y * w + b` in float32, one cast."""
+    F.layer_norm's fused form), `y * w + b` in float32, one cast.  Both
+    means are `row_mean`s: batch-invariant on CUDA, as RMSNorm's."""
     xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    mu = row_mean(xf)
+    var = row_mean((xf - mu).square())
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * weight + bias).to(x.dtype)
 

@@ -416,11 +416,12 @@ def encdec_decode_step(params, token_t, cache, pos, cfg: ModelConfig,
 # state through these registrations, as the reference's lm.py:384-392;
 # the axis layout is probed from init_cache.  Chunked prefill is for the
 # pure-KV families only: SSM / hybrid state updates are sequential, and
-# feeding their prompts C tokens at a time through the decode path would
-# change the reduction order.  The encdec family is registered with its
-# engine path (ROADMAP A6, engine slice 2: the encdec family and image
-# prompts through the engine).
+# encdec prefill must run the encoder, so feeding their prompts C tokens
+# at a time through the decode path would change the reduction order (or
+# skip the encoder).  The encdec family's state is probed with s_enc =
+# the engine's enc_len: its cross K/V and cross_len are constant-size
+# leaves, reset on admit.
 for _fam in ("dense", "vlm", "moe"):
     slot_state.register(_fam, init_cache)
-for _fam in ("ssm", "hybrid"):
+for _fam in ("ssm", "hybrid", "encdec"):
     slot_state.register(_fam, init_cache, prefill_chunkable=False)

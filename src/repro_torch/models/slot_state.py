@@ -1,9 +1,9 @@
 """Family-agnostic slot-state layer for the continuous-batching engine.
 
-Port of `repro/models/slot_state.py` (:1-410; the tensor-parallel
-probing, `TPPlan` / `tp_plan` / `tp_axes_for`, comes with distributed
-serving, and the prefix-cache page ops and speculative rollback with
-those engine paths).  Every model family's decode-time state -- KV
+Port of `repro/models/slot_state.py` (:1-410 but `rollback_select`,
+which comes with speculative decoding, and the tensor-parallel probing,
+`TPPlan` / `tp_plan` / `tp_axes_for`, which comes with distributed
+serving).  Every model family's decode-time state -- KV
 pages, SSM recurrent state, conv windows, the hybrid family's flat mix
 -- is served through ONE "slot state" interface, so the engine
 (launch/engine.py) never special-cases a family.
@@ -36,6 +36,10 @@ state, so its tensors keep their addresses for the engine's lifetime
                                 leaves with one are written up to the
                                 prefill bucket, the rest stale-but-masked
   permute_slots(state, perm)    slot compaction (gather along slot axes)
+  extract_row_pages / write_row_pages
+                                one slot's prefix pages off the state to
+                                the host, and back into a slot in place
+                                (the prefix cache, launch/prefix_cache.py)
 
 Masked per-step updates (inactive slots bit-identical) live with the
 models themselves: `attention.attn_decode`, `ssm.ssd_decode` and the
@@ -195,6 +199,95 @@ class SlotStateSpec:
             leaf.copy_(leaf.index_select(ba, idx))
             return leaf
         self._apply(f, state)
+        return state
+
+
+    def const_leaves(self, state) -> tuple:
+        """The constant-size (length_axis=None) leaves of `state` in
+        tree_flatten order: what a speculative step snapshots, and what a
+        terminal prefix page holds whole."""
+        return tuple(leaf for leaf, la in zip(self._leaves(state),
+                                              self.length_axes)
+                     if la is None)
+
+    # -- prefix pages (launch/prefix_cache.py) ------------------------------
+    #
+    # A "prefix page" is the per-slot, per-leaf slice of state that a token
+    # prefix fully determines: for leaves WITH a length axis, positions
+    # [lo:hi) (KV written at each row's own position, a pure function of
+    # the token prefix); for constant-size leaves (SSM state, conv
+    # windows, cross-KV) the whole leaf, a state SNAPSHOT.  Pages go to
+    # the host (the reference keeps host numpy; bfloat16 has no numpy
+    # dtype, so the port keeps host tensors, pinned when they come off the
+    # card) and come back bit for bit.
+
+    def _extract_prog(self, size: int, with_const: bool):
+        """The reference's one jitted slicing program per page size: here
+        a function (leaves, row, lo) -> each leaf's [row, lo:lo+size)
+        view (None for a constant-size leaf unless with_const); nothing
+        is compiled."""
+        axes = tuple(zip(self.batch_axes, self.length_axes))
+
+        def prog(leaves, row: int, lo: int):
+            out = []
+            for (ba, la), leaf in zip(axes, leaves):
+                if la is None and not with_const:
+                    out.append(None)
+                    continue
+                page = leaf.narrow(ba, row, 1)
+                out.append(page if la is None else page.narrow(la, lo, size))
+            return out
+        return prog
+
+    def _write_prog(self):
+        """Counterpart of _extract_prog: (leaves, pages, row, lo) writes
+        every page into its leaf's [row, lo:lo+len) in place (None pages
+        leave their leaf untouched)."""
+        axes = tuple(zip(self.batch_axes, self.length_axes))
+
+        def prog(leaves, pages, row: int, lo: int):
+            for (ba, la), leaf, page in zip(axes, leaves, pages):
+                if page is None:
+                    continue
+                dst = leaf.narrow(ba, row, 1)
+                if la is not None:
+                    dst = dst.narrow(la, lo, page.shape[la])
+                dst.copy_(page, non_blocking=page.is_pinned())
+        return prog
+
+    def extract_row_pages(self, state, row: int, lo: int, hi: int,
+                          with_const: bool = True) -> list:
+        """Per-leaf host pages of ONE slot row (tree_flatten order).
+
+        Length-axis leaves are sliced [lo:hi) along the length axis; the
+        slot axis is kept as a singleton so axis numbering is the
+        leaf's, as write_row_pages expects.  Constant-size leaves are
+        taken whole when `with_const`, else None.  Off the card the
+        copies go into pinned host memory, all queued before one wait."""
+        views = self._extract_prog(hi - lo, with_const)(
+            self._leaves(state), row, lo)
+        cuda = [v for v in views if v is not None and v.is_cuda]
+        out = []
+        for v in views:
+            if v is None:
+                out.append(None)
+                continue
+            page = torch.empty(v.shape, dtype=v.dtype,
+                               pin_memory=v.is_cuda)
+            page.copy_(v, non_blocking=v.is_cuda)
+            out.append(page)
+        if cuda:
+            torch.cuda.current_stream(cuda[0].device).synchronize()
+        return out
+
+    def write_row_pages(self, state, row: int, lo: int, pages: list):
+        """Write extract_row_pages output into slot `row` of `state`, in
+        place (the captured graphs hold the state's addresses):
+        length-axis leaves at [lo:lo+page_len), constant-size leaves
+        whole; None pages leave their leaf untouched.  The written bits
+        are exactly the extracted bits, which is what makes a prefix hit
+        reproduce the cold prefill's stream."""
+        self._write_prog()(self._leaves(state), pages, row, lo)
         return state
 
 

@@ -880,3 +880,42 @@ def test_cuda_engine_matches_static_generate(cuda, fmt):
                               device=cuda, sampling=[r.sampling],
                               rids=[r.rid])[0].cpu().numpy()
         np.testing.assert_array_equal(out[r.rid], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"prefill_chunk": 4},
+                                {"prefill_chunk": 4, "prefix_cache": 16},
+                                {"prefix_cache": 16}],
+                         ids=["chunked", "chunked-pool", "pool"])
+def test_cuda_engine_admission_captures_at_first_use(cuda, kw):
+    """Chunked prefill's captured chunk steps and the prefix cache on the
+    card, with no warmup(): every segment and chunk step is captured in
+    the middle of serving (its capture's eager step reads the loaded
+    buffers), and each stream, an exact repeat's included, equals the
+    static `generate` of that request alone, bit for bit."""
+    from repro_torch.launch import scheduler, serve
+    from repro_torch.launch.engine import ServeEngine
+    serve.decode_cache_clear()
+    cfg, params = _served(cuda, "w4a8")
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, cfg.vocab, 8)
+    reqs = [scheduler.Request(
+        rid=i, max_new_tokens=g, arrival_time=0.01 * i,
+        prompt=np.concatenate([head, rng.integers(0, cfg.vocab, s)]))
+        for i, (s, g) in enumerate(((3, 5), (9, 8), (1, 2), (12, 6)))]
+    reqs.append(scheduler.Request(rid=9, prompt=reqs[1].prompt,
+                                  max_new_tokens=8, arrival_time=1.0))
+    eng = ServeEngine(params, cfg, n_slots=2, max_cache_len=32,
+                      segment_len=4, device=cuda, **kw)
+    out = eng.run(reqs, clock=scheduler.FastForwardClock())
+    info = eng.cache_info()
+    assert info["captured"] == len(eng._segments) + len(eng._chunks) > 0
+    assert info["graphs"] <= info["graph_bound"]
+    if "prefix_cache" in kw:
+        assert info["prefix_cache"]["hits"] > 0
+    for r in reqs:
+        want = serve.generate(params, r.prompt[None], cfg,
+                              gen=r.max_new_tokens,
+                              cache_len=r.prompt_len + r.max_new_tokens,
+                              device=cuda)[0].cpu().numpy()
+        np.testing.assert_array_equal(out[r.rid], want)

@@ -488,8 +488,8 @@ def test_attn_chunked_keeps_one_score_block(monkeypatch):
     seen = []
     orig = tattn._gqa_scores
 
-    def spy(q, k):
-        out = orig(q, k)
+    def spy(q, k, *args):
+        out = orig(q, k, *args)
         seen.append(tuple(out.shape))
         return out
     monkeypatch.setattr(tattn, "_gqa_scores", spy)

@@ -20,7 +20,9 @@ and its scheduler, against the port's static `generate` and against
 * Inactive slots' pages stay bit-identical across a segment; the graph
   census stays within `graph_bound()` and warmup covers the traffic;
   admission control (shedding, deadlines, cancellation) and the
-  refusals of what is not ported yet.
+  refusals of what is not ported yet (chunked prefill, the prefix cache,
+  the budget and the encdec family: tests/test_torch_engine_prefix.py,
+  tests/test_torch_engine_encdec.py).
 """
 import dataclasses
 
@@ -448,13 +450,8 @@ def test_admission_control_and_cancel():
 
 def test_refusals_name_their_roadmap_item(monkeypatch):
     _, cfg, _, params = _setup("bfloat16", "w8a8")
-    for kw in ({"prefill_chunk": 4}, {"prefix_cache": 8},
-               {"admit_token_budget": 16}, {"spec_decode": object()},
-               {"enc_len": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-            _engine(cfg, params, **kw)
-    with pytest.raises(NotImplementedError, match="engine slice 2"):
-        _engine(tconfigs.get_reduced_config("whisper-small"), params)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        _engine(cfg, params, spec_decode=object())
     monkeypatch.setenv("REPRO_CHAOS", "segment:1")
     with pytest.raises(NotImplementedError, match="chaos"):
         _engine(cfg, params)

@@ -91,11 +91,15 @@ def test_registry_guidance_and_sampling_page():
                               family="rwkv")
     with pytest.raises(ValueError, match="slot_state.register"):
         slot_state.spec_for(cfg)
-    # encdec waits for its engine slice: not registered yet
-    with pytest.raises(ValueError, match="slot_state.register"):
-        slot_state.spec_for(tconfigs.get_reduced_config("whisper-small"))
-    assert {"dense", "moe", "ssm", "hybrid", "vlm", "sampling"} <= \
-        set(slot_state.families())
+    # encdec is registered with its engine path: probed at a fixed s_enc,
+    # its cross K/V and lengths are constant-size leaves
+    enc = slot_state.spec_for(tconfigs.get_reduced_config("whisper-small"),
+                              s_enc=24)
+    assert not enc.prefill_chunkable and enc.has_length_axis
+    assert dict(zip(enc.init_state(2, 16), enc.length_axes)) == {
+        "k": 2, "v": 2, "cross_k": None, "cross_v": None, "cross_len": None}
+    assert {"dense", "moe", "ssm", "hybrid", "vlm", "encdec",
+            "sampling"} <= set(slot_state.families())
     spec = sampling.page_spec()
     assert spec.batch_axes == (0,) * 5 and spec.length_axes == (None,) * 5
     assert [tuple(t.shape) for t in spec.init_state(4, 1)] == \
