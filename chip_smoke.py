@@ -156,13 +156,15 @@ over):
    and the odd head (768, 51865) (w8a8 only: an odd N has no packed
    weight), at M = 8, 1024 (the decoder's prompt) and 12000 (the
    encoder's 8 x 1500 frames and the cross k, v on the memory), each
-   timed beside its bound; then full-width whisper-small (12 encoder and
-   12 decoder layers, d 768, 12 heads, d_ff 3072, untied vocab 51865;
-   nothing cut; random weights from seed 0) on 1500 seeded frames per
-   row, B=8, a decoder prompt of 128, 32 new tokens, under w4a8 and
-   w8a8 through the gates of 6 (`_serve_gates`, which takes the
-   (features, dec_tokens) tuple: 192 tile launches per prefill, 97
-   small-M per replayed step, the head in w8a8 under w4a8; the captured
+   timed beside its bound; then whisper-small at every width (d 768, 12
+   heads, d_ff 3072, untied vocab 51865) and 6 of its 12 encoder and 12
+   decoder layers (`ENCDEC_LAYERS`, a cut for the run's time: phase 14
+   serves it at full depth; random weights from seed 0) on 1500 seeded
+   frames per row, B=8, a decoder prompt of 128, 32 new tokens, under
+   w4a8 and w8a8 through the gates of 6 (`_serve_gates`, which takes
+   the (features, dec_tokens) tuple: 6 tile launches per encoder layer
+   and 10 per decoder layer per prefill, 8 small-M per decoder layer + 1
+   per replayed step, the head in w8a8 under w4a8; the captured
    step's static buffers are the self KV and the 0.442 GB of cross K/V
    for 1500 frames), `--silvia all` == off and its ms/step, the
    encoder's peak memory, the profiles of a replayed step and a
@@ -178,22 +180,24 @@ over):
    (8192, 29568), (29568, 8192) and the head (8192, 152064), at M = 8,
    1024 and 3072, each timed beside its bound with its w-load path (the
    plain versions take the 2-D weights past ref.PLAIN_EXPERT_BYTES in
-   column slices); then full-width qwen2-vl-72b (80 layers, d 8192, 64
-   heads over 8 KV heads, d_ff 29568, untied vocab 152064, M-RoPE
-   sections (16, 24, 24) at theta 1e6; nothing cut; random weights from
+   column slices); then qwen2-vl-72b at every width (d 8192, 64 heads
+   over 8 KV heads, d_ff 29568, untied vocab 152064, M-RoPE sections
+   (16, 24, 24) at theta 1e6) and 40 of its 80 layers (`VLM_LAYERS`, a
+   cut for the run's time; random weights from
    seed 0, q/k/v biases drawn nonzero, built a [K, N] matrix at a time;
    the w4a8 tree freed before the w8a8 one is built; build time,
    resident memory and each stage's peak logged) under w4a8 and w8a8:
    token traffic (B=8, prompt 128, 32 new tokens) through the gates of
-   6 (`_serve_gates`: 560 tile launches per prefill, 561 small-M per
-   replayed step), `--silvia all` == off, the profiles of a replayed
+   6 (`_serve_gates`: 7 tile launches per layer per prefill, 7 small-M
+   per layer + 1 per replayed step), `--silvia all` == off, the
+   profiles of a replayed
    step and a prefill, rows 1-2's time per generate beside their bounds
    and decode ms/step beside the byte bound (weights and the KV read);
    then image traffic (`vlm_image_traffic`): B=8 rows of 8 text
    tokens, one 448 x 448 image as 256 seeded patch embeddings (a 16 x
    16 grid of merged patches) and 120 text tokens, with their 3-row
-   positions (`image_positions`), through `lm.prefill` (560 tile
-   launches at M = 3072; equal rows == the default positions bit for
+   positions (`image_positions`), through `lm.prefill` (7 tile launches
+   per layer at M = 3072; equal rows == the default positions bit for
    bit; the image's positions move the logits) and 31 replays of the
    captured decode step, bit for bit the per-step loop's;
 13. the continuous-batching serve engine (`phase_engine`,
@@ -235,19 +239,23 @@ over):
    128), segments of 16, serving the port's `shared_prefix_traffic`
    from seed 0 (48 requests over 4 prefixes of 64 tokens, tails 4 / 8 /
    16, gens 2 / 8 / 16 / 32, zipf 1.4: the reference's prefix-reuse
-   row) and then 2 exact repeats (`admission_traffic`) through four
+   row) and then 2 exact repeats (`admission_traffic`) through five
    engines: full prefill, cold chunked (prefill_chunk 16), warm
-   (prefill_chunk 16, prefix_cache 256, admit_token_budget 128) and
-   full prefill with prefix_cache 256.  Gates: warm == cold, chunked ==
-   full == each request's static `generate`, pooled full == full, bit
-   for bit; the repeats' admission launches nothing (profiled); one
-   profiled chunked admission launches 210 GEMMs per chunk launch at M
-   = bb x 16 (the tile from bb = 2); no capture after `warmup()`;
+   (prefill_chunk 16, prefix_cache 256, admit_token_budget 128), the
+   warm engine without the budget, and full prefill with prefix_cache
+   256.  Gates: warm == cold, chunked == full == each request's static
+   `generate`, pooled full == full, bit for bit; the repeats' admission
+   launches nothing (profiled); the cold chunked engine's run of the
+   trace, profiled, launches 210 GEMMs per chunk launch at M = bb x 16
+   (the tile from bb = 2) + 210 x 16 per segment; no capture after
+   `warmup()`;
    both GEMMs bit for bit at every M.  Then full-width whisper-small,
    w4a8, enc_len 1500, 8 slots, max_cache_len 128 (`whisper_traffic`:
    12 requests of 1500 / 1000 / 500 / 200 frames, prompts of 4-8
    tokens): every stream == its static `generate` in a profiled run
-   (the encoder at ragged M = bb x eb through the engine), inactive
+   (the encoder at ragged M = bb x eb through the engine; its tok/s and
+   TTFT are that run's, with the profiler and the inactive-pages
+   gate's clones and syncs inside it), inactive
    slots' pages unchanged, and a pooled engine (prefix_cache 8) whose
    exact repeat is admitted with no launch (`phase_engine_whisper`).
    Hit rate, tokens skipped, deferrals, capture ms, tok/s, TTFT and the
@@ -2959,6 +2967,10 @@ GEMMS = ("quant_matmul", "packed_w4_matmul")
 # whisper's 30 s window after the conv frontend's stride: the encoder's
 # frames, and the rows of both learned position tables (`max_seq`)
 ENC_FRAMES = 1500
+# phase 11 serves whisper-small at this many of its 12 encoder and 12
+# decoder layers, every width kept: a cut for the run's time (phase 14
+# serves it at full depth through the engine and static generate)
+ENCDEC_LAYERS = 6
 # the reduced model against its CPU run: frames, decoder prompt, steps
 ENCDEC_CPU_FRAMES, ENCDEC_CPU_PROMPT, ENCDEC_CPU_STEPS = 60, 12, 3
 
@@ -3048,14 +3060,16 @@ def phase_encdec() -> tuple:
     (768, 3072), (3072, 768) and the head (768, 51865), at M = 8, 1024
     (the decoder's prompt) and 12000 (the encoder's 8 x 1500 frames, and
     the cross k, v on the memory), each timed beside its bound
-    (`phase_wide_gemms`).  Then whisper-small served at full width (12
-    encoder and 12 decoder layers, d 768, 12 heads of 64, d_ff 3072,
-    untied vocab 51865; nothing cut; random weights from seed 0, both
-    position tables of ENC_FRAMES rows), B=8, 1500 seeded encoder frames,
+    (`phase_wide_gemms`).  Then whisper-small served at every width (d
+    768, 12 heads of 64, d_ff 3072, untied vocab 51865) and ENCDEC_LAYERS
+    of its 12 encoder and 12 decoder layers (random weights from seed 0,
+    both position tables of ENC_FRAMES rows), B=8, 1500 seeded encoder
+    frames,
     a decoder prompt of 128 tokens, 32 new tokens, greedy, w4a8 and w8a8,
     through `_serve_gates` (fused == per-step == plain-forced, bit for
-    bit; 192 tile launches per prefill, 97 small-M per replayed step,
-    the head in w8a8 under w4a8; one capture); the captured step's
+    bit; 6 tile launches per encoder layer and 10 per decoder layer per
+    prefill, 8 small-M per decoder layer + 1 per replayed step, the head in w8a8 under w4a8;
+    one capture); the captured step's
     static buffers are the self KV and the 0.442 GB of cross K/V, as
     `lm.init_cache` shapes them for 1500 frames; --silvia all == off in
     tokens, its ms/step logged; the encoder's peak memory; the profiles
@@ -3064,11 +3078,15 @@ def phase_encdec() -> tuple:
     without the KV read (cross and self).  Returns ({GEMM counter:
     {path: launches}}, {path: {GEMM counter: launches, ms and bound_ms
     per generate}})."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    cfg = configs.get_config(ENCDEC_ARCH)
+    cfg = dataclasses.replace(configs.get_config(ENCDEC_ARCH),
+                              n_layers=ENCDEC_LAYERS,
+                              n_decoder_layers=ENCDEC_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(23)
     t0 = time.perf_counter()
     encdec_reduced_vs_cpu(gen)
@@ -3085,7 +3103,7 @@ def phase_encdec() -> tuple:
     per_fwd, per_step = gemms_per_forward(cfg), gemms_per_step(cfg)
     launches, per_generate = {}, {}
     for fmt in ("w4a8", "w8a8"):
-        tag = f"{ENCDEC_ARCH} {fmt}"
+        tag = f"{ENCDEC_ARCH} {ENCDEC_LAYERS}+{ENCDEC_LAYERS}L {fmt}"
         name = _gemm_name(fmt)
         head_fmt = "w8a8" if cfg.vocab % 2 else fmt
         t1 = time.perf_counter()
@@ -3198,6 +3216,9 @@ def phase_encdec() -> tuple:
 
 # phase 12: the vlm family
 VLM_ARCH = "qwen2-vl-72b"
+# phase 12 serves qwen2-vl-72b at this many of its 80 layers, every width
+# kept: a cut for the run's time
+VLM_LAYERS = 40
 # the image prompt of each row: 8 text tokens, one 448 x 448 image as 256
 # stub patch embeddings (Qwen2-VL's 14-pixel patches merged 2 x 2 into a
 # 16 x 16 grid), 120 text tokens: 384 positions
@@ -3414,27 +3435,31 @@ def phase_vlm() -> tuple:
     8192), (8192, 1024), (8192, 29568), (29568, 8192) and the head
     (8192, 152064), at M = 8, 1024 and 3072 (the image prompt's 8 x
     384), each timed beside its bound with its w-load path
-    (`phase_wide_gemms`).  Then qwen2-vl-72b served at full width (80
-    layers, d 8192, 64 heads over 8 KV heads, d_ff 29568, untied vocab
-    152064, q/k/v biases drawn nonzero; nothing cut; random weights from
+    (`phase_wide_gemms`).  Then qwen2-vl-72b served at every width (d
+    8192, 64 heads over 8 KV heads, d_ff 29568, untied vocab 152064,
+    q/k/v biases drawn nonzero) and VLM_LAYERS of its 80 layers (random
+    weights from
     seed 0 built a [K, N] matrix at a time by `serve.build_params`, the
     w4a8 tree freed before the w8a8 one is built), under w4a8 and w8a8:
     token traffic (B=8, prompt 128, 32 new tokens, greedy; the three
     position rows equal, as the reference's `generate` serves tokens)
     through `_serve_gates` (fused == per-step == plain-forced, bit for
-    bit; 560 tile launches per prefill, 561 small-M per replayed step;
-    one capture), --silvia all == off in tokens, the profiles of a
+    bit; 7 tile launches per layer per prefill, 7 small-M per layer + 1
+    per replayed step; one capture), --silvia all == off in tokens, the profiles of a
     replayed step and a prefill, rows 1-2's time per generate beside
     their bounds, decode ms/step beside the byte bound (weights and the
     KV read); then image traffic (`vlm_image_traffic`).  Build time,
     resident memory and each stage's peak are logged.  Returns ({GEMM
     counter: {path: launches}}, {path: {GEMM counter: launches, ms and
     bound_ms per generate}})."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    cfg = configs.get_config(VLM_ARCH)
+    cfg = dataclasses.replace(configs.get_config(VLM_ARCH),
+                              n_layers=VLM_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(29)
     t0 = time.perf_counter()
     vlm_reduced_vs_cpu(gen)
@@ -3450,7 +3475,7 @@ def phase_vlm() -> tuple:
     per_fwd = gemms_per_forward(cfg)
     launches, per_generate = {}, {}
     for fmt in ("w4a8", "w8a8"):
-        tag = f"{VLM_ARCH} {fmt}"
+        tag = f"{VLM_ARCH} {VLM_LAYERS}L {fmt}"
         name = _gemm_name(fmt)
         gib = lambda n: n / 2 ** 30
         peaks = []
@@ -4026,9 +4051,6 @@ ADMIT_CHUNK, ADMIT_POOL, ADMIT_BUDGET = 16, 256, 128
 # the smallest cache-length bucket: the trace's requests need 70-128
 # positions, so two buckets (128, 256) cover it with half the captures
 ADMIT_MIN_LEN = 128
-# the profiled cold chunked admission: the trace's first requests again,
-# one admission round of one batch bucket
-ADMIT_PROFILED = 8
 # the trace's requests repeated exactly once the trace has finished
 ADMIT_REPEATS = (0, 1)
 # whisper-small through the engine: 12 requests at 1000 req/s, frames
@@ -4184,6 +4206,87 @@ def _profiled_admit(eng, reqs, clock_cls):
         {e.key: e.count for e in events}), events
 
 
+def _profiled_chunked(eng, reqs, want, tally, cfg, tag: str,
+                      smi: str) -> dict:
+    """The cold chunked engine serving the whole trace under the profiler,
+    every count from 0 just before the run: the main path of chunked
+    admission.  Its GEMM launches must be the chunk steps' (gemms_per_step
+    per chunk launch at M = bb x ADMIT_CHUNK: the tile for bb >= 2, the
+    small-M kernel for bb = 1) plus the segments' (gemms_per_step x
+    ENGINE_SEGMENT small-M each), every one a graph replay (the wrappers
+    count none), and every stream its static `generate`'s.  A run the
+    profiler counts short (it has been seen to drop ~1% of a profile's
+    kernel events) is driven again under new ids, three runs at most.
+    `tally` counts the chunk launches by batch bucket (`_chunk_tally`).
+    Returns the path's row for the kernels line: the GEMM counters'
+    launches, the chunk launches and segments, the GEMMs' device ms
+    (all, and the tile's alone: the bb >= 2 chunk launches) beside their
+    bounds."""
+    from repro_torch.launch import scheduler
+    name = _gemm_name("w4a8")
+    small = f"{name}_small_m"
+    per = gemms_per_step(cfg)
+    seg_bbs, seg_step = [], eng._segment_step
+
+    def seg_seen(bb, t_b):
+        seg_bbs.append(bb)
+        return seg_step(bb, t_b)
+    eng._segment_step = seg_seen
+    for attempt in range(1, 4):
+        trace = _again(reqs, 1000 * attempt) if attempt > 1 else reqs
+        tally.clear()
+        seg_bbs.clear()
+        out, secs, counts, launched, events = _profiled_run(
+            eng, trace, scheduler.FastForwardClock)
+        tile = sum(n for bb, n in tally.items() if bb > 1) * per
+        lone = tally.get(1, 0) * per
+        segs = len(seg_bbs) * per * ENGINE_SEGMENT
+        expect = {name: tile + lone + segs, small: lone + segs}
+        if not any(launched[k] < n for k, n in expect.items()) or \
+                attempt == 3 or \
+                any(launched[k] > n for k, n in expect.items()):
+            break
+        log(f"{tag} (profiled), run {attempt}: launches {launched} short "
+            f"of {expect}; driven again")
+    del eng._segment_step
+    if {k: launched[k] for k in expect} != expect or any(counts.values()) \
+            or not tile:
+        raise AssertionError(f"{tag} (profiled): launched {launched}, "
+                             f"expected {expect} (wrappers {counts}, chunk "
+                             f"launches {dict(tally)}, segment batch "
+                             f"buckets {seg_bbs})")
+    off = trace[0].rid - reqs[0].rid
+    _check_streams(tag + " (profiled)", out,
+                   {r.rid: want[r.rid - off] for r in trace}, trace)
+    chunk_n = sum(tally.values())
+    gemm = [e for e in events if registry_launches(e)[name]]
+    tiles = [e for e in gemm if not registry_launches(e)[small]]
+    dev_ms = sum(e.device_time_us for e in events) / 1e3
+    gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
+    tile_ms = sum(e.device_time_us for e in tiles) / 1e3
+    tile_bound = sum(_gemms_bound_ms(chunk_gemms(cfg, bb * ADMIT_CHUNK)) * n
+                     for bb, n in tally.items() if bb > 1)
+    bound = tile_bound + tally.get(1, 0) * _gemms_bound_ms(
+        chunk_gemms(cfg, ADMIT_CHUNK)) + sum(
+        _gemms_bound_ms(chunk_gemms(cfg, bb)) * ENGINE_SEGMENT
+        for bb in seg_bbs)
+    log(f"{tag} profiled main run ({smi}; run {attempt} of 3): the "
+        f"{len(trace)} requests in {secs * 1e3:.1f} ms on the host, "
+        f"{chunk_n} chunk launches {dict(tally)} (M = bb x {ADMIT_CHUNK}) "
+        f"and {len(seg_bbs)} segments (batch buckets {seg_bbs}); device "
+        f"{dev_ms:.2f} ms, GEMMs {gemm_ms:.2f} ms (their bound "
+        f"{bound:.3f} ms, {100 * bound / gemm_ms:.1f}%), of which the "
+        f"tile's {tile_ms:.2f} ms over the bb >= 2 chunk launches (their "
+        f"bound {tile_bound:.3f} ms, {100 * tile_bound / tile_ms:.1f}%); "
+        f"GEMM launches {launched[name]} of {name} ({launched[small]} "
+        f"small-M), as expected: {per} per chunk launch + {len(seg_bbs)} "
+        f"x {per * ENGINE_SEGMENT}; every stream == its static generate")
+    return {name: launched[name], small: launched[small],
+            "chunk_launches": chunk_n, "segments": len(seg_bbs),
+            "gemm_ms": gemm_ms, "bound_ms": bound, "tile_gemm_ms": tile_ms,
+            "tile_bound_ms": tile_bound}
+
+
 def _run_stats(eng, fin, secs) -> str:
     toks = sum(len(r.tokens) for r in fin)
     ttft = [r.first_token_time - r.arrival_time for r in fin]
@@ -4197,7 +4300,8 @@ def admission_invariance_gate(smi: str) -> None:
     chunkable head layout, whisper's encoder at each bucket against its
     frames, the decoder prefill's cross-attention over the padded page
     against the frames, in the port's forms): every count 0; the
-    einsum's counts for whisper's decoder logged beside (ROADMAP C12)."""
+    key-blocked form's counts for whisper's decoder logged beside
+    (ROADMAP C12)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "batch_invariance", ROOT / "scripts" / "batch_invariance.py")
@@ -4213,7 +4317,7 @@ def admission_invariance_gate(smi: str) -> None:
     ein = bi.s_attention_cases(dev, 1, fixed=False, chunkable=("encdec",))
     log(f"admission invariance ({smi}): {len(res)} S > 1 attention cases "
         f"(chunk, encoder, cross), every row == the row alone, bit for "
-        f"bit; the einsum form for whisper's decoder would differ in "
+        f"bit; the key-blocked form for whisper's decoder would differ in "
         f"{ {k: n for k, n in ein.items() if n and 'encoder' not in k} } "
         f"elements; {time.perf_counter() - t0:.1f} s")
 
@@ -4225,18 +4329,24 @@ def phase_engine_admission() -> dict:
     w4a8, 8 slots, max_cache_len 256, segments of 16, on a
     FastForwardClock, serving the shared-prefix trace
     (`admission_traffic`: 48 requests over 4 prefixes of 64 tokens, then
-    2 exact repeats once the trace has finished) through four engines:
+    2 exact repeats once the trace has finished) through five engines:
     full prefill; cold chunked (prefill_chunk 16); warm (prefill_chunk
-    16, prefix_cache 256, admit_token_budget 128); full prefill with
-    prefix_cache 256 (terminal hits).  Gates: every warm stream == its
-    cold stream, chunked == full == the static `generate` of each
-    request alone, and the terminal engine's == full's, bit for bit;
-    each repeat makes no prefill and no chunk launch (the wrappers' and
-    the profiler's counts in a `registry.profile_window`: the repeats'
-    GEMM launches are their decode segments' only); no capture after
-    `warmup()` and graphs <= `graph_bound()`; the cold chunked trace
-    profiled, its GEMM launches == the chunk steps' (210 per launch, at
-    M = bb x 16: the tile for bb >= 2) + the segments'; both GEMM
+    16, prefix_cache 256, admit_token_budget 128); pooled (the warm
+    engine without the budget, which separates the pool's effect on
+    TTFT from the budget's); full prefill with prefix_cache 256
+    (terminal hits).  The main path of chunked admission is the cold
+    engine's first run of the trace, under the profiler with every count
+    set to 0 just before it (`_profiled_chunked`): its GEMM launches must
+    be the chunk steps' (210 per chunk launch at M = bb x 16: the tile
+    for bb >= 2, small-M for bb = 1) + the segments' (210 x 16 small-M
+    each), all graph replays; its streams, too, are gated.  Each
+    engine's tok/s and TTFT come from an unprofiled run of the trace.
+    Gates: every warm and pooled stream == its cold stream, chunked ==
+    full == the static `generate` of each request alone, and the
+    terminal engine's == full's, bit for bit; each repeat makes no
+    prefill and no chunk launch (the wrappers' and the profiler's counts
+    in a `registry.profile_window` around the repeats' admission round);
+    no capture after `warmup()` and graphs <= `graph_bound()`; both GEMM
     kernels bit for bit against their plain versions at every M the
     engines gave them.  (b) whisper-small at full width (12 + 12 layers),
     w4a8, enc_len 1500, 8 slots, max_cache_len 128, segments of 16
@@ -4249,10 +4359,10 @@ def phase_engine_admission() -> dict:
     repeat's stream == its cold stream; both GEMMs bit for bit at every
     M of its prefills.  Logged beside the card's name and power limit:
     hit rate, prefill tokens skipped, deferrals, graphs and capture ms,
-    output tok/s and TTFT p50 / p99 cold and warm, the device-to-host
+    output tok/s and TTFT p50 / p99 of each engine, the device-to-host
     copy time of `extract_row_pages`, the encoder buckets used.
-    Returns {path: {GEMM counter: launches, "segments", "gemm_ms"}} of
-    the profiled runs for the `kernels` line."""
+    Returns {path: {GEMM counter: launches, "segments", "gemm_ms",
+    "bound_ms", ...}} of the profiled main runs for the `kernels` line."""
     import numpy as np
 
     from repro_torch import configs
@@ -4282,6 +4392,8 @@ def phase_engine_admission() -> dict:
                   "warm": {"prefill_chunk": ADMIT_CHUNK,
                            "prefix_cache": ADMIT_POOL,
                            "admit_token_budget": ADMIT_BUDGET},
+                  "pooled": {"prefill_chunk": ADMIT_CHUNK,
+                             "prefix_cache": ADMIT_POOL},
                   "terminal": {"prefix_cache": ADMIT_POOL}}
     outs, ms = {}, set()
     for label, kw in configs_kw.items():
@@ -4297,12 +4409,23 @@ def phase_engine_admission() -> dict:
         warm_s = time.perf_counter() - t0
         graphs = set(eng._graphs)
         tally = _chunk_tally(eng)
+        off = 0
+        if label == "cold":
+            # the main path of chunked admission: the trace itself,
+            # profiled; its time is read from the unprofiled run below
+            paths[f"admission chunked {fmt}"] = _profiled_chunked(
+                eng, reqs, want, tally, cfg, tag, smi)
+            off = 10000
+        tally.clear()
+        sites0, seg0 = dict(eng._site_counts), eng.segments
         with _timed_pages(eng._spec) as pages:
-            out, run_s = _engine_run(eng, _again(reqs, 0),
+            out, run_s = _engine_run(eng, _again(reqs, off),
                                      scheduler.FastForwardClock)
-        fin = list(eng.finished)
+        out = {rid - off: toks for rid, toks in out.items()}
+        fin = list(eng.finished)[-len(reqs):]
         _check_streams(tag, out, want, reqs)
-        sites = dict(eng._site_counts)
+        sites_abs = dict(eng._site_counts)
+        sites = {k: n - sites0[k] for k, n in sites_abs.items()}
         hit = "prefix_cache" in kw
         if hit:
             # the repeats' admission, profiled: no launch at all
@@ -4310,13 +4433,13 @@ def phase_engine_admission() -> dict:
                 eng, reps, scheduler.FastForwardClock)
             _check_streams(tag + " repeats", rep_out,
                            {r.rid: want[r.rid - 500] for r in reps}, reps)
-            if eng._site_counts != {**sites,
+            if eng._site_counts != {**sites_abs,
                                     "segment": eng._site_counts["segment"]} \
                     or any(launched.values()) or any(counts.values()):
                 raise AssertionError(
                     f"{tag}: the repeats' admission launched {launched} "
                     f"(wrappers {counts}; sites {eng._site_counts} from "
-                    f"{sites})")
+                    f"{sites_abs})")
         info = eng.cache_info()
         if info["graphs"] > info["graph_bound"] or eng._graphs != graphs:
             raise AssertionError(f"{tag}: graphs {sorted(eng._graphs, key=str)}"
@@ -4326,8 +4449,8 @@ def phase_engine_admission() -> dict:
                                                              "prefill")}
         outs[label] = out
         pc = info.get("prefix_cache")
-        log(f"{tag} ({smi}): {_run_stats(eng, fin, run_s)}; "
-            f"{eng.segments} segments, launch sites {sites}, chunk "
+        log(f"{tag} ({smi}), unprofiled: {_run_stats(eng, fin, run_s)}; "
+            f"{eng.segments - seg0} segments, launch sites {sites}, chunk "
             f"launches by batch bucket {dict(tally)}; warmup {warm_s:.1f} "
             f"s ({n_warm} keys), {info['captured']} graphs captured in "
             f"{info['capture_ms']:.1f} ms, {info['graphs']} keys (bound "
@@ -4342,59 +4465,25 @@ def phase_engine_admission() -> dict:
                f"; extract_row_pages {len(pages)} calls, "
                f"{np.mean([b for _, b in pages]) / 1e6:.2f} MB and "
                f"{np.mean([t for t, _ in pages]):.2f} ms each (device to "
-               f"pinned host)")
+               f"pinned host; min {min(t for t, _ in pages):.2f}, max "
+               f"{max(t for t, _ in pages):.2f} ms)")
             + (f"; the {len(reps)} exact repeats admitted with no "
                "launch (profiled), their streams their first serving's"
                if hit else ""))
-        if label == "cold":
-            # the chunk path profiled: one admission round of the trace's
-            # first requests again, under new ids
-            trace = _again(reqs[:ADMIT_PROFILED], 1000)
-            tally.clear()
-            out2, counts, launched, events = _profiled_admit(
-                eng, trace, scheduler.FastForwardClock)
-            chunk_n = sum(tally.values())
-            tile = sum(n for bb, n in tally.items() if bb > 1) * per_step
-            lone = tally.get(1, 0) * per_step
-            expect = {name: tile + lone, small: lone}
-            if {k: launched[k] for k in expect} != expect or counts[name] \
-                    or not tile:
-                raise AssertionError(f"{tag} (profiled): launched "
-                                     f"{launched}, expected {expect} "
-                                     f"(wrappers {counts}, chunk launches "
-                                     f"{dict(tally)})")
-            _check_streams(tag + " (profiled)", out2,
-                           {r.rid + 1000: want[r.rid] for r in reqs}, trace)
-            gemm = [e for e in events if registry_launches(e)[name]]
-            dev_ms = sum(e.device_time_us for e in events) / 1e3
-            gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
-            bound = sum(_gemms_bound_ms(chunk_gemms(cfg, bb * ADMIT_CHUNK))
-                        * n for bb, n in tally.items())
-            log(f"{tag} profiled ({smi}): one admission of the first "
-                f"{len(trace)} requests again, {chunk_n} chunk launches "
-                f"{dict(tally)} (M = bb x {ADMIT_CHUNK}): device "
-                f"{dev_ms:.2f} ms, GEMMs {gemm_ms:.2f} ms "
-                f"({gemm_ms / chunk_n:.3f} ms per chunk launch; their "
-                f"bound {bound:.3f} ms, {100 * bound / gemm_ms:.1f}%); GEMM "
-                f"launches {launched[name]} of {name} ({launched[small]} "
-                f"small-M), as expected: {per_step} per chunk launch")
-            paths[f"admission chunked {fmt}"] = {
-                name: launched[name], small: launched[small],
-                "chunk_launches": chunk_n, "gemm_ms": gemm_ms,
-                "bound_ms": bound}
         del eng
         torch.cuda.empty_cache()
         part(label)
-    for a, b in (("cold", "full"), ("warm", "cold"), ("terminal", "full")):
+    for a, b in (("cold", "full"), ("warm", "cold"), ("pooled", "cold"),
+                 ("terminal", "full")):
         for r in reqs:
             if not np.array_equal(outs[a][r.rid], outs[b][r.rid]):
                 raise AssertionError(f"admission: {a} request {r.rid} "
                                      f"differs from {b}")
     n_gemm = engine_gemm_gates(ms | {1, 2, 4, 8}, kns)
     part("GEMM gates")
-    log(f"admission {ENGINE_ARCH}: every stream of the four engines == "
-        f"its static generate, warm == cold, chunked == full, terminal == "
-        f"full, bit for bit; GEMM gates: {n_gemm} (kernel, M, K, N) bit "
+    log(f"admission {ENGINE_ARCH}: every stream of the five engines == "
+        f"its static generate, warm == pooled == cold, chunked == full, "
+        f"terminal == full, bit for bit; GEMM gates: {n_gemm} (kernel, M, K, N) bit "
         f"for bit at M = {sorted(ms | {1, 2, 4, 8})}; seconds {secs}")
     del params, want, outs
     serve.decode_cache_clear()
@@ -4483,7 +4572,8 @@ def phase_engine_whisper(smi: str) -> dict:
     bound = _gemms_bound_ms(whisper_gemms(cfg, shapes, seg_bbs,
                                           ENGINE_SEGMENT))
     ebs = sorted({eb for _, eb, _ in shapes})
-    log(f"{tag} ({smi}), profiled: {_run_stats(eng, list(eng.finished), run_s)}"
+    log(f"{tag} ({smi}), profiled, the inactive-pages gate's clones and "
+        f"syncs inside: {_run_stats(eng, list(eng.finished), run_s)}"
         f"; {segs} segments; every stream == its static generate "
         f"({static_s:.1f} s for the {len(reqs)}), bit for bit; inactive "
         f"slots' pages unchanged ({sum(n for _, n in idle)} slot checks); "
@@ -4746,7 +4836,8 @@ def main() -> int:
         path = {tag: {"launches": rows[e["name"]],
                       **{k: v for k, v in rows.items()
                          if k in ("segments", "chunk_launches", "gemm_ms",
-                                  "bound_ms")}}
+                                  "bound_ms", "tile_gemm_ms",
+                                  "tile_bound_ms")}}
                 for tag, rows in eng.items() if e["name"] in rows}
         if path:
             e["engine_path_per_trace"] = path

@@ -27,7 +27,8 @@ elements that differ (0 is invariant):
   prompt bucket in a batch of 8;
 * `attention_s`: the attention of the engine's admission paths, whose
   queries are many (S > 1), per head layout: chunked prefill's C = 16
-  queries over the prefill state's t_pre keys in a batch of 8 against
+  queries over the prefill state's t_pre keys (t_pre 32-4096; up to 256
+  on the CPU) in a batch of 8 against
   the same positions of a full prefill of the row alone (the chunkable
   families' layouts); whisper's encoder over a ragged
   row's L frames padded to its bucket eb in a batch, against the L
@@ -40,11 +41,13 @@ elements that differ (0 is invariant):
 
 `softmax_pad` (not gated) counts what `torch.softmax` alone gives a row
 of L scores against the same row with masked scores appended, and
-`einsum_s` (not gated) what the einsum form would give whisper's
-decoder in the `attention_s` cases (ROADMAP C12).
+`key_blocked_s` (not gated) what the key-blocked form of the chunk step
+and the encoder would give whisper's decoder in the `attention_s` cases
+(ROADMAP C12).
 
 `gate(dev)` returns the result and the cases that are not invariant
-among the port's forms; chip_smoke.py phase 13 fails on any.
+among the port's forms; chip_smoke.py phase 13 fails on any, and phase
+14 on any of `attention_s`.
 """
 from __future__ import annotations
 
@@ -74,9 +77,15 @@ MODEL_ARCHS = {"dense": ("smollm-135m", 4, "w8a8"),
                "hybrid": ("jamba-v0.1-52b", 8, "w4a8")}
 
 
-# the engine's S > 1 cases: the prefill chunk, whisper's frames and the
-# slot's cross K/V width (chip_smoke.py phase 13's whisper engine)
+# the engine's S > 1 cases: the prefill chunk, (prompt length, prefill
+# state length t_pre) pairs -- t_pre is a power-of-two bucket up to the
+# engine's max_cache_len, the last chunk partial -- whisper's frames and
+# the slot's cross K/V width (chip_smoke.py phase 14's whisper engine).
+# The CPU takes the pairs up to t_pre 256.
 CHUNK = 16
+CHUNK_CASES = ((20, 32), (64, 64), (100, 128), (100, 256), (500, 512),
+               (1000, 1024), (2000, 2048), (4000, 4096))
+CPU_T_PRE = 256
 ENC_FRAMES = (200, 500, 1000, 1500)
 ENC_LEN = 1500
 
@@ -276,17 +285,21 @@ def s_attention_cases(dev, draws: int, fixed: bool = True,
       prefill state's t_pre keys (garbage past the row's own positions,
       masked causally) in a batch of 8, every chunk k, against positions
       [0, L) of a causal prefill of the L tokens alone, per layout of
-      the `chunkable` families (the einsum form: the port's);
+      the `chunkable` families, for each (L, t_pre) of CHUNK_CASES (t_pre
+      32-4096; up to CPU_T_PRE on the CPU) (the key-blocked form:
+      the port's);
     * `encoder`: whisper's bidirectional encoder attention over a row's L
       frames padded to its bucket eb (`kv_lengths`) in a batch, against
       the L frames alone;
     * `cross`: the decoder prefill's 8 queries over the slot's 1500-frame
       cross K/V masked to L frames, in a batch, against 5 queries over
       the L frames alone, in the fixed-order form (`attention._attend(
-      fixed=True)`, the port's) or, with fixed=False, the einsum.
+      fixed=True)`, the port's) or, with fixed=False, the key-blocked
+      form (`attention._key_blocked_out`).
 
-    The encoder keeps the einsum, which these cases hold invariant on
-    the card."""
+    The chunk step and the encoder take the key-blocked form, which
+    these cases hold invariant on the card and on the CPU (ROADMAP
+    C12)."""
     from repro_torch.launch import scheduler
     g = torch.Generator(device=dev).manual_seed(4)
     bf = torch.bfloat16
@@ -296,7 +309,9 @@ def s_attention_cases(dev, draws: int, fixed: bool = True,
         return torch.randn(shape, generator=g, device=dev).to(bf)
 
     for (h, kv, d), (arch, cfg) in _layouts(chunkable).items():
-        for length, t in ((20, 32), (64, 64), (100, 128), (100, 256)):
+        for length, t in CHUNK_CASES:
+            if dev.type != "cuda" and t > CPU_T_PRE:
+                continue
             n = 0
             for _ in range(draws):
                 q, k, v = randn(8, t, h, d), randn(8, t, kv, d), \
@@ -441,11 +456,12 @@ def gate(dev, draws: int = 2, s_cases: bool = True) -> tuple:
                                         if n}}
     res["softmax_pad"] = softmax_pad_cases(dev)
     if s_cases:
-        # what the einsum would give the encdec decoder's S > 1 attention
-        # (ROADMAP C12; not gated: the port sums those in the fixed order)
+        # what the key-blocked form would give the encdec decoder's S > 1
+        # attention (ROADMAP C12; not gated: the port sums those in the
+        # fixed order)
         ein = s_attention_cases(dev, 1, fixed=False, chunkable=("encdec",))
-        res["einsum_s"] = {k: n for k, n in ein.items()
-                           if "encoder" not in k}
+        res["key_blocked_s"] = {k: n for k, n in ein.items()
+                                if "encoder" not in k}
     res["models"] = model_cases(dev)
     bad = [k for k, v in res["port"].items() if any(v.values())]
     bad += [f"prefill {k}" for k, n in res["prefill"].items() if n]

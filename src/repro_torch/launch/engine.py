@@ -84,11 +84,22 @@ Chunked prefill, warm (prefix-cache) admission and ragged encoder
 features keep the exactness: a chunk's attention rows, a page copied
 from the pool and a padded encoder row are bitwise what the cold, full
 and unpadded runs compute.  Their attention has many queries (S > 1)
-over a key length that differs from the static path's: the encdec
-decoder's prefill attention sums in a fixed order (`attention._attend(
-fixed=True)`, ROADMAP C12); the chunk step and the encoder keep the
-einsum, which scripts/batch_invariance.py's `attention_s` cases hold
-invariant on the card.
+over a key length that differs from the static path's, and one product
+over the whole key axis changed its sums with that length on the card
+(ROADMAP C12).  So full prefill, the chunk step and the encoder sum
+their output product over the keys in blocks of 256, each block one
+GEMM of the same K, the blocks added in `tail_sum_`'s tree
+(`attention._key_blocked_out`); the encdec decoder's prefill attention
+sums scores and output in the decode step's fixed order
+(`attention._attend(fixed=True)`).  The scores' product keeps one GEMM
+over the head dimension.  scripts/batch_invariance.py's `attention_s`
+cases gate both products on these paths, and find no
+differing bit on the card: a chunk of 16 queries over t_pre = 32 to
+4096 keys at every chunkable head layout; whisper's encoder at 200,
+500, 1000 and 1500 frames in their buckets of up to 1500; its decoder's
+cross-attention over the 1500-frame page.  On the CPU the same cases
+hold with t_pre up to 256.  Other chunk sizes and a t_pre past 4096 are
+not gated.
 
 Not ported yet (each keyword keeps its place in the signature and raises
 with its ROADMAP A6 item): the score / embed methods, chaos injection,

@@ -39,6 +39,9 @@ _NEG = -1e30
 # the most bytes of [.., S, T, D] products a fixed-order S > 1 attention
 # holds at once (`_query_blocks`)
 PRODUCT_BYTES = 256 << 20
+# the key block of the many-query attention's output product
+# (`_key_blocked_out`): every block's GEMM has K = KEY_BLOCK
+KEY_BLOCK = 256
 
 
 def _project_q(p, x, cfg: ModelConfig):
@@ -66,6 +69,12 @@ def _query_blocks(s: int, per_query: int):
     return [(i, min(i + qb, s)) for i in range(0, s, qb)]
 
 
+def _cat(parts, dim: int):
+    """torch.cat of one query block or more: one block is returned as it
+    is (a decode step's), with no copy."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
 def _gqa_scores(q, k, fixed: bool = False):
     """q: [B,S,H,D], k: [B,T,KV,D] -> float32 scores [B,KV,G,S,T]; head h
     uses kv head h // G (G = H // KV).
@@ -77,20 +86,17 @@ def _gqa_scores(q, k, fixed: bool = False):
     engine's rows (B = its batch bucket, T = its cache bucket or the
     encdec slot's padded cross K/V) must equal the static path's (B = 1,
     T = cache_len or the request's frames) bit for bit (ROADMAP C10,
-    C12).  The fixed S > 1 form runs over query blocks (`PRODUCT_BYTES`)."""
+    C12).  The products run over query blocks (`PRODUCT_BYTES`); a
+    decode step is one block."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     q = q.reshape(b, s, kv, h // kv, d).to(torch.float32)
-    if s == 1:
-        prod = q.permute(0, 2, 3, 1, 4) \
-            * k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
-        return common.row_sum(prod)[:, :, :, None, :]     # [B,KV,G,1,T]
-    if fixed:
+    if s == 1 or fixed:
         qp = q.permute(0, 2, 3, 1, 4)                     # [B,KV,G,S,D]
         kf = k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None, None]
         per = b * h * k.shape[1] * d * 4
-        return torch.cat([common.row_sum(qp[:, :, :, i:j, None, :] * kf)
-                          for i, j in _query_blocks(s, per)], dim=3)
+        return _cat([common.row_sum(qp[:, :, :, i:j, None, :] * kf)
+                     for i, j in _query_blocks(s, per)], dim=3)
     return torch.einsum("bskgd,btkd->bkgst", q, k.to(torch.float32))
 
 
@@ -99,22 +105,43 @@ def _gqa_out(w, v, fixed: bool = False):
     accumulation, one rounding).  A decode step, and with `fixed` any S,
     sums the products over T in a tree that neither the batch nor zero
     weights appended to T (the masked positions up to a longer cache or
-    cross K/V page) change (`_gqa_scores`); the fixed S > 1 form runs
-    over query blocks."""
+    cross K/V page) change (`_gqa_scores`), over query blocks; any other
+    S > 1 sums over T in key blocks (`_key_blocked_out`)."""
     b, kv, g, s, t = w.shape
     dtype, w, v = v.dtype, w.to(torch.float32), v.to(torch.float32)
-    if s == 1:
-        prod = w[:, :, :, 0, :, None] * v.permute(0, 2, 1, 3)[:, :, None]
-        o = common.tail_sum_(prod, dim=-2)                # [B,KV,G,D]
-    elif fixed:
+    if s == 1 or fixed:
         vf = v.permute(0, 2, 1, 3)[:, :, None, None]      # [B,KV,1,1,T,D]
         per = b * kv * g * t * v.shape[-1] * 4
-        o = torch.cat([common.tail_sum_(w[:, :, :, i:j, :, None] * vf, -2)
-                       for i, j in _query_blocks(s, per)], dim=3)
+        o = _cat([common.tail_sum_(w[:, :, :, i:j, :, None] * vf, -2)
+                  for i, j in _query_blocks(s, per)], dim=3)
         o = o.permute(0, 3, 1, 2, 4)                      # [B,S,KV,G,D]
     else:
-        o = torch.einsum("bkgst,btkd->bskgd", w, v)
+        o = _key_blocked_out(w, v)
     return o.reshape(b, s, kv * g * o.shape[-1]).to(dtype)
+
+
+def _key_blocked_out(w, v):
+    """The S > 1 output product: w [B,KV,G,S,T] and v [B,T,KV,D] in
+    float32 -> [B,S,KV,G,D], as one batched GEMM per key block of
+    KEY_BLOCK (the last one zero-padded), the blocks' partial sums added
+    in `common.tail_sum_`'s tree.  Every block's GEMM has the same K
+    whatever T is, and the tree does not change with zero blocks
+    appended, so a row's sum does not change with the key length: the
+    chunk step's t_pre keys against full prefill's L, an encoder bucket
+    against the request's frames.  One product over the whole T did
+    (cuBLAS picks its split of K from the shapes; ROADMAP C12)."""
+    b, kv, g, s, t = w.shape
+    d = v.shape[-1]
+    nb = -(-t // KEY_BLOCK)
+    if nb * KEY_BLOCK != t:
+        pad = nb * KEY_BLOCK - t
+        w = torch.nn.functional.pad(w, (0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    wb = w.reshape(b, kv, g * s, nb, KEY_BLOCK).permute(0, 1, 3, 2, 4)
+    vb = v.reshape(b, nb, KEY_BLOCK, kv, d).permute(0, 3, 1, 2, 4)
+    part = torch.matmul(wb, vb)                           # [B,KV,NB,GS,D]
+    o = common.tail_sum_(part, 2)                         # [B,KV,GS,D]
+    return o.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)
 
 
 def _kv_quantize(t):

@@ -6,6 +6,8 @@
   bit: 3 requests over 2 slots (eviction, re-admission), with SILVIA
   passes off and all; a ragged mix of frame counts (every encoder
   bucket, one request of a single frame) and prompt lengths.
+* The encoder's attention in a bucket equals the frames alone, bit for
+  bit (ROADMAP C12's key-blocked output product).
 * A terminal repeat (same prompt, same features) makes no prefill
   launch and streams what its first serving streamed; the same prompt
   with other features does not hit.
@@ -125,6 +127,31 @@ def test_ragged_mix_matches_static_and_warmup_covers_it():
     for r in reqs:
         np.testing.assert_array_equal(out[r.rid], _static(cfg, params, r),
                                       err_msg=str(r.rid))
+
+
+@pytest.mark.parametrize("length,eb", [(300, 512), (500, 512),
+                                       (1000, 1024)])
+def test_encoder_attention_in_bucket_equals_frames_alone(length, eb):
+    """ROADMAP C12: whisper-small's encoder attention over a row's frames
+    padded to its bucket in a batch of 2 (`kv_lengths` masking the
+    padding) equals the frames alone, bit for bit, at full width: the
+    output product sums over key blocks (`attention._key_blocked_out`).
+    One einsum over the keys gave 6-41 other elements here on the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import attention
+    cfg = configs.get_config("whisper-small")
+    h, kv, d = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    g = torch.Generator().manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(torch.bfloat16)
+    lens = torch.tensor([length, eb - 7])
+    q, k, v = randn(2, eb, h, d), randn(2, eb, kv, d), randn(2, eb, kv, d)
+    many = attention._attend(q, k, v, cfg, torch.bfloat16,
+                             valid=attention._valid(lens, eb, "cpu"))
+    one = attention._attend(q[:1, :length], k[:1, :length],
+                            v[:1, :length], cfg, torch.bfloat16)
+    assert torch.equal(one, many[:1, :length])
 
 
 def test_terminal_repeat_makes_no_prefill_launch():

@@ -10,6 +10,8 @@ against the port's own cold paths and against `repro`'s engine.
 * `extract_row_pages` / `write_row_pages` against the reference's on the
   same state, and round trips in place (encdec and hybrid constant-size
   leaves whole).
+* C12's key-blocked output product: a chunk over a long prefill state
+  against full prefill of the prompt alone, bit for bit.
 * The port's invariants, bit for bit: chunked == full-prefill engine ==
   the port's static `generate` of each request alone; warm == cold,
   chunked and full; a terminal repeat makes no prefill or chunk launch
@@ -308,6 +310,40 @@ def test_chunked_equals_full_and_static(silvia):
     assert all(k[0] != "prefill" for k in info["graph_keys"])
     assert info["graphs"] <= info["graph_bound"]
     assert info["captured"] == 0 and eng.min_prompt_bucket == 4
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen1.5-0.5b"])
+def test_chunk_attention_over_key_blocks_equals_full(arch):
+    """ROADMAP C12: a chunk of 16 queries over a prefill state of 768
+    keys (three key blocks; past the row's own 300 positions, garbage
+    masked causally) in a batch of 4 equals the same positions of a
+    causal prefill of the 300 tokens alone (two blocks, the last
+    zero-padded), bit for bit; and the key-blocked output product is
+    the exact one within float32 rounding."""
+    from repro_torch.models import attention
+    cfg = tconfigs.get_config(arch)
+    h, kv, d = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    g = torch.Generator().manual_seed(12)
+    length, t, c = 300, 768, 16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(torch.bfloat16)
+    q, k, v = randn(4, t, h, d), randn(4, t, kv, d), randn(4, t, kv, d)
+    pos = torch.arange(t)
+    one = attention._attend(q[:1, :length], k[:1, :length], v[:1, :length],
+                            cfg, torch.bfloat16, pos[None, :length],
+                            pos[None, :length])
+    for c0 in range(0, length, c):
+        qp = (c0 + torch.arange(c)).expand(4, -1)
+        many = attention._attend(q[:, c0:c0 + c], k, v, cfg, torch.bfloat16,
+                                 qp, pos.expand(4, -1))
+        m = min(c, length - c0)
+        assert torch.equal(one[:, c0:c0 + m], many[:1, :m]), c0
+    w = torch.softmax(torch.randn((2, kv, h // kv, 5, t), generator=g), -1)
+    vf = torch.randn((2, t, kv, d), generator=g)
+    exact = torch.einsum("bkgst,btkd->bskgd", w.double(), vf.double())
+    torch.testing.assert_close(attention._key_blocked_out(w, vf),
+                               exact.float(), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("chunk", [4, None])
