@@ -182,7 +182,7 @@ over):
    plain versions take the 2-D weights past ref.PLAIN_EXPERT_BYTES in
    column slices); then qwen2-vl-72b at every width (d 8192, 64 heads
    over 8 KV heads, d_ff 29568, untied vocab 152064, M-RoPE sections
-   (16, 24, 24) at theta 1e6) and 40 of its 80 layers (`VLM_LAYERS`, a
+   (16, 24, 24) at theta 1e6) and 32 of its 80 layers (`VLM_LAYERS`, a
    cut for the run's time; random weights from
    seed 0, q/k/v biases drawn nonzero, built a [K, N] matrix at a time;
    the w4a8 tree freed before the w8a8 one is built; build time,
@@ -259,14 +259,41 @@ over):
    slots' pages unchanged, and a pooled engine (prefix_cache 8) whose
    exact repeat is admitted with no launch (`phase_engine_whisper`).
    Hit rate, tokens skipped, deferrals, capture ms, tok/s, TTFT and the
-   device-to-host copy time of `extract_row_pages` are logged.  Each
-   phase's seconds are logged.
+   device-to-host copy time of `extract_row_pages` are logged;
+15. the engine's score and embed methods and its fault recovery
+   (`phase_engine_methods`): smollm-135m at full width and depth, w4a8,
+   8 slots, max_cache_len 256, segment_len 16, serving the port's
+   `method_traffic` (32 requests, the reference's full-size
+   serve_latency row: 70% generate, 20% score, 10% embed) through a
+   fault-free engine (the path's counts from 0 just before its run), a
+   chaos engine (METHOD_CHAOS: the reference's DEFAULT_CHAOS and an
+   explicit site of every kind) and an engine that is snapshotted
+   mid-flight halfway, drained, and restored into a fresh engine that
+   finishes the trace.  Gates: each generate stream == its static
+   `generate`, each score's logprobs == the port's own `lm.prefill` +
+   `lm.decode_step` at batch 1 through `methods.logprob_from_logits`,
+   float for float, each embedding == `lm.embed_pool` of the prompt
+   alone at its own length, bit for bit; the chaos and restored runs'
+   results == the fault-free run's, bit for bit, every outcome OK,
+   `faults_injected` == the sites that fired >= 4, `errors` == 0,
+   `replay_divergence` == 0, no capture after `warmup()`, the census <=
+   `graph_bound()`; both GEMMs bit for bit at the embed path's M.  The
+   score and embed requests again under the profiler: their GEMM
+   launches == the wrappers' eager prefills and embeds + 210 per replay
+   step.  Logged: tok/s with and without chaos, recovery ms, replayed
+   tokens, TTFT p50 per method, replay-step and embed launches.
+   Phase 13's mamba2 engine is also run under chaos (`segment:1;
+   prefill:0`): its recovered streams == its fault-free ones, bit for
+   bit.  In every phase an exception other than an injected
+   `SimulatedFailure` that reaches an engine's recovery fails the run
+   (`fail_on_real_errors`).  Each phase's seconds are logged.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
 launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
 those paths' GEMM time per generate; the engine paths' launches and
 GEMM ms over the profiled runs: phase 13's trace, phase 14's chunked
-admission and whisper trace), the nvidia-smi line and, last,
+admission and whisper trace, phase 15's score and embed requests), the
+nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
@@ -3218,7 +3245,7 @@ def phase_encdec() -> tuple:
 VLM_ARCH = "qwen2-vl-72b"
 # phase 12 serves qwen2-vl-72b at this many of its 80 layers, every width
 # kept: a cut for the run's time
-VLM_LAYERS = 40
+VLM_LAYERS = 32
 # the image prompt of each row: 8 text tokens, one 448 x 448 image as 256
 # stub patch embeddings (Qwen2-VL's 14-pixel patches merged 2 x 2 into a
 # 16 x 16 grid), 120 text tokens: 384 positions
@@ -3616,8 +3643,9 @@ ENGINE_TRACE = dict(seed=0, n_requests=24, rate=1000.0,
 # after the first: 8 segments and 7 steps of a ninth, whose other 9 steps
 # run past the cache)
 CAP_PROMPT = 120
-# mamba2 through the engine: 8 requests at SSM_LAYERS
+# mamba2 through the engine: 8 requests at SSM_LAYERS; then under chaos
 ENGINE_SSM_REQUESTS = 8
+SSM_CHAOS = "segment:1;prefill:0"
 
 
 def engine_trace(cfg):
@@ -3726,7 +3754,8 @@ def _again(reqs, offset: int, keep_stops: bool = False) -> list:
     import dataclasses
     return [dataclasses.replace(
         r, rid=r.rid + offset, tokens=[], first_token_time=None,
-        finish_time=None, outcome=None,
+        finish_time=None, outcome=None, error=None, retries=0, logprobs=[],
+        embedding=None,
         stop_tokens=r.stop_tokens if keep_stops else None) for r in reqs]
 
 
@@ -4002,11 +4031,14 @@ def phase_engine_ssm() -> None:
     ENGINE_SSM_REQUESTS requests of the engine trace's mix, each stream
     == its static generate, bit for bit; the constant-size state has no
     length axis, so every segment key has t_b None and the graphs grow
-    with batch buckets only."""
+    with batch buckets only.  Then the same requests through a second
+    engine on the same weights under SSM_CHAOS (phase 15's recovery
+    gate for the family whose exact recovery needs replay): every
+    stream == the fault-free run's, bit for bit."""
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.launch import engine, scheduler, serve
+    from repro_torch.launch import engine, resilience, scheduler, serve
 
     cfg = dataclasses.replace(configs.get_config(SSM_ARCH),
                               n_layers=SSM_LAYERS)
@@ -4036,6 +4068,36 @@ def phase_engine_ssm() -> None:
         f"{list(eng.batch_buckets)}, no length axis), capture "
         f"{eng.cache_info()['capture_ms']:.1f} ms; every stream == its "
         "static generate")
+    del eng
+    # recovery as replay on the sequential-state family: re-prefilling
+    # prompt + emitted would not be exact here, replaying the tokens is
+    chaos = resilience.ChaosSchedule.parse(SSM_CHAOS)
+    eng = engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
+                             max_cache_len=ENGINE_CACHE,
+                             segment_len=ENGINE_SEGMENT, chaos=chaos)
+    eng.warmup(prompt_lens=sorted({r.prompt_len for r in reqs}))
+    graphs = set(eng._graphs)
+    rec_ms = _timed_recoveries(eng)
+    got, chaos_s = _engine_run(eng, _again(reqs, 0),
+                               scheduler.FastForwardClock)
+    rb = eng.cache_info()["robustness"]
+    _check_streams(f"{tag} chaos {SSM_CHAOS!r}", got, out, reqs)
+    if rb["faults_injected"] != len(chaos.failed) or \
+            len(chaos.failed) < 2 or rb["errors"] or \
+            rb["replay_divergence"] or not rb["replayed_tokens"] or \
+            eng._graphs != graphs or \
+            not all(r.outcome == "ok" for r in eng.finished):
+        raise AssertionError(f"{tag} chaos: fired {sorted(chaos.failed)}, "
+                             f"robustness {rb}, graphs "
+                             f"{len(eng._graphs)} after warmup "
+                             f"{len(graphs)}")
+    log(f"{tag} under chaos {SSM_CHAOS!r}: sites fired "
+        f"{sorted(chaos.failed)}, {rb['recoveries']} recoveries "
+        f"({', '.join(f'{ms:.1f}' for ms in rec_ms)} ms each), "
+        f"{rb['replayed_tokens']} tokens replayed, divergence 0, errors 0; "
+        f"{toks / chaos_s:.1f} tok/s against {toks / run_s:.1f}; every "
+        "stream == the fault-free run's, bit for bit; no capture after "
+        "warmup")
     del params, eng
     serve.decode_cache_clear()
     torch.cuda.empty_cache()
@@ -4492,6 +4554,378 @@ def phase_engine_admission() -> dict:
     return paths
 
 
+# phase 15: the engine's score and embed methods, and its fault recovery
+# the reference's full-size serve_latency row (benchmarks/serve_latency.py
+# :186-189) with method_traffic's default mix
+METHOD_TRACE = dict(seed=0, n_requests=32, rate=40.0, prompt_lens=(8, 16, 32),
+                    gen_lens=(8, 16, 24))
+# the reference's DEFAULT_CHAOS (benchmarks/serve_throughput.py:262), and an
+# explicit site of every kind the phase's engine launches
+METHOD_CHAOS = "segment:1,rate=0.04,seed=11,max=4;prefill:2;chunk:1;embed:0"
+
+
+def fail_on_real_errors() -> None:
+    """Make an engine's recovery refuse any exception but an injected
+    `SimulatedFailure`: a kernel that fails to build or launch, or a
+    sticky CUDA fault, ends the run with its own traceback instead of
+    being recovered and counted in `errors`."""
+    from repro_torch.launch import engine, resilience
+    recover = engine.ServeEngine._recover
+
+    def guarded(self, exc, now):
+        if not isinstance(exc, resilience.SimulatedFailure):
+            raise AssertionError(f"engine: a real error reached recovery: "
+                                 f"{type(exc).__name__}: {exc}") from exc
+        return recover(self, exc, now)
+    engine.ServeEngine._recover = guarded
+
+
+def _timed_recoveries(eng) -> list:
+    """Time each of `eng`'s recoveries (the in-place reset, synchronized):
+    returns the list of ms it appends to."""
+    seen, recover = [], eng._recover
+
+    def timed(exc, now):
+        t0 = time.perf_counter()
+        recover(exc, now)
+        torch.cuda.synchronize()
+        seen.append((time.perf_counter() - t0) * 1e3)
+    eng._recover = timed
+    return seen
+
+
+def method_references(params, cfg, reqs) -> tuple:
+    """The single-request paths phase 15 holds the engine to, on the card:
+    ({rid: static generate stream, over one cache length, ENGINE_CACHE:
+    one capture for all}, {rid: score logprobs from lm.prefill +
+    lm.decode_step at batch 1}, {rid: lm.embed_pool of the prompt alone
+    at its own length})."""
+    from repro_torch.launch import methods, serve
+    from repro_torch.models import lm
+    toks = static_streams(serve, params, cfg,
+                          [r for r in reqs if r.method == "generate"],
+                          ENGINE_CACHE)
+    lps, embs = {}, {}
+    for r in reqs:
+        prompt = torch.as_tensor(r.prompt[None], device="cuda").long()
+        if r.method == "embed":
+            embs[r.rid] = lm.embed_pool(params, prompt, cfg)[0].cpu().numpy()
+        if r.method != "score":
+            continue
+        comp = list(r.score_tokens)
+        lg, cache = lm.prefill(params, prompt, cfg,
+                               cache_len=r.prompt_len + len(comp))
+        out = [methods.logprob_from_logits(lg[0, -1].cpu().numpy(),
+                                           comp[0])]
+        for t in range(1, len(comp)):
+            lg, cache = lm.decode_step(
+                params, torch.tensor([[comp[t - 1]]], device="cuda"), cache,
+                torch.tensor([r.prompt_len + t - 1], device="cuda"), cfg)
+            out.append(methods.logprob_from_logits(lg[0, -1].cpu().numpy(),
+                                                   comp[t]))
+        lps[r.rid] = out
+    return toks, lps, embs
+
+
+def _check_methods(tag, results, reqs, want, offset=0) -> None:
+    """Each result of `reqs` (rids moved by `offset` from the references'):
+    OK, and its stream, logprobs or embedding its single-request path's,
+    bit for bit."""
+    import numpy as np
+    toks, lps, embs = want
+    for r in reqs:
+        g, rid = results[r.rid], r.rid - offset
+        if g.outcome != "ok":
+            raise AssertionError(f"{tag}: request {r.rid} ({r.method}) "
+                                 f"ended {g.outcome}: {g.error}")
+        if r.method == "generate" and g.tokens != toks[rid].tolist():
+            raise AssertionError(f"{tag}: request {r.rid}'s stream "
+                                 f"{g.tokens[:12]} != its static generate "
+                                 f"{toks[rid][:12].tolist()}")
+        if r.method == "score" and g.logprobs != lps[rid]:
+            raise AssertionError(f"{tag}: request {r.rid}'s logprobs "
+                                 f"{g.logprobs} != the teacher-forced "
+                                 f"decode's {lps[rid]}")
+        if r.method == "embed" and not np.array_equal(g.embedding,
+                                                      embs[rid]):
+            raise AssertionError(
+                f"{tag}: request {r.rid}'s embedding differs from "
+                f"embed_pool of its prompt alone in "
+                f"{int((g.embedding != embs[rid]).sum())} elements")
+
+
+def _same_results(tag, got, want, offset=0) -> None:
+    """`got` (rids moved by `offset`) == `want`, bit for bit: outcome,
+    tokens, logprobs, embedding."""
+    import numpy as np
+    for rid, g in got.items():
+        w = want[rid - offset]
+        same = (g.outcome, g.tokens, g.logprobs) == \
+            (w.outcome, w.tokens, w.logprobs) and (
+                (g.embedding is None and w.embedding is None) or
+                np.array_equal(g.embedding, w.embedding))
+        if not same:
+            raise AssertionError(f"{tag}: request {rid} differs from the "
+                                 f"fault-free run's: {g} vs {w}")
+
+
+def _ttft_by_method(fin) -> str:
+    import numpy as np
+    out = []
+    for m in ("generate", "score", "embed"):
+        xs = [r.first_token_time - r.arrival_time for r in fin
+              if r.method == m]
+        if xs:
+            out.append(f"{m} {np.percentile(xs, 50) * 1e3:.1f} ms "
+                       f"({len(xs)})")
+    return ", ".join(out)
+
+
+def _method_shapes(eng) -> tuple:
+    """Record `eng`'s eager launches of admission: the prefills' and the
+    embeds' (bb, sb), and the replay steps' bb, in lists it fills."""
+    pre, emb, rep = [], [], []
+    prefill, embed, replay = eng._prefill, eng._embed, eng._replay_step_for
+
+    def seen_prefill(inputs, lens, t_pre):
+        pre.append(tuple(inputs.shape))
+        return prefill(inputs, lens, t_pre)
+
+    def seen_embed(inputs, lens):
+        emb.append(tuple(inputs.shape))
+        return embed(inputs, lens)
+
+    def seen_replay(bb, t_b):
+        rep.append(bb)
+        return replay(bb, t_b)
+    eng._prefill, eng._embed, eng._replay_step_for = \
+        seen_prefill, seen_embed, seen_replay
+    return pre, emb, rep
+
+
+def phase_engine_methods() -> dict:
+    """Phase 15 (module docstring): the score and embed methods and fault
+    recovery, smollm-135m at full width, w4a8.  Returns the kernels
+    line's rows for the score and embed requests' profiled run."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import engine, resilience, scheduler, serve
+
+    smi = smi_line()
+    cfg = configs.get_config(ENGINE_ARCH)
+    fmt, name = "w4a8", _gemm_name("w4a8")
+    small = f"{name}_small_m"
+    tag = f"methods {ENGINE_ARCH} {fmt}"
+    secs, t_part = {}, [time.perf_counter()]
+
+    def part(what):
+        now = time.perf_counter()
+        secs[what] = round(now - t_part[0], 1)
+        t_part[0] = now
+        log(f"{tag}: {what} {secs[what]} s")
+
+    params = serve.build_params(cfg, fmt, seed=0, device="cuda")
+    reqs = scheduler.method_traffic(vocab=cfg.vocab, **METHOD_TRACE)
+    kinds = collections.Counter(r.method for r in reqs)
+    plens = sorted({r.prompt_len for r in reqs})
+    part("build")
+    want = method_references(params, cfg, reqs)
+    part("single-request references")
+    serve.decode_cache_clear()
+
+    def make(chaos=None):
+        return engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
+                                  max_cache_len=ENGINE_CACHE,
+                                  segment_len=ENGINE_SEGMENT, chaos=chaos)
+
+    # the fault-free engine; its run of the trace is the phase's main
+    # path, every count from 0 just before it
+    eng = make()
+    n_warm = eng.warmup(prompt_lens=plens,
+                        methods=("generate", "score", "embed"))
+    torch.cuda.synchronize()
+    graphs = set(eng._graphs)
+    part("warmup")
+    for c in registry.LAUNCH_COUNTERS:
+        c.reset()
+    rs0 = eng.replay_steps
+    _, run_s = _engine_run(eng, _again(reqs, 0), scheduler.FastForwardClock)
+    counts = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
+    part("fault-free run")
+    ref = eng.results()
+    _check_methods(tag, ref, reqs, want)
+    info = eng.cache_info()
+    rb = info["robustness"]
+    if not counts[name] or not counts[small] or eng._graphs != graphs or \
+            info["graphs"] > info["graph_bound"] or rb["errors"] or \
+            rb["recoveries"]:
+        raise AssertionError(f"{tag}: wrappers {counts}, graphs "
+                             f"{info['graphs']} (bound "
+                             f"{info['graph_bound']}, after warmup "
+                             f"{len(graphs)}), robustness {rb}")
+    fin = list(eng.finished)
+    toks = sum(len(r.tokens) for r in fin)
+    replay_n = eng.replay_steps - rs0
+    embed_n = info["dispatch_sites"]["embed"]
+    log(f"{tag} ({smi}), fault-free run (the main path; counts from 0): "
+        f"{len(fin)} requests {dict(kinds)}, {toks} generated tokens in "
+        f"{run_s:.3f} s: {toks / run_s:.1f} output tok/s, "
+        f"{len(fin) / run_s:.2f} requests/s; TTFT p50 {_ttft_by_method(fin)}"
+        f"; {eng.segments} segments, {replay_n} replay-step launches (the "
+        f"score completions), {embed_n} embed launches; wrappers' eager "
+        f"GEMM launches {counts[name]} ({counts[small]} small-M: prefills "
+        f"and embeds); every generate stream == its static generate, every "
+        f"score's logprobs == the batch-1 teacher-forced decode's, float "
+        f"for float, every embedding == embed_pool of its prompt alone, "
+        f"bit for bit; warmup {secs['warmup']} s ({n_warm} keys), "
+        f"{info['captured']} graphs captured ({info['graph_bound']} "
+        f"bound), none after it")
+
+    # the score and embed requests again under the profiler: their GEMM
+    # launches are the wrappers' eager prefills and embeds plus
+    # gemms_per_step small-M launches per replay step (a graph replay,
+    # which the wrappers do not see); a run the profiler counts short is
+    # driven again, three runs at most
+    sub = [r for r in reqs if r.method != "generate"]
+    per = gemms_per_step(cfg)
+    pre, emb, rep = _method_shapes(eng)
+    for attempt in range(1, 4):
+        pre.clear(), emb.clear(), rep.clear()
+        trace = _again(sub, 500 * attempt)
+        _, prof_s, pcounts, launched, events = _profiled_run(
+            eng, trace, scheduler.FastForwardClock)
+        expect = {k: pcounts[k] + len(rep) * per for k in (name, small)}
+        if not any(launched[k] < n for k, n in expect.items()) or \
+                attempt == 3 or \
+                any(launched[k] > n for k, n in expect.items()):
+            break
+        log(f"{tag} (profiled), run {attempt}: launches {launched} short "
+            f"of {expect}; driven again")
+    del eng._prefill, eng._embed, eng._replay_step_for
+    if {k: launched[k] for k in expect} != expect or not rep or not emb:
+        raise AssertionError(f"{tag} (profiled): launched {launched}, "
+                             f"expected {expect} (wrappers {pcounts}, "
+                             f"{len(rep)} replay steps)")
+    _check_methods(tag + " (profiled)", eng.results(), trace, want,
+                   500 * attempt)
+    gemm = [e for e in events if registry_launches(e)[name]]
+    gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
+    dev_ms = sum(e.device_time_us for e in events) / 1e3
+    bound = sum(_gemms_bound_ms(chunk_gemms(cfg, bb)) for bb in rep) + sum(
+        _gemms_bound_ms(chunk_gemms(cfg, bb * sb)) for bb, sb in pre + emb)
+    part("profiled score and embed run")
+    log(f"{tag} profiled score and embed requests ({smi}; run {attempt} of "
+        f"3): {len(trace)} requests in {prof_s * 1e3:.1f} ms on the host, "
+        f"{len(rep)} replay steps (batch buckets "
+        f"{dict(collections.Counter(rep))}), {len(emb)} embed launches at "
+        f"(bb, sb) {emb}, {len(pre)} score prefills at {pre}; device "
+        f"{dev_ms:.2f} ms, GEMMs {gemm_ms:.2f} ms (their bound "
+        f"{bound:.3f} ms, {100 * bound / gemm_ms:.1f}%); GEMM launches "
+        f"{launched[name]} ({launched[small]} small-M), as expected: the "
+        f"wrappers' {pcounts[name]} + {len(rep)} x {per}")
+    ms = {1, 2, 4, 8} | {bb * sb for bb, sb in pre + emb}
+    kns = list(dict.fromkeys(MAIN_KN))
+    n_gemm = engine_gemm_gates(ms, kns)
+    part("GEMM gates")
+    log(f"{tag}: GEMM gates {n_gemm} (kernel, M, K, N) bit for bit at M = "
+        f"{sorted(ms)}")
+
+    # snapshot mid-flight halfway, drain, restore into a fresh engine
+    half = _again(reqs, 1000)
+    clock = scheduler.FastForwardClock()
+    done0 = len(eng.finished)
+    for r in half:
+        eng.submit(r)
+    # halfway, and at a step boundary where a request is in flight with
+    # emitted tokens (restore must replay it)
+    while len(eng.finished) - done0 < len(half) // 2 or not any(
+            r is not None and r.tokens for r in eng._slot_req):
+        if not eng.step(clock):
+            nxt = eng.next_arrival(clock.now())
+            if nxt is None:
+                break
+            clock.wait_until(nxt)
+    inflight = sum(r is not None and bool(r.tokens) for r in eng._slot_req)
+    with tempfile.TemporaryDirectory() as d:
+        eng.snapshot(d, step=1)
+        before = {r.rid for r in eng.finished[done0:]}
+        eng.drain(clock)
+        drained = eng.results()
+        fresh = make()
+        n_restored = fresh.restore(d)
+    queued = eng.n_queued
+    _, restore_s = _engine_run(fresh, (), scheduler.FastForwardClock)
+    got = {r.rid: drained[r.rid] for r in half if r.rid in before}
+    got.update(fresh.results())
+    _same_results(tag + " restored", got, ref, 1000)
+    _same_results(tag + " drained", {r.rid: drained[r.rid] for r in half
+                                     if r.rid in drained}, ref, 1000)
+    frb, erb = fresh.cache_info()["robustness"], \
+        eng.cache_info()["robustness"]
+    n_drained = sum(r.rid in drained for r in half)
+    if len(got) != len(half) or n_restored + len(before) != len(half) or \
+            not inflight or queued + n_drained != len(half) or \
+            erb["drains"] != 1 or frb["restores"] != 1 or \
+            frb["replay_divergence"] or frb["errors"] or erb["errors"]:
+        raise AssertionError(f"{tag} restore: {len(got)} results of "
+                             f"{len(half)}, {n_restored} restored + "
+                             f"{len(before)} done, {inflight} in flight, "
+                             f"{queued} queued after the drain; "
+                             f"{erb} / {frb}")
+    part("snapshot, drain, restore")
+    log(f"{tag}: halfway ({len(before)} of {len(half)} done, {inflight} in "
+        f"flight with emitted tokens) snapshotted, then drained (the "
+        f"in-flight finished, {queued} queued kept); a fresh engine "
+        f"restored {n_restored} requests and finished them in "
+        f"{restore_s:.3f} s, {frb['replayed_tokens']} tokens replayed, "
+        f"divergence 0; every result == the fault-free run's, bit for bit")
+    del eng, fresh
+    torch.cuda.empty_cache()
+
+    # the chaos engine
+    chaos = resilience.ChaosSchedule.parse(METHOD_CHAOS)
+    ceng = make(chaos)
+    ceng.warmup(prompt_lens=plens, methods=("generate", "score", "embed"))
+    torch.cuda.synchronize()
+    cgraphs = set(ceng._graphs)
+    rec_ms = _timed_recoveries(ceng)
+    _, chaos_s = _engine_run(ceng, _again(reqs, 2000),
+                             scheduler.FastForwardClock)
+    part("chaos warmup and run")
+    _same_results(tag + " chaos", ceng.results(), ref, 2000)
+    info = ceng.cache_info()
+    rb = info["robustness"]
+    if rb["faults_injected"] != len(chaos.failed) or len(chaos.failed) < 4 \
+            or rb["errors"] or rb["replay_divergence"] or \
+            rb["recoveries"] != rb["faults_injected"] or \
+            ceng._graphs != cgraphs or info["graphs"] > info["graph_bound"]:
+        raise AssertionError(f"{tag} chaos: fired {sorted(chaos.failed)}, "
+                             f"robustness {rb}, graphs {info['graphs']} "
+                             f"(bound {info['graph_bound']}, after warmup "
+                             f"{len(cgraphs)})")
+    ctoks = sum(len(r.tokens) for r in ceng.finished)
+    log(f"{tag} under chaos {METHOD_CHAOS!r} ({smi}): sites fired "
+        f"{sorted(chaos.failed)}; {rb['recoveries']} recoveries, "
+        f"{', '.join(f'{x:.1f}' for x in rec_ms)} ms each (the in-place "
+        f"reset, synchronized); {rb['replayed_tokens']} tokens replayed, "
+        f"divergence 0, errors 0; {ctoks} tokens in {chaos_s:.3f} s: "
+        f"{ctoks / chaos_s:.1f} output tok/s against {toks / run_s:.1f} "
+        f"fault-free; {ceng.replay_steps} replay-step launches, "
+        f"{info['dispatch_sites']['embed']} embed launches; every result "
+        f"== the fault-free run's, bit for bit; no capture after warmup "
+        f"({info['graphs']} graphs, bound {info['graph_bound']}); the "
+        f"phase's seconds {secs}")
+    del ceng, params
+    serve.decode_cache_clear()
+    torch.cuda.empty_cache()
+    return {f"methods {fmt}": {
+        name: launched[name], small: launched[small],
+        "replay_steps": len(rep), "embed_dispatches": len(emb),
+        "gemm_ms": gemm_ms, "bound_ms": bound}}
+
+
 def registry_launches(event) -> dict:
     from repro_torch.kernels import registry
     return registry.profiled_launches({event.key: 1})
@@ -4790,6 +5224,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    fail_on_real_errors()
 
     def phase(label, fn, *args):
         t1 = time.perf_counter()
@@ -4818,6 +5253,9 @@ def main() -> int:
     eng = phase("serve engine: smollm-135m, mamba2-2.7b", phase_engine)
     eng.update(phase("serve engine admission: chunked prefill, the prefix "
                      "cache, whisper-small", phase_engine_admission))
+    eng.update(phase("serve engine methods and recovery: score, embed, "
+                     "chaos, drain, snapshot / restore",
+                     phase_engine_methods))
     for paths_of in (moe, ssm, hyb, enc, vlm):
         for k, paths in paths_of.items():
             other.setdefault(k, {}).update(paths)
@@ -4837,7 +5275,8 @@ def main() -> int:
                       **{k: v for k, v in rows.items()
                          if k in ("segments", "chunk_launches", "gemm_ms",
                                   "bound_ms", "tile_gemm_ms",
-                                  "tile_bound_ms")}}
+                                  "tile_bound_ms", "replay_steps",
+                                  "embed_dispatches")}}
                 for tag, rows in eng.items() if e["name"] in rows}
         if path:
             e["engine_path_per_trace"] = path

@@ -37,7 +37,9 @@ elements that differ (0 is invariant):
 * `models`: a prefill and 7 decode steps of one architecture per
   registered family at full width and a few layers, row 0 alone against
   row 0 in a batch of 8 at the engine's bucketed shapes (whisper: its
-  features padded to the encoder bucket and the cross K/V to enc_len).
+  features padded to the encoder bucket and the cross K/V to enc_len),
+  and the embed method's pooled vector (`lm.embed_pool`) of row 0 alone
+  at its own length against row 0 in the padded batch.
 
 `softmax_pad` (not gated) counts what `torch.softmax` alone gives a row
 of L scores against the same row with masked scores appended, and
@@ -392,7 +394,10 @@ def _encdec_model_case(params, cfg, dev) -> dict:
     l8, c8 = lm.prefill(params, (feats, dec), cfg, cache_len=cache,
                         last_positions=lens - 1, enc_lengths=enc,
                         enc_pad=pad)
-    return l1, c1, l8, c8, lens
+    e1 = lm.embed_pool(params, (feats[:1, :length], dec[:1, :5]), cfg)
+    e8 = lm.embed_pool(params, (feats, dec), cfg, last_positions=lens - 1,
+                       enc_lengths=enc)
+    return l1, c1, l8, c8, lens, _diff(e1[0], e8[0])
 
 
 def model_cases(dev) -> dict:
@@ -410,7 +415,8 @@ def model_cases(dev) -> dict:
             cfg = dataclasses.replace(cfg, n_decoder_layers=layers)
         params = serve.build_params(cfg, fmt, seed=0, device=dev)
         if fam == "encdec":
-            l1, c1, l8, c8, lens = _encdec_model_case(params, cfg, dev)
+            l1, c1, l8, c8, lens, n_emb = _encdec_model_case(params, cfg,
+                                                             dev)
         else:
             g = torch.Generator(device=dev).manual_seed(2)
             prompts = torch.randint(0, cfg.vocab, (8, 64), generator=g,
@@ -419,6 +425,9 @@ def model_cases(dev) -> dict:
             l1, c1 = lm.prefill(params, prompts[:1, :48], cfg, cache_len=64)
             l8, c8 = lm.prefill(params, prompts, cfg, cache_len=128,
                                 last_positions=lens - 1)
+            n_emb = _diff(lm.embed_pool(params, prompts[:1, :48], cfg)[0],
+                          lm.embed_pool(params, prompts, cfg,
+                                        last_positions=lens - 1)[0])
         n_pre, n_dec = _diff(l1[0], l8[0]), 0        # [1, V] each
         t1 = l1[:, -1].argmax(-1)[:, None]
         t8 = l8[:, -1].argmax(-1)[:, None]
@@ -431,7 +440,8 @@ def model_cases(dev) -> dict:
             t8 = d8[:, -1].argmax(-1)[:, None]
             t8[0] = t1[0]
         out[f"{arch} {layers}L {fmt}"] = {"prefill_logits": n_pre,
-                                          "decode_logits": n_dec}
+                                          "decode_logits": n_dec,
+                                          "embed": n_emb}
         del params, c1, c8
         if dev.type == "cuda":
             torch.cuda.empty_cache()

@@ -64,6 +64,29 @@ ever-changing request mix:
   queue, shedding, deadlines; launch/resilience.py), cancellation and
   the non-finite quarantine (a slot whose logits went non-finite fails
   with the tokens it had, and its pages are scrubbed).
+* **the score and embed methods** (launch/methods.py): an embed request
+  is one pooled-embedding launch per (batch bucket, prompt bucket[,
+  encoder bucket]) group (`lm.embed_pool`, eager as prefill) and takes
+  no slot; a score request prefills like a generate one, takes its first
+  logprob from the prefill's last logits row and teacher-forces the rest
+  of its completion through the replay step below.
+* **fault injection and recovery as replay** (launch/resilience.py):
+  every launch funnels through `_guarded`, which gives the chaos schedule
+  its site; any exception in a step -- injected or real -- is counted
+  (`faults_injected` or `errors`) and recovered: the in-flight and
+  mid-admission requests are requeued with their emitted tokens, and the
+  engine's state is reset IN PLACE (every slot-state leaf refilled with
+  its init value, the device buffers zeroed, the prefix pins released),
+  so every captured step keeps reading it at its addresses.  A requeued
+  request re-prefills its prompt and replays its tokens through the
+  **replay step**: one decode step (S = 1, no sampler) over the live slot
+  state's (bb, t_b) slice, t_b bucketing pos + 1, with the replaying and
+  scoring rows active, captured per (bb, t_b) on CUDA over views of the
+  slot state and the device buffers, counted as ("chunk", bb, 1, t_b).
+  Its logits equal the segment's that first produced the token although
+  its key length differs, because decode attention sums its masked key
+  axis in `tail_sum_`'s tree (ROADMAP C10).  `drain`, `snapshot` and
+  `restore` build rolling restarts on the same path.
 
 Exactness: an active row's tokens are a pure function of its request.
 An attention row attends only cache positions <= its own position, all
@@ -101,14 +124,13 @@ cross-attention over the 1500-frame page.  On the CPU the same cases
 hold with t_pre up to 256.  Other chunk sizes and a t_pre past 4096 are
 not gated.
 
-Not ported yet (each keyword keeps its place in the signature and raises
-with its ROADMAP A6 item): the score / embed methods, chaos injection,
-recovery and replay, `spec_decode`, and the mesh.
+Not ported yet (each keeps its place and raises with its ROADMAP A6
+item): `spec_decode`, the mesh, and chaos's device-loss arms.
 """
 from __future__ import annotations
 
 import dataclasses
-import os
+import traceback
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -123,12 +145,11 @@ from repro_torch.launch import resilience as res
 from repro_torch.launch import sampling
 from repro_torch.launch import scheduler
 from repro_torch.launch import serve
+from repro_torch.launch.resilience import SimulatedFailure
 from repro_torch.models import lm, slot_state
 
 # ROADMAP.md A6, the engine's remaining slices, in order
 _LATER = {
-    "methods": "engine slice 4 (the score and embed methods)",
-    "chaos": "engine slice 5 (chaos, recovery, replay, drain, snapshot)",
     "spec_decode": "engine slice 6 (speculative decoding)",
     "mesh": "engine slice 7 (the mesh and elastic paths, with A8)",
 }
@@ -170,22 +191,21 @@ def _engine_bundle(cfg, silvia_passes: str, device) -> _EngineBundle:
 
 
 class _ChunkStep:
-    """One chunk of chunked prefill: `decode` ([bb, c] tokens at positions
-    pos .. pos + c - 1 per row, the `active` rows writing) over a static
-    prefill state of (bb, t_pre), its own static token, position and
-    active buffers.  On CUDA the step is captured in a CUDA graph
-    (`serve.capture`: its eager step runs with every row inactive, which
-    leaves the state as it was); each `run` loads the buffers and replays
-    it, and the [bb, c, V] logits it returns live in the graph's pool
-    until the next replay.  On the CPU `run` calls the step eagerly.  A
-    failed capture raises."""
+    """`decode` of [bb, c] tokens at positions pos .. pos + c - 1 per row,
+    the `active` rows writing, over `state` and the token, position and
+    active buffers `tok` [bb, c], `pos` [bb], `act` [bb]: one chunk of
+    chunked prefill (`prefill`: a static prefill state of (bb, t_pre) and
+    buffers of its own), or the replay step (c = 1, over views of the
+    engine's slot state and device buffers).  On CUDA the step is
+    captured in a CUDA graph (`serve.capture`: its eager step runs with
+    every row inactive, which leaves the state as it was); each `run`
+    loads the buffers and replays it, and the [bb, c, V] logits it
+    returns live in the graph's pool until the next replay.  On the CPU
+    `run` calls the step eagerly.  A failed capture raises."""
 
-    def __init__(self, decode, params, spec, bb: int, c: int, t_pre: int,
+    def __init__(self, decode, params, state, tok, pos, act,
                  device: torch.device):
-        self.state = spec.init_state(bb, t_pre, device)
-        self.tok = torch.zeros((bb, c), dtype=torch.int64, device=device)
-        self.pos = torch.zeros((bb,), dtype=torch.int64, device=device)
-        self.act = torch.zeros((bb,), dtype=torch.bool, device=device)
+        self.state, self.tok, self.pos, self.act = state, tok, pos, act
         self.leaves = pytree.tree_leaves(params)    # the graph reads them
 
         def step():
@@ -195,8 +215,19 @@ class _ChunkStep:
         self._step, self.graph, self.logits, self.capture_ms = \
             step, None, None, 0.0
         if device.type == "cuda":
+            act.zero_()
             self.graph, self.logits, self.capture_ms = serve.capture(
                 step, device)
+
+    @classmethod
+    def prefill(cls, decode, params, spec, bb: int, c: int, t_pre: int,
+                device: torch.device) -> "_ChunkStep":
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return cls(decode, params, spec.init_state(bb, t_pre, device),
+                   zeros(bb, c), zeros(bb), zeros(bb, dtype=torch.bool),
+                   device)
 
     def reset(self) -> None:
         """Fresh (zero) prefill state, as the reference's init_state per
@@ -205,11 +236,15 @@ class _ChunkStep:
         for t in pytree.tree_leaves(self.state):
             t.zero_()
 
-    def run(self, toks: np.ndarray, start: int, act: np.ndarray):
-        """Chunk tokens [bb, c] at positions start.., rows `act` [bb]
-        writing: the [bb, c, V] float32 logits."""
+    def run(self, toks: np.ndarray, start, act: np.ndarray):
+        """Tokens [bb, c] at positions start.. (an int for every row, or
+        [bb] per row), rows `act` [bb] writing: the [bb, c, V] float32
+        logits."""
         self.tok.copy_(torch.from_numpy(np.ascontiguousarray(toks)))
-        self.pos.fill_(start)
+        if isinstance(start, np.ndarray):
+            self.pos.copy_(torch.from_numpy(np.ascontiguousarray(start)))
+        else:
+            self.pos.fill_(start)
         self.act.copy_(torch.from_numpy(np.ascontiguousarray(act)))
         if self.graph is None:
             return self._step()
@@ -248,9 +283,11 @@ class ServeEngine:
     min_len_bucket / min_batch_bucket: smallest cache-length / batch
                     buckets (both clamped to the physical maxima).
     resilience:     ResilienceConfig (queue bound, shed policy, default
-                    TTL); None = defaults (unbounded queue, no TTL).
-    chaos:          None, or "env" while $REPRO_CHAOS is unset (fault
-                    injection is not ported yet).
+                    TTL, recovery budget); None = defaults (unbounded
+                    queue, no TTL, 8 recoveries per request).
+    chaos:          a resilience.ChaosSchedule (fault injection at the
+                    engine's dispatch sites), "env" (the default: the
+                    schedule $REPRO_CHAOS gives, if any) or None.
     prefix_cache:   if set, the page capacity of the cross-request prefix
                     cache (launch/prefix_cache.py): admission reuses
                     pooled prefix pages instead of re-prefilling cached
@@ -286,9 +323,6 @@ class ServeEngine:
                              f"{cfg.family!r}")
         if spec_decode is not None:
             raise _not_yet("spec_decode", "spec_decode")
-        if chaos not in (None, "env") or (
-                chaos == "env" and os.environ.get("REPRO_CHAOS")):
-            raise _not_yet("fault injection (chaos)", "chaos")
         init_kwargs = {"s_enc": enc_len} if enc_len is not None else {}
         # raises with registry guidance for unregistered families
         self._spec = slot_state.spec_for(cfg, **init_kwargs)
@@ -367,7 +401,19 @@ class ServeEngine:
         self._graphs: set = set()
         self._res = resilience if resilience is not None \
             else res.ResilienceConfig()
-        self._site_counts = {"segment": 0, "prefill": 0, "chunk": 0}
+        self._chaos = res.chaos_from_env() if chaos == "env" else chaos
+        self._site_counts = {"segment": 0, "prefill": 0, "chunk": 0,
+                             "embed": 0}
+        # the replay step per (bb, t_b) (`_replay_step_for`)
+        self._replays: Dict[tuple, _ChunkStep] = {}
+        self.replay_steps = 0
+        # the traceback of the last real (not injected) failure recovered
+        self.last_error: Optional[str] = None
+        # per slot: the recorded tokens a recovered request still replays,
+        # and the completion tokens a score request still teacher-forces
+        # (both drain through the replay step, `_drain_replay`)
+        self._replay: List[List[int]] = [[] for _ in range(n_slots)]
+        self._score: List[List[int]] = [[] for _ in range(n_slots)]
         self._admitting: List[scheduler.Request] = []
         self._rids: set = set()
         self._results: Dict[int, res.RequestResult] = {}
@@ -375,7 +421,9 @@ class ServeEngine:
                                                for m in smethods.METHODS}
         self._robust: Dict[str, int] = {k: 0 for k in (
             "shed", "expired_queued", "expired_inflight", "failed",
-            "quarantined", "duplicate_rejects", "cancelled_queued",
+            "quarantined", "faults_injected", "errors", "recoveries",
+            "replayed_tokens", "replay_divergence", "duplicate_rejects",
+            "snapshots", "restores", "drains", "cancelled_queued",
             "cancelled_inflight")}
         # -- cross-request prefix cache (launch/prefix_cache.py) --
         self._prefix: Optional[pfx.PrefixCache] = None
@@ -390,8 +438,10 @@ class ServeEngine:
             self._prefix = pfx.PrefixCache(
                 prefix_cache, chunk=prefill_chunk, chain_ok=chain_ok,
                 salt=f"{cfg.family}:{prefill_chunk}")
-        # keys pinned in the pool per slot, released at eviction
+        # keys pinned in the pool per slot, released at eviction; and the
+        # pins an admission holds before its slots own them
         self._slot_pins: List[tuple] = [()] * n_slots
+        self._admit_pins: List[tuple] = []
         # -- admission fairness (token budget) --
         self._admit_budget = admit_token_budget
         self._deferrals = 0
@@ -408,9 +458,8 @@ class ServeEngine:
             self._robust["duplicate_rejects"] += 1
             raise ValueError(
                 f"duplicate request id {req.rid}: this engine already "
-                f"tracks that rid (rids key structured results)")
-        if req.method != "generate":
-            raise _not_yet(f"the {req.method!r} method", "methods")
+                f"tracks that rid (rids key structured results and "
+                f"recovery requeues)")
         if req.served_len > self.max_cache_len:
             raise ValueError(
                 f"request {req.rid}: prompt+gen {req.served_len} exceeds "
@@ -460,7 +509,10 @@ class ServeEngine:
         self.finished.append(req)
         self._results[req.rid] = res.RequestResult(
             rid=req.rid, outcome=outcome, tokens=list(req.tokens),
-            error=error, retries=req.retries)
+            error=error, retries=req.retries,
+            logprobs=list(req.logprobs) if req.logprobs else None,
+            embedding=None if req.embedding is None
+            else np.asarray(req.embedding, np.float32))
 
     def _evict(self, slot: int) -> None:
         """Free a page: no scrubbing needed (see module docstring)."""
@@ -469,6 +521,8 @@ class ServeEngine:
         self._remaining[slot] = 0
         self._pos[slot] = 0
         self._tok[slot] = 0
+        self._replay[slot] = []
+        self._score[slot] = []
         sampling.clear_row(self._samp, slot)
         if self._prefix is not None and self._slot_pins[slot]:
             self._prefix.release(self._slot_pins[slot])
@@ -505,19 +559,39 @@ class ServeEngine:
         self._active = self._active[perm]
         self._remaining = self._remaining[perm]
         self._slot_req = [self._slot_req[i] for i in perm]
+        self._replay = [self._replay[i] for i in perm]
+        self._score = [self._score[i] for i in perm]
         self._slot_pins = [self._slot_pins[i] for i in perm]
         self.compactions += 1
         return True
 
-    def _admit(self, now: float, clock: scheduler.Clock) -> int:
+    def _admit(self, now: float, clock: scheduler.Clock,
+               resume_only: bool = False) -> int:
         self._compact()
+        # resume_only (drain): only requests a recovery requeued -- with
+        # emitted tokens (generate) or a retry count (score and embed
+        # leave no token trail) -- are taken; fresh ones keep their place
+        pred = (lambda r: bool(r.tokens) or r.retries > 0) \
+            if resume_only else None
+        # embeds admit first and apart: one prefill-shaped launch each
+        # group, no decode slot, so they admit while every slot is busy
+        # and never count against the free slots or the token budget
+        embeds = self._queue.pop_ready(
+            now, limit=self.n_slots,
+            predicate=lambda r: r.method == "embed"
+            and (pred is None or pred(r)))
+        n_embed = self._admit_embed(embeds, clock) if embeds else 0
         free = [i for i in range(self.n_slots) if not self._active[i]]
-        ready = self._queue.pop_ready(now, limit=len(free))
+        ready = self._queue.pop_ready(
+            now, limit=len(free),
+            predicate=lambda r: r.method != "embed"
+            and (pred is None or pred(r)))
         if ready and self._admit_budget is not None:
             ready = self._defer_over_budget(ready)
         if not ready:
-            return 0
-        # popped but not yet registered in a slot
+            return n_embed
+        # popped but not yet registered in a slot: a fault mid-admission
+        # leaves the rest here for _recover to requeue
         self._admitting = list(ready)
         # group by (prompt bucket, enc bucket): one prefill shape per
         # (batch bucket, prompt bucket[, enc bucket]) covers the mix
@@ -529,7 +603,59 @@ class ServeEngine:
                 groups.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0)):
             self._admit_group(group, sb, eb, free, clock)
         self._admitting = []
-        return len(ready)
+        return len(ready) + n_embed
+
+    def _admit_embed(self, group: List[scheduler.Request],
+                     clock: scheduler.Clock) -> int:
+        """Serve embed requests: per (prompt bucket, enc bucket) group, one
+        pooled-embedding launch (`lm.embed_pool`) whose vectors finish
+        each request at once.  No slot state is touched, so embeds run
+        beside a full decode batch; a non-finite vector is quarantined."""
+        self._admitting = list(group)
+        groups: Dict[tuple, List[scheduler.Request]] = {}
+        for r in group:
+            groups.setdefault((self._prompt_bucket(r.prompt_len),
+                               self._enc_bucket(r)), []).append(r)
+        for (sb, eb), g in sorted(
+                groups.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0)):
+            bb = scheduler.bucket_pow2(len(g), minimum=self._adm_floor,
+                                       maximum=self.n_slots)
+            inputs, lens = self._prefill_inputs(g, bb, sb, eb)
+            self._graphs.add(self._embed_key(bb, sb, eb))
+            emb, bad = self._guarded("embed", self._embed, inputs, lens)
+            emb, bad = emb.cpu().numpy(), bad.cpu().numpy()
+            now = clock.now()
+            for i, r in enumerate(g):
+                self._admitting = [x for x in self._admitting if x is not r]
+                self._method_admits["embed"] += 1
+                if bad[i]:
+                    self._robust["quarantined"] += 1
+                    self._finish(r, now, res.FAILED,
+                                 "non-finite pooled embedding")
+                    continue
+                r.embedding = emb[i]
+                r.first_token_time = now
+                self._finish(r, now)
+        self._admitting = []
+        return len(group)
+
+    @staticmethod
+    def _embed_key(bb: int, sb: int, eb: Optional[int]) -> tuple:
+        return ("embed", bb, sb) + (() if eb is None else (eb,))
+
+    def _embed(self, inputs, lens: np.ndarray):
+        """One pooled-embedding launch: (vectors [bb, d_model] f32, bad
+        [bb]).  encdec inputs are (features, tokens, enc_lengths)."""
+        last_pos = torch.as_tensor(lens - 1, device=self.device)
+        if self.cfg.family == "encdec":
+            audio, tokens, enc_lens = inputs
+            emb = lm.embed_pool(self.params, (audio, tokens), self.cfg,
+                                last_positions=last_pos,
+                                enc_lengths=enc_lens)
+        else:
+            emb = lm.embed_pool(self.params, inputs, self.cfg,
+                                last_positions=last_pos)
+        return emb, ~torch.isfinite(emb).all(dim=-1)
 
     def _enc_bucket(self, r: scheduler.Request) -> Optional[int]:
         if self.cfg.family != "encdec":
@@ -684,12 +810,14 @@ class ServeEngine:
                            free: List[int], now: float, last) -> None:
         """Per-request bookkeeping once a group's pages are in their
         slots, shared by the cold and the prefix-cache admissions:
-        quarantine, the first token, the fresh stream's start.  `last`
-        gives each row's final prefill logits (a [bb, V] tensor or an
-        {index: row} dict); a sampled request's first token is sampled
-        from its row (sampled requests never take the terminal-hit
-        shortcut, so their row is always there)."""
+        quarantine, a score request's first logprob, the replay of a
+        recovered request, the fresh stream's start.  `last` gives each
+        row's final prefill logits (a [bb, V] tensor or an {index: row}
+        dict); a sampled request's first token is sampled from its row,
+        and a score request's first logprob read from it (neither takes
+        the terminal-hit shortcut, so their row is always there)."""
         tok0 = np.array(tok0).reshape(-1)
+        self._admit_pins = []
         for i, r in enumerate(group):
             slot = int(slots[i])
             self._admitting = [x for x in self._admitting if x is not r]
@@ -708,12 +836,51 @@ class ServeEngine:
             # pins transfer to the slot BEFORE any eviction below, so
             # _evict is the single release point for owned pins
             self._slot_pins[slot] = tuple(pins[i])
-            if not sampling.is_greedy(r):
+            if r.method == "generate" and not sampling.is_greedy(r):
                 # the first token at generated-token index 0, sampled from
                 # this row alone (the sampler is per-row: bitwise the
                 # batch row's); the pool keeps the GREEDY token
                 tok0[i] = sampling.expected_token(r, last[i], 0)
             sampling.write_row(self._samp, slot, r)
+            if r.method == "score":
+                # teacher-forced scoring: the prefill's last logits row is
+                # the distribution completion[0] is scored under; the rest
+                # of the completion drains through the replay step.  A
+                # recovery's re-admission recomputes the same rows, so the
+                # logprobs start afresh
+                comp = list(r.score_tokens)
+                row = last[i].to(torch.float32).cpu().numpy()
+                r.logprobs = [smethods.logprob_from_logits(row, comp[0])]
+                if r.first_token_time is None:
+                    r.first_token_time = now
+                if len(comp) == 1:
+                    self._finish(r, now)
+                    self._evict(slot)
+                    free.append(slot)
+                    free.sort()
+                    continue
+                self._slot_req[slot] = r
+                self._active[slot] = True
+                self._pos[slot] = r.prompt_len
+                self._tok[slot] = comp[0]
+                self._remaining[slot] = 0
+                self._score[slot] = comp[1:]
+                continue
+            if r.tokens:
+                # recovery as replay: a request _recover requeued with its
+                # emitted tokens.  The prefill above repeated its first
+                # admission's (the same prompt, bucket and steps); check
+                # the first token and replay the rest of the recorded
+                # stream through the decode step (_drain_replay)
+                if int(tok0[i]) != r.tokens[0]:
+                    self._robust["replay_divergence"] += 1
+                self._slot_req[slot] = r
+                self._active[slot] = True
+                self._pos[slot] = r.prompt_len
+                self._tok[slot] = r.tokens[0]
+                self._remaining[slot] = r.max_new_tokens - len(r.tokens)
+                self._replay[slot] = r.tokens[1:]
+                continue
             r.tokens = [int(tok0[i])]
             r.first_token_time = now
             self.total_generated += 1
@@ -765,10 +932,13 @@ class ServeEngine:
         last: Dict[int, torch.Tensor] = {}
         miss_idx: List[int] = []
         for i, r in enumerate(group):
-            # a sampled request needs its final logits row, which pooled
-            # pages don't carry: it always takes the prefill path (and
-            # still donates its pages for later greedy hits)
-            hit = self._prefix.lookup(r) if sampling.is_greedy(r) else None
+            # a score or sampled request needs its final logits row, which
+            # pooled pages don't carry: it always takes the prefill path
+            # (and still donates its pages for later greedy hits); a score
+            # request skips the lookup, which keeps its traffic out of the
+            # pool's stats and LRU order
+            hit = self._prefix.lookup(r) \
+                if r.method != "score" and sampling.is_greedy(r) else None
             if hit is None or hit.terminal is None:
                 miss_idx.append(i)
                 continue
@@ -777,6 +947,7 @@ class ServeEngine:
                                        ent.pages)
             tok0[i] = ent.tok0
             pins[i] = self._prefix.pin([ent.key])
+            self._admit_pins.append(pins[i])
             self._prefix.note_skip(r.prompt_len)
         if miss_idx:
             sub = [group[i] for i in miss_idx]
@@ -829,6 +1000,12 @@ class ServeEngine:
         n_chain = [0] * g
         pin_keys: List[List[bytes]] = [[] for _ in range(g)]
         for i, r in enumerate(group):
+            if r.method == "score":
+                # score needs the final logits row: every chunk runs cold
+                # (resume 0; its pages still donate to the pool), with no
+                # lookup to move the pool's stats or LRU order
+                resume[i] = 0
+                continue
             hit = self._prefix.lookup(r)
             if hit.terminal is not None and sampling.is_greedy(r):
                 # the terminal shortcut is greedy-only: the pooled tok0 is
@@ -895,6 +1072,7 @@ class ServeEngine:
                         keys[k], self._chunk_pages(full, k, c))
             self._prefix.insert_terminal(r, full, int(tok0[i]))
         pins = [self._prefix.pin(pk) for pk in pin_keys]
+        self._admit_pins.extend(pins)
         slots = np.asarray([free.pop(0) for _ in range(g)], np.int64)
         self._spec.admit(self._cache, cache, slots, g, t_pre=t_pre)
         return tok0, bad0, slots, pins, last
@@ -906,8 +1084,8 @@ class ServeEngine:
         key = ("chunk", bb, c, t_pre)
         s = self._chunks.get(key)
         if s is None:
-            s = _ChunkStep(self._bundle.decode_fn, self.params, self._spec,
-                           bb, c, t_pre, self.device)
+            s = _ChunkStep.prefill(self._bundle.decode_fn, self.params,
+                                   self._spec, bb, c, t_pre, self.device)
             self._chunks[key] = s
         return s
 
@@ -1038,13 +1216,18 @@ class ServeEngine:
                 self._finish(req, now)
                 self._evict(slot)
 
-    # -- dispatch sites, expiry, quarantine ---------------------------------
+    # -- resilience: chaos sites, expiry, replay, recovery ------------------
 
     def _guarded(self, kind: str, fn, *args):
-        """Every device dispatch funnels through here: count the per-kind
-        site, then call straight through (fault injection, which the
-        reference runs here, is not ported yet)."""
-        self._site_counts[kind] += 1
+        """Every device launch funnels through here: count the per-kind
+        site, give the chaos schedule its shot at it, then launch.  The
+        check fires BEFORE the call, so an injected fault never leaves a
+        launch half done; failures unwind to step() / drain(), which
+        recover."""
+        idx = self._site_counts[kind]
+        self._site_counts[kind] = idx + 1
+        if self._chaos is not None:
+            self._chaos.check_site(f"{kind}:{idx}")
         return fn(*args)
 
     def _expire(self, now: float) -> int:
@@ -1075,38 +1258,205 @@ class ServeEngine:
         zeros = self._spec.init_state(1, self.max_cache_len, self.device)
         self._spec.admit(self._cache, zeros, [slot], 1)
 
+    def _replay_step_for(self, bb: int, t_b: Optional[int]) -> _ChunkStep:
+        """The replay step of (bb, t_b), captured at first use over the
+        first bb rows of the slot state (its first t_b positions) and of
+        the token, position and active buffers."""
+        s = self._replays.get((bb, t_b))
+        if s is None:
+            b = self._bufs
+            s = _ChunkStep(self._bundle.decode_fn, self.params,
+                           self._spec.slice_live(self._cache, bb, t_b),
+                           b["tok"][:bb], b["pos"][:bb], b["act"][:bb],
+                           self.device)
+            self._replays[(bb, t_b)] = s
+        return s
+
+    def _drain_replay(self, clock: scheduler.Clock) -> None:
+        """Teacher-forced replay of recovered requests' recorded tokens,
+        one replay step at a time, through the decode step live traffic
+        uses.  Replaying, not re-prefilling prompt + emitted in one go,
+        keeps recovery bit-exact for every family: prefill and stepwise
+        decode sum sequential state in different orders, a replayed step
+        repeats the fault-free step's ops.  Each replayed token is checked
+        against the recorded stream (`replay_divergence`).
+
+        Score requests drain through the same launches: teacher-forcing a
+        fixed completion is replay with the expected token supplied by
+        the caller, plus a host logprob from each step's logits row
+        (methods.logprob_from_logits)."""
+        while any(self._replay) or any(self._score):
+            self._replay_step(clock.now())
+
+    def _replay_step(self, now: float) -> None:
+        hi = int(np.max(np.nonzero(self._active)[0])) + 1
+        bb = scheduler.bucket_pow2(hi, minimum=self.min_batch_bucket,
+                                   maximum=self.n_slots)
+        t_b = None
+        if self._spec.has_length_axis:
+            need = int(np.max(self._pos[:bb][self._active[:bb]])) + 1
+            t_b = scheduler.bucket_pow2(min(need, self.max_cache_len),
+                                        minimum=self.min_len_bucket,
+                                        maximum=self.max_cache_len)
+        # only the slots mid-replay or mid-score are active: caught-up
+        # requests in the batch neither advance nor change (masking and
+        # batch invariance, module docstring)
+        replaying = np.asarray([bool(self._replay[s]) or bool(self._score[s])
+                                for s in range(bb)])
+        step = self._replay_step_for(bb, t_b)
+        self._graphs.add(("chunk", bb, 1, t_b))
+        logits = self._guarded("chunk", step.run, self._tok[:bb],
+                               self._pos[:bb], replaying)
+        self.replay_steps += 1
+        last = logits[:, -1, :]
+        nxt = last.argmax(dim=-1).cpu().numpy()
+        bad = (~torch.isfinite(last).all(dim=-1)).cpu().numpy()
+        # whole rows come to the host only for a score slot's logprob
+        rows = last.cpu().numpy() if any(self._score[:bb]) else None
+        for slot in range(bb):
+            if not replaying[slot]:
+                continue
+            req = self._slot_req[slot]
+            if bad[slot]:
+                self._robust["quarantined"] += 1
+                self._finish(req, now, res.FAILED,
+                             "non-finite logits during replay")
+                self._evict(slot)
+                self._scrub(slot)
+                continue
+            if self._score[slot]:
+                tok = self._score[slot].pop(0)
+                req.logprobs.append(
+                    smethods.logprob_from_logits(rows[slot], tok))
+                self._tok[slot] = tok      # teacher forcing
+                self._pos[slot] += 1
+                if not self._score[slot]:
+                    self._finish(req, now)
+                    self._evict(slot)
+                continue
+            expect = self._replay[slot].pop(0)
+            self._robust["replayed_tokens"] += 1
+            # greedy: the argmax over the logits bits the segment saw (a
+            # comparison, no float sum); sampled: the same sampler on the
+            # row, on its device (the key needs only seed, rid and t)
+            actual = int(nxt[slot]) if sampling.is_greedy(req) else \
+                sampling.expected_token(
+                    req, last[slot],
+                    int(self._pos[slot]) - req.prompt_len + 1)
+            if actual != expect:
+                self._robust["replay_divergence"] += 1
+            self._tok[slot] = expect       # teacher forcing
+            self._pos[slot] += 1
+
+    def _recover(self, exc: Exception, now: float) -> None:
+        """Requeue every in-flight (and mid-admission) request with its
+        emitted tokens, then reset the engine's state.  The reset is in
+        place: every slot-state leaf refilled with its init value, the
+        device buffers zeroed, the host pages cleared and the prefix pins
+        released -- the captured segment, replay and chunk steps read the
+        state and the buffers at their addresses, and each is kept, so
+        recovery captures nothing.  Requeued requests re-enter through
+        admission and replay their recorded tokens before generating new
+        ones, so surviving streams stay bit-identical to a fault-free
+        run.  A request past its recovery budget is FAILED."""
+        if isinstance(exc, SimulatedFailure):
+            self._robust["faults_injected"] += 1
+        else:
+            self._robust["errors"] += 1
+            self.last_error = "".join(traceback.format_exception(exc))
+        self._robust["recoveries"] += 1
+        victims = [r for r in self._slot_req if r is not None]
+        seen = {id(r) for r in victims}
+        victims += [r for r in self._admitting
+                    if id(r) not in seen and r.outcome is None]
+        self._admitting = []
+        for r in victims:
+            r.retries += 1
+            if r.retries > self._res.max_recoveries:
+                self._finish(r, now, res.FAILED,
+                             f"recovery budget "
+                             f"({self._res.max_recoveries}) exhausted; "
+                             f"last error: {exc}")
+            else:
+                self._queue.submit(r)
+        fresh = self._spec.init_state(1, self.max_cache_len, self.device)
+        for leaf, init in zip(pytree.tree_leaves(self._cache),
+                              pytree.tree_leaves(fresh)):
+            leaf.copy_(init)        # broadcast over the slot axis
+        for buf in pytree.tree_leaves(self._bufs):
+            buf.zero_()
+        self._samp = sampling.host_page(self.n_slots)
+        self._tok[:] = 0
+        self._pos[:] = 0
+        self._active[:] = False
+        self._remaining[:] = 0
+        self._slot_req = [None] * self.n_slots
+        self._replay = [[] for _ in range(self.n_slots)]
+        self._score = [[] for _ in range(self.n_slots)]
+        if self._prefix is not None:
+            for pk in self._slot_pins + self._admit_pins:
+                if pk:
+                    self._prefix.release(pk)
+        self._slot_pins = [()] * self.n_slots
+        self._admit_pins = []
+
     # -- run loop -----------------------------------------------------------
 
     def step(self, clock: Optional[scheduler.Clock] = None) -> bool:
-        """Admit what has arrived, then run one decode segment.  Returns
-        False when there was nothing to do (the caller should wait for
-        the next arrival).  A dispatch failure raises (recovery is not
-        ported yet)."""
+        """Admit what has arrived, drain replays and scores, then run one
+        decode segment.  Returns False when there was nothing to do (the
+        caller should wait for the next arrival).  A failure -- injected
+        or real -- does not escape: `_recover` requeues the in-flight
+        work, counts the failure (`faults_injected` or `errors`), and
+        later steps replay it bit-exactly.  The same launches as
+        step_begin + an immediate step_finish."""
         clock = clock or scheduler.Clock()
-        pending, progressed = self.step_begin(clock)
-        if pending is None:
-            return progressed
-        self.step_finish(pending, clock)
-        return True
+        try:
+            return self._step_inner(clock)
+        except Exception as e:  # noqa: BLE001 -- the serve loop survives
+            self._recover(e, clock.now())
+            return True
 
     def step_begin(self, clock: Optional[scheduler.Clock] = None):
-        """First half of step(): expire and admit, then dispatch one
-        decode segment WITHOUT syncing on it.  Returns (pending,
+        """First half of step(): expire, admit and replay, then dispatch
+        one decode segment WITHOUT syncing on it.  Returns (pending,
         progressed); pending is None when no segment ran; otherwise the
-        caller MUST call step_finish(pending)."""
+        caller MUST call step_finish(pending).  A failure here recovers
+        and returns (None, True)."""
         clock = clock or scheduler.Clock()
-        now = clock.now()
-        expired = self._expire(now)
-        admitted = self._admit(now, clock)
-        if not self._active.any():
-            return None, bool(admitted or expired)
-        return self._begin_segment(), True
+        try:
+            return self._step_begin_inner(clock)
+        except Exception as e:  # noqa: BLE001
+            self._recover(e, clock.now())
+            return None, True
 
     def step_finish(self, pending,
                     clock: Optional[scheduler.Clock] = None) -> bool:
         """Second half of step(): block on the dispatched segment and
-        harvest its tokens."""
-        self._finish_segment(pending, clock or scheduler.Clock())
+        harvest its tokens; a failure surfacing at the sync recovers."""
+        clock = clock or scheduler.Clock()
+        try:
+            self._finish_segment(pending, clock)
+        except Exception as e:  # noqa: BLE001
+            self._recover(e, clock.now())
+        return True
+
+    def _step_begin_inner(self, clock: scheduler.Clock,
+                          resume_only: bool = False):
+        now = clock.now()
+        expired = self._expire(now)
+        admitted = self._admit(now, clock, resume_only=resume_only)
+        self._drain_replay(clock)
+        if not self._active.any():
+            return None, bool(admitted or expired)
+        return self._begin_segment(), True
+
+    def _step_inner(self, clock: scheduler.Clock,
+                    resume_only: bool = False) -> bool:
+        pending, progressed = self._step_begin_inner(clock, resume_only)
+        if pending is None:
+            return progressed
+        self._finish_segment(pending, clock)
         return True
 
     def cancel(self, rid: int, now: float = 0.0,
@@ -1131,6 +1481,51 @@ class ServeEngine:
                 self._evict(slot)
                 return True
         return False
+
+    def drain(self, clock: Optional[scheduler.Clock] = None) -> None:
+        """Finish all in-flight work WITHOUT admitting fresh requests
+        (requests a fault mid-drain requeued, with emitted tokens or a
+        retry count, are re-admitted so their streams complete).  Fresh
+        queued requests stay queued; pair with snapshot() / restore() for
+        rolling restarts."""
+        clock = clock or scheduler.Clock()
+        self._robust["drains"] += 1
+        while True:
+            try:
+                self._step_inner(clock, resume_only=True)
+            except Exception as e:  # noqa: BLE001
+                self._recover(e, clock.now())
+                continue
+            if not self._active.any() and not any(
+                    r.tokens or r.retries > 0
+                    for r in self._queue.pending()):
+                return
+
+    def snapshot(self, ckpt_dir: str, step: int = 0) -> str:
+        """Persist the queue and the per-slot request state atomically
+        through checkpoint/ckpt.py (launch/resilience.py's encoding).
+        In-flight requests are stored with their emitted tokens and
+        resume on restore() through the recovery / replay path, so device
+        state is never serialized.  (The reference stamps its mesh here;
+        the port has none until engine slice 7.)"""
+        reqs = [r for r in self._slot_req if r is not None] \
+            + list(self._queue.pending())
+        self._robust["snapshots"] += 1
+        return res.snapshot_requests(ckpt_dir, step, reqs)
+
+    def restore(self, ckpt_dir: str, step: Optional[int] = None) -> int:
+        """Load a snapshot into this (fresh or drained) engine's queue;
+        returns the number of requests restored."""
+        reqs = res.restore_requests(ckpt_dir, step=step)
+        for r in reqs:
+            if r.rid in self._rids:
+                raise ValueError(
+                    f"restore: rid {r.rid} is already tracked by this "
+                    f"engine (restore targets a fresh or drained engine)")
+            self._rids.add(r.rid)
+            self._queue.submit(r)
+        self._robust["restores"] += 1
+        return len(reqs)
 
     def results(self) -> Dict[int, res.RequestResult]:
         """Structured terminal outcome per finished request, by rid."""
@@ -1189,21 +1584,29 @@ class ServeEngine:
         """Upper bound on distinct graphs: the captured segment grid
         (batch buckets only for constant-size state) plus one prefill
         shape -- or captured chunk step -- per (admission batch bucket,
-        prompt bucket[, enc bucket]): what `warmup()` walks.  (The
-        reference's bound also counts the single-token chunk and embed
-        grids of the score, embed and recovery paths, not ported yet.)"""
+        prompt bucket[, enc bucket]), what `warmup()` walks, plus the
+        embed grid of the same size and the replay step's grid, which
+        recovery and the score method both walk (score traffic can come
+        to any engine, so that grid is always in the bound)."""
         enc = max(1, len(self.enc_buckets))
         seg = len(self.batch_buckets) * max(1, len(self.len_buckets))
-        return seg + len(self.admission_batch_buckets) \
+        pre = len(self.admission_batch_buckets) \
             * len(self.prompt_buckets) * enc
+        return seg + pre + seg + pre
 
-    def warmup(self, prompt_lens: Optional[Sequence[int]] = None) -> int:
+    def warmup(self, prompt_lens: Optional[Sequence[int]] = None,
+               methods: Sequence[str] = ("generate",)) -> int:
         """Capture the (batch bucket x length bucket) segment grid and,
         when the expected prompt lengths are given, the admissions they
         map to: each full-prefill shape run once (kernels built and
         loaded, the allocator warm), every encoder bucket of an encdec
-        engine, or each chunk step captured.  Returns the number of
-        graphs added.  Call it with no request in flight."""
+        engine, or each chunk step captured.  `methods` names the methods
+        the traffic uses: "score" also captures the replay step's grid
+        its teacher forcing drains through, as a chaos-armed engine does
+        (it will recover, and recovery replays: no capture after warmup
+        under faults), and "embed" runs each pooled-embedding shape once.
+        Returns the number of graphs added.  Call it with no request in
+        flight."""
         if self._active.any():
             raise RuntimeError("warmup() with requests in flight")
         n = 0
@@ -1213,6 +1616,13 @@ class ServeEngine:
                         self._graphs:
                     self._segment_step(bb, t_b)
                     n += 1
+        if self._chaos is not None or "score" in methods:
+            for bb in self.batch_buckets:
+                for t_b in (self.len_buckets or (None,)):
+                    if ("chunk", bb, 1, t_b) not in self._graphs:
+                        self._replay_step_for(bb, t_b)
+                        self._graphs.add(("chunk", bb, 1, t_b))
+                        n += 1
         if prompt_lens is None:
             return n
         sbs = sorted({self._prompt_bucket(pl) for pl in prompt_lens})
@@ -1236,6 +1646,17 @@ class ServeEngine:
                     out[0].cpu()
                     self._graphs.add(key)
                     n += 1
+        if "embed" in methods:
+            for bb in self.admission_batch_buckets:
+                for sb in sbs:
+                    for eb in (self.enc_buckets or (None,)):
+                        key = self._embed_key(bb, sb, eb)
+                        if key in self._graphs:
+                            continue
+                        self._embed(self._warmup_prefill_inputs(bb, sb, eb),
+                                    np.ones((bb,), np.int64))[0].cpu()
+                        self._graphs.add(key)
+                        n += 1
         return n
 
     def cache_info(self) -> dict:
@@ -1244,7 +1665,8 @@ class ServeEngine:
         time, the lowering census every graph was captured under, the
         decode-bundle LRU, the robustness counters, the admission budget
         and, with the prefix cache on, its counters."""
-        steps = list(self._segments.values()) + list(self._chunks.values())
+        steps = list(self._segments.values()) \
+            + list(self._chunks.values()) + list(self._replays.values())
         info = {
             "family": self.cfg.family,
             "has_length_axis": self._spec.has_length_axis,
@@ -1259,6 +1681,7 @@ class ServeEngine:
             "enc_buckets": list(self.enc_buckets),
             "compactions": self.compactions,
             "segments": self.segments,
+            "replay_steps": self.replay_steps,
             "methods": {"admits": dict(self._method_admits)},
             "lowerings": dict(self._lowerings),
             "decode_bundle_lru": serve.decode_cache_info(),
@@ -1272,6 +1695,16 @@ class ServeEngine:
                 "max_queue": self._res.max_queue,
                 "shed_policy": self._res.shed_policy,
                 "default_ttl_s": self._res.default_ttl_s,
+                "max_recoveries": self._res.max_recoveries,
+                "last_error": self.last_error,
+                "chaos": None if self._chaos is None else {
+                    "sites": list(self._chaos.fail_at_sites),
+                    "rate": getattr(self._chaos, "rate", 0.0),
+                    "seed": getattr(self._chaos, "seed", 0),
+                    "max_failures": getattr(self._chaos, "max_failures",
+                                            None),
+                    "fired": sorted(self._chaos.failed, key=str),
+                },
             },
         }
         if self._prefix is not None:

@@ -175,7 +175,7 @@ def _attend(q, k, v, cfg: ModelConfig, dtype, qpos=None, kpos=None,
         scores = scores.masked_fill(~mask, _NEG)
     if valid is not None:
         scores = scores.masked_fill(~valid[:, None, None, None, :], _NEG)
-    return _gqa_out(torch.softmax(scores, dim=-1).to(dtype), v, fixed)
+    return _gqa_out(common.softmax(scores).to(dtype), v, fixed)
 
 
 def _valid(lengths, t: int, device):

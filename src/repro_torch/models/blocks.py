@@ -87,15 +87,15 @@ def ssm_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     """One mamba2 layer: pre-norm `ln`, the SSD mixer, the residual.  mode
     "prefill" runs `ssd_forward` on the fixed chunk grid with `lengths`
     ([B] real tokens per row) and writes the final state into `cache`
-    ({ssm, conv}) in place; mode "decode" steps the state in `cache` in
-    place (`active` masks its update)."""
+    ({ssm, conv}) in place, where one is given; mode "decode" steps the
+    state in `cache` in place (`active` masks its update)."""
     h = _norm(cfg, x, p["ln"])
     if mode == "decode":
         y, _ = ssm.ssd_decode(p["ssm"], h, cache, cfg, active=active)
     elif mode == "prefill":
         y, state = ssm.ssd_forward(p["ssm"], h, cfg, lengths,
                                    return_state=True)
-        for k, t in state.items():
+        for k, t in state.items() if cache is not None else ():
             cache[k].copy_(t)
     else:
         raise ValueError(f"unknown mode {mode!r}")
@@ -113,11 +113,13 @@ def hybrid_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     slice of the flat hybrid cache, {ssm, conv: [period-1, B, ...]} and
     the attention's {k, v (, k_s, v_s)}, updated in place: the prefill
     fills it (the mixers on the fixed chunk grid with `lengths`), a
-    decode step steps it (masked by `active`).  Modes as dense_block's;
-    the reference's aux loss is dropped, as its prefill / decode drop it."""
+    decode step steps it (masked by `active`); a prefill without a cache
+    writes none.  Modes as dense_block's; the reference's aux loss is
+    dropped, as its prefill / decode drop it."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    kv = {k: t for k, t in cache.items() if k not in ("ssm", "conv")}
+    kv = None if cache is None else \
+        {k: t for k, t in cache.items() if k not in ("ssm", "conv")}
     n = collections.Counter()        # layers of each kind so far
     for i, (mixer, ffn) in enumerate(hybrid_layout(cfg)):
         if mixer == "attn":
@@ -132,7 +134,8 @@ def hybrid_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
             j = n["mamba"]
             layer = {"ln": tree_idx(p["mamba_ln"], j),
                      "ssm": tree_idx(p["mamba"], j)}
-            state = {k: cache[k][j] for k in ("ssm", "conv")}
+            state = None if cache is None else \
+                {k: cache[k][j] for k in ("ssm", "conv")}
             x = ssm_block(layer, x, cfg, mode=mode, cache=state,
                           active=active, lengths=lengths)
         h2 = _norm(cfg, x, tree_idx(p["ffn_ln"], i))
@@ -174,28 +177,33 @@ def dec_block(p, x, cfg: ModelConfig, *, memory=None, mode="prefill",
     "decode": the new tokens attend against the self cache, written in
     place (`active` masks the write), and read the cross K/V, which the
     step never writes.  Both attend over the cross K/V masked by
-    enc_lengths, else cross_len.  Returns the new hidden state."""
+    enc_lengths, else cross_len.  A prefill without a cache (the embed
+    method's) writes none and attends over the memory's own projection,
+    masked by enc_lengths.  Returns the new hidden state."""
     h = _norm(cfg, x, p["ln1"])
-    self_c = {k: t for k, t in cache.items() if k not in CROSS}
+    self_c = None if cache is None else \
+        {k: t for k, t in cache.items() if k not in CROSS}
     if mode == "decode":
         a = attn.attn_decode(p["self"], h, self_c, pos, cfg, active=active)
     elif mode == "prefill":
         # fixed-order sums: the engine prefills a prompt bucket in a batch
         # bucket, the static path the prompt alone (ROADMAP C12)
         a = attn.attn_full(p["self"], h, cfg, cache=self_c, fixed=True)
-        k, v = attn._project_kv(p["cross"], memory, cfg)
-        s_enc = k.shape[1]
-        cache["cross_k"][:, :s_enc] = k
-        cache["cross_v"][:, :s_enc] = v
-        if enc_lengths is None:
-            cache["cross_len"].fill_(s_enc)
-        else:
-            cache["cross_len"].copy_(enc_lengths)
+        if cache is not None:
+            k, v = attn._project_kv(p["cross"], memory, cfg)
+            s_enc = k.shape[1]
+            cache["cross_k"][:, :s_enc] = k
+            cache["cross_v"][:, :s_enc] = v
+            if enc_lengths is None:
+                cache["cross_len"].fill_(s_enc)
+            else:
+                cache["cross_len"].copy_(enc_lengths)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + a
-    mem_kv = {"k": cache["cross_k"], "v": cache["cross_v"],
-              "len": cache["cross_len"]}
+    mem_kv = None if cache is None else {
+        "k": cache["cross_k"], "v": cache["cross_v"],
+        "len": cache["cross_len"]}
     x = x + attn.attn_cross(p["cross"], _norm(cfg, x, p["ln2"]), memory,
                             cfg, mem_kv=mem_kv, enc_lengths=enc_lengths)
     return x + mlp.mlp(p["mlp"], _norm(cfg, x, p["ln3"]), cfg)

@@ -410,6 +410,57 @@ def encdec_decode_step(params, token_t, cache, pos, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# the embed method (serve `embed`)
+# ---------------------------------------------------------------------------
+
+def embed_pool(params, inputs, cfg: ModelConfig, last_positions=None,
+               enc_lengths=None):
+    """Final-hidden-state embedding of a prompt (reference lm.py:319-366):
+    run the stack as prefill does -- the MoE routing per token, the SSM's
+    padded steps as identity updates, the encoder over masked frames,
+    vlm's 3-row arange positions -- then take the float32 mean of the
+    post-final-norm hidden states over each row's real positions.
+
+    No cache is written.  The pool's sum runs in `common.tail_sum_`'s
+    tree over the sequence axis, which zeros appended to it (the prompt
+    bucket's masked padding) do not change, on every device, and whose
+    rows are independent: a request's vector is bit-identical whatever
+    its batch mates or padding (ROADMAP C10's rule for the reference's
+    `xf.sum(axis=1)`).  inputs, last_positions and enc_lengths as
+    `prefill`'s.  Returns [B, d_model] float32."""
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        audio, dec_tokens = inputs
+        memory = encode(params, audio, cfg, lengths=enc_lengths)
+        x = _embed(params, dec_tokens, cfg)
+        x = x + params["pos_embed"][None, :x.shape[1], :]
+        for i in range(n_dec_layers(cfg)):
+            x = blocks.dec_block(blocks.tree_idx(params["dec"], i), x, cfg,
+                                 memory=memory, mode="prefill",
+                                 enc_lengths=enc_lengths)
+    else:
+        x = _embed(params, inputs, cfg)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(3, b, s) \
+            if cfg.m_rope_sections is not None else None
+        lengths = torch.full((b,), s, dtype=torch.int64, device=x.device) \
+            if last_positions is None else \
+            last_positions.to(device=x.device, dtype=torch.int64) + 1
+        block = blocks.BLOCK_FNS[cfg.family]
+        for i in range(n_scan_units(cfg)):
+            x = block(blocks.tree_idx(params["blocks"], i), x, cfg,
+                      mode="prefill", positions=positions, lengths=lengths)
+    x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    b, s = x.shape[:2]
+    lengths = torch.full((b,), s, dtype=torch.int64, device=x.device) \
+        if last_positions is None else \
+        last_positions.to(device=x.device, dtype=torch.int64) + 1
+    mask = torch.arange(s, device=x.device)[None, :] < lengths[:, None]
+    xf = x.to(torch.float32) * mask[:, :, None].to(torch.float32)
+    return common.tail_sum_(xf, 1) / lengths[:, None].to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # slot-state registry (models/slot_state.py)
 # ---------------------------------------------------------------------------
 # The serve engine builds, slices, scatters and compacts per-slot decode

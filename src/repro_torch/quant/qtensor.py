@@ -96,11 +96,31 @@ def _q_experts(xe, w: QTensor):
     return registry.dispatch(op, x_q, w.q, x_s, w.scale)
 
 
+def _float_matmul(x, w):
+    """x @ w.  On the CPU a row's sums must not depend on how many rows
+    share the call (the static path's B=1 against the engine's batch),
+    and MKL's do: it takes a lone row through its GEMV, which sums in
+    another order than its GEMM, and against a transposed weight (a tied
+    head's embed.T) its GEMM's order moves with M.  So on the CPU the
+    weight is made contiguous and a lone row is multiplied beside a zero
+    row; from two rows up a row's sums are then the same for every M
+    (tests/test_torch_engine_methods.py).  CUDA's GEMM rows are held
+    batch-invariant by scripts/batch_invariance.py."""
+    if x.is_cuda or x.dim() < 2:
+        return x @ w
+    w = w.contiguous()
+    if math.prod(x.shape[:-1]) != 1:
+        return x @ w
+    row = x.reshape(1, x.shape[-1])
+    out = (torch.cat([row, torch.zeros_like(row)]) @ w)[:1]
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
 def qmatmul(x, w):
     """x: [..., K]; w: tensor [K, N] | QTensor [K, N] | QTensor [E, K, N]
     (batched expert weights, x then [E, ..., K])."""
     if not isinstance(w, QTensor):
-        return x @ w
+        return _float_matmul(x, w)
     if w.q.ndim == 2:
         lead = x.shape[:-1]
         y = _q2d(x.reshape(-1, x.shape[-1]), w)

@@ -919,3 +919,82 @@ def test_cuda_engine_admission_captures_at_first_use(cuda, kw):
                               cache_len=r.prompt_len + r.max_new_tokens,
                               device=cuda)[0].cpu().numpy()
         np.testing.assert_array_equal(out[r.rid], want)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_methods_and_chaos_recovery(cuda):
+    """The score and embed methods and recovery as replay on the card:
+    score logprobs equal the batch-1 teacher-forced decode's and
+    embeddings `lm.embed_pool` of the prompt alone, bit for bit; under
+    faults at every site kind every result equals the fault-free run's,
+    the slot state keeps its storage (reset in place) and no step is
+    captured after warmup()."""
+    from repro_torch.launch import methods, resilience, scheduler, serve
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models import lm
+    serve.decode_cache_clear()
+    cfg, params = _served(cuda, "w4a8")
+    rng = np.random.default_rng(9)
+    reqs = []
+    for i, m in enumerate(("generate", "score", "embed", "score",
+                           "generate", "score")):
+        kw = {"method": m}
+        if m == "score":
+            kw["score_tokens"] = rng.integers(0, cfg.vocab, 3 + i % 3)
+        reqs.append(scheduler.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, 4 + 3 * i),
+            max_new_tokens=6, arrival_time=0.01 * i, **kw))
+
+    def again():
+        return [scheduler.Request(
+            rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+            arrival_time=r.arrival_time, method=r.method,
+            score_tokens=r.score_tokens) for r in reqs]
+
+    def engine(chaos):
+        eng = ServeEngine(params, cfg, n_slots=2, max_cache_len=32,
+                          segment_len=4, device=cuda, chaos=chaos)
+        eng.warmup(prompt_lens=[r.prompt_len for r in reqs],
+                   methods=("generate", "score", "embed"))
+        return eng
+
+    eng = engine(None)
+    eng.run(again(), clock=scheduler.FastForwardClock())
+    want = eng.results()
+    for r in reqs:
+        prompt = torch.as_tensor(r.prompt[None], device=cuda).long()
+        if r.method == "embed":
+            np.testing.assert_array_equal(
+                want[r.rid].embedding,
+                lm.embed_pool(params, prompt, cfg)[0].cpu().numpy())
+        if r.method != "score":
+            continue
+        comp = list(r.score_tokens)
+        lg, cache = lm.prefill(params, prompt, cfg,
+                               cache_len=r.prompt_len + len(comp))
+        lps = [methods.logprob_from_logits(lg[0, -1].cpu().numpy(),
+                                           comp[0])]
+        for t in range(1, len(comp)):
+            lg, cache = lm.decode_step(
+                params, torch.tensor([[comp[t - 1]]], device=cuda), cache,
+                torch.tensor([r.prompt_len + t - 1], device=cuda), cfg)
+            lps.append(methods.logprob_from_logits(lg[0, -1].cpu().numpy(),
+                                                   comp[t]))
+        assert want[r.rid].logprobs == lps
+    chaos = resilience.ChaosSchedule.parse(
+        "segment:1;prefill:1;chunk:1;embed:0")
+    eng = engine(chaos)
+    graphs = set(eng._graphs)
+    ptrs = [t.data_ptr() for t in eng._cache.values()]
+    eng.run(again(), clock=scheduler.FastForwardClock())
+    rb = eng.cache_info()["robustness"]
+    assert rb["faults_injected"] == len(chaos.failed) == 4
+    assert rb["errors"] == 0 and rb["replay_divergence"] == 0
+    assert eng._graphs == graphs
+    assert [t.data_ptr() for t in eng._cache.values()] == ptrs
+    got = eng.results()
+    for rid, w in want.items():
+        assert (got[rid].outcome, got[rid].tokens, got[rid].logprobs) == \
+            (w.outcome, w.tokens, w.logprobs)
+        if w.embedding is not None:
+            np.testing.assert_array_equal(got[rid].embedding, w.embedding)

@@ -20,9 +20,9 @@ and its scheduler, against the port's static `generate` and against
 * Inactive slots' pages stay bit-identical across a segment; the graph
   census stays within `graph_bound()` and warmup covers the traffic;
   admission control (shedding, deadlines, cancellation) and the
-  refusals of what is not ported yet (chunked prefill, the prefix cache,
-  the budget and the encdec family: tests/test_torch_engine_prefix.py,
-  tests/test_torch_engine_encdec.py).
+  refusals of what is not ported yet (speculative decoding, chaos's
+  device-loss arms; the methods and chaos:
+  tests/test_torch_engine_methods.py, tests/test_torch_resilience.py).
 """
 import dataclasses
 
@@ -452,14 +452,12 @@ def test_refusals_name_their_roadmap_item(monkeypatch):
     _, cfg, _, params = _setup("bfloat16", "w8a8")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         _engine(cfg, params, spec_decode=object())
-    monkeypatch.setenv("REPRO_CHAOS", "segment:1")
-    with pytest.raises(NotImplementedError, match="chaos"):
+    # chaos and the score / embed methods are ported; a device-loss arm
+    # needs the mesh and still raises, naming its slice
+    monkeypatch.setenv("REPRO_CHAOS", "segment:1;lose@segment:2")
+    with pytest.raises(NotImplementedError, match="A6, engine slice 7"):
         _engine(cfg, params)
     monkeypatch.delenv("REPRO_CHAOS")
-    eng = _engine(cfg, params, chaos=None)
-    with pytest.raises(NotImplementedError, match="score"):
-        eng.submit(scheduler.Request(rid=0, prompt=[1, 2], max_new_tokens=1,
-                                     method="score", score_tokens=[3]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(params, cfg)
