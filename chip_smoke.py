@@ -213,21 +213,23 @@ over):
    and replayed 16 times per segment; prefill runs eagerly per (batch
    bucket, prompt bucket).  First the batch-invariance gate
    (`engine_invariance_gate`: scripts/batch_invariance.py at every
-   width the engine serves).  The main path is the trace's run under
-   the profiler (counts from 0 just before it): its GEMM launches,
-   replays included, must be the wrappers' eager prefills plus the
-   captured step's per segment.  Gates: every request's stream equals
-   the port's static `generate` of that request alone, bit for bit
-   (`static_streams`), in the profiled run and in an unprofiled timed
-   run; no run captures a new graph and the graph count is within
-   `graph_bound()`; both GEMM kernels bit for bit against the plain
-   versions at M = 1, 2, 4, 8 and every prefill (bb x prompt bucket)
-   the trace hit (`engine_gemm_gates`); every inactive slot's pages
-   bit-identical across every segment of a third run
-   (`_inactive_pages_gate`).  Logged beside the card's name and power
-   limit: from the timed run output tok/s, requests/s, TTFT and
-   per-token latency p50 / p99, occupancy, segments, graphs and capture
-   ms; from the profiled run its launches, busy share and GEMM share.
+   width the engine serves).  The main path is the trace's run, counts
+   from 0 just before it: under w4a8 (ENGINE_PROFILED) under the
+   profiler, its GEMM launches, replays included, the wrappers' eager
+   prefills plus the captured step's per segment, then an unprofiled
+   timed run; under w8a8 unprofiled, its wrappers' eager prefill
+   launches counted, and itself the timed run.  Gates: every request's
+   stream equals the port's static `generate` of that request alone,
+   bit for bit (`static_streams`), in every run; no run captures a new
+   graph and the graph count is within `graph_bound()`; both GEMM
+   kernels bit for bit against the plain versions at M = 1, 2, 4, 8 and
+   every prefill (bb x prompt bucket) the trace hit
+   (`engine_gemm_gates`); every inactive slot's pages bit-identical
+   across every segment of a third run (`_inactive_pages_gate`). Logged
+   beside the card's name and power limit: from the timed run output
+   tok/s, requests/s, TTFT and per-token latency p50 / p99, occupancy,
+   segments, graphs and capture ms; from the profiled run its launches,
+   busy share and GEMM share.
    Then mamba2-2.7b at SSM_LAYERS, w4a8, 8 requests: engine == static,
    segment graphs by batch bucket only (`phase_engine_ssm`);
 14. the engine's admission paths (`phase_engine_admission`): first
@@ -265,9 +267,11 @@ over):
    8 slots, max_cache_len 256, segment_len 16, serving the port's
    `method_traffic` (32 requests, the reference's full-size
    serve_latency row: 70% generate, 20% score, 10% embed) through a
-   fault-free engine (the path's counts from 0 just before its run), a
-   chaos engine (METHOD_CHAOS: the reference's DEFAULT_CHAOS and an
-   explicit site of every kind) and an engine that is snapshotted
+   fault-free engine (its run of the trace, profiled, is the main path:
+   every count from 0 just before it; then once more without the
+   profiler, for the host clock's tok/s and TTFT), a chaos engine
+   (METHOD_CHAOS: the reference's DEFAULT_CHAOS and an explicit site of
+   every kind) and an engine that is snapshotted
    mid-flight halfway, drained, and restored into a fresh engine that
    finishes the trace.  Gates: each generate stream == its static
    `generate`, each score's logprobs == the port's own `lm.prefill` +
@@ -277,10 +281,10 @@ over):
    results == the fault-free run's, bit for bit, every outcome OK,
    `faults_injected` == the sites that fired >= 4, `errors` == 0,
    `replay_divergence` == 0, no capture after `warmup()`, the census <=
-   `graph_bound()`; both GEMMs bit for bit at the embed path's M.  The
-   score and embed requests again under the profiler: their GEMM
-   launches == the wrappers' eager prefills and embeds + 210 per replay
-   step.  Logged: tok/s with and without chaos, recovery ms, replayed
+   `graph_bound()`; both GEMMs bit for bit at the path's M.  The main
+   run's GEMM launches, counted by the profiler, == the wrappers' eager
+   prefills and embeds + 210 per replay step + 210 x 16 per segment.
+   Logged: tok/s with and without chaos, recovery ms, replayed
    tokens, TTFT p50 per method, replay-step and embed launches.
    Phase 13's mamba2 engine is also run under chaos (`segment:1;
    prefill:0`): its recovered streams == its fault-free ones, bit for
@@ -292,7 +296,7 @@ Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
 launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
 those paths' GEMM time per generate; the engine paths' launches and
 GEMM ms over the profiled runs: phase 13's trace, phase 14's chunked
-admission and whisper trace, phase 15's score and embed requests), the
+admission and whisper trace, phase 15's method trace), the
 nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
@@ -3636,6 +3640,9 @@ def phase_vlm() -> tuple:
 # phase 13: the continuous-batching engine
 ENGINE_ARCH = "smollm-135m"
 ENGINE_SLOTS, ENGINE_CACHE, ENGINE_SEGMENT = 8, 256, 16
+# phase 13 profiles this format's run of the trace (its replays' launches
+# counted by the profiler); the other format's main run goes unprofiled
+ENGINE_PROFILED = "w4a8"
 ENGINE_TRACE = dict(seed=0, n_requests=24, rate=1000.0,
                     prompt_lens=(16, 48, 96, 128), gen_lens=(8, 32, 64))
 # the request cut to end mid-segment at the cache's end: its prompt cut to
@@ -3819,28 +3826,30 @@ def phase_engine() -> dict:
     w8a8, n_slots 8, max_cache_len 256, segment_len 16, on a
     FastForwardClock, serving `engine_trace` (24 requests: greedy, top-p
     and top-k; one with a stop token it emits, one ending mid-segment at
-    the cache's end).  The main path is the trace's run under the
-    profiler, every count set to 0 just before it: its GEMM launches,
-    graph replays included, must be the wrappers' eager prefills plus
-    gemms_per_step x segment_len per segment.  Gates: every request's
-    stream equals the port's static `generate` of that request alone,
-    bit for bit (`static_streams`), in the profiled run and in an
-    unprofiled timed run of the same trace; after `warmup()` no run
-    captures a new graph and the graph count is at most `graph_bound()`;
-    both GEMM kernels bit for bit against their plain versions at the
-    engine's M = 1, 2, 4, 8 and every prefill (bb x prompt bucket) the
-    trace hit (`engine_gemm_gates`); inactive slots' pages bit-identical
-    across every segment of a third run (`_inactive_pages_gate`).
-    Logged beside the card's name and power limit: from the timed run
-    output tok/s and requests/s, TTFT and per-token latency p50 / p99,
-    occupancy, segments, graphs and capture ms; from the profiled run
-    its launches (per segment, the prefills included), the busy share
-    and the GEMMs' share of device time.  Then mamba2-2.7b at
-    SSM_LAYERS, w4a8, ENGINE_SSM_REQUESTS requests: engine == static,
-    and its graphs grow with batch buckets only (no length axis).
-    Returns {path: {GEMM counter: launches of the profiled run,
-    "segments": its segments, "gemm_ms": its GEMMs' device ms}} for the
-    `kernels` line."""
+    the cache's end).  The main path is the trace's run, every count
+    set to 0 just before it: under ENGINE_PROFILED (w4a8) under the
+    profiler, its GEMM launches, graph replays included, the wrappers'
+    eager prefills plus gemms_per_step x segment_len per segment, then
+    an unprofiled timed run of the same trace; under w8a8 unprofiled,
+    the wrappers counting its eager prefills, and itself the timed run.
+    Gates: every request's stream equals the port's static `generate`
+    of that request alone, bit for bit (`static_streams`), in every run;
+    after `warmup()` no run captures a new graph and the graph count is at
+    most `graph_bound()`; both GEMM kernels bit for bit against their plain
+    versions at the engine's M = 1, 2, 4, 8 and every prefill (bb x prompt
+    bucket) the trace hit (`engine_gemm_gates`); inactive slots' pages bit-
+    identical across every segment of a third run (`_inactive_pages_gate`).
+    Logged beside the card's name and power limit: from the timed run output
+    tok/s and requests/s, TTFT and per-token latency p50 / p99, occupancy,
+    segments, graphs and capture ms; from the profiled run its launches (per
+    segment, the prefills included), the busy share and the GEMMs' share of
+    device time. Then mamba2-2.7b at SSM_LAYERS, w4a8, ENGINE_SSM_REQUESTS
+    requests: engine == static, and its graphs grow with batch buckets only
+    (no length axis).
+    Returns {path: {GEMM counter: launches of the main run, "segments":
+    its segments, "counted_by": the profiler or the wrappers, and under
+    the profiler "gemm_ms": its GEMMs' device ms}} for the `kernels`
+    line."""
     import numpy as np
 
     from repro_torch import configs
@@ -3900,78 +3909,109 @@ def phase_engine() -> dict:
             return {r.rid: new.get(r.rid, want[r.rid - off]) for r in trace}
 
         per_seg = gemms_per_step(cfg) * ENGINE_SEGMENT
-        # the main path, profiled: every count from 0 just before the run;
-        # the wrappers count the eager prefills, the profiler every launch,
-        # the captured segments' replays included.  Every segment replays
-        # its step ENGINE_SEGMENT times, so the run must launch the
-        # prefills' GEMMs and per_seg small-M GEMMs per segment.  The
-        # profiler has been seen to drop ~1% of a profile's kernel events:
-        # a run it counts short of that (and over nothing) is driven
-        # again, on the same trace under new request ids, three runs at
-        # most
-        for attempt in range(1, 4):
-            trace = _again(reqs, 1000 * attempt, keep_stops=True) \
-                if attempt > 1 else reqs
-            seg0 = eng.segments
+        if fmt == ENGINE_PROFILED:
+            # the main path, profiled: every count from 0 just before the
+            # run; the wrappers count the eager prefills, the profiler
+            # every launch, the captured segments' replays included.
+            # Every segment replays its step ENGINE_SEGMENT times, so the
+            # run must launch the prefills' GEMMs and per_seg small-M
+            # GEMMs per segment.  The profiler has been seen to drop ~1%
+            # of a profile's kernel events: a run it counts short of that
+            # (and over nothing) is driven again, on the same trace under
+            # new request ids, three runs at most
+            for attempt in range(1, 4):
+                trace = _again(reqs, 1000 * attempt, keep_stops=True) \
+                    if attempt > 1 else reqs
+                seg0 = eng.segments
+                for c in registry.LAUNCH_COUNTERS:
+                    c.reset()
+                with registry.profile_window() as prof:
+                    out, prof_s = _engine_run(eng, trace,
+                                              scheduler.FastForwardClock)
+                counts = {c.name: c.count
+                          for c in registry.LAUNCH_COUNTERS}
+                events = [e for e in registry.window_events(prof)
+                          if e.device_time_us > 0]
+                launched = registry.profiled_launches(
+                    {e.key: e.count for e in events})
+                segs = eng.segments - seg0
+                expect = {k: counts[k] + segs * per_seg
+                          for k in (name, small)}
+                if not any(launched[k] < n for k, n in expect.items()) or \
+                        attempt == 3 or \
+                        any(launched[k] > n for k, n in expect.items()):
+                    break
+                log(f"{tag} (profiled), run {attempt}: launches "
+                    f"{launched} short of {expect}; driven again")
+            if {k: launched[k] for k in expect} != expect or \
+                    not counts[name] or counts[name] == counts[small]:
+                raise AssertionError(
+                    f"{tag}: the profiled run launched {launched}, expected "
+                    f"{expect} (wrappers: {counts}, {segs} segments)")
+            part(f"profiled run{'s' * (attempt > 1)}")
+            off = trace[0].rid - reqs[0].rid
+            _check_streams(tag, out, want_of(trace, off), trace,
+                           (stop.rid + off, at))
+            gemm = [e for e in events
+                    if registry.profiled_launches({e.key: 1})[name]]
+            dev_ms = sum(e.device_time_us for e in events) / 1e3
+            gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
+            n_launch = sum(e.count for e in events)
+            log(f"{tag} profiled main run ({smi}; run {attempt} of 3): "
+                f"{segs} segments of {ENGINE_SEGMENT} steps and the "
+                f"prefills in {prof_s * 1e3:.1f} ms on the host, device "
+                f"{dev_ms:.2f} ms in {n_launch} launches "
+                f"({n_launch / segs:.0f} per segment, prefills included), "
+                f"busy {100 * dev_ms / (prof_s * 1e3):.1f}%, GEMMs "
+                f"{gemm_ms:.2f} ms ({100 * gemm_ms / dev_ms:.1f}% of device "
+                f"time); GEMM "
+                f"launches {launched[name]} of "
+                f"{name} ({launched[small]} small-M), as expected: the "
+                f"wrappers' eager prefills {counts[name]} ({counts[small]} "
+                f"small-M) + {segs} x {per_seg}")
+            for e in sorted(events, key=lambda e: e.device_time_us,
+                            reverse=True)[:6]:
+                log(f"    {e.device_time_us / 1e3:9.3f} ms  {e.count:7d} "
+                    f"calls  {e.device_time_us / e.count:7.2f} us/call  "
+                    f"{e.key[:70]}")
+            if eng._graphs != graphs:
+                raise AssertionError(
+                    f"{tag}: the run added graphs "
+                    f"{sorted(eng._graphs - graphs, key=str)}")
+            # its time, unprofiled: the same trace again, under new ids
+            trace = _again(reqs, 10000, keep_stops=True)
+            seg0, done0 = eng.segments, len(eng.finished)
+            out, run_s = _engine_run(eng, trace,
+                                     scheduler.FastForwardClock)
+            part("timed run")
+            _check_streams(tag + " (timed run)", out,
+                           want_of(trace, 10000), trace,
+                           (stop.rid + 10000, at))
+            part("its sampled static streams")
+        else:
+            # the main path unprofiled, every count from 0 just before the
+            # run: the wrappers count the eager prefills (the replays'
+            # launches are ENGINE_PROFILED's, the same steps and shapes);
+            # it is also the timed run
+            trace, seg0, done0 = reqs, eng.segments, len(eng.finished)
             for c in registry.LAUNCH_COUNTERS:
                 c.reset()
-            with registry.profile_window() as prof:
-                out, prof_s = _engine_run(eng, trace,
-                                          scheduler.FastForwardClock)
+            out, run_s = _engine_run(eng, trace,
+                                     scheduler.FastForwardClock)
             counts = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
-            events = [e for e in registry.window_events(prof)
-                      if e.device_time_us > 0]
-            launched = registry.profiled_launches(
-                {e.key: e.count for e in events})
             segs = eng.segments - seg0
-            expect = {k: counts[k] + segs * per_seg for k in (name, small)}
-            if not any(launched[k] < n for k, n in expect.items()) or \
-                    attempt == 3 or \
-                    any(launched[k] > n for k, n in expect.items()):
-                break
-            log(f"{tag} (profiled), run {attempt}: launches {launched} "
-                f"short of {expect}; driven again")
-        if {k: launched[k] for k in expect} != expect or \
-                not counts[name] or counts[name] == counts[small]:
-            raise AssertionError(f"{tag}: the profiled run launched "
-                                 f"{launched}, expected {expect} (wrappers:"
-                                 f" {counts}, {segs} segments)")
-        part(f"profiled run{'s' * (attempt > 1)}")
-        off = trace[0].rid - reqs[0].rid
-        _check_streams(tag, out, want_of(trace, off), trace,
-                       (stop.rid + off, at))
-        gemm = [e for e in events
-                if registry.profiled_launches({e.key: 1})[name]]
-        dev_ms = sum(e.device_time_us for e in events) / 1e3
-        gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
-        n_launch = sum(e.count for e in events)
-        log(f"{tag} profiled main run ({smi}; run {attempt} of 3): "
-            f"{segs} segments of {ENGINE_SEGMENT} steps and the prefills "
-            f"in {prof_s * 1e3:.1f} ms on the host, device {dev_ms:.2f} "
-            f"ms in {n_launch} launches ({n_launch / segs:.0f} per segment"
-            f", prefills included), busy "
-            f"{100 * dev_ms / (prof_s * 1e3):.1f}%, GEMMs {gemm_ms:.2f} ms "
-            f"({100 * gemm_ms / dev_ms:.1f}% of device time); GEMM "
-            f"launches {launched[name]} of "
-            f"{name} ({launched[small]} small-M), as expected: the "
-            f"wrappers' eager prefills {counts[name]} ({counts[small]} "
-            f"small-M) + {segs} x {per_seg}")
-        for e in sorted(events, key=lambda e: e.device_time_us,
-                        reverse=True)[:6]:
-            log(f"    {e.device_time_us / 1e3:9.3f} ms  {e.count:7d} calls"
-                f"  {e.device_time_us / e.count:7.2f} us/call  "
-                f"{e.key[:70]}")
-        if eng._graphs != graphs:
-            raise AssertionError(f"{tag}: the run added graphs "
-                                 f"{sorted(eng._graphs - graphs, key=str)}")
-        # its time, unprofiled: the same trace again, under new ids
-        trace = _again(reqs, 10000, keep_stops=True)
-        seg0, done0 = eng.segments, len(eng.finished)
-        out, run_s = _engine_run(eng, trace, scheduler.FastForwardClock)
-        part("timed run")
-        _check_streams(tag + " (timed run)", out, want_of(trace, 10000),
-                       trace, (stop.rid + 10000, at))
-        part("its sampled static streams")
+            part("main run (unprofiled, timed)")
+            if not counts[name] or counts[name] == counts[small]:
+                raise AssertionError(f"{tag}: the main run's wrappers "
+                                     f"counted {counts}")
+            _check_streams(tag, out, want, trace, (stop.rid, at))
+            launched, gemm_ms = {k: counts[k] for k in (name, small)}, None
+            log(f"{tag} main run ({smi}; unprofiled, every count from 0): "
+                f"{segs} segments of {ENGINE_SEGMENT} steps; the wrappers' "
+                f"eager prefill launches {counts[name]} of {name} "
+                f"({counts[small]} small-M); the replays' "
+                f"{segs} x {per_seg} small-M are not counted (graph "
+                f"replays; phase 13 profiles {ENGINE_PROFILED} only)")
         fin = eng.finished[done0:]
         info = eng.cache_info()
         if info["graphs"] > info["graph_bound"] or eng._graphs != graphs:
@@ -3999,7 +4039,7 @@ def phase_engine() -> dict:
             f"{info['capture_ms']:.1f} ms ({len(info['graph_keys'])} shape "
             f"keys, bound {info['graph_bound']}), warmup {warm_s:.1f} s "
             f"({n_warm} keys), none after it; compactions "
-            f"{eng.compactions} over the runs; every stream of both runs "
+            f"{eng.compactions} over the runs; every stream of every run "
             f"== its static generate ({static_s:.1f} s for the 24), stop "
             f"token at index {at} of request {stop.rid}, request {cap.rid} "
             f"ended at the cache's end; GEMM gates: {n_gemm} (kernel, M, "
@@ -4017,8 +4057,13 @@ def phase_engine() -> dict:
             f"third run ({sum(n for _, n in seen)} slot checks); the "
             f"phase's seconds: {secs}")
         paths[f"engine {fmt}"] = {name: launched[name],
-                                  small: launched[small], "segments": segs,
-                                  "gemm_ms": gemm_ms}
+                                  small: launched[small], "segments": segs}
+        if gemm_ms is None:
+            paths[f"engine {fmt}"]["counted_by"] = (
+                "the wrappers: the eager prefills only")
+        else:
+            paths[f"engine {fmt}"].update(gemm_ms=gemm_ms,
+                                          counted_by="the profiler")
         del params, eng, want, out
         serve.decode_cache_clear()
         torch.cuda.empty_cache()
@@ -4682,10 +4727,11 @@ def _ttft_by_method(fin) -> str:
 
 
 def _method_shapes(eng) -> tuple:
-    """Record `eng`'s eager launches of admission: the prefills' and the
-    embeds' (bb, sb), and the replay steps' bb, in lists it fills."""
-    pre, emb, rep = [], [], []
-    prefill, embed, replay = eng._prefill, eng._embed, eng._replay_step_for
+    """Record `eng`'s launches in lists it fills: the eager prefills' and
+    embeds' (bb, sb), the replay steps' bb and the segments' bb."""
+    pre, emb, rep, seg = [], [], [], []
+    prefill, embed = eng._prefill, eng._embed
+    replay, segment = eng._replay_step_for, eng._segment_step
 
     def seen_prefill(inputs, lens, t_pre):
         pre.append(tuple(inputs.shape))
@@ -4698,9 +4744,84 @@ def _method_shapes(eng) -> tuple:
     def seen_replay(bb, t_b):
         rep.append(bb)
         return replay(bb, t_b)
-    eng._prefill, eng._embed, eng._replay_step_for = \
-        seen_prefill, seen_embed, seen_replay
-    return pre, emb, rep
+
+    def seen_segment(bb, t_b):
+        seg.append(bb)
+        return segment(bb, t_b)
+    eng._prefill, eng._embed = seen_prefill, seen_embed
+    eng._replay_step_for, eng._segment_step = seen_replay, seen_segment
+    return pre, emb, rep, seg
+
+
+def _profiled_methods(eng, reqs, want, cfg, tag: str, smi: str) -> tuple:
+    """The warm fault-free engine serving the whole method trace under the
+    profiler, every count from 0 just before the run: phase 15's main
+    path.  Its GEMM launches must be the wrappers' (the eager prefills
+    and embeds) plus gemms_per_step small-M launches per replay step and
+    gemms_per_step x ENGINE_SEGMENT per segment (graph replays, which the
+    wrappers do not see); every result its single-request path's.  A
+    run the profiler counts short is driven again under new ids, three
+    runs at most.  Returns (the path's row for the kernels line, the
+    run's results by the trace's own ids, the (bb, sb) of its prefills
+    and embeds)."""
+    from repro_torch.launch import scheduler
+    name = _gemm_name("w4a8")
+    small = f"{name}_small_m"
+    per = gemms_per_step(cfg)
+    pre, emb, rep, seg = _method_shapes(eng)
+    for attempt in range(1, 4):
+        off = 100 * (attempt - 1)
+        for xs in (pre, emb, rep, seg):
+            xs.clear()
+        done = len(eng.finished)
+        _, secs, counts, launched, events = _profiled_run(
+            eng, _again(reqs, off), scheduler.FastForwardClock)
+        graphed = (len(rep) + len(seg) * ENGINE_SEGMENT) * per
+        expect = {k: counts[k] + graphed for k in (name, small)}
+        if not any(launched[k] < n for k, n in expect.items()) or \
+                attempt == 3 or \
+                any(launched[k] > n for k, n in expect.items()):
+            break
+        log(f"{tag} (profiled), run {attempt}: launches {launched} short "
+            f"of {expect}; driven again")
+    del eng._prefill, eng._embed, eng._replay_step_for, eng._segment_step
+    if {k: launched[k] for k in expect} != expect or not counts[small] or \
+            not rep or not emb or not seg:
+        raise AssertionError(f"{tag} (profiled): launched {launched}, "
+                             f"expected {expect} (wrappers {counts}, "
+                             f"{len(rep)} replay steps, {len(seg)} "
+                             f"segments, {len(emb)} embeds)")
+    got = {rid - off: r for rid, r in eng.results().items()
+           if off <= rid < off + 100}
+    _check_methods(tag, got, reqs, want)
+    gemm = [e for e in events if registry_launches(e)[name]]
+    gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
+    dev_ms = sum(e.device_time_us for e in events) / 1e3
+    bound = sum(_gemms_bound_ms(chunk_gemms(cfg, bb)) for bb in rep) + sum(
+        _gemms_bound_ms(chunk_gemms(cfg, bb)) * ENGINE_SEGMENT
+        for bb in seg) + sum(_gemms_bound_ms(chunk_gemms(cfg, bb * sb))
+                             for bb, sb in pre + emb)
+    fin = eng.finished[done:]
+    toks = sum(len(r.tokens) for r in fin)
+    log(f"{tag} ({smi}), profiled fault-free run (the main path; counts "
+        f"from 0; run {attempt} of 3): {len(fin)} requests, {toks} "
+        f"generated tokens in {secs:.3f} s on the host under the profiler; "
+        f"{len(seg)} segments (batch buckets {seg}), {len(rep)} replay "
+        f"steps (the score completions; batch buckets "
+        f"{dict(collections.Counter(rep))}), {len(emb)} embed launches at "
+        f"(bb, sb) {emb}, {len(pre)} prefills; device {dev_ms:.2f} ms, "
+        f"GEMMs {gemm_ms:.2f} ms (their bound {bound:.3f} ms, "
+        f"{100 * bound / gemm_ms:.1f}%); GEMM launches {launched[name]} of "
+        f"{name} ({launched[small]} small-M), as expected: the wrappers' "
+        f"eager {counts[name]} ({counts[small]} small-M) + ({len(rep)} + "
+        f"{len(seg)} x {ENGINE_SEGMENT}) x {per}; every generate stream == "
+        f"its static generate, every score's logprobs == the batch-1 "
+        f"teacher-forced decode's, float for float, every embedding == "
+        f"embed_pool of its prompt alone, bit for bit")
+    row = {name: launched[name], small: launched[small],
+           "replay_steps": len(rep), "embed_dispatches": len(emb),
+           "segments": len(seg), "gemm_ms": gemm_ms, "bound_ms": bound}
+    return row, got, pre + emb
 
 
 def phase_engine_methods() -> dict:
@@ -4715,8 +4836,7 @@ def phase_engine_methods() -> dict:
 
     smi = smi_line()
     cfg = configs.get_config(ENGINE_ARCH)
-    fmt, name = "w4a8", _gemm_name("w4a8")
-    small = f"{name}_small_m"
+    fmt = "w4a8"
     tag = f"methods {ENGINE_ARCH} {fmt}"
     secs, t_part = {}, [time.perf_counter()]
 
@@ -4740,92 +4860,39 @@ def phase_engine_methods() -> dict:
                                   max_cache_len=ENGINE_CACHE,
                                   segment_len=ENGINE_SEGMENT, chaos=chaos)
 
-    # the fault-free engine; its run of the trace is the phase's main
-    # path, every count from 0 just before it
+    # the fault-free engine; its profiled run of the trace is the phase's
+    # main path, every count from 0 just before it
     eng = make()
     n_warm = eng.warmup(prompt_lens=plens,
                         methods=("generate", "score", "embed"))
     torch.cuda.synchronize()
     graphs = set(eng._graphs)
     part("warmup")
-    for c in registry.LAUNCH_COUNTERS:
-        c.reset()
-    rs0 = eng.replay_steps
-    _, run_s = _engine_run(eng, _again(reqs, 0), scheduler.FastForwardClock)
-    counts = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
-    part("fault-free run")
-    ref = eng.results()
-    _check_methods(tag, ref, reqs, want)
+    row, ref, shapes = _profiled_methods(eng, reqs, want, cfg, tag, smi)
+    part("profiled fault-free run")
+    # the trace again without the profiler, for the host clock's tok/s
+    # and TTFT beside the chaos run's
+    again = _again(reqs, 500)
+    _, run_s = _engine_run(eng, again, scheduler.FastForwardClock)
+    _check_methods(tag + " unprofiled", eng.results(), again, want, 500)
+    part("unprofiled fault-free run")
     info = eng.cache_info()
     rb = info["robustness"]
-    if not counts[name] or not counts[small] or eng._graphs != graphs or \
-            info["graphs"] > info["graph_bound"] or rb["errors"] or \
-            rb["recoveries"]:
-        raise AssertionError(f"{tag}: wrappers {counts}, graphs "
-                             f"{info['graphs']} (bound "
+    if eng._graphs != graphs or info["graphs"] > info["graph_bound"] or \
+            rb["errors"] or rb["recoveries"]:
+        raise AssertionError(f"{tag}: graphs {info['graphs']} (bound "
                              f"{info['graph_bound']}, after warmup "
                              f"{len(graphs)}), robustness {rb}")
-    fin = list(eng.finished)
+    fin = eng.finished[-len(reqs):]
     toks = sum(len(r.tokens) for r in fin)
-    replay_n = eng.replay_steps - rs0
-    embed_n = info["dispatch_sites"]["embed"]
-    log(f"{tag} ({smi}), fault-free run (the main path; counts from 0): "
+    log(f"{tag} ({smi}), fault-free run without the profiler: "
         f"{len(fin)} requests {dict(kinds)}, {toks} generated tokens in "
         f"{run_s:.3f} s: {toks / run_s:.1f} output tok/s, "
         f"{len(fin) / run_s:.2f} requests/s; TTFT p50 {_ttft_by_method(fin)}"
-        f"; {eng.segments} segments, {replay_n} replay-step launches (the "
-        f"score completions), {embed_n} embed launches; wrappers' eager "
-        f"GEMM launches {counts[name]} ({counts[small]} small-M: prefills "
-        f"and embeds); every generate stream == its static generate, every "
-        f"score's logprobs == the batch-1 teacher-forced decode's, float "
-        f"for float, every embedding == embed_pool of its prompt alone, "
-        f"bit for bit; warmup {secs['warmup']} s ({n_warm} keys), "
-        f"{info['captured']} graphs captured ({info['graph_bound']} "
-        f"bound), none after it")
-
-    # the score and embed requests again under the profiler: their GEMM
-    # launches are the wrappers' eager prefills and embeds plus
-    # gemms_per_step small-M launches per replay step (a graph replay,
-    # which the wrappers do not see); a run the profiler counts short is
-    # driven again, three runs at most
-    sub = [r for r in reqs if r.method != "generate"]
-    per = gemms_per_step(cfg)
-    pre, emb, rep = _method_shapes(eng)
-    for attempt in range(1, 4):
-        pre.clear(), emb.clear(), rep.clear()
-        trace = _again(sub, 500 * attempt)
-        _, prof_s, pcounts, launched, events = _profiled_run(
-            eng, trace, scheduler.FastForwardClock)
-        expect = {k: pcounts[k] + len(rep) * per for k in (name, small)}
-        if not any(launched[k] < n for k, n in expect.items()) or \
-                attempt == 3 or \
-                any(launched[k] > n for k, n in expect.items()):
-            break
-        log(f"{tag} (profiled), run {attempt}: launches {launched} short "
-            f"of {expect}; driven again")
-    del eng._prefill, eng._embed, eng._replay_step_for
-    if {k: launched[k] for k in expect} != expect or not rep or not emb:
-        raise AssertionError(f"{tag} (profiled): launched {launched}, "
-                             f"expected {expect} (wrappers {pcounts}, "
-                             f"{len(rep)} replay steps)")
-    _check_methods(tag + " (profiled)", eng.results(), trace, want,
-                   500 * attempt)
-    gemm = [e for e in events if registry_launches(e)[name]]
-    gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
-    dev_ms = sum(e.device_time_us for e in events) / 1e3
-    bound = sum(_gemms_bound_ms(chunk_gemms(cfg, bb)) for bb in rep) + sum(
-        _gemms_bound_ms(chunk_gemms(cfg, bb * sb)) for bb, sb in pre + emb)
-    part("profiled score and embed run")
-    log(f"{tag} profiled score and embed requests ({smi}; run {attempt} of "
-        f"3): {len(trace)} requests in {prof_s * 1e3:.1f} ms on the host, "
-        f"{len(rep)} replay steps (batch buckets "
-        f"{dict(collections.Counter(rep))}), {len(emb)} embed launches at "
-        f"(bb, sb) {emb}, {len(pre)} score prefills at {pre}; device "
-        f"{dev_ms:.2f} ms, GEMMs {gemm_ms:.2f} ms (their bound "
-        f"{bound:.3f} ms, {100 * bound / gemm_ms:.1f}%); GEMM launches "
-        f"{launched[name]} ({launched[small]} small-M), as expected: the "
-        f"wrappers' {pcounts[name]} + {len(rep)} x {per}")
-    ms = {1, 2, 4, 8} | {bb * sb for bb, sb in pre + emb}
+        f"; every result == the profiled run's, bit for bit; warmup "
+        f"{secs['warmup']} s ({n_warm} keys), {info['captured']} graphs "
+        f"captured ({info['graph_bound']} bound), none after it")
+    ms = {1, 2, 4, 8} | {bb * sb for bb, sb in shapes}
     kns = list(dict.fromkeys(MAIN_KN))
     n_gemm = engine_gemm_gates(ms, kns)
     part("GEMM gates")
@@ -4920,10 +4987,7 @@ def phase_engine_methods() -> dict:
     del ceng, params
     serve.decode_cache_clear()
     torch.cuda.empty_cache()
-    return {f"methods {fmt}": {
-        name: launched[name], small: launched[small],
-        "replay_steps": len(rep), "embed_dispatches": len(emb),
-        "gemm_ms": gemm_ms, "bound_ms": bound}}
+    return {f"methods {fmt}": row}
 
 
 def registry_launches(event) -> dict:
@@ -5274,6 +5338,7 @@ def main() -> int:
         path = {tag: {"launches": rows[e["name"]],
                       **{k: v for k, v in rows.items()
                          if k in ("segments", "chunk_launches", "gemm_ms",
+                                  "counted_by",
                                   "bound_ms", "tile_gemm_ms",
                                   "tile_bound_ms", "replay_steps",
                                   "embed_dispatches")}}

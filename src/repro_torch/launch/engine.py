@@ -130,7 +130,6 @@ item): `spec_decode`, the mesh, and chaos's device-loss arms.
 from __future__ import annotations
 
 import dataclasses
-import traceback
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -407,8 +406,6 @@ class ServeEngine:
         # the replay step per (bb, t_b) (`_replay_step_for`)
         self._replays: Dict[tuple, _ChunkStep] = {}
         self.replay_steps = 0
-        # the traceback of the last real (not injected) failure recovered
-        self.last_error: Optional[str] = None
         # per slot: the recorded tokens a recovered request still replays,
         # and the completion tokens a score request still teacher-forces
         # (both drain through the replay step, `_drain_replay`)
@@ -1363,7 +1360,6 @@ class ServeEngine:
             self._robust["faults_injected"] += 1
         else:
             self._robust["errors"] += 1
-            self.last_error = "".join(traceback.format_exception(exc))
         self._robust["recoveries"] += 1
         victims = [r for r in self._slot_req if r is not None]
         seen = {id(r) for r in victims}
@@ -1696,14 +1692,12 @@ class ServeEngine:
                 "shed_policy": self._res.shed_policy,
                 "default_ttl_s": self._res.default_ttl_s,
                 "max_recoveries": self._res.max_recoveries,
-                "last_error": self.last_error,
                 "chaos": None if self._chaos is None else {
                     "sites": list(self._chaos.fail_at_sites),
-                    "rate": getattr(self._chaos, "rate", 0.0),
-                    "seed": getattr(self._chaos, "seed", 0),
-                    "max_failures": getattr(self._chaos, "max_failures",
-                                            None),
-                    "fired": sorted(self._chaos.failed, key=str),
+                    "rate": self._chaos.rate,
+                    "seed": self._chaos.seed,
+                    "max_failures": self._chaos.max_failures,
+                    "fired": sorted(self._chaos.failed),
                 },
             },
         }

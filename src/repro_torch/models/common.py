@@ -92,30 +92,9 @@ def row_cumsum(x, pin=None):
     return row_reduce(lambda r: r.cumsum(dim=-1), x, pin)
 
 
-# the CPU's vectorized elementwise loops hand the last numel % (2 x vector
-# width) elements of a loop to a scalar formula, whose last bit differs
-# from the vector one's for rsqrt, log1p and sigmoid; `pointwise` pads
-# every operand to a multiple of this many elements
+# `softmax` pads a CPU row to a multiple of this many keys, a multiple of
+# every vector width its loops take
 CPU_VECTOR_PAD = 64
-
-
-def pointwise(fn, *xs):
-    """fn(*xs) for an elementwise `fn`, each element's value independent
-    of the tensor's size and of its place in it.  On the CPU the operands
-    are broadcast, flattened and zero-padded to a multiple of
-    CPU_VECTOR_PAD, so that every element takes the vector formula (a
-    row computed alone and the same row in a batch then agree bit for
-    bit, at one thread or under ATen's 32768-element grain); on CUDA,
-    whose kernels apply one formula to every element, fn(*xs) as it
-    is."""
-    if xs[0].is_cuda:
-        return fn(*xs)
-    shape = torch.broadcast_shapes(*(x.shape for x in xs))
-    n = math.prod(shape)
-    pad = -n % CPU_VECTOR_PAD
-    flat = [torch.nn.functional.pad(x.expand(shape).reshape(-1), (0, pad))
-            for x in xs]
-    return fn(*flat)[:n].reshape(shape)
 
 
 def softmax(x):
@@ -138,7 +117,7 @@ def softmax(x):
 def rms_norm(x, weight, eps: float = 1e-5):
     xf = x.to(torch.float32)
     var = row_mean(xf.square())
-    y = xf * pointwise(torch.rsqrt, var + eps)
+    y = xf * torch.rsqrt(var + eps)
     return (y * weight.to(torch.float32)).to(x.dtype)
 
 
@@ -150,7 +129,7 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     xf = x.to(torch.float32)
     mu = row_mean(xf)
     var = row_mean((xf - mu).square())
-    y = (xf - mu) * pointwise(torch.rsqrt, var + eps)
+    y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * weight + bias).to(x.dtype)
 
 

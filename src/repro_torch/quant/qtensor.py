@@ -101,19 +101,19 @@ def _float_matmul(x, w):
     share the call (the static path's B=1 against the engine's batch),
     and MKL's do: it takes a lone row through its GEMV, which sums in
     another order than its GEMM, and against a transposed weight (a tied
-    head's embed.T) its GEMM's order moves with M.  So on the CPU the
-    weight is made contiguous and a lone row is multiplied beside a zero
-    row; from two rows up a row's sums are then the same for every M
-    (tests/test_torch_engine_methods.py).  CUDA's GEMM rows are held
-    batch-invariant by scripts/batch_invariance.py."""
-    if x.is_cuda or x.dim() < 2:
+    head's embed.T) its GEMM's order moves with M.  So on the CPU a
+    transposed weight is multiplied as it is stored, (w.T @ x.T).T, and
+    a lone row beside a zero row; from two rows up a row's sums are then
+    the same for every M (tests/test_torch_engine_methods.py).  CUDA's
+    GEMM rows are held batch-invariant by scripts/batch_invariance.py."""
+    if x.is_cuda or x.dim() < 2 or w.dim() != 2:
         return x @ w
-    w = w.contiguous()
-    if math.prod(x.shape[:-1]) != 1:
-        return x @ w
-    row = x.reshape(1, x.shape[-1])
-    out = (torch.cat([row, torch.zeros_like(row)]) @ w)[:1]
-    return out.reshape(*x.shape[:-1], out.shape[-1])
+    rows = x.reshape(-1, x.shape[-1])
+    if rows.shape[0] == 1:
+        rows = torch.cat([rows, torch.zeros_like(rows)])
+    stored = not w.is_contiguous() and w.mT.is_contiguous()
+    out = (w.mT @ rows.mT).mT if stored else rows @ w
+    return out[:math.prod(x.shape[:-1])].reshape(*x.shape[:-1], w.shape[-1])
 
 
 def qmatmul(x, w):

@@ -322,8 +322,7 @@ def test_engine_loop_survives_unexpected_error():
     rb = eng.cache_info()["robustness"]
     assert rb["errors"] == 1 and rb["faults_injected"] == 0
     assert rb["recoveries"] == 1 and rb["replay_divergence"] == 0
-    assert "Boom: transient device error" in \
-        eng.cache_info()["resilience"]["last_error"]
+    assert calls["n"] > 2            # the loop went on past the failure
     assert_same_results(want, got)
 
 
