@@ -182,7 +182,7 @@ over):
    plain versions take the 2-D weights past ref.PLAIN_EXPERT_BYTES in
    column slices); then qwen2-vl-72b at every width (d 8192, 64 heads
    over 8 KV heads, d_ff 29568, untied vocab 152064, M-RoPE sections
-   (16, 24, 24) at theta 1e6) and 32 of its 80 layers (`VLM_LAYERS`, a
+   (16, 24, 24) at theta 1e6) and 8 of its 80 layers (`VLM_LAYERS`, a
    cut for the run's time; random weights from
    seed 0, q/k/v biases drawn nonzero, built a [K, N] matrix at a time;
    the w4a8 tree freed before the w8a8 one is built; build time,
@@ -288,15 +288,45 @@ over):
    tokens, TTFT p50 per method, replay-step and embed launches.
    Phase 13's mamba2 engine is also run under chaos (`segment:1;
    prefill:0`): its recovered streams == its fault-free ones, bit for
-   bit.  In every phase an exception other than an injected
-   `SimulatedFailure` that reaches an engine's recovery fails the run
-   (`fail_on_real_errors`).  Each phase's seconds are logged.
+   bit;
+16. speculative decoding and the async front-end (`phase_spec_frontend`):
+   (a) smollm-135m at full width and depth, w4a8, 8 slots,
+   max_cache_len 128 (length buckets from 64, `SPEC_MIN_LEN`), segments
+   of 8, k = 3, serving `spec_trace` (the reference's full-size
+   spec_decode row: 24 requests, prompts and gens 8 / 16 / 24, its
+   four-way sampling mix) through the non-spec engine, a `same` draft
+   (the target's weights; its run profiled, every count from 0 just
+   before it: the phase's main path) and a `weak` one (seed 9); (b) the
+   weak engine under SPEC_CHAOS, not warmed; (c) mamba2-2.7b at SSM_LAYERS on phase
+   13's build and requests with a draft of its config cut to
+   SSM_DRAFT_LAYERS layers (a constant-size state: a rollback every
+   round); (d) phase 15's method trace through `AsyncFrontend` over
+   phase 15's warm engine, overlap on and off, one stream disconnecting
+   after 3 tokens.  Gates: every spec stream == the non-spec engine's,
+   bit for bit (both drafts, under chaos, mamba2); the same draft
+   accepts everything; the main run's GEMM launches == the wrappers'
+   eager prefills (target and draft) + 2 x (k + 1) x 210 per round
+   (graph replays, counted by the profiler); the chaos run's faults ==
+   the sites that fired, draft:1 and verify:2 among them, divergence 0;
+   mamba2's draft rollback dispatches == its rounds > 0; every streamed
+   token, score logprob and embedding == phase 15's batch engine's, the
+   disconnected request cancelled (or finished first) with a prefix of
+   its stream and its batch mates unchanged; no capture after
+   `warmup()` but in (b).  Logged: rounds, drafted, accepted, emitted, target
+   dispatches, tokens per dispatch, acceptance, dispatch speedup,
+   tok/s, TTFT, the main run's GEMM ms beside the bound, recoveries,
+   snapshot buffers, the front-end's stream tok/s both ways, hidden
+   host time, overlapped segments and TTFT per method.  In every phase
+   an exception other than an injected `SimulatedFailure` that reaches
+   an engine's recovery fails the run (`fail_on_real_errors`).  Each
+   phase's seconds are logged.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
 launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
 those paths' GEMM time per generate; the engine paths' launches and
 GEMM ms over the profiled runs: phase 13's trace, phase 14's chunked
-admission and whisper trace, phase 15's method trace), the
+admission and whisper trace, phase 15's method trace, phase 16's
+same-draft spec trace), the
 nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
@@ -3249,7 +3279,7 @@ def phase_encdec() -> tuple:
 VLM_ARCH = "qwen2-vl-72b"
 # phase 12 serves qwen2-vl-72b at this many of its 80 layers, every width
 # kept: a cut for the run's time
-VLM_LAYERS = 32
+VLM_LAYERS = 8
 # the image prompt of each row: 8 text tokens, one 448 x 448 image as 256
 # stub patch embeddings (Qwen2-VL's 14-pixel patches merged 2 x 2 into a
 # 16 x 16 grid), 120 text tokens: 384 positions
@@ -4143,7 +4173,10 @@ def phase_engine_ssm() -> None:
         f"{toks / chaos_s:.1f} tok/s against {toks / run_s:.1f}; every "
         "stream == the fault-free run's, bit for bit; no capture after "
         "warmup")
-    del params, eng
+    del eng
+    # phase 16 (c) serves the same requests on this build, speculatively
+    _KEEP["ssm"] = dict(cfg=cfg, params=params, reqs=reqs, out=out,
+                        tok_s=toks / run_s)
     serve.decode_cache_clear()
     torch.cuda.empty_cache()
 
@@ -4948,7 +4981,11 @@ def phase_engine_methods() -> dict:
         f"restored {n_restored} requests and finished them in "
         f"{restore_s:.3f} s, {frb['replayed_tokens']} tokens replayed, "
         f"divergence 0; every result == the fault-free run's, bit for bit")
-    del eng, fresh
+    # the drained engine, warm for every method, serves phase 16 (d): its
+    # fresh requests the drain left queued are cancelled first
+    for r in half:
+        eng.cancel(r.rid)
+    del fresh
     torch.cuda.empty_cache()
 
     # the chaos engine
@@ -4984,10 +5021,495 @@ def phase_engine_methods() -> dict:
         f"== the fault-free run's, bit for bit; no capture after warmup "
         f"({info['graphs']} graphs, bound {info['graph_bound']}); the "
         f"phase's seconds {secs}")
-    del ceng, params
+    del ceng
+    # phase 16 (d) serves the trace through the front-end on this build
+    _KEEP["methods"] = dict(eng=eng, reqs=reqs, ref=ref, tok_s=toks / run_s)
     serve.decode_cache_clear()
     torch.cuda.empty_cache()
     return {f"methods {fmt}": row}
+
+
+# phase 16: speculative decoding and the async front-end
+# smollm-135m's spec rounds: the reference's full-size spec_decode row
+# (benchmarks/spec_decode.py :68-71) with its four-way sampling mix (:41-49)
+SPEC_K = 3
+SPEC_SLOTS, SPEC_CACHE, SPEC_SEGMENT = 8, 128, 8
+SPEC_TRACE = dict(seed=0, n_requests=24, rate=1e9, prompt_lens=(8, 16, 24),
+                  gen_lens=(8, 16, 24))
+# the reference's spec chaos cases (tests/test_spec_decode.py :136-160) in
+# one schedule: faults at the draft and verify sites, and a rate
+SPEC_CHAOS = "draft:1;verify:2,rate=0.05,seed=7,max=6"
+# the smallest cache-length bucket of phase 16's smollm engines: the
+# trace's rounds need up to 52 positions, so the buckets (64, 128) cover
+# it with 8 of the 12 round graphs per engine (a cut for the run's time)
+SPEC_MIN_LEN = 64
+# mamba2's draft: its config cut to this many layers, drawn from seed 1
+SSM_DRAFT_LAYERS = 2
+# phases 13 and 15 keep their builds and streams here for phase 16
+_KEEP: dict = {}
+
+
+def spec_trace(cfg, offset: int = 0) -> list:
+    """Phase 16's trace: synthetic_traffic from seed 0, 24 requests all
+    arrived (rate 1e9), prompts of 8 / 16 / 24, gens of 8 / 16 / 24, the
+    reference's mix of greedy, top-k 8 at 0.8, greedy and top-p 0.9 at
+    1.0; ids moved by `offset`."""
+    from repro_torch.launch import scheduler
+    sp = scheduler.SamplingParams
+    mix = (None, sp(temperature=0.8, top_k=8, seed=5), scheduler.GREEDY,
+           sp(temperature=1.0, top_p=0.9, seed=2))
+    reqs = scheduler.synthetic_traffic(vocab=cfg.vocab, sampling_mix=mix,
+                                       **SPEC_TRACE)
+    return _again(reqs, offset) if offset else reqs
+
+
+def _spec_shapes(eng) -> tuple:
+    """Record `eng`'s launches in lists it fills: the eager prefills'
+    (bb, sb), the target's and the draft's, and each round's bb."""
+    pre, rounds = [], []
+    prefill, dprefill = eng._prefill, eng._draft_prefill
+    round_for = eng._spec_round_for
+
+    def seen_prefill(inputs, lens, t_pre):
+        pre.append(tuple(inputs.shape))
+        return prefill(inputs, lens, t_pre)
+
+    def seen_dprefill(inputs, lens, t_pre):
+        pre.append(tuple(inputs.shape))
+        return dprefill(inputs, lens, t_pre)
+
+    def seen_round(bb, t_b):
+        rounds.append(bb)
+        return round_for(bb, t_b)
+    eng._prefill, eng._draft_prefill = seen_prefill, seen_dprefill
+    eng._spec_round_for = seen_round
+    return pre, rounds
+
+
+def _spec_stats(eng, before: dict) -> dict:
+    """The spec_decode statistics of `eng`'s runs since `before` (a copy
+    of `eng._spec_stats`), with the derived rates."""
+    s = {k: v - before[k] for k, v in eng._spec_stats.items()}
+    s["acceptance_rate"] = s["accepted"] / max(s["drafted"], 1)
+    s["tokens_per_dispatch"] = s["emitted"] / max(s["target_dispatches"], 1)
+    return s
+
+
+def _same_streams(tag, got: dict, want: dict, trace) -> None:
+    for r in trace:
+        if not np_equal(got[r.rid], want[r.rid]):
+            raise AssertionError(
+                f"{tag}: request {r.rid} (prompt {r.prompt_len}, "
+                f"{r.max_new_tokens} new, sampling {r.sampling}) differs "
+                f"from the non-speculative engine's: "
+                f"{list(got[r.rid][:12])} vs {list(want[r.rid][:12])}")
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return len(a) == len(b) and bool(np.array_equal(a, b))
+
+
+def _ttft_p50(fin) -> float:
+    import numpy as np
+    return float(np.percentile([r.first_token_time - r.arrival_time
+                                for r in fin], 50)) * 1e3
+
+
+def phase_spec() -> dict:
+    """Phase 16 (a), (b) (module docstring): smollm-135m's speculative
+    rounds and chaos on them.  Returns the kernels line's row for the
+    `same` draft's profiled run, the main path."""
+    from repro_torch import configs
+    from repro_torch.launch import engine, resilience, scheduler, serve
+
+    smi = smi_line()
+    cfg = configs.get_config(ENGINE_ARCH)
+    fmt, k = "w4a8", SPEC_K
+    tag = f"spec {ENGINE_ARCH} {fmt} k={k}"
+    secs, t_part = {}, [time.perf_counter()]
+    ff = scheduler.FastForwardClock
+
+    def part(what):
+        now = time.perf_counter()
+        secs[what] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    params = serve.build_params(cfg, fmt, seed=0, device="cuda")
+    weak = serve.build_params(cfg, fmt, seed=9, device="cuda")
+    reqs = spec_trace(cfg)
+    plens = sorted({r.prompt_len for r in reqs})
+    part("build")
+    serve.decode_cache_clear()
+
+    def make(draft=None, chaos=None, warm=True):
+        sd = None if draft is None else engine.SpecDecodeConfig(draft, cfg,
+                                                                k)
+        eng = engine.ServeEngine(params, cfg, n_slots=SPEC_SLOTS,
+                                 max_cache_len=SPEC_CACHE,
+                                 segment_len=SPEC_SEGMENT, chaos=chaos,
+                                 min_len_bucket=SPEC_MIN_LEN,
+                                 spec_decode=sd)
+        if warm:
+            eng.warmup(prompt_lens=plens)
+            torch.cuda.synchronize()
+        return eng
+
+    # the non-speculative engine: every spec stream's reference
+    base = make()
+    seg0 = base.cache_info()["dispatch_sites"]["segment"]
+    # every run serves fresh copies: a served request object carries its
+    # tokens, and an engine takes a request with tokens for a recovered
+    # one
+    want, base_s = _engine_run(base, _again(reqs, 0), ff)
+    base_fin = list(base.finished)
+    base_segs = base.cache_info()["dispatch_sites"]["segment"] - seg0
+    base_toks = sum(len(r.tokens) for r in base_fin)
+    part("non-spec engine")
+
+    def want_for(trace):
+        """The non-spec streams of `trace`'s ids (a sampled request's key
+        folds in its id), served on the non-spec engine when missing."""
+        new = [r for r in _again(trace, 0) if r.rid not in want]
+        if new:
+            want.update(_engine_run(base, new, ff)[0])
+        return want
+
+    # the `same` draft: its profiled run is the phase's main path, every
+    # count from 0 just before it.  The wrappers count the eager prefills
+    # (target and draft); every round replays the draft step and the
+    # verify step k + 1 times each, graph replays the profiler counts
+    same = make(params)
+    graphs = set(same._graphs)
+    part("same-draft warmup")
+    name = _gemm_name(fmt)
+    small = f"{name}_small_m"
+    per = gemms_per_step(cfg)
+    pre, rnds = _spec_shapes(same)
+    for attempt in range(1, 4):
+        trace = spec_trace(cfg, 100 * (attempt - 1))
+        pre.clear()
+        rnds.clear()
+        st0 = dict(same._spec_stats)
+        out, prof_s, counts, launched, events = _profiled_run(same, trace,
+                                                              ff)
+        expect = {c: counts[c] + 2 * (k + 1) * per * len(rnds)
+                  for c in (name, small)}
+        if not any(launched[c] < n for c, n in expect.items()) or \
+                attempt == 3 or \
+                any(launched[c] > n for c, n in expect.items()):
+            break
+        log(f"{tag} (profiled), run {attempt}: launches {launched} short "
+            f"of {expect}; driven again")
+    del same._prefill, same._draft_prefill, same._spec_round_for
+    if {c: launched[c] for c in expect} != expect or not counts[name] or \
+            not rnds:
+        raise AssertionError(f"{tag} (profiled): launched {launched}, "
+                             f"expected {expect} (wrappers {counts}, "
+                             f"{len(rnds)} rounds)")
+    _same_streams(tag + " same (profiled)", out, want_for(trace), trace)
+    prof_stats = _spec_stats(same, st0)
+    if prof_stats["acceptance_rate"] != 1.0:
+        raise AssertionError(f"{tag}: the same draft accepted "
+                             f"{prof_stats}")
+    part("same-draft profiled run")
+    gemm = [e for e in events if registry_launches(e)[name]]
+    gemm_ms = sum(e.device_time_us for e in gemm) / 1e3
+    dev_ms = sum(e.device_time_us for e in events) / 1e3
+    bound = sum(_gemms_bound_ms(chunk_gemms(cfg, bb)) * 2 * (k + 1)
+                for bb in rnds) + sum(
+        _gemms_bound_ms(chunk_gemms(cfg, bb * sb)) for bb, sb in pre)
+    log(f"{tag} ({smi}), the same draft's profiled run (the main path; "
+        f"counts from 0; run {attempt} of 3): {len(trace)} requests, "
+        f"{len(rnds)} rounds (batch buckets "
+        f"{dict(collections.Counter(rnds))}), {len(pre)} eager prefills "
+        f"(target and draft) at (bb, sb) {sorted(set(pre))}; "
+        f"{prof_s * 1e3:.1f} ms on the host under the profiler, device "
+        f"{dev_ms:.2f} ms (busy {100 * dev_ms / (prof_s * 1e3):.1f}%), "
+        f"GEMMs {gemm_ms:.2f} ms (their bound {bound:.3f} ms, "
+        f"{100 * bound / gemm_ms:.1f}%); GEMM launches {launched[name]} of "
+        f"{name} ({launched[small]} small-M), as expected: the wrappers' "
+        f"eager {counts[name]} ({counts[small]} small-M) + {len(rnds)} "
+        f"rounds x 2 x {k + 1} x {per}; every stream == the non-spec "
+        f"engine's, bit for bit; acceptance 1.0")
+    for e in sorted(events, key=lambda e: e.device_time_us,
+                    reverse=True)[:6]:
+        log(f"    {e.device_time_us / 1e3:9.3f} ms  {e.count:7d} calls  "
+            f"{e.device_time_us / e.count:7.2f} us/call  {e.key[:70]}")
+    row = {name: launched[name], small: launched[small],
+           "rounds": len(rnds), "draft_replays": len(rnds) * (k + 1),
+           "verify_replays": len(rnds) * (k + 1), "gemm_ms": gemm_ms,
+           "bound_ms": bound, "counted_by": "the profiler"}
+
+    # the same draft again, unprofiled: the host clock's tok/s and TTFT
+    lines = []
+
+    def timed(label, eng, trace, graphs):
+        st0, done = dict(eng._spec_stats), len(eng.finished)
+        out, run_s = _engine_run(eng, trace, ff)
+        _same_streams(f"{tag} {label}", out, want_for(trace), trace)
+        s = _spec_stats(eng, st0)
+        fin = eng.finished[done:]
+        toks = sum(len(r.tokens) for r in fin)
+        if eng._graphs != graphs:
+            raise AssertionError(f"{tag} {label}: captured after warmup "
+                                 f"{sorted(eng._graphs - graphs, key=str)}")
+        lines.append(
+            f"{label}: {s['rounds']} rounds, drafted {s['drafted']}, "
+            f"accepted {s['accepted']}, emitted {s['emitted']}, target "
+            f"dispatches {s['target_dispatches']}, tokens per dispatch "
+            f"{s['tokens_per_dispatch']:.3f}, acceptance "
+            f"{s['acceptance_rate']:.4f}, dispatch speedup "
+            f"{base_segs / max(s['target_dispatches'], 1):.3f} "
+            f"({base_segs} segments of the non-spec engine), {toks} tokens "
+            f"in {run_s:.3f} s: {toks / run_s:.1f} tok/s, TTFT p50 "
+            f"{_ttft_p50(fin):.1f} ms")
+        return s
+
+    timed("same", same, spec_trace(cfg, 1000), graphs)
+    del same
+    torch.cuda.empty_cache()
+    part("same-draft timed run")
+    weak_eng = make(weak)
+    part("weak-draft warmup")
+    s = timed("weak", weak_eng, _again(reqs, 0), set(weak_eng._graphs))
+    if not s["accepted"] < s["drafted"]:
+        raise AssertionError(f"{tag}: the weak draft accepted {s}")
+    del weak_eng
+    torch.cuda.empty_cache()
+    part("weak-draft run")
+    log(f"{tag} ({smi}): non-spec engine {len(base_fin)} requests, "
+        f"{base_toks} tokens in {base_s:.3f} s: {base_toks / base_s:.1f} "
+        f"tok/s, {base_segs} segments of {SPEC_SEGMENT}, TTFT p50 "
+        f"{_ttft_p50(base_fin):.1f} ms; " + "; ".join(lines)
+        + "; every stream of both drafts == the non-spec engine's, bit "
+        "for bit")
+
+    # (b) the weak-draft engine under chaos at the draft and verify sites,
+    # not warmed (for the run's time): its rounds and replay steps are
+    # captured at first use
+    chaos = resilience.ChaosSchedule.parse(SPEC_CHAOS)
+    ceng = make(weak, chaos, warm=False)
+    rec_ms = _timed_recoveries(ceng)
+    got, chaos_s = _engine_run(ceng, _again(reqs, 0), ff)
+    _same_streams(f"{tag} chaos", got, want, reqs)
+    rb = ceng.cache_info()["robustness"]
+    fired = sorted(chaos.failed)
+    if rb["faults_injected"] != len(fired) or rb["recoveries"] != len(fired) \
+            or not {"draft:1", "verify:2"} <= set(fired) or \
+            len(fired) > 6 or rb["errors"] or rb["replay_divergence"] or \
+            not rb["replayed_tokens"] or \
+            not all(r.outcome == "ok" for r in ceng.finished):
+        raise AssertionError(f"{tag} chaos: fired {fired}, robustness "
+                             f"{rb}")
+    ctoks = sum(len(r.tokens) for r in ceng.finished)
+    part("chaos run")
+    log(f"{tag}, weak draft under chaos {SPEC_CHAOS!r} ({smi}): sites "
+        f"fired {fired}; {rb['recoveries']} recoveries, "
+        f"{', '.join(f'{x:.1f}' for x in rec_ms)} ms each; "
+        f"{rb['replayed_tokens']} tokens replayed (the draft in lockstep: "
+        f"{ceng.cache_info()['dispatch_sites']['draft']} draft sites), "
+        f"divergence 0, errors 0; {ctoks} tokens in {chaos_s:.3f} s: "
+        f"{ctoks / chaos_s:.1f} tok/s; every stream == the fault-free "
+        f"non-spec engine's, bit for bit; {ceng.cache_info()['captured']} "
+        f"graphs captured at first use; the phase's seconds {secs}")
+    del ceng, base, params, weak
+    serve.decode_cache_clear()
+    torch.cuda.empty_cache()
+    return {f"spec same {fmt}": row}
+
+
+def spec_ssm() -> None:
+    """Phase 16 (c): mamba2-2.7b at SSM_LAYERS on phase 13's build,
+    speculatively, with a draft of its config cut to SSM_DRAFT_LAYERS
+    layers from seed 1 (the same family and vocab, a constant-size state:
+    a rollback dispatch every round): every stream == phase 13's
+    non-speculative engine's, bit for bit, and the rollback ran."""
+    import dataclasses
+
+    from repro_torch.launch import engine, scheduler, serve
+
+    kept = _KEEP.pop("ssm")
+    cfg, params, reqs = kept["cfg"], kept["params"], kept["reqs"]
+    dcfg = dataclasses.replace(cfg, n_layers=SSM_DRAFT_LAYERS)
+    draft = serve.build_params(dcfg, "w4a8", seed=1, device="cuda")
+    tag = f"spec {SSM_ARCH} {SSM_LAYERS}L w4a8 k={SPEC_K}"
+    eng = engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
+                             max_cache_len=ENGINE_CACHE,
+                             segment_len=ENGINE_SEGMENT,
+                             spec_decode=engine.SpecDecodeConfig(
+                                 draft, dcfg, SPEC_K))
+    t0 = time.perf_counter()
+    eng.warmup(prompt_lens=sorted({r.prompt_len for r in reqs}))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    graphs = set(eng._graphs)
+    rollbacks = []
+    for rnd in eng._rounds.values():
+        def counted(_run=rnd.rollback):
+            rollbacks.append(1)
+            _run()
+        rnd.rollback = counted
+    out, run_s = _engine_run(eng, _again(reqs, 0),
+                             scheduler.FastForwardClock)
+    _same_streams(tag, out, kept["out"], reqs)
+    s = _spec_stats(eng, {k: 0 for k in eng._spec_stats})
+    snap_gb = sum(t.numel() * t.element_size()
+                  for t in eng._sbufs["tsnaps"] + eng._sbufs["dsnaps"]) / 1e9
+    if eng._graphs != graphs or not rollbacks or \
+            len(rollbacks) != s["rounds"] or \
+            any(key[2] is not None for key in graphs if key[0] == "verify"):
+        raise AssertionError(f"{tag}: {len(rollbacks)} rollback dispatches "
+                             f"over {s['rounds']} rounds, graphs "
+                             f"{sorted(eng._graphs, key=str)}")
+    toks = sum(len(r.tokens) for r in eng.finished)
+    log(f"{tag} ({smi_line()}), draft {SSM_DRAFT_LAYERS} layers from seed "
+        f"1: {len(reqs)} requests, {toks} tokens in {run_s:.3f} s "
+        f"({toks / run_s:.1f} tok/s against phase 13's non-spec "
+        f"{kept['tok_s']:.1f}); {s['rounds']} rounds, drafted "
+        f"{s['drafted']}, accepted {s['accepted']} (acceptance "
+        f"{s['acceptance_rate']:.4f}), tokens per dispatch "
+        f"{s['tokens_per_dispatch']:.3f}; {len(rollbacks)} draft rollback "
+        f"dispatches (the target's in its verify graph); snapshot buffers "
+        f"{snap_gb:.3f} GB; warmup {warm_s:.1f} s, {len(graphs)} keys; "
+        f"every stream == phase 13's non-spec engine's, bit for bit")
+    del eng, params, draft, kept
+    serve.decode_cache_clear()
+    torch.cuda.empty_cache()
+
+
+async def _frontend_serve(fe, eng, trace, cancel_rid=None) -> tuple:
+    """Serve `trace` through the running front-end `fe`: each generate
+    request streamed (the one `cancel_rid` disconnects after 3 tokens),
+    score and embed awaited.  Returns ({rid: result}, {rid: streamed
+    tokens})."""
+    import asyncio
+
+    from repro_torch.launch import frontend
+    streams, results = {}, {}
+
+    async def stream_one(r):
+        agen = fe.generate_stream(r.prompt, r.max_new_tokens, rid=r.rid,
+                                  stop_tokens=r.stop_tokens)
+        toks = []
+        async for t in agen:
+            toks.append(t)
+            if r.rid == cancel_rid and len(toks) == 3:
+                break
+        await agen.aclose()
+        streams[r.rid] = toks
+
+    async def call_plain():
+        results.update(await frontend.serve_requests(
+            fe, [r for r in trace if r.method != "generate"]))
+
+    await asyncio.gather(call_plain(), *(stream_one(r) for r in trace
+                                         if r.method == "generate"))
+    if cancel_rid is not None:
+        for _ in range(2000):      # the disconnect's cancel lands
+            if eng.result(cancel_rid) is not None:
+                break
+            await asyncio.sleep(0.005)
+    for r in trace:
+        results[r.rid] = eng.result(r.rid)
+    return results, streams
+
+
+def phase_frontend() -> None:
+    """Phase 16 (d): phase 15's method trace through the async front-end
+    (`launch/frontend.py`) over phase 15's fault-free engine (warm for
+    every method, drained), with overlap and then without: every
+    streamed token, score logprob and embedding == phase 15's batch
+    engine's, bit for bit.  One generate stream disconnects after 3
+    tokens in the overlapped run: its request ends cancelled with a
+    prefix of its stream (or whole, if it finished first), and every
+    batch mate is unchanged."""
+    import asyncio
+
+    from repro_torch.launch import frontend, scheduler, serve
+
+    kept = _KEEP.pop("methods")
+    reqs, ref, eng = kept["reqs"], kept["ref"], kept["eng"]
+    smi = smi_line()
+    tag = f"frontend {ENGINE_ARCH} w4a8"
+    graphs = set(eng._graphs)
+    if eng.n_queued or eng.n_active:
+        raise AssertionError(f"{tag}: phase 15's engine holds "
+                             f"{eng.n_queued} queued, {eng.n_active} active")
+    gen = [r for r in reqs if r.method == "generate"]
+    cancel = max(gen, key=lambda r: (r.max_new_tokens, -r.rid)).rid
+    lines = []
+    for overlap, off in ((True, 3000), (False, 4000)):
+        trace = _again(reqs, off)
+        done = len(eng.finished)
+        fe = frontend.AsyncFrontend(eng, clock=scheduler.FastForwardClock(),
+                                    overlap=overlap)
+        cut = cancel + off if overlap else None
+
+        async def go():
+            async with fe:
+                return await _frontend_serve(fe, eng, trace, cut)
+        t0 = time.perf_counter()
+        results, streams = asyncio.run(go())
+        run_s = time.perf_counter() - t0
+        for r in trace:
+            g, w = results[r.rid], ref[r.rid - off]
+            if r.rid == cut:
+                if not (g.outcome in ("ok", "cancelled") and
+                        w.tokens[:len(g.tokens)] == g.tokens and
+                        streams[r.rid] == g.tokens[:3]):
+                    raise AssertionError(f"{tag}: the cancelled request "
+                                         f"{r.rid}: {g} vs {w}")
+                continue
+            same = g.outcome == w.outcome == "ok" and \
+                (g.tokens, g.logprobs) == (w.tokens, w.logprobs) and (
+                    (g.embedding is None and w.embedding is None) or
+                    np_equal(g.embedding, w.embedding))
+            if not same or (r.method == "generate" and
+                            streams[r.rid] != g.tokens):
+                raise AssertionError(f"{tag} overlap={overlap}: request "
+                                     f"{r.rid} ({r.method}) differs from "
+                                     f"phase 15's batch engine: {g} vs {w}")
+        st = fe.stats
+        if (st["overlapped_segments"] > 0) != overlap or \
+                st["disconnect_cancels"] != (1 if overlap else 0) or \
+                eng._graphs != graphs:
+            raise AssertionError(f"{tag} overlap={overlap}: stats {st}, "
+                                 f"graphs {len(eng._graphs)} after warmup "
+                                 f"{len(graphs)}")
+        fin = eng.finished[done:]
+        toks = sum(len(r.tokens) for r in fin if r.method == "generate")
+        lines.append(
+            f"overlap={overlap}: {toks} streamed tokens in {run_s:.3f} s: "
+            f"{toks / run_s:.1f} tok/s, {st['overlapped_segments']} "
+            f"overlapped segments, hidden host time "
+            f"{st['hidden_host_s'] * 1e3:.1f} ms, TTFT p50 "
+            f"{_ttft_by_method(fin)}"
+            + (f"; request {cut} disconnected after 3 tokens: "
+               f"{results[cut].outcome} with {len(results[cut].tokens)}"
+               if overlap else ""))
+    log(f"{tag} ({smi}): phase 15's {len(reqs)} requests through "
+        f"AsyncFrontend, each generate streamed: " + "; ".join(lines)
+        + f"; phase 15's batch engine {kept['tok_s']:.1f} tok/s; every "
+        "streamed token, logprob and embedding == phase 15's batch "
+        "engine's, bit for bit; no capture after warmup")
+    del eng, kept
+    serve.decode_cache_clear()
+    torch.cuda.empty_cache()
+
+
+def phase_spec_frontend() -> dict:
+    """Phase 16: (a), (b) `phase_spec`, (c) `spec_ssm`, (d)
+    `phase_frontend`, each part's seconds logged."""
+    out = {}
+    for label, fn in (("(a, b) smollm-135m spec rounds and chaos",
+                       phase_spec),
+                      ("(c) mamba2-2.7b spec rounds", spec_ssm),
+                      ("(d) the async front-end", phase_frontend)):
+        t0 = time.perf_counter()
+        out.update(fn() or {})
+        log(f"phase 16 {label}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def registry_launches(event) -> dict:
@@ -5320,6 +5842,8 @@ def main() -> int:
     eng.update(phase("serve engine methods and recovery: score, embed, "
                      "chaos, drain, snapshot / restore",
                      phase_engine_methods))
+    eng.update(phase("speculative decoding and the async front-end",
+                     phase_spec_frontend))
     for paths_of in (moe, ssm, hyb, enc, vlm):
         for k, paths in paths_of.items():
             other.setdefault(k, {}).update(paths)
@@ -5341,7 +5865,8 @@ def main() -> int:
                                   "counted_by",
                                   "bound_ms", "tile_gemm_ms",
                                   "tile_bound_ms", "replay_steps",
-                                  "embed_dispatches")}}
+                                  "embed_dispatches", "rounds",
+                                  "draft_replays", "verify_replays")}}
                 for tag, rows in eng.items() if e["name"] in rows}
         if path:
             e["engine_path_per_trace"] = path

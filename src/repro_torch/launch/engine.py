@@ -87,6 +87,20 @@ ever-changing request mix:
   its key length differs, because decode attention sums its masked key
   axis in `tail_sum_`'s tree (ROADMAP C10).  `drain`, `snapshot` and
   `restore` build rolling restarts on the same path.
+* **self-speculative decoding** (`spec_decode=SpecDecodeConfig(...)`):
+  a draft model of the same family and vocab, with a slot state of its
+  own, free-runs k + 1 sampled steps per slot, then the target verifies
+  the pending token and the k drafts teacher-forced, and both states
+  roll back to the accepted prefix on the device (`_SpecRound`: per
+  (bb, t_b, k + 1) the draft step, the verify step, the settle and the
+  draft's rollback, each captured on CUDA; one host read per round).
+  The emitted tokens are always the target's own under a teacher-forced
+  prefix, and the verify step is the segment's decode step at another
+  key length (the replay step's argument), so the streams equal the
+  non-speculative engine's bit for bit whatever the draft proposes;
+  acceptance only changes how many target dispatches they take.  A
+  round is synchronous: `step_begin` returns no pending segment.
+  Recovery replays the draft in lockstep with the target.
 
 Exactness: an active row's tokens are a pure function of its request.
 An attention row attends only cache positions <= its own position, all
@@ -124,8 +138,8 @@ cross-attention over the 1500-frame page.  On the CPU the same cases
 hold with t_pre up to 256.  Other chunk sizes and a t_pre past 4096 are
 not gated.
 
-Not ported yet (each keeps its place and raises with its ROADMAP A6
-item): `spec_decode`, the mesh, and chaos's device-loss arms.
+Not ported yet: the mesh, and chaos's device-loss arms (which raise
+naming ROADMAP A6, engine slice 7).
 """
 from __future__ import annotations
 
@@ -146,19 +160,6 @@ from repro_torch.launch import scheduler
 from repro_torch.launch import serve
 from repro_torch.launch.resilience import SimulatedFailure
 from repro_torch.models import lm, slot_state
-
-# ROADMAP.md A6, the engine's remaining slices, in order
-_LATER = {
-    "spec_decode": "engine slice 6 (speculative decoding)",
-    "mesh": "engine slice 7 (the mesh and elastic paths, with A8)",
-}
-
-
-def _not_yet(what: str, item: str):
-    return NotImplementedError(
-        f"ServeEngine: {what} is not ported yet (ROADMAP.md A6, "
-        f"{_LATER[item]})")
-
 
 @dataclasses.dataclass(frozen=True)
 class _EngineBundle:
@@ -251,6 +252,139 @@ class _ChunkStep:
         return self.logits
 
 
+@dataclasses.dataclass(frozen=True)
+class SpecDecodeConfig:
+    """Self-speculative decoding (ServeEngine `spec_decode=`): a draft
+    model of the SAME family and vocab (`draft_params`, `draft_cfg`)
+    free-runs `k` tokens per slot, then the target verifies all k in one
+    round.  Emitted tokens are always the target's under a teacher-forced
+    prefix, so streams equal the non-speculative engine's bit for bit
+    however often the draft is right; acceptance only changes how many
+    target dispatches that takes."""
+    draft_params: object
+    draft_cfg: object
+    k: int = 3
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError("spec_decode.k must be >= 1")
+
+
+class _SpecRound:
+    """One speculative round's steps for (bb, t_b, k + 1), over views of
+    the target's and the draft's slot states (`tstate`, `dstate`) and of
+    the engine's round buffers `b` (each [:bb]):
+
+      x [bb, k+2] int64     column 0 the pending token, column j + 1 the
+                            draft's token of step j
+      g [bb, k+1] int64     the target's token at each verify step
+      gbad [bb, k+1] bool   an active row's logits non-finite at that step
+      pos, dpos [bb] int64  the target's and the draft's positions
+      act [bb] bool, samp   the active rows and the sampling operand
+      dstep, vstep [1]      the device-side step indices
+      tsnaps, dsnaps        per constant-size leaf [k+1, ...leaf]: the
+                            leaf after each step (the reference's scan
+                            stack)
+      out [bb, k+4] int64   what the host reads: g, m, pos, bad
+
+    `draft(n)`: the draft's sampled decode step, n times: it reads x at
+    its step, writes its token one column on and snapshots its
+    constant-size leaves.  `verify(n)`: the target's decode step n times,
+    teacher-forced over x, then the settle: the accepted count m =
+    sum(cumprod(drafts == g[:k])), the target's constant-size leaves
+    rolled back to snapshot m (`rollback_select`, in place), pos + m + 1,
+    and bad over the steps the round used.  `rollback()`: the draft's
+    leaves rolled back to snapshot m (None where the draft has no
+    constant-size leaf: its stale KV rows are masked).  The sampler runs
+    at the segment's generation index pos - plen + 1 under the same
+    per-slot keys in both models.
+
+    On CUDA each of the draft step, the verify step, the settle and the
+    rollback is captured in a CUDA graph (`serve.capture`) with every row
+    inactive, so the capture's eager call leaves both states as they
+    were; the caller loads the buffers AFTER constructing the round.  On
+    the CPU each runs eagerly."""
+
+    def __init__(self, k: int, tdecode, params, tspec, tstate, ddecode,
+                 dparams, dspec, dstate, b: dict, device: torch.device):
+        self.leaves = (pytree.tree_leaves(params),
+                       pytree.tree_leaves(dparams))   # the graphs read them
+        x, g, gbad, out = b["x"], b["g"], b["gbad"], b["out"]
+        pos, dpos, act = b["pos"], b["dpos"], b["act"]
+        dstep, vstep = b["dstep"], b["vstep"]
+        key, temp, top_k, top_p, plen = b["samp"]
+
+        def sample(logits, p):
+            last = logits[:, -1, :]
+            nxt = sampling.sample(last, key, temp, top_k, top_p,
+                                  p - plen + 1)
+            return torch.where(act, nxt, 0)[:, None], last
+
+        def draft_step():
+            logits, _ = ddecode(dparams, x.index_select(1, dstep), dstate,
+                                dpos, act)
+            nxt, _ = sample(logits, dpos)
+            x.index_copy_(1, dstep + 1, nxt)
+            for snap, leaf in zip(b["dsnaps"], dspec.const_leaves(dstate)):
+                snap.index_copy_(0, dstep, leaf.unsqueeze(0))
+            dpos.copy_(torch.where(act, dpos + 1, dpos))
+            dstep.add_(1)
+
+        def verify_step():
+            logits, _ = tdecode(params, x.index_select(1, vstep), tstate,
+                                pos, act)
+            nxt, last = sample(logits, pos)
+            g.index_copy_(1, vstep, nxt)
+            gbad.index_copy_(1, vstep, (act & ~torch.isfinite(last)
+                                        .all(dim=-1))[:, None])
+            for snap, leaf in zip(b["tsnaps"], tspec.const_leaves(tstate)):
+                snap.index_copy_(0, vstep, leaf.unsqueeze(0))
+            pos.copy_(torch.where(act, pos + 1, pos))
+            vstep.add_(1)
+
+        def settle():
+            eq = (x[:, 1:k + 1] == g[:, :k]).to(torch.int64)
+            m = eq.cumprod(dim=1).sum(dim=1)
+            tspec.rollback_select(tstate, b["tsnaps"], m, act)
+            # pos advanced k + 1 on the active rows: pos0 + m + 1
+            pos.copy_(torch.where(act, pos - k + m, pos))
+            used = torch.arange(k + 1, device=m.device)[None, :] \
+                <= m[:, None]
+            out[:, :k + 1].copy_(g)
+            out[:, k + 1].copy_(m)
+            out[:, k + 2].copy_(pos)
+            out[:, k + 3].copy_((gbad & used).any(dim=1))
+
+        def rollback():
+            dspec.rollback_select(dstate, b["dsnaps"], out[:, k + 1], act)
+
+        fns = [draft_step, verify_step, settle]
+        if b["dsnaps"]:
+            fns.append(rollback)
+        self.graphs, self.capture_ms = [None] * len(fns), 0.0
+        if device.type == "cuda":
+            act.zero_()
+            for i, fn in enumerate(fns):
+                # each capture's eager call advances the step indices the
+                # rounds share: start it at step 0, inside the buffers
+                dstep.zero_()
+                vstep.zero_()
+                self.graphs[i], _, ms = serve.capture(fn, device)
+                self.capture_ms += ms
+        self._run = [fn if gr is None else gr.replay
+                     for fn, gr in zip(fns, self.graphs)]
+        self.rollback = self._run[3] if len(fns) == 4 else None
+
+    def draft(self, n: int) -> None:
+        for _ in range(n):
+            self._run[0]()
+
+    def verify(self, n: int) -> None:
+        for _ in range(n):
+            self._run[1]()
+        self._run[2]()
+
+
 @dataclasses.dataclass
 class _PendingSegment:
     """A dispatched-but-not-harvested decode segment (step_begin /
@@ -299,8 +433,11 @@ class ServeEngine:
     device:         where the slot state lives and the steps run; "cuda"
                     by default (raises without CUDA, as every entry
                     point of the port).
-    spec_decode:    the reference's; not ported yet (raises with its
-                    ROADMAP item when set).
+    spec_decode:    a SpecDecodeConfig: self-speculative decoding rounds
+                    instead of segments (module docstring).  Refuses the
+                    encdec family, a draft of another family or vocab,
+                    and composition with prefill_chunk / prefix_cache,
+                    as the reference does.
     """
 
     def __init__(self, params, cfg, *, n_slots: int = 8,
@@ -320,8 +457,6 @@ class ServeEngine:
         if cfg.family != "encdec" and enc_len is not None:
             raise ValueError(f"enc_len is encdec-only, got family "
                              f"{cfg.family!r}")
-        if spec_decode is not None:
-            raise _not_yet("spec_decode", "spec_decode")
         init_kwargs = {"s_enc": enc_len} if enc_len is not None else {}
         # raises with registry guidance for unregistered families
         self._spec = slot_state.spec_for(cfg, **init_kwargs)
@@ -339,6 +474,23 @@ class ServeEngine:
             # whole chunks, or the prompt tail would be silently dropped
             raise ValueError("max_cache_len must be a multiple of "
                              "prefill_chunk")
+        if spec_decode is not None:
+            if cfg.family == "encdec":
+                raise ValueError("spec_decode does not support encdec "
+                                 "serving (draft prefill has no ragged "
+                                 "feature path)")
+            if spec_decode.draft_cfg.family != cfg.family:
+                raise ValueError(
+                    f"spec_decode draft must be the SAME family as the "
+                    f"target (self-speculation): draft is "
+                    f"{spec_decode.draft_cfg.family!r}, target is "
+                    f"{cfg.family!r}")
+            if spec_decode.draft_cfg.vocab != cfg.vocab:
+                raise ValueError("spec_decode draft/target vocab mismatch")
+            if prefix_cache is not None or prefill_chunk is not None:
+                raise ValueError("spec_decode composes with full-prefill "
+                                 "engines only (prefill_chunk=None, "
+                                 "prefix_cache=None)")
         self.device = device_lib.resolve(device)
         self.params = params
         self.cfg = cfg
@@ -402,7 +554,7 @@ class ServeEngine:
             else res.ResilienceConfig()
         self._chaos = res.chaos_from_env() if chaos == "env" else chaos
         self._site_counts = {"segment": 0, "prefill": 0, "chunk": 0,
-                             "embed": 0}
+                             "embed": 0, "draft": 0, "verify": 0}
         # the replay step per (bb, t_b) (`_replay_step_for`)
         self._replays: Dict[tuple, _ChunkStep] = {}
         self.replay_steps = 0
@@ -442,6 +594,43 @@ class ServeEngine:
         # -- admission fairness (token budget) --
         self._admit_budget = admit_token_budget
         self._deferrals = 0
+        # -- self-speculative decoding (SpecDecodeConfig) --
+        self._sd = spec_decode
+        self._spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0,
+                            "emitted": 0, "target_dispatches": 0}
+        self._rounds: Dict[tuple, _SpecRound] = {}
+        self._dreplays: Dict[tuple, _ChunkStep] = {}
+        if spec_decode is not None:
+            self._init_draft(spec_decode)
+
+    def _init_draft(self, sd: SpecDecodeConfig) -> None:
+        """The draft's decode function, its slot state (its own, in place
+        for the engine's lifetime, as the target's) and the round
+        buffers (_SpecRound), each [n_slots, ...]; the snapshot stacks
+        only for constant-size leaves: k + 1 copies of each."""
+        n, k1, dev = self.n_slots, sd.k + 1, self.device
+        self._draft_spec = slot_state.spec_for(sd.draft_cfg)
+        self._draft_bundle = _engine_bundle(sd.draft_cfg,
+                                            self.silvia_passes, dev)
+        self._draft_params = sd.draft_params
+        self._draft_cache = self._draft_spec.init_state(
+            n, self.max_cache_len, dev)
+
+        def snaps(spec, state):
+            return tuple(torch.zeros((k1,) + tuple(leaf.shape),
+                                     dtype=leaf.dtype, device=dev)
+                         for leaf in spec.const_leaves(state))
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self._sbufs = {
+            "x": zeros(n, k1 + 1), "g": zeros(n, k1),
+            "gbad": zeros(n, k1, dtype=torch.bool), "dpos": zeros(n),
+            "out": zeros(n, k1 + 3), "dstep": zeros(1), "vstep": zeros(1),
+            "tsnaps": snaps(self._spec, self._cache),
+            "dsnaps": snaps(self._draft_spec, self._draft_cache),
+        }
 
     # -- request lifecycle --------------------------------------------------
 
@@ -559,6 +748,8 @@ class ServeEngine:
         self._replay = [self._replay[i] for i in perm]
         self._score = [self._score[i] for i in perm]
         self._slot_pins = [self._slot_pins[i] for i in perm]
+        if self._sd is not None:
+            self._draft_spec.permute_slots(self._draft_cache, perm)
         self.compactions += 1
         return True
 
@@ -757,6 +948,15 @@ class ServeEngine:
         return (last.argmax(dim=-1), last, rows,
                 ~torch.isfinite(last).all(dim=-1))
 
+    def _draft_prefill(self, inputs, lens: np.ndarray, t_pre: int):
+        """The draft's full prefill of the target's prefill inputs: the
+        prefilled rows' draft state (its logits are not needed)."""
+        _, rows = lm.prefill(self._draft_params, inputs, self._sd.draft_cfg,
+                             cache_len=t_pre,
+                             last_positions=torch.as_tensor(
+                                 lens - 1, device=self.device))
+        return rows
+
     def _graph_key(self, bb: int, sb: int, t_pre: int,
                    eb: Optional[int]) -> tuple:
         """The census key of a full prefill, or of the chunk step a
@@ -788,6 +988,16 @@ class ServeEngine:
             # a length axis (SSM / conv state, cross K/V) are reset whole
             self._spec.admit(self._cache, rows, slots, g, t_pre=t_pre)
             del rows
+            if self._sd is not None:
+                # the draft prefills the same prompts in the same bucket
+                # into the same slots: draft and target share self._pos
+                # from admission through every round and replay
+                self._graphs.add(("dprefill", bb, sb, t_pre))
+                d_rows = self._guarded("draft", self._draft_prefill,
+                                       inputs, lens, t_pre)
+                self._draft_spec.admit(self._draft_cache, d_rows, slots, g,
+                                       t_pre=t_pre)
+                del d_rows
             pins: List[tuple] = [()] * g
         elif self.prefill_chunk is not None:
             tok0, bad0, slots, pins, last = self._prefix_admit_chunked(
@@ -1213,6 +1423,131 @@ class ServeEngine:
                 self._finish(req, now)
                 self._evict(slot)
 
+    # -- self-speculative decoding (SpecDecodeConfig) ------------------------
+
+    def _spec_round_for(self, bb: int, t_b: Optional[int]) -> _SpecRound:
+        """The round of (bb, t_b), captured at first use over the first bb
+        rows of both slot states (their first t_b positions) and of the
+        round buffers."""
+        r = self._rounds.get((bb, t_b))
+        if r is None:
+            def snaps(spec, stacks):    # the slot axis is one on, past k+1
+                axes = [ba for ba, la in zip(spec.batch_axes,
+                                             spec.length_axes) if la is None]
+                return tuple(x.narrow(ba + 1, 0, bb)
+                             for x, ba in zip(stacks, axes))
+
+            sb, eb = self._sbufs, self._bufs
+            b = {k: sb[k][:bb] for k in ("x", "g", "gbad", "dpos", "out")}
+            b.update(pos=eb["pos"][:bb], act=eb["act"][:bb],
+                     samp=tuple(x[:bb] for x in eb["samp"]),
+                     dstep=sb["dstep"], vstep=sb["vstep"],
+                     tsnaps=snaps(self._spec, sb["tsnaps"]),
+                     dsnaps=snaps(self._draft_spec, sb["dsnaps"]))
+            r = _SpecRound(
+                self._sd.k, self._bundle.decode_fn, self.params, self._spec,
+                self._spec.slice_live(self._cache, bb, t_b),
+                self._draft_bundle.decode_fn, self._draft_params,
+                self._draft_spec,
+                self._draft_spec.slice_live(self._draft_cache, bb, t_b), b,
+                self.device)
+            self._rounds[(bb, t_b)] = r
+        return r
+
+    def _spec_round(self, clock: scheduler.Clock) -> None:
+        """One speculative round: the draft free-runs k + 1 sampled steps
+        (k drafts, plus the step a full acceptance needs the draft to have
+        consumed), the target verifies the pending token and the k drafts
+        teacher-forced, and both states roll back to the accepted prefix
+        on the device (_SpecRound).  No host round trip between draft and
+        verify: the drafts feed the verify step from the x buffer; the
+        one host read is the packed outputs at harvest.  Both models
+        sample under the same per-slot keys, so acceptance is a pure
+        function of (seed, rid, token prefix): recovery replay is
+        acceptance-history-exact."""
+        k = self._sd.k
+        hi = int(np.max(np.nonzero(self._active)[0])) + 1
+        bb = scheduler.bucket_pow2(hi, minimum=self.min_batch_bucket,
+                                   maximum=self.n_slots)
+        t_b = None
+        if self._spec.has_length_axis:
+            # the verify writes rows pos..pos+k (an overrun at the
+            # cache's end clamps into the slot's own discarded row)
+            need = int(np.max(self._pos[:bb][self._active[:bb]])) + k + 1
+            t_b = scheduler.bucket_pow2(min(need, self.max_cache_len),
+                                        minimum=self.min_len_bucket,
+                                        maximum=self.max_cache_len)
+        self._graphs.add(("draft", bb, t_b, k + 1))
+        self._graphs.add(("verify", bb, t_b, k + 1))
+        # captured at first use BEFORE the buffers are loaded: a capture's
+        # eager calls scribble on them
+        rnd = self._spec_round_for(bb, t_b)
+        b, sb = self._bufs, self._sbufs
+        sb["x"][:bb, 0].copy_(torch.from_numpy(self._tok[:bb, 0]))
+        b["pos"][:bb].copy_(torch.from_numpy(self._pos[:bb]))
+        sb["dpos"][:bb].copy_(b["pos"][:bb])
+        b["act"][:bb].copy_(torch.from_numpy(self._active[:bb]))
+        for buf, leaf in zip(b["samp"], self._samp):
+            buf[:bb].copy_(torch.from_numpy(leaf[:bb]))
+        sb["dstep"].zero_()
+        sb["vstep"].zero_()
+        self._guarded("draft", rnd.draft, k + 1)
+        self._guarded("verify", rnd.verify, k + 1)
+        if rnd.rollback is not None:
+            # constant-size draft leaves restore from their snapshots;
+            # a pure length-paged draft rolls back for free
+            self._graphs.add(("rollback", bb, t_b, k + 1))
+            rnd.rollback()
+        self.occupancy.append(float(np.sum(self._active)) / self.n_slots)
+        out = sb["out"][:bb].cpu().numpy()
+        self._pos[:bb] = out[:, k + 2]
+        self._spec_harvest(out[:, :k + 1].T, out[:, k + 1],
+                           out[:, k + 3].astype(bool), clock.now())
+
+    def _spec_harvest(self, g_seq: np.ndarray, m: np.ndarray,
+                      bad: np.ndarray, now: float) -> None:
+        """Host bookkeeping after a round: per live slot, emit the m + 1
+        target tokens the round settled (the accepted drafts' positions
+        plus the first disagreeing or extending target token), with
+        _harvest's stop-token and budget logic, so streams truncate
+        identically."""
+        k1, bb = g_seq.shape
+        self._spec_stats["rounds"] += 1
+        self._spec_stats["target_dispatches"] += 1
+        for slot in range(bb):
+            req = self._slot_req[slot]
+            if req is None or not self._active[slot]:
+                continue
+            if bad[slot]:
+                self._robust["quarantined"] += 1
+                self._finish(req, now, res.FAILED,
+                             "non-finite logits during decode")
+                self._evict(slot)
+                self._scrub(slot)
+                continue
+            self._spec_stats["drafted"] += k1 - 1
+            self._spec_stats["accepted"] += int(m[slot])
+            e = int(m[slot]) + 1
+            take = int(min(self._remaining[slot], e))
+            toks = g_seq[:take, slot]
+            done = False
+            if req.stop_tokens:
+                hits = np.nonzero(np.isin(toks, req.stop_tokens))[0]
+                if hits.size:
+                    toks = toks[:int(hits[0]) + 1]
+                    done = True
+            req.tokens.extend(int(t) for t in toks)
+            self.total_generated += len(toks)
+            self._spec_stats["emitted"] += len(toks)
+            self._remaining[slot] -= len(toks)
+            if done or self._remaining[slot] == 0:
+                self._finish(req, now)
+                self._evict(slot)
+                continue
+            # the new pending token: the target's right after the last
+            # accepted draft (pos advanced to pos + m + 1 on the device)
+            self._tok[slot] = g_seq[e - 1, slot]
+
     # -- resilience: chaos sites, expiry, replay, recovery ------------------
 
     def _guarded(self, kind: str, fn, *args):
@@ -1254,6 +1589,11 @@ class ServeEngine:
         NaN."""
         zeros = self._spec.init_state(1, self.max_cache_len, self.device)
         self._spec.admit(self._cache, zeros, [slot], 1)
+        if self._sd is not None:
+            # the draft saw the same poisoned row: scrub its page too
+            dz = self._draft_spec.init_state(1, self.max_cache_len,
+                                             self.device)
+            self._draft_spec.admit(self._draft_cache, dz, [slot], 1)
 
     def _replay_step_for(self, bb: int, t_b: Optional[int]) -> _ChunkStep:
         """The replay step of (bb, t_b), captured at first use over the
@@ -1267,6 +1607,22 @@ class ServeEngine:
                            b["tok"][:bb], b["pos"][:bb], b["act"][:bb],
                            self.device)
             self._replays[(bb, t_b)] = s
+        return s
+
+    def _draft_replay_step_for(self, bb: int,
+                               t_b: Optional[int]) -> _ChunkStep:
+        """The draft's replay step of (bb, t_b): the draft teacher-forces
+        what the target replays, over the same token, position and active
+        buffers."""
+        s = self._dreplays.get((bb, t_b))
+        if s is None:
+            b = self._bufs
+            s = _ChunkStep(self._draft_bundle.decode_fn, self._draft_params,
+                           self._draft_spec.slice_live(self._draft_cache,
+                                                       bb, t_b),
+                           b["tok"][:bb], b["pos"][:bb], b["act"][:bb],
+                           self.device)
+            self._dreplays[(bb, t_b)] = s
         return s
 
     def _drain_replay(self, clock: scheduler.Clock) -> None:
@@ -1305,6 +1661,15 @@ class ServeEngine:
         logits = self._guarded("chunk", step.run, self._tok[:bb],
                                self._pos[:bb], replaying)
         self.replay_steps += 1
+        if self._sd is not None:
+            # the draft teacher-forces the same token at the same position,
+            # so the rounds after a recovery draft from the state a
+            # fault-free run would have (the target's logits live in
+            # another graph's pool)
+            dstep = self._draft_replay_step_for(bb, t_b)
+            self._graphs.add(("dchunk", bb, 1, t_b))
+            self._guarded("draft", dstep.run, self._tok[:bb],
+                          self._pos[:bb], replaying)
         last = logits[:, -1, :]
         nxt = last.argmax(dim=-1).cpu().numpy()
         bad = (~torch.isfinite(last).all(dim=-1)).cpu().numpy()
@@ -1381,6 +1746,14 @@ class ServeEngine:
             leaf.copy_(init)        # broadcast over the slot axis
         for buf in pytree.tree_leaves(self._bufs):
             buf.zero_()
+        if self._sd is not None:
+            dfresh = self._draft_spec.init_state(1, self.max_cache_len,
+                                                 self.device)
+            for leaf, init in zip(pytree.tree_leaves(self._draft_cache),
+                                  pytree.tree_leaves(dfresh)):
+                leaf.copy_(init)
+            for buf in pytree.tree_leaves(self._sbufs):
+                buf.zero_()
         self._samp = sampling.host_page(self.n_slots)
         self._tok[:] = 0
         self._pos[:] = 0
@@ -1445,6 +1818,11 @@ class ServeEngine:
         self._drain_replay(clock)
         if not self._active.any():
             return None, bool(admitted or expired)
+        if self._sd is not None:
+            # a speculative round is synchronous (draft, verify, rollback,
+            # harvest): no pending segment to double-buffer
+            self._spec_round(clock)
+            return None, True
         return self._begin_segment(), True
 
     def _step_inner(self, clock: scheduler.Clock,
@@ -1588,36 +1966,62 @@ class ServeEngine:
         seg = len(self.batch_buckets) * max(1, len(self.len_buckets))
         pre = len(self.admission_batch_buckets) \
             * len(self.prompt_buckets) * enc
-        return seg + pre + seg + pre
+        bound = seg + pre + seg + pre
+        if self._sd is not None:
+            # the draft / verify / rollback round grids (a spec engine
+            # never runs a segment, but their term stays in the base
+            # bound), the draft prefill and the draft replay grids
+            bound += 3 * seg + pre + seg
+        return bound
 
     def warmup(self, prompt_lens: Optional[Sequence[int]] = None,
                methods: Sequence[str] = ("generate",)) -> int:
-        """Capture the (batch bucket x length bucket) segment grid and,
-        when the expected prompt lengths are given, the admissions they
-        map to: each full-prefill shape run once (kernels built and
-        loaded, the allocator warm), every encoder bucket of an encdec
-        engine, or each chunk step captured.  `methods` names the methods
-        the traffic uses: "score" also captures the replay step's grid
+        """Capture the (batch bucket x length bucket) segment grid (a spec
+        engine's round grid instead: draft, verify and, where the draft
+        has constant-size leaves, rollback) and, when the expected prompt
+        lengths are given, the admissions they map to: each full-prefill
+        shape run once (kernels built and loaded, the allocator warm; a
+        spec engine's draft prefill too), every encoder bucket of an
+        encdec engine, or each chunk step captured.  `methods` names the
+        methods the traffic uses: "score" also captures the replay step's grid
         its teacher forcing drains through, as a chaos-armed engine does
         (it will recover, and recovery replays: no capture after warmup
-        under faults), and "embed" runs each pooled-embedding shape once.
+        under faults; a spec engine's draft replay grid too), and "embed"
+        runs each pooled-embedding shape once.
         Returns the number of graphs added.  Call it with no request in
         flight."""
         if self._active.any():
             raise RuntimeError("warmup() with requests in flight")
         n = 0
+        k1 = self._sd.k + 1 if self._sd is not None else None
         for bb in self.batch_buckets:
             for t_b in (self.len_buckets or (None,)):
-                if ("segment", bb, t_b, self.segment_len) not in \
-                        self._graphs:
-                    self._segment_step(bb, t_b)
-                    n += 1
+                if self._sd is None:
+                    if ("segment", bb, t_b, self.segment_len) not in \
+                            self._graphs:
+                        self._segment_step(bb, t_b)
+                        n += 1
+                    continue
+                # a spec engine never runs a segment: its round grid
+                if ("verify", bb, t_b, k1) in self._graphs:
+                    continue
+                keys = ["draft", "verify"]
+                if self._spec_round_for(bb, t_b).rollback is not None:
+                    keys.append("rollback")
+                self._graphs.update((key, bb, t_b, k1) for key in keys)
+                n += len(keys)
         if self._chaos is not None or "score" in methods:
             for bb in self.batch_buckets:
                 for t_b in (self.len_buckets or (None,)):
                     if ("chunk", bb, 1, t_b) not in self._graphs:
                         self._replay_step_for(bb, t_b)
                         self._graphs.add(("chunk", bb, 1, t_b))
+                        n += 1
+                    if self._sd is not None and \
+                            ("dchunk", bb, 1, t_b) not in self._graphs:
+                        # replay advances the draft through its own grid
+                        self._draft_replay_step_for(bb, t_b)
+                        self._graphs.add(("dchunk", bb, 1, t_b))
                         n += 1
         if prompt_lens is None:
             return n
@@ -1642,6 +2046,13 @@ class ServeEngine:
                     out[0].cpu()
                     self._graphs.add(key)
                     n += 1
+                    dkey = ("dprefill", bb, sb, t_pre)
+                    if self._sd is not None and dkey not in self._graphs:
+                        pytree.tree_leaves(self._draft_prefill(
+                            self._warmup_prefill_inputs(bb, sb), lens,
+                            t_pre))[0].cpu()
+                        self._graphs.add(dkey)
+                        n += 1
         if "embed" in methods:
             for bb in self.admission_batch_buckets:
                 for sb in sbs:
@@ -1662,7 +2073,9 @@ class ServeEngine:
         decode-bundle LRU, the robustness counters, the admission budget
         and, with the prefix cache on, its counters."""
         steps = list(self._segments.values()) \
-            + list(self._chunks.values()) + list(self._replays.values())
+            + list(self._chunks.values()) + list(self._replays.values()) \
+            + list(self._dreplays.values())
+        rounds = list(self._rounds.values())
         info = {
             "family": self.cfg.family,
             "has_length_axis": self._spec.has_length_axis,
@@ -1670,8 +2083,9 @@ class ServeEngine:
             "graph_bound": self.graph_bound(),
             "graph_keys": sorted(self._graphs,
                                  key=lambda k: tuple(str(x) for x in k)),
-            "captured": sum(s.graph is not None for s in steps),
-            "capture_ms": sum(s.capture_ms for s in steps),
+            "captured": sum(s.graph is not None for s in steps) + sum(
+                gr is not None for r in rounds for gr in r.graphs),
+            "capture_ms": sum(s.capture_ms for s in steps + rounds),
             "batch_buckets": list(self.batch_buckets),
             "len_buckets": list(self.len_buckets),
             "enc_buckets": list(self.enc_buckets),
@@ -1703,6 +2117,17 @@ class ServeEngine:
         }
         if self._prefix is not None:
             info["prefix_cache"] = self._prefix.info()
+        if self._sd is not None:
+            sd = dict(self._spec_stats)
+            sd["k"] = self._sd.k
+            sd["draft"] = getattr(self._sd.draft_cfg, "name",
+                                  str(self._sd.draft_cfg))
+            sd["acceptance_rate"] = (sd["accepted"] / sd["drafted"]) \
+                if sd["drafted"] else 0.0
+            sd["tokens_per_dispatch"] = (
+                sd["emitted"] / sd["target_dispatches"]) \
+                if sd["target_dispatches"] else 0.0
+            info["spec_decode"] = sd
         if hasattr(self._bundle.decode_fn, "cache_info"):
             info["silvia"] = self._bundle.decode_fn.cache_info()
         return info

@@ -79,6 +79,7 @@ from __future__ import annotations
 import argparse
 import collections
 import functools
+import gc
 import os
 import time
 
@@ -173,7 +174,11 @@ def capture(step, device: torch.device):
     """Capture `step()` in a CUDA graph: one eager call on a side stream
     first (it builds and loads every kernel, fills the per-device caches
     and runs the SILVIA trace, none of which may happen under capture),
-    then the capture.  Returns (graph, what the captured call returned,
+    then the capture.  The cyclic garbage collector is off while it
+    captures: a dead reference cycle that holds a captured graph (an
+    engine whose method a wrapper closes over), collected mid-capture,
+    destroys that graph, and CUDA's global capture mode then invalidates
+    the capture.  Returns (graph, what the captured call returned,
     capture ms); a failed capture raises."""
     with torch.cuda.device(device):
         side = torch.cuda.Stream()
@@ -183,8 +188,14 @@ def capture(step, device: torch.device):
         torch.cuda.current_stream().wait_stream(side)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = step()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = step()
+        finally:
+            if collecting:
+                gc.enable()
         return graph, out, (time.perf_counter() - t0) * 1e3
 
 

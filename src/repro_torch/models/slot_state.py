@@ -1,9 +1,8 @@
 """Family-agnostic slot-state layer for the continuous-batching engine.
 
-Port of `repro/models/slot_state.py` (:1-410 but `rollback_select`,
-which comes with speculative decoding, and the tensor-parallel probing,
-`TPPlan` / `tp_plan` / `tp_axes_for`, which comes with distributed
-serving).  Every model family's decode-time state -- KV
+Port of `repro/models/slot_state.py` (:1-410 but the tensor-parallel
+probing, `TPPlan` / `tp_plan` / `tp_axes_for`, which comes with
+distributed serving).  Every model family's decode-time state -- KV
 pages, SSM recurrent state, conv windows, the hybrid family's flat mix
 -- is served through ONE "slot state" interface, so the engine
 (launch/engine.py) never special-cases a family.
@@ -36,6 +35,10 @@ state, so its tensors keep their addresses for the engine's lifetime
                                 leaves with one are written up to the
                                 prefill bucket, the rest stale-but-masked
   permute_slots(state, perm)    slot compaction (gather along slot axes)
+  rollback_select(state, snaps, idx)
+                                speculative decoding's rollback: each
+                                constant-size leaf restored from its
+                                per-step snapshot at each row's index
   extract_row_pages / write_row_pages
                                 one slot's prefix pages off the state to
                                 the host, and back into a slot in place
@@ -201,6 +204,12 @@ class SlotStateSpec:
         self._apply(f, state)
         return state
 
+    # -- speculative-decode rollback (launch/engine.py) ----------------------
+    #
+    # Accepting m of k drafted tokens: leaves WITH a length axis need no
+    # rollback (rows written past the accepted position are stale but
+    # masked), constant-size leaves (SSM state, conv windows) are restored
+    # from per-step snapshots.
 
     def const_leaves(self, state) -> tuple:
         """The constant-size (length_axis=None) leaves of `state` in
@@ -209,6 +218,33 @@ class SlotStateSpec:
         return tuple(leaf for leaf, la in zip(self._leaves(state),
                                               self.length_axes)
                      if la is None)
+
+    def rollback_select(self, state, snaps, idx, active):
+        """Roll `state` back to per-row snapshot index `idx` ([rows]
+        int), IN PLACE: length-axis leaves are left as they are, each
+        constant-size leaf i takes `snaps[i][idx[row]]` per row.  The
+        snapshot leaves carry a LEADING step axis over const_leaves'
+        shapes (the reference's `lax.scan` stack; here static buffers the
+        captured steps write at their step index).  Only the `active`
+        rows ([rows] bool) change: the reference restores every row, and
+        an inactive row's snapshots all equal its state in a round, but a
+        capture's eager step runs over snapshots of whatever the buffers
+        held.  Returns `state`."""
+        it = iter(snaps)
+        idx = idx.to(torch.int64)
+        for leaf, ba, la in zip(self._leaves(state), self.batch_axes,
+                                self.length_axes):
+            if la is not None:
+                continue
+            snap = next(it)
+            shape = [1] * snap.ndim
+            shape[ba + 1] = snap.shape[ba + 1]
+            sel = torch.take_along_dim(snap, idx.reshape(shape),
+                                       dim=0).squeeze(0)
+            shape = [1] * leaf.ndim
+            shape[ba] = leaf.shape[ba]
+            leaf.copy_(torch.where(active.reshape(shape), sel, leaf))
+        return state
 
     # -- prefix pages (launch/prefix_cache.py) ------------------------------
     #

@@ -998,3 +998,106 @@ def test_cuda_engine_methods_and_chaos_recovery(cuda):
             (w.outcome, w.tokens, w.logprobs)
         if w.embedding is not None:
             np.testing.assert_array_equal(got[rid].embedding, w.embedding)
+
+
+@pytest.mark.cuda
+def test_cuda_spec_rounds_and_frontend(cuda):
+    """Speculative rounds on the card, captured at first use (no warmup)
+    mid-run: with the target's own weights as the draft and with a
+    draft from another seed, every stream equals the non-speculative
+    engine's, bit for bit, and the same draft accepts everything; the
+    slot state keeps its storage.  Then the same trace streamed through
+    the async front-end, whose worker thread launches on the card,
+    equals the batch run."""
+    import asyncio
+
+    from repro_torch.launch import scheduler, serve
+    from repro_torch.launch.engine import ServeEngine, SpecDecodeConfig
+    from repro_torch.launch.frontend import AsyncFrontend
+    serve.decode_cache_clear()
+    cfg, params = _served(cuda, "w4a8")
+    _, weak = _served(cuda, "w4a8", seed=9)
+    sp = scheduler.SamplingParams(temperature=0.8, top_k=6, seed=5)
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, cfg.vocab, 5 + 3 * i), 4 + 2 * i,
+             (None, sp)[i % 2]) for i in range(6)]
+
+    def trace():
+        return [scheduler.Request(rid=i, prompt=p, max_new_tokens=g,
+                                  sampling=s, arrival_time=0.01 * i)
+                for i, (p, g, s) in enumerate(reqs)]
+
+    def engine(draft=None):
+        sd = None if draft is None else SpecDecodeConfig(draft, cfg, 3)
+        return ServeEngine(params, cfg, n_slots=4, max_cache_len=64,
+                           segment_len=4, device=cuda, chaos=None,
+                           spec_decode=sd)
+
+    want = engine().run(trace(), clock=scheduler.FastForwardClock())
+    for draft in (params, weak):
+        eng = engine(draft)
+        ptrs = [t.data_ptr() for t in eng._cache.values()]
+        got = eng.run(trace(), clock=scheduler.FastForwardClock())
+        assert set(got) == set(want)
+        for rid in want:
+            np.testing.assert_array_equal(got[rid], want[rid])
+        s = eng.cache_info()["spec_decode"]
+        assert (s["acceptance_rate"] == 1.0) == (draft is params)
+        assert eng.cache_info()["captured"] > 0
+        assert [t.data_ptr() for t in eng._cache.values()] == ptrs
+
+    async def stream(eng):
+        async with AsyncFrontend(
+                eng, clock=scheduler.FastForwardClock()) as fe:
+            async def one(r):
+                return r.rid, [t async for t in fe.generate_stream(
+                    r.prompt, r.max_new_tokens, rid=r.rid)]
+            return dict(await asyncio.gather(
+                *(one(r) for r in trace() if r.sampling is None)))
+
+    streamed = asyncio.run(stream(engine()))
+    for rid, toks in streamed.items():
+        assert toks == want[rid].tolist()
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_a_dead_graph_cycle(cuda):
+    """A dead reference cycle holding a captured graph, left for the
+    cyclic garbage collector: with the collector's thresholds at 1 and a
+    capture that allocates, it would run mid-capture and destroy that
+    graph, which invalidates a global-mode capture.  `serve.capture`
+    keeps the collector off while it captures."""
+    import gc
+
+    from repro_torch.launch import serve
+    x = torch.zeros(4, device=cuda)
+
+    def step():
+        x.add_(1)
+        return x * 2
+
+    class Holder:
+        pass
+
+    box = [serve.capture(step, cuda)[0]]
+
+    def dropping_step():
+        if torch.cuda.is_current_stream_capturing() and box:
+            h = Holder()
+            h.graph, h.me = box.pop(), h      # a cycle, dropped
+            del h
+            junk = [[] for _ in range(1000)]  # allocations: GC's trigger
+            del junk
+        return step()
+
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graph, out, _ = serve.capture(dropping_step, cuda)
+    finally:
+        gc.set_threshold(*old)
+    gc.collect()                              # now it may go
+    x.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((4,), 2.0, device=cuda))

@@ -20,9 +20,11 @@ and its scheduler, against the port's static `generate` and against
 * Inactive slots' pages stay bit-identical across a segment; the graph
   census stays within `graph_bound()` and warmup covers the traffic;
   admission control (shedding, deadlines, cancellation) and the
-  refusals of what is not ported yet (speculative decoding, chaos's
-  device-loss arms; the methods and chaos:
-  tests/test_torch_engine_methods.py, tests/test_torch_resilience.py).
+  refusals of what is not ported yet (chaos's device-loss arms) and of
+  a missing CUDA (the methods and chaos:
+  tests/test_torch_engine_methods.py, tests/test_torch_resilience.py;
+  speculative decoding and its refusals:
+  tests/test_torch_spec_decode.py).
 """
 import dataclasses
 
@@ -450,10 +452,9 @@ def test_admission_control_and_cancel():
 
 def test_refusals_name_their_roadmap_item(monkeypatch):
     _, cfg, _, params = _setup("bfloat16", "w8a8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        _engine(cfg, params, spec_decode=object())
-    # chaos and the score / embed methods are ported; a device-loss arm
-    # needs the mesh and still raises, naming its slice
+    # speculative decoding is ported: its refusals are the reference's
+    # (tests/test_torch_spec_decode.py).  A device-loss arm needs the mesh
+    # and still raises, naming its slice
     monkeypatch.setenv("REPRO_CHAOS", "segment:1;lose@segment:2")
     with pytest.raises(NotImplementedError, match="A6, engine slice 7"):
         _engine(cfg, params)
