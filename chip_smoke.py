@@ -214,10 +214,12 @@ over):
    bucket, prompt bucket).  First the batch-invariance gate
    (`engine_invariance_gate`: scripts/batch_invariance.py at every
    width the engine serves).  The main path is the trace's run, counts
-   from 0 just before it: under w4a8 (ENGINE_PROFILED) under the
-   profiler, its GEMM launches, replays included, the wrappers' eager
-   prefills plus the captured step's per segment, then an unprofiled
-   timed run; under w8a8 unprofiled, its wrappers' eager prefill
+   from 0 just before it: under w4a8 (ENGINE_PROFILED) the run of its
+   first ENGINE_PROFILED_REQUESTS requests (the cut one left out) under
+   the profiler, its GEMM
+   launches, replays included, the wrappers' eager prefills plus the
+   captured step's per segment, then an unprofiled timed run of all 24;
+   under w8a8 unprofiled, its wrappers' eager prefill
    launches counted, and itself the timed run.  Gates: every request's
    stream equals the port's static `generate` of that request alone,
    bit for bit (`static_streams`), in every run; no run captures a new
@@ -295,8 +297,9 @@ over):
    of 8, k = 3, serving `spec_trace` (the reference's full-size
    spec_decode row: 24 requests, prompts and gens 8 / 16 / 24, its
    four-way sampling mix) through the non-spec engine, a `same` draft
-   (the target's weights; its run profiled, every count from 0 just
-   before it: the phase's main path) and a `weak` one (seed 9); (b) the
+   (the target's weights; its run of the trace's first
+   SPEC_PROFILED_REQUESTS requests profiled, every count from 0 just
+   before it: the phase's main path; then the whole trace, timed) and a `weak` one (seed 9); (b) the
    weak engine under SPEC_CHAOS, not warmed; (c) mamba2-2.7b at SSM_LAYERS on phase
    13's build and requests with a draft of its config cut to
    SSM_DRAFT_LAYERS layers (a constant-size state: a rollback every
@@ -316,9 +319,32 @@ over):
    dispatches, tokens per dispatch, acceptance, dispatch speedup,
    tok/s, TTFT, the main run's GEMM ms beside the bound, recoveries,
    snapshot buffers, the front-end's stream tok/s both ways, hidden
-   host time, overlapped segments and TTFT per method.  In every phase
-   an exception other than an injected `SimulatedFailure` that reaches
-   an engine's recovery fails the run (`fail_on_real_errors`).  Each
+   host time, overlapped segments and TTFT per method;
+17. training (`phase_train`): (a) smollm-135m at full width and depth
+   (30 layers, d 576, vocab 49152), bf16 with float32 AdamW state, B=8,
+   seq 256, lr 1e-3 (`launch/train.py`'s defaults), through
+   `launch/train.run` for TRAIN_STEPS steps, checkpoints every
+   TRAIN_CKPT_EVERY into a temporary directory and simulated failures
+   at TRAIN_FAILURES (every count set to 0 just before it and read just
+   after: the phase's main path, which launches none of the hand-written
+   kernels: training is bf16 on float weights, its products
+   torch.matmul), then the same run without failures.  Gates: 2
+   restores, the last checkpoint at TRAIN_STEPS, a finite loss, final
+   params, optimizer state and loss bit for bit those of the unfailed
+   run, every kernel counter 0; over TRAIN_REPEAT steps on one repeated
+   batch the loss falls.  (b) microbatches 2 against 1 at full width,
+   one step from the same state, within the reference's own bounds
+   (loss rel 1e-3, params 2e-2).  (c) granite-moe-1b-a400m at
+   MOE_LAYERS, every width, TRAIN_MOE_STEPS steps on one repeated batch
+   (the capacity dispatch on the card): the loss finite and falling.
+   (d) reduced smollm and reduced granite-moe in float32: one train step
+   on the card against the port's CPU run (`train_step_vs_cpu`).
+   Logged beside the card's name and power limit: step ms (median after
+   the first), tokens/s, `torch.cuda.max_memory_allocated`, model FLOPs
+   per step (6 N T plus attention's) against the H100 SXM's dense bf16
+   peak, checkpoint save and restore seconds.  In every phase an
+   exception other than an injected `SimulatedFailure` that reaches an
+   engine's recovery fails the run (`fail_on_real_errors`).  Each
    phase's seconds are logged.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
@@ -326,8 +352,8 @@ launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
 those paths' GEMM time per generate; the engine paths' launches and
 GEMM ms over the profiled runs: phase 13's trace, phase 14's chunked
 admission and whisper trace, phase 15's method trace, phase 16's
-same-draft spec trace), the
-nvidia-smi line and, last,
+same-draft spec trace; phase 17's training path launches none of the
+kernels and adds nothing to it), the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
@@ -3278,8 +3304,8 @@ def phase_encdec() -> tuple:
 # phase 12: the vlm family
 VLM_ARCH = "qwen2-vl-72b"
 # phase 12 serves qwen2-vl-72b at this many of its 80 layers, every width
-# kept: a cut for the run's time
-VLM_LAYERS = 8
+# kept: a cut for the run's time (8 before phase 17 came)
+VLM_LAYERS = 4
 # the image prompt of each row: 8 text tokens, one 448 x 448 image as 256
 # stub patch embeddings (Qwen2-VL's 14-pixel patches merged 2 x 2 into a
 # 16 x 16 grid), 120 text tokens: 384 positions
@@ -3673,6 +3699,11 @@ ENGINE_SLOTS, ENGINE_CACHE, ENGINE_SEGMENT = 8, 256, 16
 # phase 13 profiles this format's run of the trace (its replays' launches
 # counted by the profiler); the other format's main run goes unprofiled
 ENGINE_PROFILED = "w4a8"
+# ... over the trace's first this many requests but the one cut to the
+# cache's end (its 135 tokens alone take 9 segments; the profiler's own
+# processing takes ~40 us per device kernel: a cut for the run's time);
+# the timed run serves all 24
+ENGINE_PROFILED_REQUESTS = 12
 ENGINE_TRACE = dict(seed=0, n_requests=24, rate=1000.0,
                     prompt_lens=(16, 48, 96, 128), gen_lens=(8, 32, 64))
 # the request cut to end mid-segment at the cache's end: its prompt cut to
@@ -3857,10 +3888,11 @@ def phase_engine() -> dict:
     FastForwardClock, serving `engine_trace` (24 requests: greedy, top-p
     and top-k; one with a stop token it emits, one ending mid-segment at
     the cache's end).  The main path is the trace's run, every count
-    set to 0 just before it: under ENGINE_PROFILED (w4a8) under the
+    set to 0 just before it: under ENGINE_PROFILED (w4a8) the run of its
+    first ENGINE_PROFILED_REQUESTS requests (not the cut one) under the
     profiler, its GEMM launches, graph replays included, the wrappers'
     eager prefills plus gemms_per_step x segment_len per segment, then
-    an unprofiled timed run of the same trace; under w8a8 unprofiled,
+    an unprofiled timed run of the whole trace; under w8a8 unprofiled,
     the wrappers counting its eager prefills, and itself the timed run.
     Gates: every request's stream equals the port's static `generate`
     of that request alone, bit for bit (`static_streams`), in every run;
@@ -3949,9 +3981,11 @@ def phase_engine() -> dict:
             # of a profile's kernel events: a run it counts short of that
             # (and over nothing) is driven again, on the same trace under
             # new request ids, three runs at most
+            head = [r for r in reqs if r is not cap][
+                :ENGINE_PROFILED_REQUESTS]
             for attempt in range(1, 4):
-                trace = _again(reqs, 1000 * attempt, keep_stops=True) \
-                    if attempt > 1 else reqs
+                trace = _again(head, 1000 * attempt, keep_stops=True) \
+                    if attempt > 1 else head
                 seg0 = eng.segments
                 for c in registry.LAUNCH_COUNTERS:
                     c.reset()
@@ -5043,6 +5077,10 @@ SPEC_CHAOS = "draft:1;verify:2,rate=0.05,seed=7,max=6"
 # trace's rounds need up to 52 positions, so the buckets (64, 128) cover
 # it with 8 of the 12 round graphs per engine (a cut for the run's time)
 SPEC_MIN_LEN = 64
+# the same draft's profiled run (the main path) serves the trace's first
+# this many requests, a cut for the run's time (ENGINE_PROFILED_REQUESTS);
+# its timed run serves all of it
+SPEC_PROFILED_REQUESTS = 12
 # mamba2's draft: its config cut to this many layers, drawn from seed 1
 SSM_DRAFT_LAYERS = 2
 # phases 13 and 15 keep their builds and streams here for phase 16
@@ -5187,7 +5225,7 @@ def phase_spec() -> dict:
     per = gemms_per_step(cfg)
     pre, rnds = _spec_shapes(same)
     for attempt in range(1, 4):
-        trace = spec_trace(cfg, 100 * (attempt - 1))
+        trace = spec_trace(cfg, 100 * (attempt - 1))[:SPEC_PROFILED_REQUESTS]
         pre.clear()
         rnds.clear()
         st0 = dict(same._spec_stats)
@@ -5661,6 +5699,294 @@ def phase_engine_whisper(smi: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 256          # launch/train.py's defaults
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 12, 4
+TRAIN_FAILURES = "5,9"
+# steps on one repeated batch for the falling-loss gates (granite: at
+# MOE_LAYERS, every width)
+TRAIN_REPEAT, TRAIN_MOE_STEPS = 6, 4
+# the H100 SXM data sheet's dense bf16 tensor rate (no sparsity)
+BF16_PEAK_FLOPS = 989e12
+# (d): card against CPU, float32; the update at step 4 is close to
+# sign(g) * lr: params within 5% of the step's size lr * lr_scale
+TRAIN_CPU_RTOL = 1e-4
+TRAIN_CPU_STEP_SHARE = 0.05
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (no remat recompute): 6 N T for the
+    N matmul parameters each of the T tokens passes (the MoE's active
+    experts only; an untied embedding's lookup is no product, a head
+    is) plus attention's 12 L S d_q per token (scores and output,
+    forward and backward, the causal half not discounted)."""
+    n = cfg.active_param_count()
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab * cfg.d_model
+    tokens = batch * seq
+    return 6.0 * n * tokens + 12.0 * cfg.n_layers * seq * cfg.q_dim * tokens
+
+
+def _train_args(ckpt_dir, failures: str, **kw):
+    import argparse
+    a = dict(arch=TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
+             batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=1e-3, microbatches=1,
+             mesh="1x1", seed=0, ckpt_dir=str(ckpt_dir),
+             ckpt_every=TRAIN_CKPT_EVERY, log_every=TRAIN_CKPT_EVERY,
+             simulate_failures=failures, max_restarts=5, sim_hosts=4,
+             device=DEVICE)
+    a.update(kw)
+    return argparse.Namespace(**a)
+
+
+def _repeated_batch_losses(cfg, params, steps: int, seed: int = 0) -> list:
+    """The NLL before each of `steps` AdamW steps (lr 1e-3, warmup 1) on
+    one batch of `launch/train.py`'s stream, from `params` on the card."""
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import TrainConfig, make_train_step
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), schedule_warmup=1,
+                       schedule_total=1000)
+    opt = adamw_init(params, tcfg.optimizer)
+    step = make_train_step(cfg, tcfg)
+    batch = {"tokens": torch.from_numpy(make_stream(DataConfig(
+        TRAIN_SEQ, TRAIN_BATCH, cfg.vocab, seed=seed)).batch_at(0)).to(
+            DEVICE)}
+    losses = []
+    for _ in range(steps):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        if not math.isfinite(losses[-1]) or not math.isfinite(
+                float(m["aux_loss"])):
+            raise AssertionError(f"training {cfg.name}: a nonfinite loss "
+                                 f"{m}")
+    return losses
+
+
+def train_step_vs_cpu(arch: str) -> str:
+    """One train step of reduced `arch` in float32 on the card against
+    the same step on the CPU (the same seeded params, batch and state at
+    step 3 of a 15-step warmup): loss and grad norm within
+    TRAIN_CPU_RTOL, every updated param within TRAIN_CPU_STEP_SHARE of
+    the step's size.  Returns the log line's measurements."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.training import TrainConfig, make_train_step
+    cfg = dataclasses.replace(configs.get_reduced_config(arch),
+                              dtype="float32")
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), schedule_warmup=15,
+                       schedule_total=40)
+    step = make_train_step(cfg, tcfg)
+    toks = torch.randint(0, cfg.vocab, (4, 33),
+                         generator=torch.Generator().manual_seed(5))
+    outs = {}
+    for dev in ("cpu", DEVICE):
+        params = _to_device(lm.init_params(cfg, 0, device="cpu", max_seq=64),
+                            dev)
+        opt = dict(adamw_init(params, tcfg.optimizer),
+                   step=torch.tensor(3, dtype=torch.int32, device=dev))
+        outs[dev] = step(params, opt, {"tokens": toks.to(dev)})
+    (pc, _, mc), (pg, _, mg) = outs["cpu"], outs[DEVICE]
+    lr_step = 1e-3 * float(mc["lr_scale"])
+    worst = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(leaves(pg), leaves(pc)))
+    rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+           for k in ("loss", "grad_norm")}
+    if any(v > TRAIN_CPU_RTOL for v in rel.values()) or \
+            worst > TRAIN_CPU_STEP_SHARE * lr_step:
+        raise AssertionError(
+            f"training {arch} reduced float32: the card's step against the "
+            f"CPU's: {rel}, params {worst:.3g} (step {lr_step:.3g})")
+    return (f"{arch}: loss {float(mg['loss']):.6f}, rel "
+            f"{rel['loss']:.2g}, grad norm rel {rel['grad_norm']:.2g}, "
+            f"params {worst:.3g} ({100 * worst / lr_step:.2f}% of the step "
+            f"{lr_step:.3g})")
+
+
+def _sync():
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_train() -> None:
+    """Phase 17: training (module docstring, 17).  Nothing here reaches a
+    hand-written kernel, so the `kernels` line is unchanged."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    from repro_torch import checkpoint, configs
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.kernels import registry
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.training import TrainConfig, make_train_step
+
+    smi = smi_line()
+    torch.cuda.empty_cache()
+    secs, t_part = {}, [time.perf_counter()]
+
+    def part(what):
+        now = time.perf_counter()
+        secs[what] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    tag = f"training {TRAIN_ARCH}"
+    # train.run's checkpoint calls, timed where they are made
+    io_s = collections.defaultdict(list)
+    real = {f: getattr(checkpoint, f) for f in ("save_checkpoint",
+                                                "restore_checkpoint")}
+
+    def timed(f):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real[f](*a, **kw)
+            _sync()
+            if f == "save_checkpoint" or out[0] is not None:
+                io_s[f].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as st:
+        for f in real:
+            st.callback(setattr, checkpoint, f, real[f])
+            setattr(checkpoint, f, timed(f))
+        # (a) the main path: train.run with failures, counts from 0
+        for c in registry.LAUNCH_COUNTERS:
+            c.reset()
+        failed = train.run(_train_args(f"{tmp}/failed", TRAIN_FAILURES))
+        counts = {c.name: c.count for c in registry.LAUNCH_COUNTERS}
+        part("run with failures")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        clean = train.run(_train_args(f"{tmp}/clean", ""))
+        peak = torch.cuda.max_memory_allocated()
+        part("run without")
+        latest = checkpoint.latest_step(f"{tmp}/failed")
+    like = {"params": clean["params"], "opt": clean["opt"]}
+    ckpt_gb = sum(t.numel() * t.element_size() for t in leaves(like)) / 1e9
+    saves, restores = io_s["save_checkpoint"], io_s["restore_checkpoint"]
+    same = {k: all(a.shape == b.shape and torch.equal(a, b) for a, b in
+                   zip(leaves(failed[k]), leaves(clean[k])))
+            for k in ("params", "opt")}
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: the train path launched hand-written "
+                             f"kernels: {counts}")
+    if failed["restores"] != 2 or latest != TRAIN_STEPS or \
+            not math.isfinite(failed["final_loss"]):
+        raise AssertionError(f"{tag}: restores {failed['restores']}, latest "
+                             f"checkpoint {latest}, final loss "
+                             f"{failed['final_loss']}")
+    if not all(same.values()) or failed["final_loss"] != clean["final_loss"]:
+        raise AssertionError(f"{tag}: the run with failures ended apart from "
+                             f"the run without: {same}, loss "
+                             f"{failed['final_loss']} vs "
+                             f"{clean['final_loss']}")
+    step_ms = statistics.median(clean["step_ms"][1:])
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    log(f"{tag} ({smi}): B={TRAIN_BATCH}, seq {TRAIN_SEQ}, bf16, AdamW "
+        f"float32 state, remat; step {step_ms:.2f} ms (median of steps "
+        f"1-{TRAIN_STEPS - 1}; the first {clean['step_ms'][0]:.1f} ms), "
+        f"{tok_s:.0f} tokens/s; max memory allocated {peak / 2**30:.2f} "
+        f"GiB ({held / 2**30:.2f} GiB held before the run); model FLOPs {flops / 1e12:.3f} TFLOP per step (6 N T + "
+        f"attention, N = {cfg.active_param_count() / 1e6:.1f} M), "
+        f"{flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s, "
+        f"{100 * flops / (step_ms / 1e3) / BF16_PEAK_FLOPS:.2f}% of the "
+        f"dense bf16 peak {BF16_PEAK_FLOPS / 1e12:.1f} TFLOP/s; losses "
+        f"{[round(x, 4) for x in clean['history']]}")
+    log(f"{tag}: failures at steps {TRAIN_FAILURES}: {failed['restores']} "
+        f"restores, last checkpoint at step {latest}, final loss "
+        f"{failed['final_loss']:.6f} == the unfailed run's; params and "
+        f"optimizer state bit for bit the unfailed run's; the path launched "
+        f"no hand-written kernel (every counter 0: rows 1-6 of the "
+        f"kernels line are not on it); checkpoints of {ckpt_gb:.3f} GB: "
+        f"{len(saves)} saves {min(saves):.2f}-{max(saves):.2f} s, the 2 "
+        f"restores {restores[0]:.2f} and {restores[1]:.2f} s (the files "
+        f"warm in the page cache)")
+    del failed, like
+    # the loss falls over steps on one repeated batch
+    params = lm.init_params(cfg, 0, device=DEVICE, max_seq=TRAIN_SEQ + 8)
+    losses = _repeated_batch_losses(cfg, params, TRAIN_REPEAT)
+    if not losses[-1] < 0.99 * losses[0]:
+        raise AssertionError(f"{tag}: the loss did not fall on a repeated "
+                             f"batch: {losses}")
+    part("repeated batch")
+    # (b) microbatches 2 against 1, one step from the same state
+    tb = {"tokens": torch.from_numpy(make_stream(DataConfig(
+        TRAIN_SEQ, TRAIN_BATCH, cfg.vocab, seed=1)).batch_at(0)).to(DEVICE)}
+    outs = {}
+    for mb in (1, 2):
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), microbatches=mb,
+                           schedule_warmup=2, schedule_total=TRAIN_STEPS)
+        opt = dict(adamw_init(params, tcfg.optimizer),
+                   step=torch.tensor(3, dtype=torch.int32, device=DEVICE))
+        outs[mb] = make_train_step(cfg, tcfg)(params, opt, tb)
+    (p1, _, m1), (p2, _, m2) = outs[1], outs[2]
+    loss_rel = abs(float(m1["loss"]) - float(m2["loss"])) / float(m1["loss"])
+    p_diff = max(float((a.float() - b.float()).abs().max())
+                 for a, b in zip(leaves(p1), leaves(p2)))
+    if not (loss_rel <= 1e-3 and p_diff < 2e-2):
+        raise AssertionError(f"{tag}: 2 microbatches against 1: loss rel "
+                             f"{loss_rel:.3g}, params {p_diff:.3g}")
+    log(f"{tag}: repeated batch, losses {[round(x, 4) for x in losses]}; "
+        f"2 microbatches against 1: loss rel {loss_rel:.3g} (bound 1e-3), "
+        f"params {p_diff:.3g} (bound 2e-2)")
+    del params, outs, p1, p2
+    part("microbatches")
+    # (c) granite-moe at MOE_LAYERS: the capacity dispatch on the card
+    mcfg = dataclasses.replace(configs.get_config("granite-moe-1b-a400m"),
+                               n_layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mparams = lm.init_params(mcfg, 0, device=DEVICE, max_seq=TRAIN_SEQ + 8)
+    _sync()
+    t0 = time.perf_counter()
+    mlosses = _repeated_batch_losses(mcfg, mparams, TRAIN_MOE_STEPS)
+    _sync()
+    moe_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_MOE_STEPS
+    if not mlosses[-1] < mlosses[0]:
+        raise AssertionError(f"training {mcfg.name} {MOE_LAYERS}L: the loss "
+                             f"did not fall on a repeated batch: {mlosses}")
+    m = mcfg.moe
+    cap = int(m.capacity_factor * m.top_k * TRAIN_BATCH * TRAIN_SEQ
+              / m.n_experts) + 1
+    log(f"training {mcfg.name} {MOE_LAYERS}L ({smi}): every width, B="
+        f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, capacity {cap} per expert of "
+        f"{m.n_experts} (top-{m.top_k}); losses "
+        f"{[round(x, 4) for x in mlosses]}; {moe_ms:.1f} ms per step "
+        f"(mean of {TRAIN_MOE_STEPS}, the first included), max memory "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({held / 2**30:.2f} GiB held before)")
+    del mparams
+    torch.cuda.empty_cache()
+    part("granite-moe")
+    # (d) reduced float32, the card's step against the CPU's
+    lines = [train_step_vs_cpu(a)
+             for a in (TRAIN_ARCH, "granite-moe-1b-a400m")]
+    part("reduced vs CPU")
+    log(f"training, reduced float32, one step on the card against the "
+        f"CPU: {'; '.join(lines)}; the phase's seconds: {secs}")
+
+
 def _small_m_back_to_back_us(res: dict) -> float:
     """The small-M kernel's mean time per decode launch, back to back
     (phase_kernels' CUDA-event timing, L2 spilled), weighted as one
@@ -5844,6 +6170,7 @@ def main() -> int:
                      phase_engine_methods))
     eng.update(phase("speculative decoding and the async front-end",
                      phase_spec_frontend))
+    phase("training: smollm-135m, granite-moe-1b-a400m", phase_train)
     for paths_of in (moe, ssm, hyb, enc, vlm):
         for k, paths in paths_of.items():
             other.setdefault(k, {}).update(paths)

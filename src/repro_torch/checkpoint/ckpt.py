@@ -14,7 +14,9 @@ in the other:
   dict's keys in sorted order -- the order `jax.tree_util` flattens a
   dict in (torch's pytree keeps insertion order), so `leaf_%05d` numbers
   the same leaf in both packages.  A leaf is a tensor, an array or a
-  scalar; None is not a leaf here (JAX flattens it to nothing).
+  scalar; a None (the optimizer's moment at a non-float leaf) is no
+  leaf, as JAX flattens it to nothing: it takes no number and comes
+  back as None.
 * **Dtypes numpy lacks** (bfloat16, float8): the raw bits are stored as
   the unsigned integer of their width under ``<key>__<dtype name>``, the
   reference's encoding for ml_dtypes, and come back as torch tensors.
@@ -49,10 +51,15 @@ def _sorted(tree):
 
 
 def _flatten_with_paths(tree):
+    """(leaves, their keys, spec): the keys number the leaves that are
+    not None (None's key is None)."""
     flat, spec = pytree.tree_flatten(_sorted(tree))
-    if any(x is None for x in flat):
-        raise ValueError("checkpoint trees hold no None leaves")
-    return flat, [f"leaf_{i:05d}" for i in range(len(flat))], spec
+    n = 0
+    keys = []
+    for x in flat:
+        keys.append(None if x is None else f"leaf_{n:05d}")
+        n += x is not None
+    return flat, keys, spec
 
 
 def _to_numpy(leaf) -> tuple:
@@ -81,6 +88,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
     flat, paths, spec = _flatten_with_paths(tree)
     arrays, manifest = {}, []
     for key, leaf in zip(paths, flat):
+        if key is None:
+            continue
         arr, dt_name = _to_numpy(leaf)
         arrays[key if dt_name is None else f"{key}__{dt_name}"] = arr
         manifest.append({"key": key, "shape": list(arr.shape),
@@ -152,11 +161,13 @@ def load_meta(ckpt_dir: str, *, step: Optional[int] = None):
 
 
 def _leaf_like(arr: np.ndarray, dt_name: Optional[str], like, device):
+    # np.ascontiguousarray makes a 0-d array 1-d: keep the shape
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if dt_name is not None:
-        t = torch.from_numpy(np.ascontiguousarray(arr)).view(
+        t = torch.from_numpy(arr).view(
             getattr(torch, dt_name))
     elif isinstance(like, torch.Tensor):
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(arr)
     else:
         want = getattr(like, "dtype", arr.dtype)
         return np.asarray(arr, want)
@@ -184,7 +195,7 @@ def restore_checkpoint(ckpt_dir: str, like: Any, *,
             base, _, dt_name = k.partition("__")
             by_key[base] = (data[k], dt_name or None)
     flat_like, paths, spec = _flatten_with_paths(like)
-    flat = [_leaf_like(*by_key[key], leaf, device)
+    flat = [None if key is None else _leaf_like(*by_key[key], leaf, device)
             for key, leaf in zip(paths, flat_like)]
     return pytree.tree_unflatten(flat, spec), step
 

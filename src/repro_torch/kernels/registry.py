@@ -215,10 +215,12 @@ def window_events(prof) -> list:
     with none seen, the loss may have reached the block's own
     kernels."""
     counts, times = collections.Counter(), collections.Counter()
+    cuda = torch._C._autograd.DeviceType.CUDA   # an enum compare, no str
     for e in prof.profiler.kineto_results.events():
-        if str(e.device_type()).endswith("CUDA"):
-            counts[e.name()] += 1
-            times[e.name()] += e.duration_ns()
+        if e.device_type() == cuda:
+            name = e.name()
+            counts[name] += 1
+            times[name] += e.duration_ns()
     merged = collections.defaultdict(lambda: [0, 0])
     for name, n in counts.items():
         key = torch._C._demangle(name) if len(name) > 1 else name

@@ -14,7 +14,9 @@ the temporal row alone, as the reference's does, so the patches of one
 image (one temporal position) attend to each other both ways.
 Written as plain PyTorch mirroring the reference's numerics -- scores
 and softmax in float32, masks at -1e30, weights cast to v's dtype --
-with no fused SDPA.
+with no fused SDPA.  Serving sums in batch-invariant orders (ROADMAP
+C10, C12); training's forward (`train=True`) takes the reference's two
+einsums, which autograd differentiates as they are.
 
 KV cache: {k, v: [B, S_max, KV, D]}, in cfg.dtype; with
 serve_kv_dtype="int8", k and v are int8 with per-position float32 scales
@@ -161,21 +163,43 @@ def _kv_dequant(q, scale, dtype):
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
+def _plain_scores(q, k):
+    """The reference's score product as one float32 einsum: q [B,S,H,D],
+    k [B,T,KV,D] -> [B,KV,G,S,T]."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    q = q.reshape(b, s, kv, h // kv, d).to(torch.float32)
+    return torch.einsum("bskgd,btkd->bkgst", q, k.to(torch.float32))
+
+
+def _plain_out(w, v):
+    """The reference's output product as one float32 einsum, rounded once
+    to v's dtype: w [B,KV,G,S,T], v [B,T,KV,D] -> [B,S,H*D]."""
+    b, kv, g, s, t = w.shape
+    o = torch.einsum("bkgst,btkd->bskgd", w.to(torch.float32),
+                     v.to(torch.float32))
+    return o.reshape(b, s, kv * g * v.shape[-1]).to(v.dtype)
+
+
 def _attend(q, k, v, cfg: ModelConfig, dtype, qpos=None, kpos=None,
-            valid=None, fixed: bool = False):
+            valid=None, fixed: bool = False, plain: bool = False):
     """GQA of q [B,S,H,D] over k, v [B,T,KV,D]: [B,S,H*D] in v's dtype;
     softmax weights in `dtype`.  Causal where qpos [B,S] and kpos [B,T]
     are given (key t is seen where kpos <= qpos); keys off `valid` [B,T]
     bool are masked.  A masked score is -1e30, so a row with no key left
     gets a uniform, finite softmax.  fixed: the fixed-order products for
-    S > 1 too (`_gqa_scores`)."""
-    scores = _gqa_scores(q, k, fixed) * (1.0 / math.sqrt(cfg.head_dim))
+    S > 1 too (`_gqa_scores`).  plain (training): both products as the
+    reference's einsums, with no in-place sum for autograd to meet; the
+    batch invariance of the other forms is a serving promise."""
+    scores = _plain_scores(q, k) if plain else _gqa_scores(q, k, fixed)
+    scores = scores * (1.0 / math.sqrt(cfg.head_dim))
     if qpos is not None:
         mask = qpos[:, None, None, :, None] >= kpos[:, None, None, None, :]
         scores = scores.masked_fill(~mask, _NEG)
     if valid is not None:
         scores = scores.masked_fill(~valid[:, None, None, None, :], _NEG)
-    return _gqa_out(common.softmax(scores).to(dtype), v, fixed)
+    w = common.softmax(scores).to(dtype)
+    return _plain_out(w, v) if plain else _gqa_out(w, v, fixed)
 
 
 def _valid(lengths, t: int, device):
@@ -183,20 +207,23 @@ def _valid(lengths, t: int, device):
     return torch.arange(t, device=device)[None, :] < lengths[:, None]
 
 
-def _attn_chunked(q, k, v, srcpos, cfg: ModelConfig, q_chunk: int):
+def _attn_chunked(q, k, v, srcpos, cfg: ModelConfig, q_chunk: int,
+                  plain: bool = False):
     """Causal attention with the query dim cut in chunks of q_chunk: only
     a [B, KV, G, q_chunk, T] score block is live at a time (the
     reference scans over the chunks; a Python loop here).  srcpos: the
     [B, S] positions the mask compares (M-RoPE: the temporal row)."""
     return torch.cat([
         _attend(q[:, c:c + q_chunk], k, v, cfg, v.dtype,
-                srcpos[:, c:c + q_chunk], srcpos)
+                srcpos[:, c:c + q_chunk], srcpos, plain=plain)
         for c in range(0, q.shape[1], q_chunk)], dim=1)
 
 
 def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None,
-              causal: bool = True, kv_lengths=None, fixed: bool = False):
-    """Self-attention over the full sequence (prefill; the encoder).
+              causal: bool = True, kv_lengths=None, fixed: bool = False,
+              train: bool = False):
+    """Self-attention over the full sequence (prefill; the encoder;
+    training's forward with train=True: the plain products, `_attend`).
 
     positions: [B,S] int, or [3,B,S] under cfg.m_rope_sections (the
     causal mask then reads positions[0], the temporal row, as the
@@ -226,12 +253,13 @@ def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None,
     srcpos = positions if positions.ndim == 2 else positions[0]
     chunk = cfg.attn_q_chunk
     if chunk and causal and s > chunk and s % chunk == 0:
-        o = _attn_chunked(q, k, v, srcpos, cfg, chunk)
+        o = _attn_chunked(q, k, v, srcpos, cfg, chunk, plain=train)
     else:
         valid = None if kv_lengths is None else \
             _valid(kv_lengths, s, x.device)
         qpos, kpos = (srcpos, srcpos) if causal else (None, None)
-        o = _attend(q, k, v, cfg, x.dtype, qpos, kpos, valid, fixed)
+        o = _attend(q, k, v, cfg, x.dtype, qpos, kpos, valid, fixed,
+                    plain=train)
     out = qmatmul(o, p["wo"])
     if cache is not None:
         _write_prefill(cache, k, v)
@@ -320,7 +348,7 @@ def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
 
 
 def attn_cross(p, x, memory, cfg: ModelConfig, mem_kv=None,
-               enc_lengths=None):
+               enc_lengths=None, train: bool = False):
     """Cross-attention of the decoder's x [B,S,d] over the encoder's
     memory [B,S_enc,d]: [B,S,d].  With mem_kv {k, v: [B,T,KV,D], len:
     [B]} (the cross K/V the prefill projected, right-padded to T), the
@@ -330,7 +358,8 @@ def attn_cross(p, x, memory, cfg: ModelConfig, mem_kv=None,
     finite softmax (never NaN).  The K/V is only read.  The sums are
     fixed-order at every S (`_attend(fixed=True)`): the engine's prefill
     attends over its slot's page padded to enc_len, the static path over
-    the request's frames (ROADMAP C12)."""
+    the request's frames (ROADMAP C12); train=True takes the plain
+    products instead (`_attend`)."""
     q = _project_q(p, x, cfg)
     if mem_kv is None:
         k, v = _project_kv(p, memory, cfg)
@@ -340,8 +369,8 @@ def attn_cross(p, x, memory, cfg: ModelConfig, mem_kv=None,
             enc_lengths = mem_kv.get("len")
     valid = None if enc_lengths is None else \
         _valid(enc_lengths, k.shape[1], x.device)
-    return qmatmul(_attend(q, k, v, cfg, x.dtype, valid=valid, fixed=True),
-                   p["wo"])
+    return qmatmul(_attend(q, k, v, cfg, x.dtype, valid=valid,
+                           fixed=not train, plain=train), p["wo"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device):

@@ -10,10 +10,22 @@ cross-attention over the encoder's memory, GELU MLP).
 `BLOCK_FNS` maps a family to the block its prefill and decode run over
 the cache, as the reference's `repro/models/lm.py:25` does (encdec: the
 decoder's; `lm.encode` runs `enc_block`); `lm` runs the stack through
-it."""
+it.
+
+Modes: "prefill" and "decode" return the new hidden state (the cache
+written in place); "train" (`lm.forward`) writes no cache and returns
+(the new hidden state, the block's aux loss: a float32 scalar, the sum
+of its MoE layers' load-balancing losses, 0 without one), as the
+reference's blocks return it in every mode.  Training routes the MoE by
+capacity (`mlp.moe(per_token=False)`), runs the SSD mixer on the
+adaptive chunk grid (`ssd_forward(lengths=None)`) and attention in its
+plain form (`attn_full(train=True)`); none of that reaches a prefill or
+decode step."""
 from __future__ import annotations
 
 import collections
+
+import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp, ssm
@@ -26,6 +38,21 @@ def tree_idx(tree, i):
     if isinstance(tree, dict):
         return {k: tree_idx(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack(tree, n: int) -> list:
+    """The n slices of the leading axis of every leaf, as n trees: one
+    `unbind` per leaf, whose gradient is one stack of the slices'
+    gradients (n `tree_idx` selects would each add a zero tensor of the
+    whole stack's size in the backward)."""
+    if isinstance(tree, dict):
+        subs = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _no_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def hybrid_layout(cfg: ModelConfig) -> list:
@@ -51,6 +78,8 @@ def _attend(p, x, cfg, mode, cache, pos, positions, active):
         return attn.attn_decode(p["attn"], h, cache, pos, cfg, active=active)
     if mode == "prefill":
         return attn.attn_full(p["attn"], h, cfg, positions, cache=cache)
+    if mode == "train":
+        return attn.attn_full(p["attn"], h, cfg, positions, train=True)
     raise ValueError(f"unknown mode {mode!r}")
 
 
@@ -62,9 +91,10 @@ def dense_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     state (the reference also returns the new cache and an aux loss; here
     the cache is mutated in place and dense blocks have no aux loss).
     `lengths` (the prefill's real tokens per row) is for the ssm unit:
-    causal attention needs no lengths."""
+    causal attention needs no lengths.  mode "train": (x, aux 0)."""
     x = x + _attend(p, x, cfg, mode, cache, pos, positions, active)
-    return x + mlp.mlp(p["mlp"], _norm(cfg, x, p["ln2"]), cfg)
+    x = x + mlp.mlp(p["mlp"], _norm(cfg, x, p["ln2"]), cfg)
+    return (x, _no_aux(x)) if mode == "train" else x
 
 
 def moe_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
@@ -73,13 +103,16 @@ def moe_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     routes per token (dropless), so a row's tokens are independent of
     its batch mates and padding; arctic adds a dense MLP on the same
     normed input.  Returns the new hidden state: the reference's aux loss
-    is dropped by its prefill / decode, and not computed here."""
+    is dropped by its prefill / decode, and not computed here.  mode
+    "train" routes by capacity (`mlp.moe(per_token=False)`) and returns
+    (x, the MoE's aux loss)."""
+    train = mode == "train"
     x = x + _attend(p, x, cfg, mode, cache, pos, positions, active)
     h2 = _norm(cfg, x, p["ln2"])
-    y, _ = mlp.moe(p["moe"], h2, cfg, per_token=True, want_aux=False)
+    y, aux = mlp.moe(p["moe"], h2, cfg, per_token=not train, want_aux=train)
     if "dense" in p:                      # arctic: parallel dense residual
         y = y + mlp.mlp(p["dense"], h2, cfg)
-    return x + y
+    return (x + y, aux) if train else x + y
 
 
 def ssm_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
@@ -88,7 +121,8 @@ def ssm_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     "prefill" runs `ssd_forward` on the fixed chunk grid with `lengths`
     ([B] real tokens per row) and writes the final state into `cache`
     ({ssm, conv}) in place, where one is given; mode "decode" steps the
-    state in `cache` in place (`active` masks its update)."""
+    state in `cache` in place (`active` masks its update); mode "train"
+    runs the mixer on the adaptive grid and returns (x, aux 0)."""
     h = _norm(cfg, x, p["ln"])
     if mode == "decode":
         y, _ = ssm.ssd_decode(p["ssm"], h, cache, cfg, active=active)
@@ -97,6 +131,9 @@ def ssm_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
                                    return_state=True)
         for k, t in state.items() if cache is not None else ():
             cache[k].copy_(t)
+    elif mode == "train":
+        x = x + ssm.ssd_forward(p["ssm"], h, cfg)
+        return x, _no_aux(x)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     return x + y
@@ -115,11 +152,17 @@ def hybrid_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
     fills it (the mixers on the fixed chunk grid with `lengths`), a
     decode step steps it (masked by `active`); a prefill without a cache
     writes none.  Modes as dense_block's; the reference's aux loss is
-    dropped, as its prefill / decode drop it."""
-    if mode not in ("prefill", "decode"):
+    dropped, as its prefill / decode drop it.  mode "train": the mixers
+    on the adaptive grid, the MoE by capacity, no cache; returns (x, the
+    sum of the unit's MoE aux losses, in layer order)."""
+    if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"unknown mode {mode!r}")
+    train = mode == "train"
+    if train:
+        cache = None
     kv = None if cache is None else \
         {k: t for k, t in cache.items() if k not in ("ssm", "conv")}
+    aux_total = _no_aux(x)
     n = collections.Counter()        # layers of each kind so far
     for i, (mixer, ffn) in enumerate(hybrid_layout(cfg)):
         if mixer == "attn":
@@ -129,7 +172,7 @@ def hybrid_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
                                          active=active)
             else:
                 x = x + attn.attn_full(p["attn"], h, cfg, positions,
-                                       cache=kv)
+                                       cache=kv, train=train)
         else:
             j = n["mamba"]
             layer = {"ln": tree_idx(p["mamba_ln"], j),
@@ -138,24 +181,29 @@ def hybrid_block(p, x, cfg: ModelConfig, *, mode="prefill", cache=None,
                 {k: cache[k][j] for k in ("ssm", "conv")}
             x = ssm_block(layer, x, cfg, mode=mode, cache=state,
                           active=active, lengths=lengths)
+            if train:
+                x, _ = x
         h2 = _norm(cfg, x, tree_idx(p["ffn_ln"], i))
         if ffn == "moe":
-            y, _ = mlp.moe(tree_idx(p["moe"], n["moe"]), h2, cfg,
-                           per_token=True, want_aux=False)
+            y, aux = mlp.moe(tree_idx(p["moe"], n["moe"]), h2, cfg,
+                             per_token=not train, want_aux=train)
+            if train:
+                aux_total = aux_total + aux
         else:
             y = mlp.mlp(tree_idx(p["dense"], n["dense"]), h2, cfg)
         n.update((mixer, ffn))
         x = x + y
-    return x
+    return (x, aux_total) if train else x
 
 
-def enc_block(p, x, cfg: ModelConfig, lengths=None):
+def enc_block(p, x, cfg: ModelConfig, lengths=None, train: bool = False):
     """One encoder layer: pre-norm bidirectional self-attention, then the
     pre-norm MLP.  lengths: optional [B] real frames per row; the padded
     frames are masked out of the attention, so a right-padded row's real
-    positions come out as they would unpadded."""
+    positions come out as they would unpadded.  train: the attention's
+    plain form (`attn_full(train=True)`)."""
     x = x + attn.attn_full(p["attn"], _norm(cfg, x, p["ln1"]), cfg,
-                           causal=False, kv_lengths=lengths)
+                           causal=False, kv_lengths=lengths, train=train)
     return x + mlp.mlp(p["mlp"], _norm(cfg, x, p["ln2"]), cfg)
 
 
@@ -179,10 +227,18 @@ def dec_block(p, x, cfg: ModelConfig, *, memory=None, mode="prefill",
     step never writes.  Both attend over the cross K/V masked by
     enc_lengths, else cross_len.  A prefill without a cache (the embed
     method's) writes none and attends over the memory's own projection,
-    masked by enc_lengths.  Returns the new hidden state."""
+    masked by enc_lengths.  Returns the new hidden state.  mode "train":
+    causal self-attention and cross-attention over the memory's own
+    projection, both in their plain form, no cache; returns (x, aux 0)."""
     h = _norm(cfg, x, p["ln1"])
     self_c = None if cache is None else \
         {k: t for k, t in cache.items() if k not in CROSS}
+    if mode == "train":
+        x = x + attn.attn_full(p["self"], h, cfg, train=True)
+        x = x + attn.attn_cross(p["cross"], _norm(cfg, x, p["ln2"]), memory,
+                                cfg, train=True)
+        x = x + mlp.mlp(p["mlp"], _norm(cfg, x, p["ln3"]), cfg)
+        return x, _no_aux(x)
     if mode == "decode":
         a = attn.attn_decode(p["self"], h, self_c, pos, cfg, active=active)
     elif mode == "prefill":

@@ -14,10 +14,11 @@ from typing import Optional, Tuple
 class MoEConfig:
     """The reference's MoEConfig, field for field.  Serving routes every
     token to its top_k experts dropless (`mlp.moe(per_token=True)`) and
-    reads n_experts, top_k, d_ff_expert and dense_residual;
-    capacity_factor, interleave, dispatch and dispatch_groups belong to
-    the capacity dispatch of training (ROADMAP queue A items 4.6, 8) and
-    are carried so that a config equals the reference's."""
+    reads n_experts, top_k, d_ff_expert and dense_residual; training's
+    capacity dispatch (`mlp.moe(per_token=False)`) reads capacity_factor,
+    dispatch and dispatch_groups ("shard_map", the mesh's dispatch,
+    comes with ROADMAP A8 and runs "global" until then); the hybrid
+    family's blocks read interleave."""
     n_experts: int
     top_k: int
     d_ff_expert: int
@@ -26,7 +27,8 @@ class MoEConfig:
     dense_residual: bool = False
     # jamba: MoE only on every `interleave`-th layer (1 = every layer)
     interleave: int = 1
-    # token dispatch of training: "global" or "grouped" (GShard-style)
+    # token dispatch of training: "global", "grouped" (GShard-style) or
+    # "shard_map" (over a mesh, ROADMAP A8; "global" without one)
     dispatch: str = "global"
     dispatch_groups: int = 32
 

@@ -1,5 +1,5 @@
-"""Top-level language model: init / prefill / decode for the dense, moe,
-ssm, hybrid, encdec and vlm families.
+"""Top-level language model: init / forward / prefill / decode for the
+dense, moe, ssm, hybrid, encdec and vlm families.
 
 Port of `repro/models/lm.py`.  The reference stacks layer params on a
 leading axis and runs the stack under `jax.lax.scan`; the port keeps the
@@ -25,16 +25,22 @@ cache are the dense ones, its prefill takes token ids or the vision
 frontend's precomputed patch embeddings [B, S, d] (the frontend is a
 stub, as in the reference) with [3, B, S] positions.  Each unit runs
 the block of its family (`blocks.BLOCK_FNS`, as the reference's
-`BLOCK_FNS`).
+`BLOCK_FNS`).  Training's `forward` / `encdec_forward` run the blocks
+in mode "train" (no cache; the MoE by capacity, the SSD on its adaptive
+grid) and return (logits, aux); each unit may run under
+`torch.utils.checkpoint` (remat), as the reference's scan body under
+`jax.checkpoint`.
 """
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.models import attention as attn_mod
@@ -245,6 +251,57 @@ def _embed(p, tokens_or_embeds, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# decoder-only forward (train)
+# ---------------------------------------------------------------------------
+
+def _run_units(units, x, fn, remat: bool):
+    """Apply fn(unit_params, x) -> (x, aux) over the units in order,
+    summing the float32 aux from 0 as the reference's scan carry does;
+    with remat each unit runs under a non-reentrant checkpoint (its
+    activations recomputed in the backward)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for unit in units:
+        if remat:
+            x, a = checkpoint(fn, unit, x, use_reentrant=False)
+        else:
+            x, a = fn(unit, x)
+        aux = aux + a
+    return x, aux
+
+
+def forward(params, inputs, cfg: ModelConfig, *, remat: bool = True,
+            positions=None):
+    """Training's forward (reference lm.py:92): inputs [B,S] int tokens or
+    [B,S,d] float stub embeddings (vlm; [3,B,S] arange positions unless
+    given) -> (logits [B,S,V] float32, aux float32 scalar: the sum of
+    the MoE layers' load-balancing losses).  encdec: inputs (features
+    [B,S_enc,d], dec_tokens [B,S]), `encdec_forward`.  The stacked
+    params are unbound per unit once (`blocks.unstack`) and the units
+    run in a loop, each under `torch.utils.checkpoint` with remat."""
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        return encdec_forward(params, inputs, cfg, remat=remat)
+    x = _embed(params, inputs, cfg)
+    b, s = x.shape[:2]
+    if cfg.learned_pos:
+        x = x + params["pos_embed"][None, :s, :]
+    if cfg.m_rope_sections is not None and positions is None:
+        positions = torch.arange(s, device=x.device).expand(3, b, s)
+    block = functools.partial(_train_block, blocks.BLOCK_FNS[cfg.family],
+                              cfg=cfg, positions=positions)
+    x, aux = _run_units(blocks.unstack(params["blocks"], n_scan_units(cfg)),
+                        x, block, remat)
+    x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return _lm_head(params, x, cfg), aux
+
+
+def _train_block(block, unit, x, *, cfg, positions=None, memory=None):
+    if memory is not None:
+        return block(unit, x, cfg, memory=memory, mode="train")
+    return block(unit, x, cfg, mode="train", positions=positions)
+
+
+# ---------------------------------------------------------------------------
 # prefill / decode
 # ---------------------------------------------------------------------------
 
@@ -354,19 +411,42 @@ def decode_step(params, token_t, cache, pos, cfg: ModelConfig, active=None):
 # encoder-decoder (whisper)
 # ---------------------------------------------------------------------------
 
-def encode(params, embeds, cfg: ModelConfig, lengths=None):
+def encode(params, embeds, cfg: ModelConfig, lengths=None,
+           train: bool = False):
     """The encoder over frame embeddings [B, S_enc, d] (the audio
     frontend's output; the frontend is a stub, as in the reference):
     cast to cfg.dtype, plus `enc_pos`, the encoder layers, `enc_norm`.
     lengths: optional [B] real frames per row; the padded frames are
     masked out of every self-attention, so the real positions of a
-    right-padded batch come out as they would unpadded."""
+    right-padded batch come out as they would unpadded.  train:
+    training's forward (the attention's plain form, the layer params
+    unbound once: `blocks.unstack`)."""
     x = embeds.to(getattr(torch, cfg.dtype))
     x = x + params["enc_pos"][None, :x.shape[1], :]
-    for i in range(n_scan_units(cfg)):
-        x = blocks.enc_block(blocks.tree_idx(params["enc"], i), x, cfg,
-                             lengths=lengths)
+    u = n_scan_units(cfg)
+    units = blocks.unstack(params["enc"], u) if train else \
+        (blocks.tree_idx(params["enc"], i) for i in range(u))
+    for unit in units:
+        x = blocks.enc_block(unit, x, cfg, lengths=lengths, train=train)
     return common.norm_apply(x, params["enc_norm"], cfg.norm, cfg.norm_eps)
+
+
+def encdec_forward(params, inputs, cfg: ModelConfig, *, remat: bool = True):
+    """Training's encoder-decoder forward (reference lm.py:255): inputs
+    (audio embeddings [B, S_enc, d], dec_tokens [B, S]).  The encoder
+    runs whole (not rematerialized, as in the reference), then the
+    decoder layers over its memory, each under a checkpoint with remat.
+    Returns (logits [B, S, V] float32, aux 0)."""
+    audio, dec_tokens = inputs
+    memory = encode(params, audio, cfg, train=True)
+    x = _embed(params, dec_tokens, cfg)
+    x = x + params["pos_embed"][None, :x.shape[1], :]
+    block = functools.partial(_train_block, blocks.dec_block, cfg=cfg,
+                              memory=memory)
+    x, aux = _run_units(blocks.unstack(params["dec"], n_dec_layers(cfg)), x,
+                        block, remat)
+    x = common.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return _lm_head(params, x, cfg), aux
 
 
 def encdec_prefill(params, inputs, cfg: ModelConfig, cache_len: int,

@@ -12,10 +12,11 @@ carried in from the chunks before:
 The reference's `lax.scan` over chunks is a Python loop here, so only
 one chunk's [B, H, Q, Q] quadratic term is live at a time (168 MB each
 for `cb` and the decay matrix at mamba2-2.7b's full width, B=8).  Only
-the serving path is ported: `ssd_forward` takes `lengths` (the
-reference's `lm.prefill` always passes it), which fixes the chunk grid
-at `chunk` and turns every padded position into an identity step; the
-adaptive grid of training (`lengths=None`) comes with `lm.forward`.
+`ssd_forward` with `lengths` (the reference's `lm.prefill` always
+passes it) fixes the chunk grid at `chunk` and turns every padded
+position into an identity step; without (`lengths=None`, training's
+`lm.forward`) the grid adapts to the sequence: chunks of min(chunk, L),
+the last one padded with identity steps.
 
 The state per layer is {ssm: [B, H, P, N] float32, conv: [B, W-1, ch]
 in cfg.dtype}.  `ssd_decode` updates it IN PLACE (one static buffer in
@@ -111,17 +112,19 @@ def _causal_conv(xbc, conv_w, conv_b, width: int):
 
 def _segsum_decay(da_cs):
     """L[i, j] = exp(da_cs[i] - da_cs[j]) for i >= j else 0.
-    da_cs: [B, Q, H] -> [B, H, Q, Q].  exp runs first and overflows to
-    inf above the diagonal; the where then drops it (no NaN)."""
+    da_cs: [B, Q, H] -> [B, H, Q, Q].  The differences above the diagonal
+    are set to -inf before the exp (the reference takes exp of them and
+    drops them after, by a where): the same values, and no inf whose
+    gradient, times the where's zero, is NaN in training."""
     q = da_cs.shape[-2]
     cs = da_cs.transpose(1, 2)                               # [B,H,Q]
     # built in [B,H,i,j] order (the reference builds [B,i,j,H] and moves
-    # the axis): the same differences, and exp / where on a contiguous
-    # tensor
+    # the axis): the same differences, and the mask and exp on a
+    # contiguous tensor
     diff = cs[:, :, :, None] - cs[:, :, None, :]             # [B,H,i,j]
     mask = torch.ones((q, q), dtype=torch.bool,
                       device=da_cs.device).tril()
-    return torch.where(mask, torch.exp(diff), 0.0)
+    return torch.exp(diff.masked_fill(~mask, -math.inf))
 
 
 def _chunk_step(state, xq, bq, cq, dtq, a, rep: int):
@@ -146,7 +149,8 @@ def _chunk_step(state, xq, bq, cq, dtq, a, rep: int):
     return chunk_decay[:, :, None, None] * state + states, y_diag + y_off
 
 
-def ssd_forward(p, x_in, cfg: ModelConfig, lengths, return_state=False):
+def ssd_forward(p, x_in, cfg: ModelConfig, lengths=None,
+                return_state=False):
     """x_in: [B, L, d_model] -> [B, L, d_model] (+ the final {ssm, conv}
     state with return_state).
 
@@ -156,10 +160,15 @@ def ssd_forward(p, x_in, cfg: ModelConfig, lengths, return_state=False):
     step (dt = 0: decay 1, zero update), so a row's final state is the
     state after its real prompt, as if it ran unpadded.  The conv state
     is the last W-1 REAL pre-conv inputs of each row (left zeros for a
-    row shorter than the window, as a fresh stream has)."""
+    row shorter than the window, as a fresh stream has).
+
+    lengths=None (training): the adaptive grid of the reference, chunks
+    of q = min(s.chunk, L) (a short sequence does not pay the full
+    [B, H, chunk, chunk] intra-chunk term), the sequence padded to a
+    multiple of q with identity steps past L."""
     s, d_inner, n_heads, conv_ch = dims(cfg)
     b, l_real, _ = x_in.shape
-    q = s.chunk
+    q = s.chunk if lengths is not None else min(s.chunk, l_real)
     l = -(-l_real // q) * q           # pad to a chunk multiple
     if l != l_real:
         x_in = F.pad(x_in, (0, 0, 0, l - l_real))
@@ -173,10 +182,14 @@ def ssd_forward(p, x_in, cfg: ModelConfig, lengths, return_state=False):
 
     a = -torch.exp(p["A_log"])                               # [H]
     dt = _softplus(dtr.to(torch.float32) + p["dt_bias"])     # [B,L,H]
-    lens = lengths.to(device=x_in.device, dtype=torch.int64)
-    valid = torch.arange(l, device=x_in.device)[None, :, None] \
-        < lens[:, None, None]
-    dt = torch.where(valid, dt, 0.0)
+    lens = None if lengths is None else \
+        lengths.to(device=x_in.device, dtype=torch.int64)
+    if lens is not None or l != l_real:
+        # identity steps past each row's real length (past L alone when
+        # only the adaptive grid padded the sequence)
+        valid = torch.arange(l, device=x_in.device)[None, :, None] \
+            < (l_real if lens is None else lens[:, None, None])
+        dt = torch.where(valid, dt, 0.0)
 
     xf = x.to(torch.float32).reshape(b, l, n_heads, pd)
     bm = bmat.to(torch.float32).reshape(b, l, g, n)
@@ -200,6 +213,9 @@ def ssd_forward(p, x_in, cfg: ModelConfig, lengths, return_state=False):
     if not return_state:
         return out
     w = s.conv_width - 1
+    if lens is None:
+        lens = torch.full((b,), l_real, dtype=torch.int64,
+                          device=x_in.device)
     padded = F.pad(xbc_pre, (0, 0, w, 0))
     idx = lens[:, None] + torch.arange(w, device=x_in.device)[None, :]
     conv_state = torch.gather(padded, 1,

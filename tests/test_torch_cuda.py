@@ -1101,3 +1101,87 @@ def test_cuda_capture_survives_a_dead_graph_cycle(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, torch.full((4,), 2.0, device=cuda))
+
+
+# float32 train step, card against CPU: loss and grad norm within
+# TRAIN_RTOL (cuBLAS and MKL sum in other orders; TF32 off), every
+# updated param within TRAIN_STEP_SHARE of the step's size lr * lr_scale
+# (the update at step 4 is close to sign(g) * lr, sensitive where |g|
+# nears AdamW's eps)
+TRAIN_RTOL = 1e-4
+TRAIN_STEP_SHARE = 0.05
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "granite-moe-1b-a400m",
+                                  "mamba2-2.7b"])
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """One train step of reduced `arch` in float32 (granite: the capacity
+    dispatch; mamba2: the SSD on its adaptive grid) on the card against
+    the same step on the CPU, from the same params, batch and state."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.training import TrainConfig, make_train_step
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(configs.get_reduced_config(arch),
+                                  dtype="float32")
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3),
+                           schedule_warmup=15, schedule_total=40)
+        toks = torch.randint(0, cfg.vocab, (4, 33),
+                             generator=torch.Generator().manual_seed(5))
+        outs = {}
+        for dev in ("cpu", cuda):
+            params = _on(lm.init_params(cfg, 0, device="cpu", max_seq=64),
+                         dev)
+            opt = dict(adamw_init(params, tcfg.optimizer),
+                       step=torch.tensor(3, dtype=torch.int32, device=dev))
+            outs[str(dev)] = make_train_step(cfg, tcfg)(
+                params, opt, {"tokens": toks.to(dev)})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    (pc, oc, mc), (pg, og, mg) = outs["cpu"], outs[str(cuda)]
+    for k in ("loss", "grad_norm", "aux_loss"):
+        assert abs(float(mg[k]) - float(mc[k])) <= \
+            TRAIN_RTOL * max(abs(float(mc[k])), 1.0), k
+    step = 1e-3 * float(mc["lr_scale"])
+    for a, b in zip(leaves(pg), leaves(pc)):
+        assert a.is_cuda and float((a.cpu() - b).abs().max()) <= \
+            TRAIN_STEP_SHARE * step
+    assert int(og["step"]) == int(oc["step"]) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_train_run_resumes_exactly(cuda, tmp_path):
+    """`train.run` on the card, reduced granite-moe (the capacity
+    dispatch's scatters and gathers in the backward): a run with failures
+    at steps 5 and 9 ends with the params and optimizer state of the run
+    without, bit for bit."""
+    import argparse
+
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import leaves
+    runs = []
+    for name, fails in (("a", "5,9"), ("b", "")):
+        runs.append(train.run(argparse.Namespace(
+            arch="granite-moe-1b-a400m", reduced=True, steps=12, batch=4,
+            seq=32, lr=1e-3, microbatches=1, mesh="1x1", seed=0,
+            ckpt_dir=str(tmp_path / name), ckpt_every=4, log_every=4,
+            simulate_failures=fails, max_restarts=5, sim_hosts=2,
+            device="cuda")))
+    (a, b) = runs
+    assert a["restores"] == 2 and a["final_loss"] == b["final_loss"]
+    for key in ("params", "opt"):
+        assert all(x.is_cuda and torch.equal(x, y) for x, y in
+                   zip(leaves(a[key]), leaves(b[key])))

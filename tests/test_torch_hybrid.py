@@ -433,7 +433,13 @@ def test_hybrid_block_matches_reference(dtype, fmt):
         for (g, w, what), orc in zip(pairs, oracle):
             _within_bf16_noise(g, w, orc, what)
     with pytest.raises(ValueError, match="mode"):
-        tblocks.hybrid_block(tl, got, tcfg, mode="train", cache=cache)
+        tblocks.hybrid_block(tl, got, tcfg, mode="score", cache=cache)
+    # mode "train" (training's forward, tests/test_torch_forward.py)
+    # returns (x, aux) and writes no cache
+    kept = {k: v.clone() for k, v in cache.items()}
+    y, aux = tblocks.hybrid_block(tl, got, tcfg, mode="train", cache=cache)
+    assert y.shape == got.shape and float(aux) > 0
+    assert all(torch.equal(cache[k], kept[k]) for k in cache)
 
 
 # ---------------------------------------------------------------------------

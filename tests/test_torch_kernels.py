@@ -406,10 +406,15 @@ def test_profiled_launches_by_symbol(kernel, counters):
                    for c in registry.LAUNCH_COUNTERS}
 
 
+# the device types a raw profiler event reports (an enum, as kineto's)
+CUDA = torch._C._autograd.DeviceType.CUDA
+CPU = torch._C._autograd.DeviceType.CPU
+
+
 class _FakeEvent:
     """A raw profiler event (the profile's `kineto_results.events()`)."""
 
-    def __init__(self, name, device_type="DeviceType.CUDA", ns=1000):
+    def __init__(self, name, device_type=CUDA, ns=1000):
         self._name, self._type, self._ns = name, device_type, ns
 
     def name(self):
@@ -442,7 +447,7 @@ def test_window_events_take_the_prologue_out(seen):
     many of its launches the profiler kept) and without host entries."""
     kernel = PROFILED[0][0]
     prof = _FakeProfile([(SPIN, seen), (kernel, 210),
-                         ("cudaLaunchKernel", 7, "DeviceType.CPU")])
+                         ("cudaLaunchKernel", 7, CPU)])
     got = registry.window_events(prof)
     assert [(e.key, e.count) for e in got] == [(kernel, 210)]
     assert got[0].device_time_us == 210.0
@@ -461,7 +466,7 @@ def test_window_events_count_as_key_averages():
             self.name, self.duration_ns = e.name, e.duration_ns
 
         def device_type(self):
-            return "DeviceType.CUDA"
+            return CUDA
 
     a = torch.zeros(4)
     with profile(activities=[ProfilerActivity.CPU]) as prof:

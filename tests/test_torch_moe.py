@@ -452,8 +452,12 @@ def test_moe_matches_reference(arch, fmt, dtype):
     """mlp.moe(per_token=True) on layer 0's weights against the
     reference's (its quantization compiled, `_served_quantize`): the
     outputs of tokens routed alike within MOE_TOL, aux within 1e-6
-    (float32 means of the same probabilities); per_token=False
-    (training's capacity dispatch) is not ported."""
+    (float32 means of the same probabilities).  per_token=False
+    (training's capacity dispatch, held against the reference in
+    tests/test_torch_forward.py) on the same weights and input: the
+    per-token path's aux bit for bit (the same router statistics), and
+    with capacity for every token (capacity_factor E) its outputs within
+    MOE_TOL of the per-token path's (the combine sums in another order)."""
     jcfg, tcfg = _cfgs(arch, dtype=dtype)
     jp, tp = params_for(arch, dtype, fmt)
     jmoe = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"]["moe"])
@@ -476,8 +480,15 @@ def test_moe_matches_reference(arch, fmt, dtype):
     assert abs(float(aux) - float(want_aux)) <= 1e-6
     _, none = tmlp.moe(tmoe, tx, tcfg, per_token=True, want_aux=False)
     assert none is None
-    with pytest.raises(NotImplementedError, match="4.6"):
-        tmlp.moe(tmoe, tx, tcfg)
+    got_c, aux_c = tmlp.moe(tmoe, tx, tcfg)
+    assert got_c.dtype == tx.dtype and got_c.shape == got.shape
+    assert float(aux_c) == float(aux)
+    e = tcfg.moe.n_experts
+    roomy = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, capacity_factor=float(e)))
+    got_r, _ = tmlp.moe(tmoe, tx, roomy)
+    np.testing.assert_allclose(_f32(got_r), _f32(got), rtol=0,
+                               atol=MOE_TOL[dtype])
 
 
 def test_gate_combine_rounding():
