@@ -250,7 +250,10 @@ over):
    256.  Gates: warm == cold, chunked == full == each request's static
    `generate`, pooled full == full, bit for bit; the repeats' admission
    launches nothing (profiled); the cold chunked engine's run of the
-   trace, profiled, launches 210 GEMMs per chunk launch at M = bb x 16
+   trace's first ADMIT_PROFILED_REQUESTS requests (a cut for the run's
+   time, paying for phase 18; its unprofiled run serves all 48),
+   profiled,
+   launches 210 GEMMs per chunk launch at M = bb x 16
    (the tile from bb = 2) + 210 x 16 per segment; no capture after
    `warmup()`;
    both GEMMs bit for bit at every M.  Then full-width whisper-small,
@@ -346,6 +349,31 @@ over):
    exception other than an injected `SimulatedFailure` that reaches an
    engine's recovery fails the run (`fail_on_real_errors`).  Each
    phase's seconds are logged.
+18. mesh serving over `torch.distributed` (`phase_sharded`): the serve
+   engine as one process per rank on phase 13's construction (w4a8 of
+   seed 0, 8 slots, cache 256, segments of 16) and requests: (a)
+   smollm-135m at full width and depth on a (2, 1) mesh, two `gloo`
+   ranks sharing the card (slots split over the data shards); (b) the
+   same on (1, 3), three ranks: attention tensor parallelism, 9 heads
+   and 3 KV heads over 3; (c) mamba2-2.7b at SSM_LAYERS on (1, 2): SSD
+   tensor parallelism, 80 heads over 2; (d) smollm-135m on a (1, 1)
+   NCCL mesh in this process, its collectives captured inside the
+   steps' graphs.  (a)-(c) run in fresh processes (`mesh.spawn`, one
+   group per rank count: (a) and (c) share theirs; a rank that fails
+   fails the phase), their steps eager (gloo cannot be captured; its
+   CUDA collectives go through host copies).  Each case's main run --
+   every count from 0 just before it, read just after -- serves the 12
+   (SHARD_REQUESTS; mamba2: 8) requests on rank 0, the other ranks
+   following it.  Gates: every stream == the unsharded engine's (phase
+   13's, itself == static generate), bit for bit; every outcome OK;
+   tensor parallelism active in (b) and (c); steps captured in (d) alone;
+   both GEMM kernels launched in the main run; in (d), a profiled run of
+   SHARD_PROFILED_REQUESTS requests launches gemms_per_step GEMMs per
+   replayed step, as the unsharded engine does.  Logged beside the
+   card's name and power limit: output tok/s and ms per step per case,
+   each rank's bytes gathered per segment (eager collectives), its
+   resident weights (its shard, the bytes gathered once) and slot
+   state, and each case's seconds.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
 launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
@@ -353,7 +381,8 @@ those paths' GEMM time per generate; the engine paths' launches and
 GEMM ms over the profiled runs: phase 13's trace, phase 14's chunked
 admission and whisper trace, phase 15's method trace, phase 16's
 same-draft spec trace; phase 17's training path launches none of the
-kernels and adds nothing to it), the nvidia-smi line and, last,
+kernels and adds nothing to it; phase 18's four mesh cases' main runs),
+the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
 """
@@ -4122,6 +4151,10 @@ def phase_engine() -> dict:
             f"phase's seconds: {secs}")
         paths[f"engine {fmt}"] = {name: launched[name],
                                   small: launched[small], "segments": segs}
+        if fmt == "w4a8":
+            # phase 18 holds its sharded streams to this engine's (each
+            # == its static generate, gated above)
+            _KEEP["shard"] = {rid: w.tolist() for rid, w in want.items()}
         if gemm_ms is None:
             paths[f"engine {fmt}"]["counted_by"] = (
                 "the wrappers: the eager prefills only")
@@ -4208,9 +4241,11 @@ def phase_engine_ssm() -> None:
         "stream == the fault-free run's, bit for bit; no capture after "
         "warmup")
     del eng
-    # phase 16 (c) serves the same requests on this build, speculatively
+    # phase 16 (c) serves the same requests on this build, speculatively;
+    # phase 18 (c) holds its sharded streams to this engine's
     _KEEP["ssm"] = dict(cfg=cfg, params=params, reqs=reqs, out=out,
                         tok_s=toks / run_s)
+    _KEEP["shard_ssm"] = {rid: t.tolist() for rid, t in out.items()}
     serve.decode_cache_clear()
     torch.cuda.empty_cache()
 
@@ -4227,6 +4262,11 @@ ADMIT_CHUNK, ADMIT_POOL, ADMIT_BUDGET = 16, 256, 128
 ADMIT_MIN_LEN = 128
 # the trace's requests repeated exactly once the trace has finished
 ADMIT_REPEATS = (0, 1)
+# the cold chunked engine's profiled run serves this many of the trace's
+# requests (a cut for the run's time, paying for phase 18: the
+# profiler's exit costs ~25-33 s per ~1 M device kernels); its
+# unprofiled run serves all 48
+ADMIT_PROFILED_REQUESTS = 24
 # whisper-small through the engine: 12 requests at 1000 req/s, frames
 # cycling over WHISPER_FRAMES, decoder prompts of 4-8 tokens, gens 16 / 32
 WHISPER_REQUESTS, WHISPER_RATE = 12, 1000.0
@@ -4588,7 +4628,8 @@ def phase_engine_admission() -> dict:
             # the main path of chunked admission: the trace itself,
             # profiled; its time is read from the unprofiled run below
             paths[f"admission chunked {fmt}"] = _profiled_chunked(
-                eng, reqs, want, tally, cfg, tag, smi)
+                eng, reqs[:ADMIT_PROFILED_REQUESTS], want, tally, cfg, tag,
+                smi)
             off = 10000
         tally.clear()
         sites0, seg0 = dict(eng._site_counts), eng.segments
@@ -5987,6 +6028,276 @@ def phase_train() -> None:
         f"CPU: {'; '.join(lines)}; the phase's seconds: {secs}")
 
 
+# phase 18: mesh serving over torch.distributed
+# (label, arch, mesh (data, model), backend): (a)-(c) several gloo ranks
+# share the one card (NCCL refuses two ranks on one device; gloo steps
+# run uncaptured), (d) one NCCL rank, its collectives inside the captured
+# graphs.  Cases of one rank count share one spawned group (its ranks
+# start once: a cut for the run's time)
+SHARD_CASES = (("a", ENGINE_ARCH, (2, 1), "gloo"),
+               ("b", ENGINE_ARCH, (1, 3), "gloo"),
+               ("c", SSM_ARCH, (1, 2), "gloo"),
+               ("d", ENGINE_ARCH, (1, 1), "nccl"))
+# smollm-135m's cases serve phase 13's first this many requests but the
+# one cut to the cache's end
+SHARD_REQUESTS = 12
+# (d) also profiles a run of this many of its requests: the GEMM launches
+# per replayed step against the unsharded engine's
+SHARD_PROFILED_REQUESTS = 1
+
+
+def shard_trace(arch: str):
+    """(cfg, requests) of a phase-18 case: phase 13's construction and
+    trace -- smollm-135m's first SHARD_REQUESTS requests but the one cut
+    to the cache's end, mamba2-2.7b's ENGINE_SSM_REQUESTS at SSM_LAYERS
+    -- fresh (no stop token)."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    if arch == SSM_ARCH:
+        cfg = dataclasses.replace(cfg, n_layers=SSM_LAYERS)
+    reqs, cap = engine_trace(cfg)
+    if arch == SSM_ARCH:
+        return cfg, [r for r in reqs
+                     if r.max_new_tokens <= 64][:ENGINE_SSM_REQUESTS]
+    return cfg, [r for r in reqs if r is not cap][:SHARD_REQUESTS]
+
+
+def _shard_engine(mesh, cfg):
+    """A case's engine under its mesh (phase 13's slots, cache and
+    segment), from the w4a8 weights of seed 0 on the rank's device."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch import engine, serve
+    params = serve.build_params(cfg, "w4a8", seed=0, device=mesh.device)
+    with dctx.mesh_scope(mesh, ("data",), "model"):
+        eng = engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
+                                 max_cache_len=ENGINE_CACHE,
+                                 segment_len=ENGINE_SEGMENT)
+    del params
+    torch.cuda.empty_cache()
+    return eng
+
+
+def _shard_stats(eng, mesh, g0: int) -> dict:
+    info = eng.cache_info()["mesh"]
+    return dict(rank=mesh.rank, gathered=mesh.gathered_bytes - g0,
+                segments=eng.segments, weights=info["weights"],
+                state=info["state_bytes"],
+                allocated=torch.cuda.memory_allocated(mesh.device),
+                mesh={k: info[k] for k in ("tp_attn", "tp_ssm", "dp_size",
+                                           "tp_size", "backend",
+                                           "captured")})
+
+
+def _shard_main_run(eng, reqs) -> dict:
+    """Rank 0's main path: every count from 0 just before it, read just
+    after; the streams, seconds and counts."""
+    from repro_torch.kernels import registry
+    from repro_torch.launch import scheduler
+    for c in registry.LAUNCH_COUNTERS:
+        c.reset()
+    seg0 = eng.segments
+    out, run_s = _engine_run(eng, reqs, scheduler.FastForwardClock)
+    return dict(streams={rid: t.tolist() for rid, t in out.items()},
+                run_s=run_s, run_segments=eng.segments - seg0,
+                counts={c.name: c.count for c in registry.LAUNCH_COUNTERS},
+                outcomes=sorted({r.outcome for r in eng.finished}))
+
+
+def _shard_rank(rank: int, cases: tuple, out_dir: str) -> None:
+    """One rank of a group of gloo cases of one rank count (a fresh
+    process, `mesh.spawn`), the cases in turn, each on its own mesh over
+    the one world: rank 0 serves a case's requests and the others follow
+    it; each rank writes its stats and seconds per case."""
+    import pickle
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh as mesh_lib
+    fail_on_real_errors()
+    for label, arch, shape, backend in cases:
+        t0 = time.perf_counter()
+        mesh = mesh_lib.init_mesh(shape, ("data", "model"),
+                                  backend=backend, device="cuda:0")
+        cfg, reqs = shard_trace(arch)
+        eng = _shard_engine(mesh, cfg)
+        g0 = mesh.gathered_bytes
+        stats = {}
+        if rank == 0:
+            try:
+                stats = _shard_main_run(eng, reqs)
+            finally:
+                eng.release()
+        else:
+            eng.follow()
+        stats.update(_shard_stats(eng, mesh, g0))
+        del eng
+        torch.cuda.empty_cache()
+        stats["secs"] = time.perf_counter() - t0
+        with open(f"{out_dir}/{label}_{rank}.pkl", "wb") as f:
+            pickle.dump(stats, f)
+
+
+def _shard_nccl(label: str, arch: str, out_dir: str) -> None:
+    """Case (d) in this process: a one-rank NCCL mesh, the segment grid
+    captured up front (warmup), the main run, then a profiled run of
+    SHARD_PROFILED_REQUESTS requests counting every launch, the replays'
+    included."""
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import registry
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import scheduler
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                      MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(mesh_lib.free_port()))
+    mesh = mesh_lib.init_mesh((1, 1), ("data", "model"), backend="nccl")
+    try:
+        cfg, reqs = shard_trace(arch)
+        eng = _shard_engine(mesh, cfg)
+        eng.warmup()
+        g0 = mesh.gathered_bytes
+        stats = _shard_main_run(eng, reqs)
+        stats.update(_shard_stats(eng, mesh, g0))
+        for c in registry.LAUNCH_COUNTERS:
+            c.reset()
+        seg0 = eng.segments
+        with registry.profile_window() as prof:
+            _engine_run(eng, _again(reqs[:SHARD_PROFILED_REQUESTS], 1000),
+                        scheduler.FastForwardClock)
+        events = [e for e in registry.window_events(prof)
+                  if e.device_time_us > 0]
+        stats.update(
+            prof_counts={c.name: c.count for c in registry.LAUNCH_COUNTERS},
+            prof_launched=registry.profiled_launches(
+                {e.key: e.count for e in events}),
+            prof_segments=eng.segments - seg0,
+            graph_keys=len(eng._graphs))
+        with open(f"{out_dir}/{label}_0.pkl", "wb") as f:
+            pickle.dump(stats, f)
+        del eng
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def phase_sharded() -> dict:
+    """Phase 18: mesh serving (module docstring).  Returns the cases' GEMM
+    launches for the kernels line."""
+    import pickle
+    import tempfile
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+
+    smi = smi_line()
+    want_of = {ENGINE_ARCH: _KEEP.pop("shard"), SSM_ARCH: _KEEP.pop(
+        "shard_ssm")}
+    paths = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        groups = {}
+        for case in SHARD_CASES:
+            if case[3] == "gloo":
+                groups.setdefault(case[2][0] * case[2][1], []).append(case)
+        for n, cases in sorted(groups.items()):
+            t0 = time.perf_counter()
+            mesh_lib.spawn(_shard_rank, n, tuple(cases), out_dir)
+            log(f"phase 18 cases {[c[0] for c in cases]} ({n} ranks, "
+                f"spawned once): {time.perf_counter() - t0:.1f} s")
+        for label, arch, shape, backend in SHARD_CASES:
+            n = shape[0] * shape[1]
+            if backend == "nccl":
+                t0 = time.perf_counter()
+                _shard_nccl(label, arch, out_dir)
+                secs = time.perf_counter() - t0
+            ranks = []
+            for r in range(n):
+                with open(f"{out_dir}/{label}_{r}.pkl", "rb") as f:
+                    ranks.append(pickle.load(f))
+            lead = ranks[0]
+            if backend != "nccl":
+                secs = lead["secs"]
+            cfg, reqs = shard_trace(arch)
+            tag = (f"sharded ({label}) {arch}"
+                   f"{f' {SSM_LAYERS}L' if arch == SSM_ARCH else ''} w4a8 "
+                   f"mesh {shape} {backend}")
+            want = want_of[arch]
+            bad = [r.rid for r in reqs
+                   if lead["streams"][r.rid] != list(want[r.rid])]
+            if bad or lead["outcomes"] != ["ok"]:
+                raise AssertionError(
+                    f"{tag}: streams of requests {bad} differ from the "
+                    f"unsharded engine's (outcomes {lead['outcomes']})")
+            m = lead["mesh"]
+            expect_tp = {"b": ("tp_attn", True), "c": ("tp_ssm", True)}
+            if label in expect_tp and not m[expect_tp[label][0]]:
+                raise AssertionError(f"{tag}: tensor parallelism inactive "
+                                     f"({m})")
+            if m["captured"] != (backend == "nccl"):
+                raise AssertionError(f"{tag}: captured {m['captured']}")
+            name = _gemm_name("w4a8")
+            small = f"{name}_small_m"
+            counts = lead["counts"]
+            if not counts[name] or not counts[small] and backend == "gloo":
+                raise AssertionError(f"{tag}: the main run launched "
+                                     f"{counts}")
+            segs = lead["run_segments"]
+            toks = sum(len(v) for v in lead["streams"].values())
+            extra = ""
+            if backend == "nccl":
+                per_seg = gemms_per_step(cfg) * ENGINE_SEGMENT
+                pc, pl = lead["prof_counts"], lead["prof_launched"]
+                expect = {k: pc[k] + lead["prof_segments"] * per_seg
+                          for k in (name, small)}
+                if {k: pl[k] for k in expect} != expect or \
+                        not lead["prof_segments"]:
+                    raise AssertionError(
+                        f"{tag}: the profiled run launched {pl}, expected "
+                        f"{expect} ({lead['prof_segments']} segments)")
+                extra = (f"; profiled run of {SHARD_PROFILED_REQUESTS} "
+                         f"requests: {lead['prof_segments']} segments, GEMM "
+                         f"launches {pl[name]} ({pl[small]} small-M) == the "
+                         f"eager prefills' {pc[name]} + "
+                         f"{lead['prof_segments']} x {per_seg}: "
+                         f"{gemms_per_step(cfg)} per replayed step, the "
+                         "unsharded engine's (phase 13)")
+            log(f"{tag}, {n} rank(s) on one card ({smi}): {len(reqs)} "
+                f"requests, {toks} tokens in {lead['run_s']:.3f} s: "
+                f"{toks / lead['run_s']:.1f} output tok/s, "
+                f"{lead['run_s'] * 1e3 / (segs * ENGINE_SEGMENT):.2f} ms "
+                f"per step ({segs} segments of {ENGINE_SEGMENT}, the "
+                f"prefills included); tp attn {m['tp_attn']} ssm "
+                f"{m['tp_ssm']}; steps "
+                f"{'captured (collectives in the graphs)' if m['captured'] else 'eager'}"
+                f"; every stream == the unsharded engine's, bit for bit; "
+                f"main-run launches {counts[name]} of {name} "
+                f"({counts[small]} small-M, eager ones){extra}")
+            for st in ranks:
+                w = st["weights"]
+                log(f"    rank {st['rank']}: gathered "
+                    f"{st['gathered'] / max(st['segments'], 1) / 1e6:.3f} MB"
+                    f" per segment ({st['gathered'] / 1e6:.3f} MB over "
+                    f"{st['segments']} segments, eager collectives only); "
+                    f"resident: weights {w['resident'] / 1e6:.1f} MB (its "
+                    f"shard {w['shard'] / 1e6:.1f} MB, "
+                    f"{w['gathered'] / 1e6:.1f} MB gathered once), slot "
+                    f"state {st['state'] / 1e6:.1f} MB, allocated "
+                    f"{st['allocated'] / 1e6:.1f} MB")
+            log(f"phase 18 ({label}): {secs:.1f} s")
+            paths[f"sharded ({label}) mesh {shape} {backend}"] = {
+                name: counts[name], small: counts[small], "segments": segs,
+                "counted_by": "the wrappers" + (
+                    ": every launch (gloo steps run eagerly)"
+                    if backend == "gloo" else
+                    ": the eager prefills and captures; the profiled "
+                    "run's replays gated apart")}
+    serve.decode_cache_clear()
+    return paths
+
+
 def _small_m_back_to_back_us(res: dict) -> float:
     """The small-M kernel's mean time per decode launch, back to back
     (phase_kernels' CUDA-event timing, L2 spilled), weighted as one
@@ -6171,6 +6482,8 @@ def main() -> int:
     eng.update(phase("speculative decoding and the async front-end",
                      phase_spec_frontend))
     phase("training: smollm-135m, granite-moe-1b-a400m", phase_train)
+    eng.update(phase("mesh serving: smollm-135m, mamba2-2.7b over "
+                     "torch.distributed ranks", phase_sharded))
     for paths_of in (moe, ssm, hyb, enc, vlm):
         for k, paths in paths_of.items():
             other.setdefault(k, {}).update(paths)

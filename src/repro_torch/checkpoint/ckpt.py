@@ -21,9 +21,11 @@ in the other:
   the unsigned integer of their width under ``<key>__<dtype name>``, the
   reference's encoding for ml_dtypes, and come back as torch tensors.
 
-Sharded save and restore onto a mesh (the reference's `shardings`) come
-with ROADMAP A8; here a restored tensor leaf lands on its template's
-device, or on `device`.
+Sharded save and restore onto a mesh (the reference's `shardings`) are
+training's multi-rank half, ROADMAP A12; here a restored tensor leaf
+lands on its template's device, or on `device`.  Serve snapshots hold
+request state alone, which carries no mesh: one taken on a mesh
+restores onto another mesh or onto one device (launch/engine.py).
 """
 from __future__ import annotations
 

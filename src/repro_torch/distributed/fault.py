@@ -15,7 +15,8 @@
   exceeds the fleet median by `threshold`x (simulated hosts on one
   card); `Heartbeat` is the controller's view of last-seen times.
 * **Elastic scaling** -- `elastic_remesh` re-shards a tree onto a new
-  device mesh: it comes with the mesh (ROADMAP A8) and raises here.
+  device mesh: elastic degraded-mesh serving (ROADMAP A11); it raises
+  here.
 """
 from __future__ import annotations
 
@@ -122,8 +123,8 @@ class RestartPolicy:
 def elastic_remesh(tree: Any, new_mesh, cfg=None):
     """Re-shard a tree onto a different device mesh: not ported."""
     raise NotImplementedError(
-        "elastic_remesh: re-sharding onto a new device mesh comes with the "
-        "mesh and distributed training (ROADMAP A8)")
+        "elastic_remesh: re-sharding onto a new device mesh is elastic "
+        "degraded-mesh serving (ROADMAP A11)")
 
 
 class Heartbeat:

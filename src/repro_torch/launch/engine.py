@@ -138,12 +138,64 @@ cross-attention over the 1500-frame page.  On the CPU the same cases
 hold with t_pre up to 256.  Other chunk sizes and a t_pre past 4096 are
 not gated.
 
-Not ported yet: the mesh, and chaos's device-loss arms (which raise
-naming ROADMAP A6, engine slice 7).
+**Mesh-aware serving** (DESIGN.md sec. 7).  Constructed under a
+`distributed.context.mesh_scope` over a `launch.mesh.Mesh`, the engine
+is one process per rank:
+
+* slots shard over the dp axes, CYCLICALLY: slot s lives on dp shard
+  s % dp, at local row s // dp, so every batch bucket's prefix [:bb]
+  (bb a multiple of dp) is each shard's own prefix [:bb / dp] -- the
+  captured steps keep running over fixed views, and no segment moves a
+  page between ranks.  Admission sends each request's prefill to the
+  shard that owns its slot (a shard prefills its own rows, bucketed by
+  the largest shard's count), an embed batch is dealt cyclically, and
+  compaction packs each shard's live slots downward within the shard;
+  no page ever crosses ranks;
+* head and state axes (`slot_state.tp_axes_for`) shard over the model
+  axis where the config's head counts divide it (`slot_state.tp_plan`):
+  attention and SSD mixers compute their local heads and all-gather
+  them (distributed/context.py `tp_scope`, entered around every model
+  call and held while a step is captured);
+* weights are placed under the distributed/sharding.py rules (each
+  rank's block) and gathered back whole once, at construction; under
+  attention tensor parallelism each rank keeps contiguous copies of its
+  wq / wk / wv column slices instead of the whole projections.  The
+  reference gathers the shards at every dispatch; the port's captured
+  graphs read static buffers, so it keeps the gathered copy (PERF.md
+  gives each rank's bytes);
+* each step's sampled tokens, positions and flags, a prefill's first
+  tokens and last logits rows, a replay step's logits rows and an
+  embed's vectors reach every rank by an all-gather over the dp axes,
+  an exact concatenation.  Over NCCL the gathers and the tensor-
+  parallel collectives are captured inside the steps' CUDA graphs;
+  over `gloo` (ranks on the CPU, or sharing one card) every step runs
+  eagerly (`cache_info()["mesh"]["captured"]`).
+
+**One controller, many processes.**  Every rank runs this same
+scheduler -- admission, buckets, compaction, eviction, cancels,
+recovery -- on inputs that rank 0 broadcasts, so no two ranks ever take
+a different host decision: rank 0 (the leader) sends each call of
+`submit`, `cancel`, `step`, `step_begin`, `step_finish`, `drain`,
+`warmup` and `restore`'s requests over the mesh's `gloo` control group
+before running it, and every other rank runs `follow()`, which receives
+and runs them until the leader's `release()`.  The clock is read on
+rank 0 alone: inside such a call every `clock.now()` of the leader is
+broadcast, and the followers' clock returns the broadcast value.
+Device results enter host decisions only after the dp all-gather, so
+they are the same bits on every rank.  The front-end
+(launch/frontend.py) runs on rank 0 over the leader.  Every collective
+is a gather, so the sharded streams equal the single-device engine's
+bit for bit (tests/test_torch_sharded_serve.py).  Not ported: the
+prefix cache on a mesh, and the elastic paths -- a lost device's
+re-plan (`_degrade`) and chaos's `lose@` arms -- which raise naming
+ROADMAP A11.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import inspect
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -151,6 +203,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import device as device_lib
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as dshard
 from repro_torch.kernels import registry
 from repro_torch.launch import methods as smethods
 from repro_torch.launch import prefix_cache as pfx
@@ -159,19 +213,163 @@ from repro_torch.launch import sampling
 from repro_torch.launch import scheduler
 from repro_torch.launch import serve
 from repro_torch.launch.resilience import SimulatedFailure
-from repro_torch.models import lm, slot_state
+from repro_torch.models import attention, lm, slot_state
+
+
+@dataclasses.dataclass(frozen=True)
+class _MeshPlan:
+    """How a mesh-aware engine lays the serve state over the mesh (built
+    at construction from the ambient `mesh_scope`): slot axes over the
+    dp axes (dealt cyclically, module docstring), the probed head /
+    state axes (`tp_axes`) over `model_axis` when the config's head
+    counts divide it (`slot_state.tp_plan`)."""
+    mesh: object
+    dp_axes: tuple
+    model_axis: str
+    tp: slot_state.TPPlan
+    slot_axes: tuple           # per-leaf, tree_flatten order
+    tp_axes: tuple
+    state_treedef: object
+
+    @property
+    def dp_size(self) -> int:
+        n = 1
+        for a in self.dp_axes:
+            n *= self.mesh.shape[a]
+        return n
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's shard along the dp axes."""
+        return self.mesh.axis_index(self.dp_axes) if self.dp_axes else 0
+
+    @property
+    def dp(self):
+        return dshard.dp_spec_entry(self.dp_axes)
+
+    def state_specs(self):
+        return dshard.slot_state_pspecs(
+            self.state_treedef, self.slot_axes, self.tp_axes, self.dp_axes,
+            self.model_axis if self.tp.active else None)
+
+    @property
+    def key(self) -> tuple:
+        """Hashable mesh fingerprint for the decode-bundle LRU: two
+        engines share a bundle only when the mesh shape, axis roles,
+        this rank, its backend and device and the tp plan all agree."""
+        m = self.mesh
+        return (tuple((n, m.shape[n]) for n in m.axis_names), m.rank,
+                m.backend, str(m.device), self.dp_axes, self.model_axis,
+                self.tp.size, self.tp.attn, self.tp.ssm, self.slot_axes,
+                self.tp_axes)
+
+    def tp_scope(self):
+        """The tensor-parallel scope model calls run under (a null
+        context when the plan shards no mixer)."""
+        if not self.tp.active:
+            return contextlib.nullcontext()
+        return dctx.tp_scope(self.model_axis, self.tp.size,
+                             attn=self.tp.attn, ssm=self.tp.ssm,
+                             mesh=self.mesh)
+
+    def gather(self, t, dim: int = 0):
+        """Shard-major all-gather over the dp axes (shard d's block at
+        [d * n, (d + 1) * n) along `dim`)."""
+        if not self.dp_axes:
+            return t
+        return self.mesh.all_gather(t, self.dp_axes, dim)
+
+    def gather_rows(self, t):
+        """Every shard's local rows [n, ...] back in global slot order
+        [dp * n, ...]: global row j * dp + d is shard d's row j."""
+        g = self.gather(t)
+        n = t.shape[0]
+        return g.reshape(self.dp_size, n, *t.shape[1:]).transpose(0, 1) \
+            .reshape(self.dp_size * n, *t.shape[1:])
+
+
+def _mesh_plan(cfg, spec: slot_state.SlotStateSpec,
+               init_kwargs: dict) -> Optional[_MeshPlan]:
+    ctx = dctx.current()
+    if ctx is None:
+        return None
+    mesh, dp_axes, model_axis = ctx
+    if mesh.rank is None:
+        raise ValueError("mesh-aware serving needs a mesh of process "
+                         "groups (launch.mesh.init_mesh), not make_mesh's")
+    m = mesh.shape[model_axis] if model_axis in mesh.axis_names else 1
+    plan = slot_state.tp_plan(cfg, m)
+    tp_axes = slot_state.tp_axes_for(cfg, m, **init_kwargs) if plan.active \
+        else (None,) * len(spec.batch_axes)
+    return _MeshPlan(mesh=mesh, dp_axes=tuple(dp_axes),
+                     model_axis=model_axis, tp=plan,
+                     slot_axes=spec.batch_axes, tp_axes=tp_axes,
+                     state_treedef=spec.treedef)
+
+
+def _place_params(params, cfg, plan: _MeshPlan):
+    """This rank's copy of the weights on a mesh: each rank takes its
+    block of every leaf under the `param_pspecs` rules
+    (`dshard.shard_tree`) and gathers the blocks back whole
+    (`dshard.gather_sharded`, bitwise the originals).  Under attention
+    tensor parallelism the attention projections wq / wk / wv (and their
+    biases) are then replaced by contiguous copies of this rank's column
+    slices (`attention._tp_slice_cols`), made once here, never per
+    step.  Returns (params, {shard, gathered, resident}: bytes)."""
+    mesh = plan.mesh
+    specs = dshard.param_pspecs(params, mesh, cfg)
+    local = dshard.shard_tree(params, specs, mesh)
+    before = mesh.gathered_bytes
+    full = dshard.gather_sharded(local, specs, mesh)
+    stats = {"shard": _nbytes(local), "gathered": mesh.gathered_bytes
+             - before}
+    del local
+    if plan.tp.attn:
+        j, size, d = plan.mesh.axis_index(plan.model_axis), plan.tp.size, \
+            cfg.head_dim
+        width = {"wq": cfg.n_heads // size * d, "bq": cfg.n_heads // size
+                 * d}
+        width.update({k: cfg.n_kv // size * d
+                      for k in ("wk", "wv", "bk", "bv")})
+
+        def local_cols(w, n):
+            w = attention._tp_slice_cols(w, j, n)
+            if isinstance(w, attention.QTensor):
+                return attention.QTensor(w.q.contiguous(),
+                                         w.scale.contiguous(), w.fmt)
+            return w.contiguous()
+
+        def walk(node):
+            if not isinstance(node, dict):
+                return node
+            if "wq" in node and "wo" in node:
+                return {k: local_cols(v, width[k]) if k in width else v
+                        for k, v in node.items()}
+            return {k: walk(v) for k, v in node.items()}
+
+        full = walk(full)
+    stats["resident"] = _nbytes(full)
+    return full, stats
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in pytree.tree_leaves(tree))
+
 
 @dataclasses.dataclass(frozen=True)
 class _EngineBundle:
     """The decode function shared by every engine with the same (cfg,
-    pass set, lowering census, device), pinned to that census; stored in
+    pass set, lowering census, device, mesh plan), pinned to that census
+    and, on a mesh, run under the plan's tensor-parallel scope; stored in
     serve.py's LRU decode cache under an "engine" variant key.  The
     captured segment steps belong to each engine: they read its slot
     state and buffers at their addresses."""
     decode_fn: object      # (params, tok [B,1], state, pos, active)
 
 
-def _engine_bundle(cfg, silvia_passes: str, device) -> _EngineBundle:
+def _engine_bundle(cfg, silvia_passes: str, device,
+                   plan: Optional[_MeshPlan] = None) -> _EngineBundle:
     if silvia_passes not in serve.SILVIA_PASS_SETS:
         raise ValueError(f"unknown SILVIA pass set {silvia_passes!r}")
     dev = torch.device(device)
@@ -184,10 +382,100 @@ def _engine_bundle(cfg, silvia_passes: str, device) -> _EngineBundle:
         passes = serve.SILVIA_PASS_SETS[silvia_passes]
         if passes:
             decode_fn = serve.silvia.optimize(decode_fn, passes)
+        if plan is not None and plan.tp.active:
+            inner = decode_fn
+
+            def decode_fn(*args):
+                # the SILVIA trace, the eager calls and the capture all
+                # run inside the scope: the graph keeps the collectives
+                with plan.tp_scope():
+                    return inner(*args)
         return _EngineBundle(serve._pin_lowerings(decode_fn, dict(fp)))
 
     return serve._DECODE_CACHE.get_or_build(
-        (cfg, silvia_passes, fp, "engine", None, dev), build)
+        (cfg, silvia_passes, fp, "engine",
+         None if plan is None else plan.key, dev), build)
+
+
+class _Gather:
+    """A mesh step's output gather: `fn()` all-gathers the shard-local
+    outputs into global buffers.  Captured in a CUDA graph where the mesh
+    captures collectives (NCCL on CUDA), so one replay moves them; else
+    `run` calls it eagerly."""
+
+    def __init__(self, fn, device: torch.device, capture: bool):
+        self._fn, self.graph, self.capture_ms = fn, None, 0.0
+        if capture and device.type == "cuda":
+            self.graph, _, self.capture_ms = serve.capture(fn, device)
+
+    def run(self) -> None:
+        if self.graph is None:
+            self._fn()
+        else:
+            self.graph.replay()
+
+
+class _LeaderClock:
+    """Rank 0's clock inside a mirrored call: every reading is
+    broadcast to the followers (module docstring)."""
+
+    def __init__(self, clock: scheduler.Clock, mesh):
+        self._clock, self._mesh = clock, mesh
+
+    def now(self) -> float:
+        t = self._clock.now()
+        self._mesh.bcast_float(t)
+        return t
+
+    def wait_until(self, t: float) -> None:
+        self._clock.wait_until(t)
+
+
+class _FollowerClock:
+    """A follower's clock: each reading is rank 0's, received."""
+
+    def __init__(self, mesh):
+        self._mesh = mesh
+
+    def now(self) -> float:
+        return self._mesh.bcast_float()
+
+    def wait_until(self, t: float) -> None:
+        pass
+
+
+def _mirrored(fn):
+    """A public engine call that changes host or device state: on a mesh
+    of more than one rank the leader broadcasts it (its arguments, its
+    clock replaced by a marker) before running it, and the followers
+    run it from `follow()` with a `_FollowerClock`.  Calls it makes on
+    the engine are not broadcast again."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        mesh = self._ctl
+        if mesh is None or self._mirroring:
+            return fn(self, *args, **kwargs)
+        if mesh.rank != 0:
+            raise RuntimeError(
+                f"{fn.__name__}: on a mesh only rank 0 drives the engine; "
+                f"rank {mesh.rank} runs follow()")
+        bound = sig.bind(self, *args, **kwargs)
+        clock = bound.arguments.pop("clock", False)
+        bound.arguments.pop("self")
+        mesh.bcast_object((fn.__name__, dict(bound.arguments),
+                           clock is not False))
+        if clock is not False:
+            bound.arguments["clock"] = _LeaderClock(
+                clock or scheduler.Clock(), mesh)
+        self._mirroring = True
+        try:
+            return fn(self, **bound.arguments)
+        finally:
+            self._mirroring = False
+
+    return wrapper
 
 
 class _ChunkStep:
@@ -200,34 +488,39 @@ class _ChunkStep:
     captured in a CUDA graph (`serve.capture`: its eager step runs with
     every row inactive, which leaves the state as it was); each `run`
     loads the buffers and replays it, and the [bb, c, V] logits it
-    returns live in the graph's pool until the next replay.  On the CPU
-    `run` calls the step eagerly.  A failed capture raises."""
+    returns live in the graph's pool until the next replay.  On the CPU,
+    and with `capture` False (a mesh over `gloo`), `run` calls the step
+    eagerly.  A failed capture raises.  `gather`, if given, maps the
+    logits to what `run` returns (the replay step: the last rows; on a
+    mesh every dp shard's, all-gathered inside the graph)."""
 
     def __init__(self, decode, params, state, tok, pos, act,
-                 device: torch.device):
+                 device: torch.device, gather=None, capture: bool = True):
         self.state, self.tok, self.pos, self.act = state, tok, pos, act
         self.leaves = pytree.tree_leaves(params)    # the graph reads them
 
         def step():
-            return decode(params, self.tok, self.state, self.pos,
-                          self.act)[0]
+            logits = decode(params, self.tok, self.state, self.pos,
+                            self.act)[0]
+            return logits if gather is None else gather(logits)
 
         self._step, self.graph, self.logits, self.capture_ms = \
             step, None, None, 0.0
-        if device.type == "cuda":
+        if device.type == "cuda" and capture:
             act.zero_()
             self.graph, self.logits, self.capture_ms = serve.capture(
                 step, device)
 
     @classmethod
-    def prefill(cls, decode, params, spec, bb: int, c: int, t_pre: int,
-                device: torch.device) -> "_ChunkStep":
+    def prefill(cls, decode, params, state, bb: int, c: int,
+                device: torch.device, capture: bool = True) -> "_ChunkStep":
+        """Over a fresh prefill `state` of bb rows and buffers of its
+        own."""
         def zeros(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        return cls(decode, params, spec.init_state(bb, t_pre, device),
-                   zeros(bb, c), zeros(bb), zeros(bb, dtype=torch.bool),
-                   device)
+        return cls(decode, params, state, zeros(bb, c), zeros(bb),
+                   zeros(bb, dtype=torch.bool), device, capture=capture)
 
     def reset(self) -> None:
         """Fresh (zero) prefill state, as the reference's init_state per
@@ -303,10 +596,13 @@ class _SpecRound:
     rollback is captured in a CUDA graph (`serve.capture`) with every row
     inactive, so the capture's eager call leaves both states as they
     were; the caller loads the buffers AFTER constructing the round.  On
-    the CPU each runs eagerly."""
+    the CPU, and with `capture` False (a mesh over `gloo`), each runs
+    eagerly.  `gather(out)`, if given, ends the settle: a mesh
+    all-gathers every dp shard's `out` rows for the host."""
 
     def __init__(self, k: int, tdecode, params, tspec, tstate, ddecode,
-                 dparams, dspec, dstate, b: dict, device: torch.device):
+                 dparams, dspec, dstate, b: dict, device: torch.device,
+                 gather=None, capture: bool = True):
         self.leaves = (pytree.tree_leaves(params),
                        pytree.tree_leaves(dparams))   # the graphs read them
         x, g, gbad, out = b["x"], b["g"], b["gbad"], b["out"]
@@ -354,6 +650,8 @@ class _SpecRound:
             out[:, k + 1].copy_(m)
             out[:, k + 2].copy_(pos)
             out[:, k + 3].copy_((gbad & used).any(dim=1))
+            if gather is not None:
+                gather(out)
 
         def rollback():
             dspec.rollback_select(dstate, b["dsnaps"], out[:, k + 1], act)
@@ -362,7 +660,7 @@ class _SpecRound:
         if b["dsnaps"]:
             fns.append(rollback)
         self.graphs, self.capture_ms = [None] * len(fns), 0.0
-        if device.type == "cuda":
+        if device.type == "cuda" and capture:
             act.zero_()
             for i, fn in enumerate(fns):
                 # each capture's eager call advances the step indices the
@@ -432,7 +730,8 @@ class ServeEngine:
                     cache_info()["admission"]["deferrals"].
     device:         where the slot state lives and the steps run; "cuda"
                     by default (raises without CUDA, as every entry
-                    point of the port).
+                    point of the port).  Under a mesh_scope the mesh's
+                    device for this rank instead (module docstring).
     spec_decode:    a SpecDecodeConfig: self-speculative decoding rounds
                     instead of segments (module docstring).  Refuses the
                     encdec family, a draft of another family or vocab,
@@ -491,8 +790,18 @@ class ServeEngine:
                 raise ValueError("spec_decode composes with full-prefill "
                                  "engines only (prefill_chunk=None, "
                                  "prefix_cache=None)")
-        self.device = device_lib.resolve(device)
-        self.params = params
+        # mesh-aware serving: an ambient mesh_scope at construction makes
+        # the engine one rank of a sharded engine (module docstring).  The
+        # slot axis splits evenly over the dp shards, so the dp size is
+        # the batch-bucket floor (admission included)
+        self._plan = _mesh_plan(cfg, self._spec, init_kwargs)
+        plan = self._plan
+        if plan is not None and prefix_cache is not None:
+            raise NotImplementedError(
+                "prefix_cache on a mesh is not ported: pooled pages would "
+                "have to cross ranks (ROADMAP A8, mesh serving)")
+        self.device = plan.mesh.device if plan is not None \
+            else device_lib.resolve(device)
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_cache_len = max_cache_len
@@ -503,6 +812,26 @@ class ServeEngine:
         self.min_len_bucket = min(min_len_bucket, max_cache_len)
         self.min_batch_bucket = min(min_batch_bucket, n_slots)
         self._adm_floor = 1
+        # this rank's dp shard: global slot s lives on shard s % dp at
+        # local row s // dp (one shard, every slot, with no mesh)
+        self._dp, self._d = 1, 0
+        # the leader / follower control plane (mirrored calls)
+        self._ctl = None
+        self._mirroring = False
+        self._weight_bytes: Dict[str, int] = {}
+        if plan is not None:
+            dp = plan.dp_size
+            scheduler.validate_slot_sharding(n_slots, dp)
+            self.min_batch_bucket = min(max(self.min_batch_bucket, dp),
+                                        n_slots)
+            self._adm_floor = min(dp, n_slots)
+            self._dp, self._d = dp, plan.dp_index
+            if plan.mesh.size > 1:
+                self._ctl = plan.mesh
+        # steps with collectives are captured only where the backend can
+        # hold them in a graph (NCCL); over gloo every step runs eagerly
+        self._capture = plan is None or plan.mesh.captures_collectives
+        self._n_loc = n_slots // self._dp
         # smallest prompt bucket: chunked prefill needs chunk-aligned
         # buckets; full prefill just avoids degenerate tiny shapes
         self.min_prompt_bucket = min(prefill_chunk or 8, max_cache_len)
@@ -519,24 +848,40 @@ class ServeEngine:
         self.enc_buckets = scheduler.bucket_set(min(8, enc_len), enc_len) \
             if enc_len is not None else ()
         self._lowerings = dict(registry.fingerprint(self.device))
-        self._bundle = _engine_bundle(cfg, silvia_passes, self.device)
+        self._bundle = _engine_bundle(cfg, silvia_passes, self.device, plan)
         self._queue = scheduler.RequestQueue()
-        self._cache = self._spec.init_state(n_slots, max_cache_len,
-                                            self.device)
+        if plan is not None:
+            # weights: this rank's blocks under the suffix rules, gathered
+            # back whole once (_place_params); slot state: this shard's
+            # slots and, under tensor parallelism, its heads
+            params, self._weight_bytes = _place_params(params, cfg, plan)
+        self.params = params
+        self._cache = self._init_state(self._spec, self._n_loc,
+                                       max_cache_len)
         # per-slot sampling page, host-resident like _tok / _pos, shipped
         # [:bb] into the device buffers before each segment
         self._samp = sampling.host_page(n_slots)
-        dev = self.device
+        dev, n_loc = self.device, self._n_loc
         self._bufs = {
+            "tok": torch.zeros((n_loc, 1), dtype=torch.int64, device=dev),
+            "pos": torch.zeros((n_loc,), dtype=torch.int64, device=dev),
+            "act": torch.zeros((n_loc,), dtype=torch.bool, device=dev),
+            "samp": sampling.null_operand(n_loc, dev),
+            "toks": torch.zeros((n_loc, segment_len), dtype=torch.int32,
+                                device=dev),
+            "bad": torch.zeros((n_loc,), dtype=torch.bool, device=dev),
+            "step": torch.zeros((1,), dtype=torch.int64, device=dev),
+        }
+        # what the host reads a segment's results from: the buffers
+        # themselves, or on a mesh their all-gathered global copies
+        self._out = self._bufs if plan is None else {
             "tok": torch.zeros((n_slots, 1), dtype=torch.int64, device=dev),
             "pos": torch.zeros((n_slots,), dtype=torch.int64, device=dev),
-            "act": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
-            "samp": sampling.null_operand(n_slots, dev),
             "toks": torch.zeros((n_slots, segment_len), dtype=torch.int32,
                                 device=dev),
             "bad": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
-            "step": torch.zeros((1,), dtype=torch.int64, device=dev),
         }
+        self._gathers: Dict[tuple, _Gather] = {}
         self._segments: Dict[tuple, serve._CapturedStep] = {}
         self._chunks: Dict[tuple, _ChunkStep] = {}
         self._tok = np.zeros((n_slots, 1), np.int64)
@@ -606,15 +951,24 @@ class ServeEngine:
     def _init_draft(self, sd: SpecDecodeConfig) -> None:
         """The draft's decode function, its slot state (its own, in place
         for the engine's lifetime, as the target's) and the round
-        buffers (_SpecRound), each [n_slots, ...]; the snapshot stacks
-        only for constant-size leaves: k + 1 copies of each."""
-        n, k1, dev = self.n_slots, sd.k + 1, self.device
+        buffers (_SpecRound), each [n_slots, ...] (this shard's slots on
+        a mesh); the snapshot stacks only for constant-size leaves: k + 1
+        copies of each.  On a mesh the draft has a plan of its own (its
+        head counts decide its tensor parallelism) and its weights are
+        placed as the target's."""
+        n, k1, dev = self._n_loc, sd.k + 1, self.device
         self._draft_spec = slot_state.spec_for(sd.draft_cfg)
+        self._draft_plan = None if self._plan is None else _mesh_plan(
+            sd.draft_cfg, self._draft_spec, {})
         self._draft_bundle = _engine_bundle(sd.draft_cfg,
-                                            self.silvia_passes, dev)
+                                            self.silvia_passes, dev,
+                                            self._draft_plan)
         self._draft_params = sd.draft_params
-        self._draft_cache = self._draft_spec.init_state(
-            n, self.max_cache_len, dev)
+        if self._draft_plan is not None:
+            self._draft_params, _ = _place_params(
+                sd.draft_params, sd.draft_cfg, self._draft_plan)
+        self._draft_cache = self._init_state(
+            self._draft_spec, n, self.max_cache_len, self._draft_plan)
 
         def snaps(spec, state):
             return tuple(torch.zeros((k1,) + tuple(leaf.shape),
@@ -631,9 +985,51 @@ class ServeEngine:
             "tsnaps": snaps(self._spec, self._cache),
             "dsnaps": snaps(self._draft_spec, self._draft_cache),
         }
+        if self._plan is not None:
+            self._sbufs["gout"] = zeros(self.n_slots, k1 + 3)
+
+    def _init_state(self, spec, n: int, t: int, plan="target"):
+        """Fresh slot pages of n rows and length t on the engine's device,
+        made under the plan's tensor-parallel scope (local heads)."""
+        plan = self._plan if plan == "target" else plan
+        with contextlib.nullcontext() if plan is None else plan.tp_scope():
+            return spec.init_state(n, t, self.device)
+
+    def _tp(self):
+        """The target's tensor-parallel scope (a null context off a
+        mesh): every eager model call runs inside it."""
+        return contextlib.nullcontext() if self._plan is None \
+            else self._plan.tp_scope()
+
+    def _rows(self, host: np.ndarray, bb: int) -> np.ndarray:
+        """This shard's rows of the global host rows [:bb] (every
+        dp-th, from its index)."""
+        return host[:bb][self._d::self._dp]
+
+    def _route(self, owners: np.ndarray):
+        """Admission routing: request i goes to shard owners[i].  Returns
+        (this shard's request indices, the local batch bucket -- the
+        largest shard's count, bucketed -- and, per request, its row in
+        the shard-major all-gather of the shards' outputs)."""
+        counts = np.bincount(owners, minlength=self._dp)
+        bbl = scheduler.bucket_pow2(int(counts.max()), minimum=1,
+                                    maximum=self._n_loc)
+        within = np.zeros_like(owners)
+        seen = np.zeros(self._dp, np.int64)
+        for i, o in enumerate(owners):
+            within[i] = seen[o]
+            seen[o] += 1
+        mine = np.nonzero(owners == self._d)[0]
+        return mine, bbl, owners * bbl + within
+
+    def _gather_out(self, t):
+        """Shard-major all-gather over the dp axes (identity off a
+        mesh)."""
+        return t if self._plan is None else self._plan.gather(t)
 
     # -- request lifecycle --------------------------------------------------
 
+    @_mirrored
     def submit(self, req: scheduler.Request) -> str:
         """Validate and enqueue; returns resilience.QUEUED, or
         resilience.SHED when the bounded queue rejects the newcomer under
@@ -727,18 +1123,25 @@ class ServeEngine:
         live = np.nonzero(self._active)[0]
         if live.size == 0 or int(live[-1]) == live.size - 1:
             return False          # already a dense prefix
+        # per dp shard: its live slots first, then its holes; a slot never
+        # leaves its shard (one shard, a dense prefix, off a mesh)
+        dp = self._dp
+        act = self._active.reshape(self._n_loc, dp)
+        local = [np.concatenate([np.nonzero(act[:, d])[0],
+                                 np.nonzero(~act[:, d])[0]])
+                 for d in range(dp)]
+        perm = np.stack(local, axis=1).reshape(-1) * dp \
+            + np.tile(np.arange(dp), self._n_loc)
         cur = scheduler.bucket_pow2(int(live[-1]) + 1,
                                     minimum=self.min_batch_bucket,
                                     maximum=self.n_slots)
-        tgt = scheduler.bucket_pow2(int(live.size),
-                                    minimum=self.min_batch_bucket,
+        hi = max((int(act[:, d].sum()) - 1) * dp + d + 1
+                 for d in range(dp) if act[:, d].any())
+        tgt = scheduler.bucket_pow2(hi, minimum=self.min_batch_bucket,
                                     maximum=self.n_slots)
         if cur <= tgt:
             return False          # hole doesn't change the bucket
-        holes = np.asarray([i for i in range(self.n_slots)
-                            if not self._active[i]], np.int64)
-        perm = np.concatenate([live, holes])
-        self._spec.permute_slots(self._cache, perm)
+        self._spec.permute_slots(self._cache, local[self._d])
         self._samp = sampling.permute(self._samp, perm)
         self._tok = self._tok[perm]
         self._pos = self._pos[perm]
@@ -749,7 +1152,8 @@ class ServeEngine:
         self._score = [self._score[i] for i in perm]
         self._slot_pins = [self._slot_pins[i] for i in perm]
         if self._sd is not None:
-            self._draft_spec.permute_slots(self._draft_cache, perm)
+            self._draft_spec.permute_slots(self._draft_cache,
+                                           local[self._d])
         self.compactions += 1
         return True
 
@@ -806,12 +1210,16 @@ class ServeEngine:
                                self._enc_bucket(r)), []).append(r)
         for (sb, eb), g in sorted(
                 groups.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0)):
-            bb = scheduler.bucket_pow2(len(g), minimum=self._adm_floor,
-                                       maximum=self.n_slots)
-            inputs, lens = self._prefill_inputs(g, bb, sb, eb)
-            self._graphs.add(self._embed_key(bb, sb, eb))
+            # an embed takes no slot: the batch is dealt over the dp
+            # shards cyclically
+            mine, bbl, at = self._route(np.arange(len(g)) % self._dp)
+            inputs, lens = self._prefill_inputs([g[i] for i in mine], bbl,
+                                                sb, eb)
+            self._graphs.add(self._embed_key(bbl * self._dp, sb, eb))
             emb, bad = self._guarded("embed", self._embed, inputs, lens)
-            emb, bad = emb.cpu().numpy(), bad.cpu().numpy()
+            at = torch.as_tensor(at, device=self.device)
+            emb = self._gather_out(emb)[at].cpu().numpy()
+            bad = self._gather_out(bad)[at].cpu().numpy()
             now = clock.now()
             for i, r in enumerate(g):
                 self._admitting = [x for x in self._admitting if x is not r]
@@ -835,14 +1243,15 @@ class ServeEngine:
         """One pooled-embedding launch: (vectors [bb, d_model] f32, bad
         [bb]).  encdec inputs are (features, tokens, enc_lengths)."""
         last_pos = torch.as_tensor(lens - 1, device=self.device)
-        if self.cfg.family == "encdec":
-            audio, tokens, enc_lens = inputs
-            emb = lm.embed_pool(self.params, (audio, tokens), self.cfg,
-                                last_positions=last_pos,
-                                enc_lengths=enc_lens)
-        else:
-            emb = lm.embed_pool(self.params, inputs, self.cfg,
-                                last_positions=last_pos)
+        with self._tp():
+            if self.cfg.family == "encdec":
+                audio, tokens, enc_lens = inputs
+                emb = lm.embed_pool(self.params, (audio, tokens), self.cfg,
+                                    last_positions=last_pos,
+                                    enc_lengths=enc_lens)
+            else:
+                emb = lm.embed_pool(self.params, inputs, self.cfg,
+                                    last_positions=last_pos)
         return emb, ~torch.isfinite(emb).all(dim=-1)
 
     def _enc_bucket(self, r: scheduler.Request) -> Optional[int]:
@@ -934,16 +1343,17 @@ class ServeEngine:
         (features, tokens, enc_lengths); its cross K/V come out padded to
         enc_len."""
         last_pos = torch.as_tensor(lens - 1, device=self.device)
-        if self.cfg.family == "encdec":
-            audio, tokens, enc_lens = inputs
-            logits, rows = lm.prefill(
-                self.params, (audio, tokens), self.cfg, cache_len=t_pre,
-                last_positions=last_pos, enc_lengths=enc_lens,
-                enc_pad=self.enc_len)
-        else:
-            logits, rows = lm.prefill(self.params, inputs, self.cfg,
-                                      cache_len=t_pre,
-                                      last_positions=last_pos)
+        with self._tp():
+            if self.cfg.family == "encdec":
+                audio, tokens, enc_lens = inputs
+                logits, rows = lm.prefill(
+                    self.params, (audio, tokens), self.cfg,
+                    cache_len=t_pre, last_positions=last_pos,
+                    enc_lengths=enc_lens, enc_pad=self.enc_len)
+            else:
+                logits, rows = lm.prefill(self.params, inputs, self.cfg,
+                                          cache_len=t_pre,
+                                          last_positions=last_pos)
         last = logits[:, -1, :]
         return (last.argmax(dim=-1), last, rows,
                 ~torch.isfinite(last).all(dim=-1))
@@ -951,10 +1361,12 @@ class ServeEngine:
     def _draft_prefill(self, inputs, lens: np.ndarray, t_pre: int):
         """The draft's full prefill of the target's prefill inputs: the
         prefilled rows' draft state (its logits are not needed)."""
-        _, rows = lm.prefill(self._draft_params, inputs, self._sd.draft_cfg,
-                             cache_len=t_pre,
-                             last_positions=torch.as_tensor(
-                                 lens - 1, device=self.device))
+        plan = self._draft_plan
+        with contextlib.nullcontext() if plan is None else plan.tp_scope():
+            _, rows = lm.prefill(self._draft_params, inputs,
+                                 self._sd.draft_cfg, cache_len=t_pre,
+                                 last_positions=torch.as_tensor(
+                                     lens - 1, device=self.device))
         return rows
 
     def _graph_key(self, bb: int, sb: int, t_pre: int,
@@ -971,22 +1383,33 @@ class ServeEngine:
         g = len(group)
         t_pre = self._prefill_bucket(sb)
         if self._prefix is None:
-            bb = scheduler.bucket_pow2(g, minimum=self._adm_floor,
-                                       maximum=self.n_slots)
+            slots = np.asarray([free.pop(0) for _ in range(g)], np.int64)
+            # each request prefills on the dp shard that owns its slot
+            # (every request here, off a mesh), in a batch bucketed by
+            # the largest shard's count; the pages never cross ranks
+            mine, bbl, at = self._route(slots % self._dp)
+            sub = [group[i] for i in mine]
+            bb = bbl * self._dp
             if self.prefill_chunk is None:
-                inputs, lens = self._prefill_inputs(group, bb, sb, eb)
+                inputs, lens = self._prefill_inputs(sub, bbl, sb, eb)
                 self._graphs.add(self._graph_key(bb, sb, t_pre, eb))
                 tok0, last, rows, bad0 = self._guarded(
                     "prefill", self._prefill, inputs, lens, t_pre)
             else:
+                prompts, lens = self._prompt_page(sub, bbl, sb)
                 tok0, last, rows, bad0 = self._chunked_prefill(
-                    *self._prompt_page(group, bb, sb), t_pre)
-            tok0 = tok0.cpu().numpy()
-            bad0 = bad0.cpu().numpy()
-            slots = np.asarray([free.pop(0) for _ in range(g)], np.int64)
+                    prompts, lens, t_pre)
+            # every shard's first tokens, flags and last logits rows, in
+            # group order
+            at = torch.as_tensor(at, device=self.device)
+            tok0 = self._gather_out(tok0)[at].cpu().numpy()
+            bad0 = self._gather_out(bad0)[at].cpu().numpy()
+            last = self._gather_out(last)[at]
             # scatter the admitted pages into their slots; leaves without
             # a length axis (SSM / conv state, cross K/V) are reset whole
-            self._spec.admit(self._cache, rows, slots, g, t_pre=t_pre)
+            local = slots[mine] // self._dp
+            self._spec.admit(self._cache, rows, local, len(mine),
+                             t_pre=t_pre)
             del rows
             if self._sd is not None:
                 # the draft prefills the same prompts in the same bucket
@@ -995,8 +1418,8 @@ class ServeEngine:
                 self._graphs.add(("dprefill", bb, sb, t_pre))
                 d_rows = self._guarded("draft", self._draft_prefill,
                                        inputs, lens, t_pre)
-                self._draft_spec.admit(self._draft_cache, d_rows, slots, g,
-                                       t_pre=t_pre)
+                self._draft_spec.admit(self._draft_cache, d_rows, local,
+                                       len(mine), t_pre=t_pre)
                 del d_rows
             pins: List[tuple] = [()] * g
         elif self.prefill_chunk is not None:
@@ -1287,12 +1710,15 @@ class ServeEngine:
     # -- chunked prefill ----------------------------------------------------
 
     def _chunk_step(self, bb: int, c: int, t_pre: int) -> _ChunkStep:
-        """The chunk step of (bb, c, t_pre), captured at first use."""
+        """The chunk step of (bb, c, t_pre) -- bb this shard's rows --
+        captured at first use."""
         key = ("chunk", bb, c, t_pre)
         s = self._chunks.get(key)
         if s is None:
-            s = _ChunkStep.prefill(self._bundle.decode_fn, self.params,
-                                   self._spec, bb, c, t_pre, self.device)
+            s = _ChunkStep.prefill(
+                self._bundle.decode_fn, self.params,
+                self._init_state(self._spec, bb, t_pre), bb, c,
+                self.device, self._capture)
             self._chunks[key] = s
         return s
 
@@ -1310,7 +1736,7 @@ class ServeEngine:
         step.reset()
         active = np.ones((bb,), bool)
         last: List[Optional[torch.Tensor]] = [None] * bb
-        self._graphs.add(("chunk", bb, c, t_pre))
+        self._graphs.add(("chunk", bb * self._dp, c, t_pre))
         for k in range(sb // c):
             logits = self._guarded("chunk", step.run,
                                    prompts[:, k * c:(k + 1) * c], k * c,
@@ -1346,20 +1772,51 @@ class ServeEngine:
     def _segment_step(self, bb: int,
                       t_b: Optional[int]) -> serve._CapturedStep:
         """The captured step of (bb, t_b), captured at first use, over
-        the first bb rows of the slot state and the device buffers."""
+        the first bb rows of the slot state and the device buffers (on a
+        mesh this shard's bb / dp rows, and the gather of its outputs)."""
         key = ("segment", bb, t_b, self.segment_len)
         s = self._segments.get(key)
         if s is None:
-            bufs = {k: t if k == "step" else tuple(x[:bb] for x in t)
-                    if k == "samp" else t[:bb]
+            n = bb // self._dp
+            bufs = {k: t if k == "step" else tuple(x[:n] for x in t)
+                    if k == "samp" else t[:n]
                     for k, t in self._bufs.items()}
             s = serve._CapturedStep(
                 self._bundle.decode_fn, self.params,
-                self._spec.slice_live(self._cache, bb, t_b), bufs,
-                self.device)
+                self._spec.slice_live(self._cache, n, t_b), bufs,
+                self.device, graphed=self._capture)
             self._segments[key] = s
             self._graphs.add(key)
         return s
+
+    def _segment_gather(self, bb: int) -> Optional[_Gather]:
+        """On a mesh, the gather of a bb-row segment's outputs (every
+        shard's tokens, positions and flags) into the global buffers the
+        host reads; None off a mesh."""
+        if self._plan is None:
+            return None
+        g = self._gathers.get(("segment", bb))
+        if g is None:
+            n, b, o = bb // self._dp, self._bufs, self._out
+            rows = self._plan.gather_rows
+
+            def fn():
+                for k in ("tok", "pos", "toks", "bad"):
+                    o[k][:bb].copy_(rows(b[k][:n]))
+
+            g = self._gathers[("segment", bb)] = _Gather(
+                fn, self.device, self._capture)
+        return g
+
+    def _load_rows(self, bb: int, names=("tok", "pos", "act")) -> None:
+        """This shard's rows of the host's per-slot arrays [:bb] (and the
+        sampling page) into the device buffers."""
+        b, n = self._bufs, bb // self._dp
+        host = {"tok": self._tok, "pos": self._pos, "act": self._active}
+        for name in names:
+            b[name][:n].copy_(torch.from_numpy(self._rows(host[name], bb)))
+        for buf, leaf in zip(b["samp"], self._samp):
+            buf[:n].copy_(torch.from_numpy(self._rows(leaf, bb)))
 
     def _begin_segment(self) -> _PendingSegment:
         """Load the per-slot buffers and replay the bucket's captured step
@@ -1367,17 +1824,16 @@ class ServeEngine:
         bb, t_b = self._segment_shape()
         n_steps = self.segment_len
         b = self._bufs
-        for name, host in (("tok", self._tok), ("pos", self._pos),
-                           ("act", self._active)):
-            b[name][:bb].copy_(torch.from_numpy(host[:bb]))
-        for buf, leaf in zip(b["samp"], self._samp):
-            buf[:bb].copy_(torch.from_numpy(leaf[:bb]))
+        self._load_rows(bb)
         b["bad"].zero_()
         b["step"].zero_()
         # captured at first use AFTER the buffers are loaded: the capture's
         # eager step writes its token at the step index
         step = self._segment_step(bb, t_b)
+        gather = self._segment_gather(bb)
         self._guarded("segment", step.replay, n_steps)
+        if gather is not None:
+            gather.run()
         self.segments += 1
         self.occupancy.append(float(np.sum(self._active)) / self.n_slots)
         return _PendingSegment(bb=bb, n_steps=n_steps)
@@ -1385,11 +1841,11 @@ class ServeEngine:
     def _finish_segment(self, p: _PendingSegment,
                         clock: scheduler.Clock) -> None:
         """Block on a dispatched segment's outputs and harvest."""
-        b = self._bufs
-        self._tok[:p.bb] = b["tok"][:p.bb].cpu().numpy()
-        self._pos[:p.bb] = b["pos"][:p.bb].cpu().numpy()
-        seq = b["toks"][:p.bb, :p.n_steps].cpu().numpy().T   # [n_steps, bb]
-        self._harvest(seq, b["bad"][:p.bb].cpu().numpy(), clock.now())
+        o = self._out
+        self._tok[:p.bb] = o["tok"][:p.bb].cpu().numpy()
+        self._pos[:p.bb] = o["pos"][:p.bb].cpu().numpy()
+        seq = o["toks"][:p.bb, :p.n_steps].cpu().numpy().T   # [n_steps, bb]
+        self._harvest(seq, o["bad"][:p.bb].cpu().numpy(), clock.now())
 
     def _harvest(self, seq: np.ndarray, bad: np.ndarray,
                  now: float) -> None:
@@ -1431,26 +1887,34 @@ class ServeEngine:
         round buffers."""
         r = self._rounds.get((bb, t_b))
         if r is None:
+            n = bb // self._dp      # this shard's rows
+
             def snaps(spec, stacks):    # the slot axis is one on, past k+1
                 axes = [ba for ba, la in zip(spec.batch_axes,
                                              spec.length_axes) if la is None]
-                return tuple(x.narrow(ba + 1, 0, bb)
+                return tuple(x.narrow(ba + 1, 0, n)
                              for x, ba in zip(stacks, axes))
 
             sb, eb = self._sbufs, self._bufs
-            b = {k: sb[k][:bb] for k in ("x", "g", "gbad", "dpos", "out")}
-            b.update(pos=eb["pos"][:bb], act=eb["act"][:bb],
-                     samp=tuple(x[:bb] for x in eb["samp"]),
+            b = {k: sb[k][:n] for k in ("x", "g", "gbad", "dpos", "out")}
+            b.update(pos=eb["pos"][:n], act=eb["act"][:n],
+                     samp=tuple(x[:n] for x in eb["samp"]),
                      dstep=sb["dstep"], vstep=sb["vstep"],
                      tsnaps=snaps(self._spec, sb["tsnaps"]),
                      dsnaps=snaps(self._draft_spec, sb["dsnaps"]))
+            gather = None
+            if self._plan is not None:
+                gout, rows = sb["gout"][:bb], self._plan.gather_rows
+
+                def gather(out):
+                    gout.copy_(rows(out))
             r = _SpecRound(
                 self._sd.k, self._bundle.decode_fn, self.params, self._spec,
-                self._spec.slice_live(self._cache, bb, t_b),
+                self._spec.slice_live(self._cache, n, t_b),
                 self._draft_bundle.decode_fn, self._draft_params,
                 self._draft_spec,
-                self._draft_spec.slice_live(self._draft_cache, bb, t_b), b,
-                self.device)
+                self._draft_spec.slice_live(self._draft_cache, n, t_b), b,
+                self.device, gather=gather, capture=self._capture)
             self._rounds[(bb, t_b)] = r
         return r
 
@@ -1482,13 +1946,11 @@ class ServeEngine:
         # captured at first use BEFORE the buffers are loaded: a capture's
         # eager calls scribble on them
         rnd = self._spec_round_for(bb, t_b)
-        b, sb = self._bufs, self._sbufs
-        sb["x"][:bb, 0].copy_(torch.from_numpy(self._tok[:bb, 0]))
-        b["pos"][:bb].copy_(torch.from_numpy(self._pos[:bb]))
-        sb["dpos"][:bb].copy_(b["pos"][:bb])
-        b["act"][:bb].copy_(torch.from_numpy(self._active[:bb]))
-        for buf, leaf in zip(b["samp"], self._samp):
-            buf[:bb].copy_(torch.from_numpy(leaf[:bb]))
+        b, sb, n = self._bufs, self._sbufs, bb // self._dp
+        sb["x"][:n, 0].copy_(torch.from_numpy(self._rows(self._tok[:, 0],
+                                                         bb)))
+        self._load_rows(bb, ("pos", "act"))
+        sb["dpos"][:n].copy_(b["pos"][:n])
         sb["dstep"].zero_()
         sb["vstep"].zero_()
         self._guarded("draft", rnd.draft, k + 1)
@@ -1499,7 +1961,7 @@ class ServeEngine:
             self._graphs.add(("rollback", bb, t_b, k + 1))
             rnd.rollback()
         self.occupancy.append(float(np.sum(self._active)) / self.n_slots)
-        out = sb["out"][:bb].cpu().numpy()
+        out = sb["out" if self._plan is None else "gout"][:bb].cpu().numpy()
         self._pos[:bb] = out[:, k + 2]
         self._spec_harvest(out[:, :k + 1].T, out[:, k + 1],
                            out[:, k + 3].astype(bool), clock.now())
@@ -1587,13 +2049,16 @@ class ServeEngine:
         eviction never scrubs (stale FINITE values are masked to exact
         zeros), but a masked softmax weight is an exact 0 and 0 * NaN is
         NaN."""
-        zeros = self._spec.init_state(1, self.max_cache_len, self.device)
-        self._spec.admit(self._cache, zeros, [slot], 1)
+        if slot % self._dp != self._d:
+            return          # another dp shard's page
+        local = [slot // self._dp]
+        zeros = self._init_state(self._spec, 1, self.max_cache_len)
+        self._spec.admit(self._cache, zeros, local, 1)
         if self._sd is not None:
             # the draft saw the same poisoned row: scrub its page too
-            dz = self._draft_spec.init_state(1, self.max_cache_len,
-                                             self.device)
-            self._draft_spec.admit(self._draft_cache, dz, [slot], 1)
+            dz = self._init_state(self._draft_spec, 1, self.max_cache_len,
+                                  self._draft_plan)
+            self._draft_spec.admit(self._draft_cache, dz, local, 1)
 
     def _replay_step_for(self, bb: int, t_b: Optional[int]) -> _ChunkStep:
         """The replay step of (bb, t_b), captured at first use over the
@@ -1601,11 +2066,15 @@ class ServeEngine:
         the token, position and active buffers."""
         s = self._replays.get((bb, t_b))
         if s is None:
-            b = self._bufs
+            b, n = self._bufs, bb // self._dp
+            # the step's output: every row's last logits, in slot order
+            # (on a mesh every dp shard's, all-gathered inside the step)
+            gather = (lambda lg: lg[:, -1, :]) if self._plan is None \
+                else (lambda lg: self._plan.gather_rows(lg[:, -1, :]))
             s = _ChunkStep(self._bundle.decode_fn, self.params,
-                           self._spec.slice_live(self._cache, bb, t_b),
-                           b["tok"][:bb], b["pos"][:bb], b["act"][:bb],
-                           self.device)
+                           self._spec.slice_live(self._cache, n, t_b),
+                           b["tok"][:n], b["pos"][:n], b["act"][:n],
+                           self.device, gather, self._capture)
             self._replays[(bb, t_b)] = s
         return s
 
@@ -1616,12 +2085,12 @@ class ServeEngine:
         buffers."""
         s = self._dreplays.get((bb, t_b))
         if s is None:
-            b = self._bufs
+            b, n = self._bufs, bb // self._dp
             s = _ChunkStep(self._draft_bundle.decode_fn, self._draft_params,
                            self._draft_spec.slice_live(self._draft_cache,
-                                                       bb, t_b),
-                           b["tok"][:bb], b["pos"][:bb], b["act"][:bb],
-                           self.device)
+                                                       n, t_b),
+                           b["tok"][:n], b["pos"][:n], b["act"][:n],
+                           self.device, capture=self._capture)
             self._dreplays[(bb, t_b)] = s
         return s
 
@@ -1658,8 +2127,9 @@ class ServeEngine:
                                 for s in range(bb)])
         step = self._replay_step_for(bb, t_b)
         self._graphs.add(("chunk", bb, 1, t_b))
-        logits = self._guarded("chunk", step.run, self._tok[:bb],
-                               self._pos[:bb], replaying)
+        inputs = (self._rows(self._tok, bb), self._rows(self._pos, bb),
+                  self._rows(replaying, bb))
+        last = self._guarded("chunk", step.run, *inputs)
         self.replay_steps += 1
         if self._sd is not None:
             # the draft teacher-forces the same token at the same position,
@@ -1668,9 +2138,7 @@ class ServeEngine:
             # another graph's pool)
             dstep = self._draft_replay_step_for(bb, t_b)
             self._graphs.add(("dchunk", bb, 1, t_b))
-            self._guarded("draft", dstep.run, self._tok[:bb],
-                          self._pos[:bb], replaying)
-        last = logits[:, -1, :]
+            self._guarded("draft", dstep.run, *inputs)
         nxt = last.argmax(dim=-1).cpu().numpy()
         bad = (~torch.isfinite(last).all(dim=-1)).cpu().numpy()
         # whole rows come to the host only for a score slot's logprob
@@ -1740,15 +2208,15 @@ class ServeEngine:
                              f"last error: {exc}")
             else:
                 self._queue.submit(r)
-        fresh = self._spec.init_state(1, self.max_cache_len, self.device)
+        fresh = self._init_state(self._spec, 1, self.max_cache_len)
         for leaf, init in zip(pytree.tree_leaves(self._cache),
                               pytree.tree_leaves(fresh)):
             leaf.copy_(init)        # broadcast over the slot axis
         for buf in pytree.tree_leaves(self._bufs):
             buf.zero_()
         if self._sd is not None:
-            dfresh = self._draft_spec.init_state(1, self.max_cache_len,
-                                                 self.device)
+            dfresh = self._init_state(self._draft_spec, 1,
+                                      self.max_cache_len, self._draft_plan)
             for leaf, init in zip(pytree.tree_leaves(self._draft_cache),
                                   pytree.tree_leaves(dfresh)):
                 leaf.copy_(init)
@@ -1771,6 +2239,7 @@ class ServeEngine:
 
     # -- run loop -----------------------------------------------------------
 
+    @_mirrored
     def step(self, clock: Optional[scheduler.Clock] = None) -> bool:
         """Admit what has arrived, drain replays and scores, then run one
         decode segment.  Returns False when there was nothing to do (the
@@ -1786,6 +2255,7 @@ class ServeEngine:
             self._recover(e, clock.now())
             return True
 
+    @_mirrored
     def step_begin(self, clock: Optional[scheduler.Clock] = None):
         """First half of step(): expire, admit and replay, then dispatch
         one decode segment WITHOUT syncing on it.  Returns (pending,
@@ -1799,6 +2269,7 @@ class ServeEngine:
             self._recover(e, clock.now())
             return None, True
 
+    @_mirrored
     def step_finish(self, pending,
                     clock: Optional[scheduler.Clock] = None) -> bool:
         """Second half of step(): block on the dispatched segment and
@@ -1833,6 +2304,7 @@ class ServeEngine:
         self._finish_segment(pending, clock)
         return True
 
+    @_mirrored
     def cancel(self, rid: int, now: float = 0.0,
                reason: Optional[str] = None) -> bool:
         """Cancel a request by rid.  Queued: removed before it ever
@@ -1856,6 +2328,7 @@ class ServeEngine:
                 return True
         return False
 
+    @_mirrored
     def drain(self, clock: Optional[scheduler.Clock] = None) -> None:
         """Finish all in-flight work WITHOUT admitting fresh requests
         (requests a fault mid-drain requeued, with emitted tokens or a
@@ -1880,17 +2353,32 @@ class ServeEngine:
         through checkpoint/ckpt.py (launch/resilience.py's encoding).
         In-flight requests are stored with their emitted tokens and
         resume on restore() through the recovery / replay path, so device
-        state is never serialized.  (The reference stamps its mesh here;
-        the port has none until engine slice 7.)"""
+        state is never serialized.  The snapshot is stamped with the
+        current mesh (observability only): request state carries no mesh,
+        so a snapshot taken on one mesh restores onto another, or onto
+        one device, with the same tokens.  On a mesh the leader writes
+        it (the host state it reads is every rank's)."""
         reqs = [r for r in self._slot_req if r is not None] \
             + list(self._queue.pending())
         self._robust["snapshots"] += 1
-        return res.snapshot_requests(ckpt_dir, step, reqs)
+        extra = None
+        if self._plan is not None:
+            p = self._plan
+            extra = {"mesh": {
+                "shape": dict(p.mesh.shape), "dp_axes": list(p.dp_axes),
+                "model_axis": p.model_axis, "dead_devices": [],
+            }}
+        return res.snapshot_requests(ckpt_dir, step, reqs, extra=extra)
 
     def restore(self, ckpt_dir: str, step: Optional[int] = None) -> int:
         """Load a snapshot into this (fresh or drained) engine's queue;
-        returns the number of requests restored."""
-        reqs = res.restore_requests(ckpt_dir, step=step)
+        returns the number of requests restored.  On a mesh the leader
+        reads it and every rank queues the requests it read."""
+        return self._restore_requests(res.restore_requests(ckpt_dir,
+                                                           step=step))
+
+    @_mirrored
+    def _restore_requests(self, reqs: list) -> int:
         for r in reqs:
             if r.rid in self._rids:
                 raise ValueError(
@@ -1943,6 +2431,47 @@ class ServeEngine:
                     break
         return {r.rid: np.asarray(r.tokens, np.int32) for r in self.finished}
 
+    def _degrade(self, exc: Exception) -> None:
+        """Re-plan onto the healthy sub-mesh after a device loss (the
+        reference's elastic path): not ported."""
+        raise NotImplementedError(
+            f"_degrade after {exc!r}: elastic degraded-mesh serving is not "
+            f"ported yet (ROADMAP A11)")
+
+    # -- the mesh's control plane ------------------------------------------
+
+    def follow(self) -> None:
+        """A follower rank's serve loop (mesh serving, module docstring):
+        receive each call rank 0's engine broadcasts and run it here,
+        with rank 0's clock readings, until rank 0's `release()`.  A
+        ValueError -- what `submit` raises for a malformed request,
+        before any launch -- is the leader's to report (it raised it too:
+        the host state is the same); any other exception ends the loop
+        and the process."""
+        mesh = self._ctl
+        if mesh is None or mesh.rank == 0:
+            raise RuntimeError("follow() runs on the ranks after rank 0 "
+                               "of a mesh of more than one rank")
+        while True:
+            name, kwargs, clocked = mesh.bcast_object()
+            if name is None:
+                return
+            if clocked:
+                kwargs["clock"] = _FollowerClock(mesh)
+            fn = getattr(type(self), name).__wrapped__
+            self._mirroring = True
+            try:
+                fn(self, **kwargs)
+            except ValueError:
+                pass            # a caller's error, raised on rank 0 too
+            finally:
+                self._mirroring = False
+
+    def release(self) -> None:
+        """Rank 0: end the followers' `follow()` loops."""
+        if self._ctl is not None and self._ctl.rank == 0:
+            self._ctl.bcast_object((None, None, False))
+
     # -- observability ------------------------------------------------------
 
     @property
@@ -1974,6 +2503,7 @@ class ServeEngine:
             bound += 3 * seg + pre + seg
         return bound
 
+    @_mirrored
     def warmup(self, prompt_lens: Optional[Sequence[int]] = None,
                methods: Sequence[str] = ("generate",)) -> int:
         """Capture the (batch bucket x length bucket) segment grid (a spec
@@ -2000,6 +2530,7 @@ class ServeEngine:
                     if ("segment", bb, t_b, self.segment_len) not in \
                             self._graphs:
                         self._segment_step(bb, t_b)
+                        self._segment_gather(bb)
                         n += 1
                     continue
                 # a spec engine never runs a segment: its round grid
@@ -2029,39 +2560,41 @@ class ServeEngine:
         # encdec admission groups ragged features by enc bucket: warm
         # every bucket, or ragged traffic meets the smaller ones mid-run
         for bb in self.admission_batch_buckets:
+            bbl = bb // self._dp        # each shard's rows
             for sb in sbs:
                 for eb in (self.enc_buckets or (None,)):
                     t_pre = self._prefill_bucket(sb)
                     key = self._graph_key(bb, sb, t_pre, eb)
                     if key in self._graphs:
                         continue
-                    lens = np.ones((bb,), np.int64)
+                    lens = np.ones((bbl,), np.int64)
                     if self.prefill_chunk is None:
                         out = self._prefill(
-                            self._warmup_prefill_inputs(bb, sb, eb), lens,
+                            self._warmup_prefill_inputs(bbl, sb, eb), lens,
                             t_pre)
                     else:
                         out = self._chunked_prefill(
-                            np.zeros((bb, sb), np.int64), lens, t_pre)
+                            np.zeros((bbl, sb), np.int64), lens, t_pre)
                     out[0].cpu()
                     self._graphs.add(key)
                     n += 1
                     dkey = ("dprefill", bb, sb, t_pre)
                     if self._sd is not None and dkey not in self._graphs:
                         pytree.tree_leaves(self._draft_prefill(
-                            self._warmup_prefill_inputs(bb, sb), lens,
+                            self._warmup_prefill_inputs(bbl, sb), lens,
                             t_pre))[0].cpu()
                         self._graphs.add(dkey)
                         n += 1
         if "embed" in methods:
             for bb in self.admission_batch_buckets:
+                bbl = bb // self._dp
                 for sb in sbs:
                     for eb in (self.enc_buckets or (None,)):
                         key = self._embed_key(bb, sb, eb)
                         if key in self._graphs:
                             continue
-                        self._embed(self._warmup_prefill_inputs(bb, sb, eb),
-                                    np.ones((bb,), np.int64))[0].cpu()
+                        self._embed(self._warmup_prefill_inputs(bbl, sb, eb),
+                                    np.ones((bbl,), np.int64))[0].cpu()
                         self._graphs.add(key)
                         n += 1
         return n
@@ -2117,6 +2650,29 @@ class ServeEngine:
         }
         if self._prefix is not None:
             info["prefix_cache"] = self._prefix.info()
+        if self._plan is not None:
+            p = self._plan
+            info["mesh"] = {
+                "shape": dict(p.mesh.shape),
+                "dp_axes": list(p.dp_axes),
+                "model_axis": p.model_axis,
+                "dp_size": p.dp_size,
+                "tp_size": p.tp.size,
+                "tp_attn": p.tp.attn,
+                "tp_ssm": p.tp.ssm,
+                "n_devices": p.mesh.size,
+                "dead_devices": [],
+                "degraded": 0,
+                "rank": p.mesh.rank,
+                "backend": p.mesh.backend,
+                # steps with collectives in CUDA graphs (NCCL on CUDA), or
+                # every step eager (gloo, or the CPU)
+                "captured": self._capture and self.device.type == "cuda",
+                "gathered_bytes": p.mesh.gathered_bytes,
+                "weights": dict(self._weight_bytes),
+                "state_bytes": sum(t.numel() * t.element_size() for t in
+                                   pytree.tree_leaves(self._cache)),
+            }
         if self._sd is not None:
             sd = dict(self._spec_stats)
             sd["k"] = self._sd.k

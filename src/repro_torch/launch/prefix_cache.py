@@ -36,10 +36,10 @@ Copy-on-write: pool pages are immutable host tensors
 admission COPIES them into the admitted slot's private state, and
 decode mutates only that working copy.  The reference keeps host numpy
 so that its pool is mesh-free and survives an elastic re-plan; the
-port's is host-resident for the same reason.  The reference's
-`note_remesh` and its info() fields `remeshes` / `mesh_fingerprint`
-have no caller before the mesh paths (ROADMAP A6, engine slice 7) and
-come with them.
+port's is host-resident for the same reason.  `note_remesh` records
+the mesh a pool serves (info()'s `remeshes` and `mesh_fingerprint`);
+the port's engine refuses a prefix cache on a mesh so far (ROADMAP A8),
+so only a caller of its own feeds it.
 
 Capacity is bounded in page units (1 per entry) with LRU eviction that
 skips pinned entries: an entry is pinned while any live slot was admitted
@@ -111,6 +111,8 @@ class PrefixCache:
         self.tokens_skipped = 0
         self.evicted = 0
         self.insertions = 0
+        self.remeshes = 0
+        self.mesh_key = None
 
     # -- keys ---------------------------------------------------------------
 
@@ -268,6 +270,16 @@ class PrefixCache:
                 ent.refs -= 1
         self._evict_over_capacity()
 
+    # -- mesh bookkeeping ---------------------------------------------------
+
+    def note_remesh(self, mesh_key) -> None:
+        """Record a mesh (re-)plan.  Pages are host-resident and so
+        mesh-free: nothing to invalidate.  The fingerprint is kept for
+        observability: info() shows which mesh the pool serves."""
+        if self.mesh_key is not None and mesh_key != self.mesh_key:
+            self.remeshes += 1
+        self.mesh_key = mesh_key
+
     # -- observability ------------------------------------------------------
 
     def info(self) -> dict:
@@ -285,4 +297,7 @@ class PrefixCache:
             "pages_pinned": sum(1 for e in self._entries.values()
                                 if e.refs > 0),
             "insertions": self.insertions,
+            "remeshes": self.remeshes,
+            "mesh_fingerprint": None if self.mesh_key is None
+            else hashlib.sha256(repr(self.mesh_key).encode()).hexdigest()[:12],
         }

@@ -43,8 +43,8 @@ reference's, so a snapshot written by either package restores in the
 other.
 
 Device loss (``lose@site`` arms, the reference's
-`distributed.elastic.DeviceLossInjector`) comes with the mesh, ROADMAP
-A6 engine slice 7.
+`distributed.elastic.DeviceLossInjector`) is elastic degraded-mesh
+serving, ROADMAP A11: it raises.
 """
 from __future__ import annotations
 
@@ -213,9 +213,8 @@ def chaos_from_env() -> Optional[ChaosSchedule]:
         return None
     if "lose" in spec:
         raise NotImplementedError(
-            f"REPRO_CHAOS={spec!r}: device-loss arms are not ported yet "
-            f"(ROADMAP.md A6, engine slice 7: the mesh and elastic paths, "
-            f"with A8)")
+            f"REPRO_CHAOS={spec!r}: device-loss arms are elastic "
+            f"degraded-mesh serving, not ported yet (ROADMAP.md A11)")
     return ChaosSchedule.parse(spec)
 
 

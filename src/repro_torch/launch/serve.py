@@ -229,7 +229,9 @@ class _CapturedStep:
     which leaves the state as it was (the masked writes write back what
     they held).  On the CPU there is no graph and a replay calls the step
     eagerly (`generate` never builds one there; the CPU tests check the
-    buffers' bookkeeping this way).
+    buffers' bookkeeping this way); so does a step built with `graphed`
+    False (the serve engine on a mesh over `gloo`, whose collectives no
+    graph holds).
 
     What the static path's step holds on the device (`static`): the
     params tree (the graph reads the weights at their addresses), a KV
@@ -245,7 +247,7 @@ class _CapturedStep:
     intermediates."""
 
     def __init__(self, decode, params, state, bufs: dict,
-                 device: torch.device, key=None):
+                 device: torch.device, key=None, graphed: bool = True):
         self.key, self.cache, self.leaves = key, state, \
             pytree.tree_leaves(params)            # kept alive: see above
         self.tok, self.pos, self.toks, self.logits, self.samp = (
@@ -280,7 +282,7 @@ class _CapturedStep:
             step_idx.add_(1)
 
         self.graph, self.capture_ms, self._replay = None, 0.0, step
-        if device.type != "cuda":
+        if device.type != "cuda" or not graphed:
             return
         saved = {k: bufs[k].clone() for k in ("tok", "pos", "act", "step")
                  if bufs.get(k) is not None}

@@ -21,8 +21,8 @@ Beyond the bare train loop:
   one card), flags logged;
 * restarts under a `RestartPolicy` (budget, backoff).
 
-The mesh (`--mesh` other than 1x1) and elastic re-sharding come with
-ROADMAP A8.  Training is bf16 on float weights: no quantized GEMM and no
+The mesh (`--mesh` other than 1x1) is training's multi-rank half,
+ROADMAP A12, and elastic re-sharding is A11.  Training is bf16 on float weights: no quantized GEMM and no
 hand-written kernel lies on this path (its products are torch.matmul,
 autograd supplies the backward).  The device defaults to "cuda" and is
 never swapped for the CPU behind the caller's back: without a GPU, pass
@@ -61,7 +61,7 @@ def _mesh_shape(spec: str) -> tuple:
     if any(n != 1 for n in shape):
         raise NotImplementedError(
             f"--mesh {spec}: sharded training over a device mesh comes with "
-            "distributed training (ROADMAP A8); the port trains on one "
+            "training's multi-rank half (ROADMAP A12); the port trains on one "
             "device (--mesh 1x1)")
     return shape
 

@@ -1,7 +1,6 @@
 """Grouped-query attention with RoPE and a KV cache.
 
-Port of `repro/models/attention.py` without tensor parallelism: the
-prefill path `attn_full` (causal, with the `attn_q_chunk` query
+Port of `repro/models/attention.py`: the prefill path `attn_full` (causal, with the `attn_q_chunk` query
 chunking, or bidirectional with per-row key lengths: the encoder's),
 the decode path `attn_decode` with the `active` slot mask, over a bf16
 or an int8 KV cache, with the optional q/k/v biases (`qkv_bias`), and
@@ -25,6 +24,14 @@ which returns a new cache from a functional update (donated buffers
 under jit), the port writes the new rows IN PLACE at each row's
 position -- a deliberate departure that keeps one static cache buffer
 for the whole generation.
+
+Under serve-time tensor parallelism (distributed/context.py `tp_scope`,
+entered by the mesh-aware engine) each rank projects only its block of
+heads -- wq / wk / wv column slices (`_tp_slice_cols`) -- attends over
+them, and all-gathers the head outputs before the merged wo
+(`_tp_gather_heads`): the collective is an exact concat, never a
+partial-sum reduction, so sharded decode stays bit-identical to the
+single-device path.  Its KV cache holds the local heads.
 """
 from __future__ import annotations
 
@@ -32,9 +39,10 @@ import math
 
 import torch
 
+from repro_torch.distributed import context as dctx
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
-from repro_torch.quant.qtensor import qmatmul
+from repro_torch.quant.qtensor import QTensor, qmatmul
 from repro_torch.quant.quantize import quantize_compiled
 
 _NEG = -1e30
@@ -46,22 +54,80 @@ PRODUCT_BYTES = 256 << 20
 KEY_BLOCK = 256
 
 
+def _attn_tp():
+    """The active serve-time tensor-parallel context for attention, or
+    None (distributed/context.py)."""
+    tp = dctx.tp_current()
+    return tp if tp is not None and tp.attn else None
+
+
+def _tp_slice_cols(w, j: int, width: int):
+    """Columns [j*width, (j+1)*width) of a dense or QTensor weight
+    [..., K, N]: a w4a8 QTensor packs logical columns 2i and 2i + 1 into
+    stored word i (quant/quantize.py `pack_int4`), so an even width cuts
+    words [j*width/2, (j+1)*width/2).  Views: the engine copies them
+    contiguous once, when it places the weights."""
+    if isinstance(w, QTensor):
+        if w.fmt == "w4a8":
+            assert width % 2 == 0, (width, "w4a8 needs even column slices")
+            q = w.q.narrow(-1, j * (width // 2), width // 2)
+        else:
+            q = w.q.narrow(-1, j * width, width)
+        return QTensor(q, w.scale.narrow(-1, j * width, width), w.fmt)
+    return w.narrow(-1, j * width, width)
+
+
+def _tp_cols(w, tp, width: int):
+    """This rank's `width` columns of w: w itself where the engine placed
+    the slice already (its logical width is `width`; the full width is
+    `size` times that), else the slice of the whole weight."""
+    n = w.scale.shape[-1] if isinstance(w, QTensor) else w.shape[-1]
+    return w if n == width else _tp_slice_cols(w, tp.index, width)
+
+
+def _tp_gather_heads(out):
+    """All-gather the per-shard head outputs [..., h_loc * D] along the
+    feature axis before the merged output projection: shard-major concat
+    is the original head order, since shards own contiguous head
+    blocks."""
+    tp = _attn_tp()
+    if tp is None:
+        return out
+    return tp.all_gather(out, out.ndim - 1)
+
+
 def _project_q(p, x, cfg: ModelConfig):
-    q = qmatmul(x, p["wq"])
-    if "bq" in p:
-        q = q + p["bq"]
+    tp = _attn_tp()
+    wq, bq, h = p["wq"], p.get("bq"), cfg.n_heads
+    if tp is not None:
+        h = cfg.n_heads // tp.size
+        wq = _tp_cols(wq, tp, h * cfg.head_dim)
+        if bq is not None:
+            bq = _tp_cols(bq, tp, h * cfg.head_dim)
+    q = qmatmul(x, wq)
+    if bq is not None:
+        q = q + bq
     b, s, _ = q.shape
-    return q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    return q.reshape(b, s, h, cfg.head_dim)
 
 
 def _project_kv(p, x, cfg: ModelConfig):
-    k = qmatmul(x, p["wk"])
-    v = qmatmul(x, p["wv"])
-    if "bk" in p:
-        k, v = k + p["bk"], v + p["bv"]
+    tp = _attn_tp()
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    kv = cfg.n_kv
+    if tp is not None:
+        kv = cfg.n_kv // tp.size
+        wk, wv = (_tp_cols(w, tp, kv * cfg.head_dim) for w in (wk, wv))
+        if bk is not None:
+            bk, bv = (_tp_cols(b_, tp, kv * cfg.head_dim)
+                      for b_ in (bk, bv))
+    k = qmatmul(x, wk)
+    v = qmatmul(x, wv)
+    if bk is not None:
+        k, v = k + bk, v + bv
     b, s, _ = k.shape
-    return (k.reshape(b, s, cfg.n_kv, cfg.head_dim),
-            v.reshape(b, s, cfg.n_kv, cfg.head_dim))
+    return (k.reshape(b, s, kv, cfg.head_dim),
+            v.reshape(b, s, kv, cfg.head_dim))
 
 
 def _query_blocks(s: int, per_query: int):
@@ -77,6 +143,32 @@ def _cat(parts, dim: int):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
+def _tp_whole_kv(t, dim: int):
+    """Under attention tensor parallelism, t with its KV-head axis `dim`
+    widened to the whole layout's, this shard's heads at their place and
+    zeros around them: a batched product over (B, KV) then has the
+    unsharded call's shape.  cuBLAS picks its algorithm, and with it a
+    head's summation order, from the batch count (a shard's one KV head
+    against the layout's three differed on the card; ROADMAP C16,
+    scripts/tp_invariance.py), while each batch's result depends on that
+    batch's operands alone.  t itself without tensor parallelism."""
+    tp = _attn_tp()
+    if tp is None:
+        return t
+    n = t.shape[dim]
+    shape = list(t.shape)
+    shape[dim] = n * tp.size
+    out = t.new_zeros(shape)
+    out.narrow(dim, tp.index * n, n).copy_(t)
+    return out
+
+
+def _tp_own_kv(t, dim: int, n: int):
+    """This shard's n KV heads of a `_tp_whole_kv` product's output."""
+    tp = _attn_tp()
+    return t if tp is None else t.narrow(dim, tp.index * n, n)
+
+
 def _gqa_scores(q, k, fixed: bool = False):
     """q: [B,S,H,D], k: [B,T,KV,D] -> float32 scores [B,KV,G,S,T]; head h
     uses kv head h // G (G = H // KV).
@@ -89,7 +181,9 @@ def _gqa_scores(q, k, fixed: bool = False):
     encdec slot's padded cross K/V) must equal the static path's (B = 1,
     T = cache_len or the request's frames) bit for bit (ROADMAP C10,
     C12).  The products run over query blocks (`PRODUCT_BYTES`); a
-    decode step is one block."""
+    decode step is one block.  Any other S takes one batched product
+    over (B, KV), in the whole layout's shape under tensor parallelism
+    (`_tp_whole_kv`)."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     q = q.reshape(b, s, kv, h // kv, d).to(torch.float32)
@@ -99,7 +193,9 @@ def _gqa_scores(q, k, fixed: bool = False):
         per = b * h * k.shape[1] * d * 4
         return _cat([common.row_sum(qp[:, :, :, i:j, None, :] * kf)
                      for i, j in _query_blocks(s, per)], dim=3)
-    return torch.einsum("bskgd,btkd->bkgst", q, k.to(torch.float32))
+    return _tp_own_kv(torch.einsum(
+        "bskgd,btkd->bkgst", _tp_whole_kv(q, 2),
+        _tp_whole_kv(k.to(torch.float32), 2)), 1, kv)
 
 
 def _gqa_out(w, v, fixed: bool = False):
@@ -131,9 +227,13 @@ def _key_blocked_out(w, v):
     appended, so a row's sum does not change with the key length: the
     chunk step's t_pre keys against full prefill's L, an encoder bucket
     against the request's frames.  One product over the whole T did
-    (cuBLAS picks its split of K from the shapes; ROADMAP C12)."""
+    (cuBLAS picks its split of K from the shapes; ROADMAP C12).  Under
+    tensor parallelism the product takes the whole layout's KV heads
+    (`_tp_whole_kv`)."""
     b, kv, g, s, t = w.shape
     d = v.shape[-1]
+    w, v = _tp_whole_kv(w, 1), _tp_whole_kv(v, 2)
+    kv_own, kv = kv, w.shape[1]
     nb = -(-t // KEY_BLOCK)
     if nb * KEY_BLOCK != t:
         pad = nb * KEY_BLOCK - t
@@ -143,7 +243,8 @@ def _key_blocked_out(w, v):
     vb = v.reshape(b, nb, KEY_BLOCK, kv, d).permute(0, 3, 1, 2, 4)
     part = torch.matmul(wb, vb)                           # [B,KV,NB,GS,D]
     o = common.tail_sum_(part, 2)                         # [B,KV,GS,D]
-    return o.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)
+    return _tp_own_kv(o.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4), 2,
+                      kv_own)
 
 
 def _kv_quantize(t):
@@ -260,7 +361,7 @@ def attn_full(p, x, cfg: ModelConfig, positions=None, cache=None,
         qpos, kpos = (srcpos, srcpos) if causal else (None, None)
         o = _attend(q, k, v, cfg, x.dtype, qpos, kpos, valid, fixed,
                     plain=train)
-    out = qmatmul(o, p["wo"])
+    out = qmatmul(_tp_gather_heads(o), p["wo"])
     if cache is not None:
         _write_prefill(cache, k, v)
     return out
@@ -344,7 +445,8 @@ def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, active=None):
     else:
         k, v = cache["k"], cache["v"]
     kpos = torch.arange(k.shape[1], device=x_t.device).expand(b, -1)
-    return qmatmul(_attend(q, k, v, cfg, x_t.dtype, qpos, kpos), p["wo"])
+    return qmatmul(_tp_gather_heads(
+        _attend(q, k, v, cfg, x_t.dtype, qpos, kpos)), p["wo"])
 
 
 def attn_cross(p, x, memory, cfg: ModelConfig, mem_kv=None,
@@ -369,12 +471,17 @@ def attn_cross(p, x, memory, cfg: ModelConfig, mem_kv=None,
             enc_lengths = mem_kv.get("len")
     valid = None if enc_lengths is None else \
         _valid(enc_lengths, k.shape[1], x.device)
-    return qmatmul(_attend(q, k, v, cfg, x.dtype, valid=valid,
-                           fixed=not train, plain=train), p["wo"])
+    return qmatmul(_tp_gather_heads(
+        _attend(q, k, v, cfg, x.dtype, valid=valid, fixed=not train,
+                plain=train)), p["wo"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device):
-    shape = (batch, s_max, cfg.n_kv, cfg.head_dim)
+    """{k, v: [batch, s_max, KV, D]} (+ the int8 cache's scales); KV is
+    this rank's heads under tensor parallelism."""
+    tp = _attn_tp()
+    kv = cfg.n_kv if tp is None else cfg.n_kv // tp.size
+    shape = (batch, s_max, kv, cfg.head_dim)
     if cfg.serve_kv_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),

@@ -16,8 +16,8 @@ class MoEConfig:
     token to its top_k experts dropless (`mlp.moe(per_token=True)`) and
     reads n_experts, top_k, d_ff_expert and dense_residual; training's
     capacity dispatch (`mlp.moe(per_token=False)`) reads capacity_factor,
-    dispatch and dispatch_groups ("shard_map", the mesh's dispatch,
-    comes with ROADMAP A8 and runs "global" until then); the hybrid
+    dispatch and dispatch_groups ("shard_map", the mesh's dispatch, is
+    ROADMAP A12 and runs "global" outside a mesh scope); the hybrid
     family's blocks read interleave."""
     n_experts: int
     top_k: int
@@ -28,7 +28,7 @@ class MoEConfig:
     # jamba: MoE only on every `interleave`-th layer (1 = every layer)
     interleave: int = 1
     # token dispatch of training: "global", "grouped" (GShard-style) or
-    # "shard_map" (over a mesh, ROADMAP A8; "global" without one)
+    # "shard_map" (over a mesh, ROADMAP A12; "global" without one)
     dispatch: str = "global"
     dispatch_groups: int = 32
 

@@ -315,7 +315,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device,
     ...]} and the attention layer's {k, v: [U, B, S_max, KV, D]}; for the
     encdec family, over its Ld decoder layers, the self-attention's KV
     cache and the cross K/V {cross_k, cross_v: [Ld, B, s_enc (default
-    S_max), KV, D] cfg.dtype, cross_len: [Ld, B] int32}, flat."""
+    S_max), KV, D] cfg.dtype, cross_len: [Ld, B] int32}, flat.  Under
+    serve-time tensor parallelism KV and H count this rank's heads
+    (attention.init_cache, ssm.init_ssm_state)."""
     _check_family(cfg)
     u = n_dec_layers(cfg) if cfg.family == "encdec" else n_scan_units(cfg)
     lead = {}
@@ -327,7 +329,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device,
         lead.update({k: ((u,), t) for k, t in attn_mod.init_cache(
             cfg, batch, s_max, device=device).items()})
     if cfg.family == "encdec":
-        kv = torch.empty((batch, s_enc or s_max, cfg.n_kv, cfg.head_dim),
+        kv = torch.empty((batch, s_enc or s_max, attn_mod.init_cache(
+            cfg, 1, 1, device="meta")["k"].shape[2], cfg.head_dim),
                          dtype=getattr(torch, cfg.dtype), device=device)
         lead.update({"cross_k": ((u,), kv), "cross_v": ((u,), kv),
                      "cross_len": ((u,), torch.empty(

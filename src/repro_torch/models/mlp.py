@@ -24,8 +24,9 @@ dropped assignment writes to a spare row that is cut off), and the
 combine sums a token's k outputs in a fixed order, so the forward and
 its backward are deterministic on the card: no float atomics add two
 values into one place.  `moe_shard_map` (the explicitly collective
-dispatch over a mesh) comes with ROADMAP A8; with no mesh, "shard_map"
-runs the global dispatch, as the reference's does outside a mesh
+dispatch over a mesh) is training's multi-rank half (ROADMAP A12): under
+a `mesh_scope` the "shard_map" dispatch of float weights raises; with no
+mesh it runs the global dispatch, as the reference's does outside a mesh
 context."""
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import context as dctx
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.quant.qtensor import QTensor, qmatmul
 
@@ -188,6 +190,15 @@ def _route(xt, p, m: MoEConfig, want_aux: bool, ordered: bool):
     return top_p, top_e, aux
 
 
+def moe_shard_map(p, x, cfg: ModelConfig, mesh, dp_axes, model_axis):
+    """The explicitly collective MoE dispatch over a mesh (the
+    reference's shard_map: experts block-assigned to model shards, a
+    sum over the model axis to combine): not ported."""
+    raise NotImplementedError(
+        f"moe_shard_map over mesh {dict(mesh.shape)}: the sharded MoE "
+        f"dispatch is training's multi-rank half (ROADMAP A12)")
+
+
 def moe(p, x, cfg: ModelConfig, per_token: bool = False, *,
         want_aux: bool = True):
     """x: [B, S, d] -> ([B, S, d], aux_loss scalar float32).
@@ -203,6 +214,9 @@ def moe(p, x, cfg: ModelConfig, per_token: bool = False, *,
     top-1 share); want_aux=False skips it and returns None (serving
     drops it, as XLA drops the reference's unused aux)."""
     m: MoEConfig = cfg.moe
+    if not per_token and m.dispatch == "shard_map" \
+            and not isinstance(p["wi"], QTensor) and dctx.current():
+        moe_shard_map(p, x, cfg, *dctx.current())
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)

@@ -1,8 +1,8 @@
 """Family-agnostic slot-state layer for the continuous-batching engine.
 
-Port of `repro/models/slot_state.py` (:1-410 but the tensor-parallel
-probing, `TPPlan` / `tp_plan` / `tp_axes_for`, which comes with
-distributed serving).  Every model family's decode-time state -- KV
+Port of `repro/models/slot_state.py`, with the tensor-parallel plan
+(`TPPlan`, `tp_plan`, `tp_axes_for`) of mesh serving.  Every model
+family's decode-time state -- KV
 pages, SSM recurrent state, conv windows, the hybrid family's flat mix
 -- is served through ONE "slot state" interface, so the engine
 (launch/engine.py) never special-cases a family.
@@ -377,3 +377,118 @@ def spec_for(cfg, **init_kwargs) -> SlotStateSpec:
     """The (cached) SlotStateSpec for cfg's family.  Raises with registry
     guidance when the family has no registered slot-state impl."""
     return _spec_cached(cfg.family, cfg, tuple(sorted(init_kwargs.items())))
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel plan (mesh serving, launch/engine.py)
+# ---------------------------------------------------------------------------
+#
+# Which slot-state axis shards over the model axis under tensor
+# parallelism is PROBED the way the slot and length axes are: the family
+# init runs on the meta device with a head-localized config (head counts
+# divided by the shard count, head_dim pinned so nothing else moves), and
+# the axis that shrank by exactly the shard count is the tp axis.  Leaves
+# that change by another ratio (the SSD conv window, whose channels mix
+# per-head x channels with shared B / C channels) or not at all stay
+# replicated over the model axis -- what the compute side (attention.py /
+# ssm.py `tp_current()` paths) keeps local vs replicated.
+
+_ATTN_FAMILIES = ("dense", "vlm", "moe", "hybrid", "encdec")
+
+
+def _ssm_heads(cfg) -> int:
+    if cfg.ssm is None:
+        return 0
+    from repro_torch.models import ssm as ssm_mod
+    return ssm_mod.dims(cfg)[2]
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """Which mixers a serve engine can tensor-parallelize over `size`
+    model shards for this config (bit-exactness-preserving only: local
+    heads + all_gather, never a partitioned float contraction)."""
+    size: int
+    attn: bool
+    ssm: bool
+
+    @property
+    def active(self) -> bool:
+        return self.size > 1 and (self.attn or self.ssm)
+
+
+def tp_plan(cfg, size: int) -> TPPlan:
+    """What can shard over a model axis of `size` for cfg.  Attention
+    needs head counts divisible by the axis; SSD needs its derived head
+    count divisible (and d_model, for the shape probe).  Anything that
+    does not divide stays replicated -- graceful, never an error."""
+    if size <= 1:
+        return TPPlan(size, False, False)
+    attn = (cfg.family in _ATTN_FAMILIES
+            and cfg.n_heads % size == 0 and cfg.n_kv % size == 0)
+    hs = _ssm_heads(cfg)
+    ssm = (cfg.family in ("ssm", "hybrid") and hs > 0 and hs % size == 0
+           and cfg.d_model % size == 0)
+    return TPPlan(size, attn, ssm)
+
+
+def tp_viable_sizes(cfg, limit: int) -> tuple:
+    """Model-axis sizes in [2, limit] whose tp_plan is ACTIVE for cfg
+    (shards something instead of replicating everything): what a
+    degraded-mesh planner prefers to shrink onto."""
+    return tuple(m for m in range(2, max(1, limit) + 1)
+                 if tp_plan(cfg, m).active)
+
+
+def _tp_probe_cfg(cfg, plan: TPPlan):
+    kw: Dict[str, Any] = {}
+    if plan.attn:
+        kw.update(n_heads=cfg.n_heads // plan.size,
+                  n_kv=cfg.n_kv // plan.size)
+    if plan.ssm:
+        kw["d_model"] = cfg.d_model // plan.size
+    if kw:
+        # pin head_dim: it is otherwise derived from d_model / n_heads and
+        # would drag unrelated axes along with the probe
+        kw["d_head"] = cfg.head_dim
+    return dataclasses.replace(cfg, **kw)
+
+
+@functools.lru_cache(maxsize=64)
+def _tp_axes_cached(family: str, cfg, size: int,
+                    kw_items: Tuple[Tuple[str, Any], ...]) -> tuple:
+    fam = get_family(family)
+    kwargs = dict(kw_items)
+    plan = tp_plan(cfg, size)
+
+    def shapes(c):
+        leaves, td = pytree.tree_flatten(
+            fam.init(c, 2, 16, device="meta", **kwargs))
+        return [tuple(leaf.shape) for leaf in leaves], td
+
+    base, b_td = shapes(cfg)
+    if not plan.active:
+        return (None,) * len(base)
+    probe, p_td = shapes(_tp_probe_cfg(cfg, plan))
+    if b_td != p_td:
+        raise ValueError(
+            f"tp probe for family {family!r}: init changes tree structure "
+            f"under head localization; it must be shape-polymorphic")
+    axes = []
+    for bl, pl in zip(base, probe):
+        exact = [i for i, (b, p) in enumerate(zip(bl, pl))
+                 if b != p and p * size == b]
+        if len(exact) > 1:
+            raise ValueError(
+                f"tp probe for family {family!r}: leaf {bl} has "
+                f"{len(exact)} head-localized axes {exact}; at most one "
+                f"tp axis per leaf is supported")
+        axes.append(exact[0] if exact else None)
+    return tuple(axes)
+
+
+def tp_axes_for(cfg, size: int, **init_kwargs) -> tuple:
+    """Per-leaf model-shard axis (tree_flatten order, matching
+    SlotStateSpec.batch_axes); None = replicated over the model axis."""
+    return _tp_axes_cached(cfg.family, cfg, size,
+                           tuple(sorted(init_kwargs.items())))

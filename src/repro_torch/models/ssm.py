@@ -1,8 +1,7 @@
 """Mamba2 SSD (state-space duality) mixer: the chunked prefill form and
 the constant-memory single-token decode (arXiv:2405.21060).
 
-Port of `repro/models/ssm.py` without tensor parallelism (`_ssm_tp`
-comes with distributed serving).  Per chunk of Q tokens, a quadratic
+Port of `repro/models/ssm.py`.  Per chunk of Q tokens, a quadratic
 intra-chunk term (attention-like) plus the contribution of the state
 carried in from the chunks before:
 
@@ -30,6 +29,14 @@ and silu in the activation dtype (silu as x * sigmoid(x), as
 gated RMSNorm in float32, cast to the input's dtype before out_proj.
 The three- and four-operand einsums of the reference are written as
 pairwise products, none building a 5-D intermediate.
+
+Under serve-time tensor parallelism (`_ssm_tp`) the [B, H, P, N] state
+and the SSD algebra are local to this rank's block of heads, and the
+per-head outputs are all-gathered before the gated norm; the in / out
+projections and the depthwise conv stay replicated (the conv window
+mixes per-head x channels with the group-shared B / C channels, so its
+state cannot partition over heads).  The collective is an exact concat:
+bit-identical to the single-device path.
 """
 from __future__ import annotations
 
@@ -38,9 +45,27 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import context as dctx
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig, SSMConfig
 from repro_torch.quant.qtensor import qmatmul
+
+
+def _ssm_tp():
+    """The active serve-time tensor-parallel context for SSD mixers, or
+    None (distributed/context.py)."""
+    tp = dctx.tp_current()
+    return tp if tp is not None and tp.ssm else None
+
+
+def _tp_heads(n_heads: int):
+    """(tp, first local head, local head count): (None, 0, n_heads) with
+    no SSD tensor parallelism."""
+    tp = _ssm_tp()
+    if tp is None:
+        return None, 0, n_heads
+    hl = n_heads // tp.size
+    return tp, tp.index * hl, hl
 
 
 def dims(cfg: ModelConfig):
@@ -127,12 +152,16 @@ def _segsum_decay(da_cs):
     return torch.exp(diff.masked_fill(~mask, -math.inf))
 
 
-def _chunk_step(state, xq, bq, cq, dtq, a, rep: int):
+def _chunk_step(state, xq, bq, cq, dtq, a, rep: int, heads=None):
     """One chunk: state [B, H, P, N] f32; xq [B, Q, H, P], bq / cq
     [B, Q, G, N], dtq [B, Q, H] (0 at padded steps).  Returns (the state
-    after the chunk, y [B, Q, H, P])."""
+    after the chunk, y [B, Q, H, P]).  heads: (first, count) of the
+    group-repeated B / C heads this rank keeps (tensor parallelism);
+    xq, dtq, a and the state are then those heads' already."""
     bh = torch.repeat_interleave(bq, rep, dim=2)             # [B,Q,H,N]
     chh = torch.repeat_interleave(cq, rep, dim=2)
+    if heads is not None:
+        bh, chh = bh.narrow(2, *heads), chh.narrow(2, *heads)
     da_cs = torch.cumsum(dtq * a, dim=1)                     # [B,Q,H]
     lmat = _segsum_decay(da_cs)                              # [B,H,Q,Q]
     cb = torch.einsum("bihn,bjhn->bhij", chh, bh)
@@ -194,15 +223,26 @@ def ssd_forward(p, x_in, cfg: ModelConfig, lengths=None,
     xf = x.to(torch.float32).reshape(b, l, n_heads, pd)
     bm = bmat.to(torch.float32).reshape(b, l, g, n)
     cm = cmat.to(torch.float32).reshape(b, l, g, n)
-    state = torch.zeros((b, n_heads, pd, n), dtype=torch.float32,
+    dcoef = p["D"]
+    tp, h0, hl = _tp_heads(n_heads)
+    heads = None
+    if tp is not None:
+        # this rank's head block (the projections and conv ran
+        # replicated): the state and the SSD algebra are local
+        heads = (h0, hl)
+        xf, dt = xf.narrow(2, h0, hl), dt.narrow(2, h0, hl)
+        a, dcoef = a.narrow(0, h0, hl), dcoef.narrow(0, h0, hl)
+    state = torch.zeros((b, hl, pd, n), dtype=torch.float32,
                         device=x_in.device)
     ys = []
     for c in range(nc):
         t = slice(c * q, (c + 1) * q)
         state, y_c = _chunk_step(state, xf[:, t], bm[:, t], cm[:, t],
-                                 dt[:, t], a, n_heads // g)
+                                 dt[:, t], a, n_heads // g, heads)
         ys.append(y_c)
-    y = torch.cat(ys, dim=1) + p["D"][None, None, :, None] * xf
+    y = torch.cat(ys, dim=1) + dcoef[None, None, :, None] * xf
+    if tp is not None:
+        y = tp.all_gather(y, 2)                              # [B,L,H,P]
     y = y.reshape(b, l, d_inner)
     # gated rmsnorm then out projection
     y = y * _silu(z.to(torch.float32))
@@ -224,9 +264,12 @@ def ssd_forward(p, x_in, cfg: ModelConfig, lengths=None,
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, *, device):
+    """{ssm: [batch, H, P, N] float32, conv: [batch, W-1, ch]}; H is this
+    rank's heads under tensor parallelism."""
     s, d_inner, n_heads, conv_ch = dims(cfg)
+    hl = _tp_heads(n_heads)[2]
     return {
-        "ssm": torch.zeros((batch, n_heads, s.headdim, s.d_state),
+        "ssm": torch.zeros((batch, hl, s.headdim, s.d_state),
                            dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, s.conv_width - 1, conv_ch),
                             dtype=getattr(torch, cfg.dtype), device=device),
@@ -262,6 +305,13 @@ def ssd_decode(p, x_t, state, cfg: ModelConfig, active=None):
     dt = _softplus(dtr.to(torch.float32).reshape(b, n_heads)
                    + p["dt_bias"])
     a = -torch.exp(p["A_log"])
+    dcoef = p["D"]
+    tp, h0, hl = _tp_heads(n_heads)
+    if tp is not None:
+        # the local head block: the projections and conv above ran
+        # replicated; only the state update and the per-head output shard
+        xf, bh, chh, dt = (t.narrow(1, h0, hl) for t in (xf, bh, chh, dt))
+        a, dcoef = a.narrow(0, h0, hl), dcoef.narrow(0, h0, hl)
     da = torch.exp(dt * a)                                   # [B,H]
     upd = (dt[:, :, None] * xf)[..., None] * bh[:, :, None, :]
     new_ssm = da[:, :, None, None] * state["ssm"] + upd      # [B,H,P,N]
@@ -276,7 +326,9 @@ def ssd_decode(p, x_t, state, cfg: ModelConfig, active=None):
     # depend on their batch mates (measured on the card: ~3% of the
     # outputs differ between B=1 and B=2..8)
     y = common.row_sum(chh[:, :, None, :] * new_ssm)        # [B,H,P]
-    y = y + p["D"][None, :, None] * xf
+    y = y + dcoef[None, :, None] * xf
+    if tp is not None:
+        y = tp.all_gather(y, 1)                              # [B,H,P]
     y = y.reshape(b, 1, d_inner)
     y = y * _silu(z.to(torch.float32))
     y = common.rms_norm(y, p["norm_w"], cfg.norm_eps).to(x_t.dtype)

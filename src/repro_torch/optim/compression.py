@@ -7,7 +7,7 @@ returned as the error-feedback buffer that the next step's gradients
 add, which makes the compression unbiased over time (Seide et al. /
 EF-SGD).  Bit for bit the reference's eager ops.  The data-parallel
 mean of the compressed gradients, `compressed_psum`, needs a mesh axis:
-it comes with distributed training (ROADMAP A8).
+it is training's multi-rank half (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -54,5 +54,5 @@ def compressed_psum(q_tree, scale_tree, axis_name: str):
     """Mean-reduce compressed gradients across a mesh axis: not ported."""
     raise NotImplementedError(
         f"compressed_psum over mesh axis {axis_name!r}: the data-parallel "
-        "reduction needs a device mesh, which comes with distributed "
-        "training (ROADMAP A8)")
+        "reduction over a mesh is training's multi-rank half "
+        "(ROADMAP A12)")

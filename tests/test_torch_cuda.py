@@ -1185,3 +1185,43 @@ def test_cuda_train_run_resumes_exactly(cuda, tmp_path):
     for key in ("params", "opt"):
         assert all(x.is_cuda and torch.equal(x, y) for x, y in
                    zip(leaves(a[key]), leaves(b[key])))
+
+
+def _card_baseline():
+    """Reduced qwen1.5-0.5b w4a8 through the unsharded engine on the
+    card: the streams the sharded cases must equal."""
+    import torch_mesh_workers as W
+    from repro_torch.launch import scheduler
+    from repro_torch.launch.engine import ServeEngine
+    cfg, params = W.build("qwen", "w4a8")
+    params = torch.utils._pytree.tree_map(lambda t: t.cuda(), params)
+    kw = W.engine_kwargs("w4a8", cfg)
+    kw["device"] = "cuda"
+    return W.streams(ServeEngine(params, cfg, **kw).run(
+        W.requests(cfg), scheduler.FastForwardClock()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, backend", [((2, 1), "gloo"),
+                                            ((1, 1), "nccl")])
+def test_cuda_sharded_engine_matches_unsharded(cuda, tmp_path, shape,
+                                               backend):
+    """chip_smoke.py phase 18 (a) and (d) at a reduced size: two gloo
+    ranks sharing the card (slots split over data shards, every step
+    eager), and one NCCL rank whose collectives are captured inside the
+    steps' graphs; each stream == the unsharded engine's, bit for bit."""
+    import pickle
+
+    import torch_mesh_workers as W
+    from repro_torch.launch import mesh as mesh_lib
+    out = str(tmp_path / "out.pkl")
+    mesh_lib.spawn(W.run_card_group, shape[0] * shape[1], shape, backend,
+                   out)
+    with open(out, "rb") as f:
+        got = pickle.load(f)
+    assert got["errors"] == 0
+    assert got["streams"] == _card_baseline()
+    assert got["mesh"]["captured"] == (backend == "nccl")
+    assert (got["captured"] > 0) == (backend == "nccl")
+    assert got["mesh"]["dp_size"] == shape[0]
+

@@ -452,11 +452,12 @@ def test_admission_control_and_cancel():
 
 def test_refusals_name_their_roadmap_item(monkeypatch):
     _, cfg, _, params = _setup("bfloat16", "w8a8")
-    # speculative decoding is ported: its refusals are the reference's
-    # (tests/test_torch_spec_decode.py).  A device-loss arm needs the mesh
-    # and still raises, naming its slice
+    # speculative decoding and the mesh are ported: spec_decode's refusals
+    # are the reference's (tests/test_torch_spec_decode.py).  A
+    # device-loss arm is elastic degraded-mesh serving and still raises,
+    # naming its item
     monkeypatch.setenv("REPRO_CHAOS", "segment:1;lose@segment:2")
-    with pytest.raises(NotImplementedError, match="A6, engine slice 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
         _engine(cfg, params)
     monkeypatch.delenv("REPRO_CHAOS")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

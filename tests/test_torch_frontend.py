@@ -1,6 +1,6 @@
 """The port's async streaming front-end (`repro_torch/launch/frontend.py`),
-case for case with tests/test_frontend.py (its mesh cases aside: those
-wait for the mesh, ROADMAP A6 slice 7).
+case for case with tests/test_frontend.py (its mesh cases are in
+tests/test_torch_sharded_features.py).
 
 * Streamed tokens, score logprobs and embeddings equal the port's batch
   engine on the same trace, bit for bit, for dense, ssm, hybrid and

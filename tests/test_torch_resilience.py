@@ -1,8 +1,8 @@
 """The port's fault injection and recovery (`repro_torch/launch/engine.py`
 slice 5, `launch/resilience.py`, `checkpoint/ckpt.py`,
 `distributed/fault.py`), unit for unit with tests/test_resilience.py
-(its mesh test and the `RestartPolicy` tests aside: those wait for the
-mesh and training, ROADMAP A8 / A9).
+(its elastic mesh test aside: elastic serving is ROADMAP A11; the
+`RestartPolicy` tests are in tests/test_torch_train.py).
 
 * Faults at segment, prefill, chunk and embed sites mid-traffic: every
   stream (tokens, a score request's logprobs, an embedding) equals the
@@ -483,7 +483,7 @@ def test_chaos_from_env(monkeypatch):
     assert_same_results(want, run(eng, requests(cfg, n=2)))
     assert eng.cache_info()["robustness"]["faults_injected"] == 1
     monkeypatch.setenv("REPRO_CHAOS", "lose@segment:1")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
         res.chaos_from_env()
 
 

@@ -1,7 +1,7 @@
 """The port's self-speculative decoding (`repro_torch/launch/engine.py`
 slice 6: `SpecDecodeConfig`, `_SpecRound`, `slot_state.rollback_select`),
-case for case with tests/test_spec_decode.py (its 2 x 4 mesh case aside:
-that waits for the mesh, ROADMAP A6 slice 7).
+case for case with tests/test_spec_decode.py (its mesh case is in
+tests/test_torch_sharded_features.py, on a 2 x 2 mesh).
 
 The invariant every case leans on: the emitted tokens are always the
 TARGET's under a teacher-forced prefix, so the port's spec streams equal
@@ -252,8 +252,8 @@ def test_captured_rounds_leave_the_state(fam, warm, monkeypatch):
     monkeypatch.setattr(tengine.serve, "capture", capture)
     init = tengine._SpecRound.__init__
 
-    def as_cuda(self, *a):
-        init(self, *a[:-1], types.SimpleNamespace(type="cuda"))
+    def as_cuda(self, *a, **kw):
+        init(self, *a[:-1], types.SimpleNamespace(type="cuda"), **kw)
     monkeypatch.setattr(tengine._SpecRound, "__init__", as_cuda)
     cfg, params = family(fam)
     eng = engine(cfg, params, spec_decode=sd(draft_of(fam, "near"), cfg))
@@ -317,7 +317,8 @@ def test_spec_decode_config_validation():
 def test_chaos_sites_of_a_spec_engine(monkeypatch):
     """draft / verify sites parse in both packages to the same schedule,
     the port's engine counts them, a bad site is refused with the
-    reference's message, and a device-loss arm still names slice 7."""
+    reference's message, and a device-loss arm names elastic serving
+    (ROADMAP A11)."""
     spec = "draft:1;verify:2,rate=0.1,seed=3"
     assert res.ChaosSchedule.parse(spec).fail_at_sites == \
         jres.ChaosSchedule.parse(spec).fail_at_sites == ("draft:1",
@@ -334,7 +335,7 @@ def test_chaos_sites_of_a_spec_engine(monkeypatch):
                                                             "verify:2"]
     assert info["dispatch_sites"]["verify"] > 2
     monkeypatch.setenv("REPRO_CHAOS", "draft:1;lose@verify:2")
-    with pytest.raises(NotImplementedError, match="A6, engine slice 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
         engine(cfg, params, spec_decode=sd(params, cfg), chaos="env")
 
 

@@ -2,7 +2,7 @@
 the global norm, gradient compression, the data pipeline, the fault
 tools, one train step, microbatching, the fault-tolerant loop
 (`launch/train.py`), checkpoints of {params, opt}, and the refusals of
-what waits for the mesh (ROADMAP A8).
+what waits for training's multi-rank half (ROADMAP A12).
 
 Every input is numpy from a seed; the reference's functions run as the
 reference runs them (its optimizer and compression op by op, its train
@@ -384,13 +384,15 @@ def test_heartbeat_dead_hosts():
 
 
 def test_refusals_name_roadmap_a8():
+    """What ROADMAP A8 left out when it split: training's multi-rank half
+    (A12) and elastic re-sharding (A11)."""
     g = {"w": torch.ones(3)}
     q, s, _ = tcomp.compress_grads(g)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tcomp.compressed_psum(q, s, "data")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tfault.elastic_remesh(g, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         ttrain.main(["--arch", "smollm-135m", "--reduced", "--mesh", "2x1",
                      "--device", "cpu"])
 
