@@ -367,13 +367,13 @@ over):
    following it.  Gates: every stream == the unsharded engine's (phase
    13's, itself == static generate), bit for bit; every outcome OK;
    tensor parallelism active in (b) and (c); steps captured in (d) alone;
-   both GEMM kernels launched in the main run; in (d), a profiled run of
-   SHARD_PROFILED_REQUESTS requests launches gemms_per_step GEMMs per
-   replayed step, as the unsharded engine does.  Logged beside the
-   card's name and power limit: output tok/s and ms per step per case,
-   each rank's bytes gathered per segment (eager collectives), its
-   resident weights (its shard, the bytes gathered once) and slot
-   state, and each case's seconds.
+   both GEMM kernels launched in the main run; in (d), whose main run
+   is profiled, gemms_per_step GEMMs per replayed step in every
+   segment, as the unsharded engine launches.  Logged beside the card's
+   name and power limit: output tok/s and ms per step per case ((d)'s
+   under the profiler), each rank's bytes gathered per segment (eager
+   collectives), its resident weights (whole, but its attention column
+   slices) and slot state, and each case's seconds.
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
 launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
@@ -6041,9 +6041,6 @@ SHARD_CASES = (("a", ENGINE_ARCH, (2, 1), "gloo"),
 # smollm-135m's cases serve phase 13's first this many requests but the
 # one cut to the cache's end
 SHARD_REQUESTS = 12
-# (d) also profiles a run of this many of its requests: the GEMM launches
-# per replayed step against the unsharded engine's
-SHARD_PROFILED_REQUESTS = 1
 
 
 def shard_trace(arch: str):
@@ -6140,9 +6137,8 @@ def _shard_rank(rank: int, cases: tuple, out_dir: str) -> None:
 
 def _shard_nccl(label: str, arch: str, out_dir: str) -> None:
     """Case (d) in this process: a one-rank NCCL mesh, the segment grid
-    captured up front (warmup), the main run, then a profiled run of
-    SHARD_PROFILED_REQUESTS requests counting every launch, the replays'
-    included."""
+    captured up front (warmup), then the main run under the profiler,
+    which counts every launch, the replays' included."""
     import os
     import pickle
 
@@ -6150,7 +6146,6 @@ def _shard_nccl(label: str, arch: str, out_dir: str) -> None:
 
     from repro_torch.kernels import registry
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import scheduler
     os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
                       MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(mesh_lib.free_port()))
@@ -6160,22 +6155,13 @@ def _shard_nccl(label: str, arch: str, out_dir: str) -> None:
         eng = _shard_engine(mesh, cfg)
         eng.warmup()
         g0 = mesh.gathered_bytes
-        stats = _shard_main_run(eng, reqs)
-        stats.update(_shard_stats(eng, mesh, g0))
-        for c in registry.LAUNCH_COUNTERS:
-            c.reset()
-        seg0 = eng.segments
         with registry.profile_window() as prof:
-            _engine_run(eng, _again(reqs[:SHARD_PROFILED_REQUESTS], 1000),
-                        scheduler.FastForwardClock)
+            stats = _shard_main_run(eng, reqs)
+        stats.update(_shard_stats(eng, mesh, g0))
         events = [e for e in registry.window_events(prof)
                   if e.device_time_us > 0]
-        stats.update(
-            prof_counts={c.name: c.count for c in registry.LAUNCH_COUNTERS},
-            prof_launched=registry.profiled_launches(
-                {e.key: e.count for e in events}),
-            prof_segments=eng.segments - seg0,
-            graph_keys=len(eng._graphs))
+        stats.update(prof_launched=registry.profiled_launches(
+            {e.key: e.count for e in events}), graph_keys=len(eng._graphs))
         with open(f"{out_dir}/{label}_0.pkl", "wb") as f:
             pickle.dump(stats, f)
         del eng
@@ -6248,22 +6234,22 @@ def phase_sharded() -> dict:
             toks = sum(len(v) for v in lead["streams"].values())
             extra = ""
             if backend == "nccl":
+                # the main run itself, profiled: every segment of every
+                # batch bucket it replays
                 per_seg = gemms_per_step(cfg) * ENGINE_SEGMENT
-                pc, pl = lead["prof_counts"], lead["prof_launched"]
-                expect = {k: pc[k] + lead["prof_segments"] * per_seg
+                pl = lead["prof_launched"]
+                expect = {k: counts[k] + segs * per_seg
                           for k in (name, small)}
-                if {k: pl[k] for k in expect} != expect or \
-                        not lead["prof_segments"]:
+                if {k: pl[k] for k in expect} != expect or not segs:
                     raise AssertionError(
-                        f"{tag}: the profiled run launched {pl}, expected "
-                        f"{expect} ({lead['prof_segments']} segments)")
-                extra = (f"; profiled run of {SHARD_PROFILED_REQUESTS} "
-                         f"requests: {lead['prof_segments']} segments, GEMM "
+                        f"{tag}: the profiled main run launched {pl}, "
+                        f"expected {expect} ({segs} segments)")
+                extra = (f"; the main run profiled (its time too): GEMM "
                          f"launches {pl[name]} ({pl[small]} small-M) == the "
-                         f"eager prefills' {pc[name]} + "
-                         f"{lead['prof_segments']} x {per_seg}: "
-                         f"{gemms_per_step(cfg)} per replayed step, the "
-                         "unsharded engine's (phase 13)")
+                         f"eager prefills' {counts[name]} + {segs} x "
+                         f"{per_seg}: {gemms_per_step(cfg)} per replayed "
+                         "step in every segment, the unsharded engine's "
+                         "(phase 13)")
             log(f"{tag}, {n} rank(s) on one card ({smi}): {len(reqs)} "
                 f"requests, {toks} tokens in {lead['run_s']:.3f} s: "
                 f"{toks / lead['run_s']:.1f} output tok/s, "
@@ -6281,9 +6267,8 @@ def phase_sharded() -> dict:
                     f"{st['gathered'] / max(st['segments'], 1) / 1e6:.3f} MB"
                     f" per segment ({st['gathered'] / 1e6:.3f} MB over "
                     f"{st['segments']} segments, eager collectives only); "
-                    f"resident: weights {w['resident'] / 1e6:.1f} MB (its "
-                    f"shard {w['shard'] / 1e6:.1f} MB, "
-                    f"{w['gathered'] / 1e6:.1f} MB gathered once), slot "
+                    f"resident: weights {w['resident'] / 1e6:.1f} MB "
+                    f"(whole but its attention column slices), slot "
                     f"state {st['state'] / 1e6:.1f} MB, allocated "
                     f"{st['allocated'] / 1e6:.1f} MB")
             log(f"phase 18 ({label}): {secs:.1f} s")
@@ -6292,8 +6277,8 @@ def phase_sharded() -> dict:
                 "counted_by": "the wrappers" + (
                     ": every launch (gloo steps run eagerly)"
                     if backend == "gloo" else
-                    ": the eager prefills and captures; the profiled "
-                    "run's replays gated apart")}
+                    ": the eager prefills; the profiler counts the "
+                    "replays apart")}
     serve.decode_cache_clear()
     return paths
 

@@ -19,11 +19,14 @@ and any leading stack axes (layers, super-blocks, experts):
   dimension;
 * EP over "model": the MoE expert dimension.
 
-The serve engine (launch/engine.py) takes each rank's block of every
-weight under these rules (`shard_tree`, the reference's `to_shardings`
-placement) and gathers the blocks back whole (`gather_sharded`): every
-all-gather is an exact concatenation, so the gathered weights are
-bitwise the originals and no float contraction is ever partitioned.
+`shard_tree` takes each rank's block of every weight under these rules
+(the reference's `to_shardings` placement) and `gather_sharded` gathers
+the blocks back whole: every all-gather is an exact concatenation, so
+the gathered weights are bitwise the originals and no float contraction
+is ever partitioned.  The serve engine keeps each rank's weights whole
+instead (launch/engine.py `_place_params`): its captured graphs read
+static buffers, where the reference gathers the shards at every
+dispatch.
 """
 from __future__ import annotations
 

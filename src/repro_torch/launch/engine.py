@@ -156,13 +156,13 @@ is one process per rank:
   attention and SSD mixers compute their local heads and all-gather
   them (distributed/context.py `tp_scope`, entered around every model
   call and held while a step is captured);
-* weights are placed under the distributed/sharding.py rules (each
-  rank's block) and gathered back whole once, at construction; under
-  attention tensor parallelism each rank keeps contiguous copies of its
-  wq / wk / wv column slices instead of the whole projections.  The
-  reference gathers the shards at every dispatch; the port's captured
-  graphs read static buffers, so it keeps the gathered copy (PERF.md
-  gives each rank's bytes);
+* every rank keeps the whole weights it was given, but under
+  attention tensor parallelism contiguous copies of its wq / wk / wv
+  column slices instead of the whole projections (`_place_params`).
+  The reference stores the weights as shards under the
+  distributed/sharding.py rules and gathers them whole at every
+  dispatch; the port's captured graphs read static buffers, so it
+  keeps the whole copy (PERF.md gives each rank's bytes);
 * each step's sampled tokens, positions and flags, a prefill's first
   tokens and last logits rows, a replay step's logits rows and an
   embed's vectors reach every rank by an all-gather over the dp axes,
@@ -185,10 +185,19 @@ Device results enter host decisions only after the dp all-gather, so
 they are the same bits on every rank.  The front-end
 (launch/frontend.py) runs on rank 0 over the leader.  Every collective
 is a gather, so the sharded streams equal the single-device engine's
-bit for bit (tests/test_torch_sharded_serve.py).  Not ported: the
-prefix cache on a mesh, and the elastic paths -- a lost device's
-re-plan (`_degrade`) and chaos's `lose@` arms -- which raise naming
-ROADMAP A11.
+bit for bit (tests/test_torch_sharded_serve.py).
+
+The prefix cache on a mesh: every rank keeps a pool of the same
+entries, since the same scheduler looks them up, inserts, pins and
+evicts them; each page holds that rank's own heads.  A hit is written
+by the shard that owns the slot; a miss prefills there, and its pages
+reach every rank of its model column by a dp all-gather of the prefill
+rows (`_every_row`), so a later repeat hits on any shard
+(tests/test_torch_sharded_prefix.py).  Host pages re-enter the state
+on the owning rank alone, so the port needs no counterpart of the
+reference's `_reshard_state`.  Not ported: the elastic paths -- a lost
+device's re-plan (`_degrade`) and chaos's `lose@` arms -- which raise
+naming ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -308,22 +317,11 @@ def _mesh_plan(cfg, spec: slot_state.SlotStateSpec,
 
 
 def _place_params(params, cfg, plan: _MeshPlan):
-    """This rank's copy of the weights on a mesh: each rank takes its
-    block of every leaf under the `param_pspecs` rules
-    (`dshard.shard_tree`) and gathers the blocks back whole
-    (`dshard.gather_sharded`, bitwise the originals).  Under attention
-    tensor parallelism the attention projections wq / wk / wv (and their
-    biases) are then replaced by contiguous copies of this rank's column
-    slices (`attention._tp_slice_cols`), made once here, never per
-    step.  Returns (params, {shard, gathered, resident}: bytes)."""
-    mesh = plan.mesh
-    specs = dshard.param_pspecs(params, mesh, cfg)
-    local = dshard.shard_tree(params, specs, mesh)
-    before = mesh.gathered_bytes
-    full = dshard.gather_sharded(local, specs, mesh)
-    stats = {"shard": _nbytes(local), "gathered": mesh.gathered_bytes
-             - before}
-    del local
+    """This rank's copy of the weights on a mesh: the caller's whole
+    weights as they are, but under attention tensor parallelism wq / wk
+    / wv (and their biases), which are replaced by contiguous copies of
+    this rank's column slices (`attention._tp_slice_cols`), made once
+    here, never per step.  Returns (params, {resident: bytes})."""
     if plan.tp.attn:
         j, size, d = plan.mesh.axis_index(plan.model_axis), plan.tp.size, \
             cfg.head_dim
@@ -347,9 +345,8 @@ def _place_params(params, cfg, plan: _MeshPlan):
                         for k, v in node.items()}
             return {k: walk(v) for k, v in node.items()}
 
-        full = walk(full)
-    stats["resident"] = _nbytes(full)
-    return full, stats
+        params = walk(params)
+    return params, {"resident": _nbytes(params)}
 
 
 def _nbytes(tree) -> int:
@@ -730,8 +727,10 @@ class ServeEngine:
                     cache_info()["admission"]["deferrals"].
     device:         where the slot state lives and the steps run; "cuda"
                     by default (raises without CUDA, as every entry
-                    point of the port).  Under a mesh_scope the mesh's
-                    device for this rank instead (module docstring).
+                    point of the port).  Under a mesh_scope it must
+                    name the place the mesh gave this rank ("cuda" for
+                    cuda:r, "cpu" for ranks on the CPU), and raises
+                    otherwise.
     spec_decode:    a SpecDecodeConfig: self-speculative decoding rounds
                     instead of segments (module docstring).  Refuses the
                     encdec family, a draft of another family or vocab,
@@ -796,12 +795,18 @@ class ServeEngine:
         # the batch-bucket floor (admission included)
         self._plan = _mesh_plan(cfg, self._spec, init_kwargs)
         plan = self._plan
-        if plan is not None and prefix_cache is not None:
-            raise NotImplementedError(
-                "prefix_cache on a mesh is not ported: pooled pages would "
-                "have to cross ranks (ROADMAP A8, mesh serving)")
-        self.device = plan.mesh.device if plan is not None \
-            else device_lib.resolve(device)
+        if plan is not None:
+            # the mesh placed this rank (launch/mesh.py init_mesh): the
+            # engine's device must name the same place, never replace it
+            want, got = torch.device(device), plan.mesh.device
+            if want.type != got.type or want.index not in (None, got.index):
+                raise ValueError(
+                    f"device={str(device)!r}, but the mesh placed rank "
+                    f"{plan.mesh.rank} on {got}: pass the mesh's device "
+                    f"(init_mesh's device=)")
+            self.device = got
+        else:
+            self.device = device_lib.resolve(device)
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_cache_len = max_cache_len
@@ -851,9 +856,9 @@ class ServeEngine:
         self._bundle = _engine_bundle(cfg, silvia_passes, self.device, plan)
         self._queue = scheduler.RequestQueue()
         if plan is not None:
-            # weights: this rank's blocks under the suffix rules, gathered
-            # back whole once (_place_params); slot state: this shard's
-            # slots and, under tensor parallelism, its heads
+            # weights: whole, but this rank's attention column slices
+            # (_place_params); slot state: this shard's slots and, under
+            # tensor parallelism, its heads
             params, self._weight_bytes = _place_params(params, cfg, plan)
         self.params = params
         self._cache = self._init_state(self._spec, self._n_loc,
@@ -932,6 +937,9 @@ class ServeEngine:
             self._prefix = pfx.PrefixCache(
                 prefix_cache, chunk=prefill_chunk, chain_ok=chain_ok,
                 salt=f"{cfg.family}:{prefill_chunk}")
+            if plan is not None:
+                # the mesh this pool serves (info()'s fingerprint)
+                self._prefix.note_remesh(plan.key)
         # keys pinned in the pool per slot, released at eviction; and the
         # pins an admission holds before its slots own them
         self._slot_pins: List[tuple] = [()] * n_slots
@@ -1544,6 +1552,19 @@ class ServeEngine:
                 p.narrow(la, j * c, c).clone()
                 for la, p in zip(self._spec.length_axes, span)]
 
+    def _every_row(self, state):
+        """Every dp shard's rows of a prefill state, shard-major along
+        each leaf's slot axis (row `at` of `_route`): on a mesh the pool
+        takes a miss's pages from whichever shard computed them, so that
+        every rank pools every entry -- its own heads of it (the state
+        itself off a mesh, or with one dp shard)."""
+        if self._dp == 1:
+            return state
+        leaves, treedef = pytree.tree_flatten(state)
+        return pytree.tree_unflatten(
+            [self._plan.gather(leaf, ba)
+             for leaf, ba in zip(leaves, self._spec.batch_axes)], treedef)
+
     def _prefix_admit_full(self, group: List[scheduler.Request], sb: int,
                            eb: Optional[int], t_pre: int,
                            free: List[int]):
@@ -1553,7 +1574,10 @@ class ServeEngine:
         snapshots -- into the slot, in place, and makes NO prefill
         launch; the misses prefill as one smaller bucketed sub-group
         (batch composition cannot perturb a row) and donate their pages
-        to the pool."""
+        to the pool.  On a mesh every rank keeps the same pool (the same
+        lookups, pins and evictions, run by the same scheduler), each
+        entry holding its own heads: a hit is written by the shard that
+        owns the slot, and a miss prefills on it (`_route`)."""
         g = len(group)
         slots = np.asarray([free.pop(0) for _ in range(g)], np.int64)
         tok0 = np.zeros((g,), np.int64)
@@ -1573,25 +1597,29 @@ class ServeEngine:
                 miss_idx.append(i)
                 continue
             ent = hit.terminal
-            self._spec.write_row_pages(self._cache, int(slots[i]), 0,
-                                       ent.pages)
+            if slots[i] % self._dp == self._d:
+                self._spec.write_row_pages(
+                    self._cache, int(slots[i]) // self._dp, 0, ent.pages)
             tok0[i] = ent.tok0
             pins[i] = self._prefix.pin([ent.key])
             self._admit_pins.append(pins[i])
             self._prefix.note_skip(r.prompt_len)
         if miss_idx:
             sub = [group[i] for i in miss_idx]
-            bb = scheduler.bucket_pow2(len(sub), minimum=self._adm_floor,
-                                       maximum=self.n_slots)
-            inputs, lens = self._prefill_inputs(sub, bb, sb, eb)
-            self._graphs.add(self._graph_key(bb, sb, t_pre, eb))
+            sub_slots = slots[np.asarray(miss_idx, np.int64)]
+            mine, bbl, at = self._route(sub_slots % self._dp)
+            inputs, lens = self._prefill_inputs([sub[k] for k in mine], bbl,
+                                                sb, eb)
+            self._graphs.add(self._graph_key(bbl * self._dp, sb, t_pre, eb))
             stok0, slast, rows, sbad0 = self._guarded(
                 "prefill", self._prefill, inputs, lens, t_pre)
-            stok0 = stok0.cpu().numpy()
-            sbad0 = sbad0.cpu().numpy()
-            sub_slots = slots[np.asarray(miss_idx, np.int64)]
-            self._spec.admit(self._cache, rows, sub_slots, len(sub),
-                             t_pre=t_pre)
+            at_d = torch.as_tensor(at, device=self.device)
+            stok0 = self._gather_out(stok0)[at_d].cpu().numpy()
+            sbad0 = self._gather_out(sbad0)[at_d].cpu().numpy()
+            slast = self._gather_out(slast)[at_d]
+            self._spec.admit(self._cache, rows, sub_slots[mine] // self._dp,
+                             len(mine), t_pre=t_pre)
+            every = self._every_row(rows)
             for j, i in enumerate(miss_idx):
                 tok0[i] = stok0[j]
                 bad0[i] = sbad0[j]
@@ -1600,7 +1628,8 @@ class ServeEngine:
                     r = group[i]
                     self._prefix.insert_terminal(
                         r, self._spec.extract_row_pages(
-                            rows, j, 0, r.prompt_len), int(stok0[j]))
+                            every, int(at[j]), 0, r.prompt_len),
+                        int(stok0[j]))
         return tok0, bad0, slots, pins, last
 
     def _prefix_admit_chunked(self, group: List[scheduler.Request],
@@ -1614,18 +1643,23 @@ class ServeEngine:
         step as a cold admission; copied pages are bitwise what this
         row's own chunks would have written (KV purity), and masking
         hides batch composition, so the harvested logits -- and every
-        later token -- are bit-identical to the cold path."""
+        later token -- are bit-identical to the cold path.  On a mesh
+        each request's rows run on the shard that owns its slot
+        (`_route`), every shard launching every chunk that any row needs,
+        and the pool is every rank's, as in `_prefix_admit_full`."""
         g = len(group)
-        bb = scheduler.bucket_pow2(g, minimum=self._adm_floor,
-                                   maximum=self.n_slots)
+        slots = np.asarray(free[:g], np.int64)
+        mine, bbl, at = self._route(slots % self._dp)
+        local = {int(i): b for b, i in enumerate(mine)}
         c = min(self.prefill_chunk, sb)
         n_chunks = sb // c
-        prompts, lens = self._prompt_page(group, bb, sb)
-        last_chunk = (lens - 1) // c
-        step = self._chunk_step(bb, c, t_pre)
+        prompts, lens = self._prompt_page([group[i] for i in mine], bbl, sb)
+        last_chunk = np.asarray([(r.prompt_len - 1) // c for r in group],
+                                np.int64)
+        step = self._chunk_step(bbl, c, t_pre)
         step.reset()
         cache = step.state
-        resume = np.full((bb,), n_chunks, np.int64)  # padding: never runs
+        resume = np.full((g,), n_chunks, np.int64)
         term: List[Optional[pfx.Entry]] = [None] * g
         n_chain = [0] * g
         pin_keys: List[List[bytes]] = [[] for _ in range(g)]
@@ -1642,32 +1676,36 @@ class ServeEngine:
                 # the argmax token.  A sampled request still rides any
                 # chain hits below and re-runs its final chunk, which
                 # recovers the logits row its tok0 is sampled from
-                self._spec.write_row_pages(cache, i, 0, hit.terminal.pages)
+                if i in local:
+                    self._spec.write_row_pages(cache, local[i], 0,
+                                               hit.terminal.pages)
                 term[i] = hit.terminal
                 pin_keys[i].append(hit.terminal.key)
                 self._prefix.note_skip(r.prompt_len)
                 continue
-            if hit.chain:
+            if hit.chain and i in local:
                 # one write per leaf for the whole cached span
-                self._spec.write_row_pages(cache, i, 0,
+                self._spec.write_row_pages(cache, local[i], 0,
                                            self._concat_pages(hit.chain))
-                pin_keys[i].extend(ent.key for ent in hit.chain)
+            pin_keys[i].extend(ent.key for ent in hit.chain)
             n_chain[i] = len(hit.chain)
             # resume at the first uncached chunk; a chain covering the
             # final chunk still re-runs it (rewriting identical bits) to
             # recover the first-token logits
             resume[i] = min(len(hit.chain), int(last_chunk[i]))
             self._prefix.note_skip(int(resume[i]) * c)
-        last: Dict[int, torch.Tensor] = {}
+        rows: List[Optional[torch.Tensor]] = [None] * bbl
         for k in range(n_chunks):
-            act = (resume <= k) & (k <= last_chunk)
-            act[g:] = False
-            if not act.any():
+            act_g = (resume <= k) & (k <= last_chunk)
+            if not act_g.any():
                 continue    # every row is past this chunk: no launch
-            self._graphs.add(("chunk", bb, c, t_pre))
+            act = np.zeros((bbl,), bool)
+            act[:len(mine)] = act_g[mine]
+            self._graphs.add(("chunk", bbl * self._dp, c, t_pre))
             logits = self._guarded("chunk", step.run,
                                    prompts[:, k * c:(k + 1) * c], k * c, act)
-            hit_rows = np.nonzero((last_chunk == k) & act)[0]
+            hit_rows = np.nonzero((last_chunk[mine] == k)
+                                  & act[:len(mine)])[0]
             if hit_rows.size:
                 # gathered into a fresh tensor: the next replay rewrites
                 # the step's logits
@@ -1675,7 +1713,17 @@ class ServeEngine:
                              torch.as_tensor((lens[hit_rows] - 1) % c,
                                              device=self.device)]
                 for j, b in enumerate(hit_rows):
-                    last[int(b)] = sel[j]
+                    rows[int(b)] = sel[j]
+            like = logits[:, 0]
+        last: Dict[int, torch.Tensor] = {}
+        if any(t is None for t in term):
+            # every shard's last logits rows, in shard-major order
+            every = self._gather_out(torch.stack(
+                [torch.zeros_like(like[0]) if x is None else x
+                 for x in rows]))
+            for i in range(g):
+                if term[i] is None:
+                    last[i] = every[int(at[i])]
         tok0 = np.zeros((g,), np.int64)
         bad0 = np.zeros((g,), bool)
         for i in range(g):
@@ -1686,14 +1734,15 @@ class ServeEngine:
             bad0[i] = not bool(torch.isfinite(last[i]).all())
         # donate computed pages back to the pool (never from a failed
         # launch: an exception above unwinds before this point)
-        for i in range(g):
-            if term[i] is not None or bad0[i]:
-                continue
+        donors = [i for i in range(g) if term[i] is None and not bad0[i]]
+        every = self._every_row(cache) if donors else None
+        for i in donors:
             r = group[i]
             # ONE extraction (one device-to-host wait) per miss row: the
             # terminal pages cover [0, prompt_len), and chain chunk pages
             # are host-side slices of them
-            full = self._spec.extract_row_pages(cache, i, 0, r.prompt_len)
+            full = self._spec.extract_row_pages(every, int(at[i]), 0,
+                                                r.prompt_len)
             n_full = r.prompt_len // c
             if self._prefix.chain_ok and n_full > n_chain[i]:
                 keys = self._prefix.chain_keys(r.prompt, req=r)
@@ -1703,8 +1752,9 @@ class ServeEngine:
             self._prefix.insert_terminal(r, full, int(tok0[i]))
         pins = [self._prefix.pin(pk) for pk in pin_keys]
         self._admit_pins.extend(pins)
-        slots = np.asarray([free.pop(0) for _ in range(g)], np.int64)
-        self._spec.admit(self._cache, cache, slots, g, t_pre=t_pre)
+        del free[:g]
+        self._spec.admit(self._cache, cache, slots[mine] // self._dp,
+                         len(mine), t_pre=t_pre)
         return tok0, bad0, slots, pins, last
 
     # -- chunked prefill ----------------------------------------------------

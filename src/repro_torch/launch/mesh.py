@@ -22,10 +22,10 @@ rules (distributed/sharding.py) and the tensor-parallel plan, which
 read only `shape` and `axis_names`.
 
 The backend rule: NCCL with one card per rank (`cuda:{local_rank}`),
-the default; `gloo` when the caller names it -- ranks on the CPU, or
-several ranks sharing one card.  NCCL refuses two ranks on one device,
-so `init_mesh` raises when NCCL is asked for with more ranks than
-cards.  Over NCCL a collective can be captured in a CUDA graph; over
+the default; `gloo` when the caller names it -- several ranks sharing
+one card (its default), or ranks on the CPU (`device="cpu"`).  NCCL
+refuses two ranks on one device, so `init_mesh` raises when NCCL is
+asked for with more ranks than cards.  Over NCCL a collective can be captured in a CUDA graph; over
 `gloo` it cannot, and a `gloo` collective on CUDA tensors is staged
 through host copies (`_gather_gloo_cuda`): an explicit per-backend
 branch, not a fallback.
@@ -46,6 +46,8 @@ from typing import Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import device as device_lib
 
 
 class Mesh:
@@ -229,7 +231,9 @@ def init_mesh(shape, axes, *, backend: str = "nccl", device=None) -> Mesh:
     $MASTER_PORT when it is not yet; `spawn` sets them).  The world size
     must be the mesh's.  NCCL (the default) places rank r on
     `cuda:{local_rank}` and raises when there are more ranks than cards;
-    `gloo` runs on `device` ("cpu" by default).  Creates every axis
+    `gloo` places it on `cuda:{local_rank % cards}` (ranks share the
+    cards) and raises without CUDA, unless `device` names another place
+    ("cpu" for ranks on the CPU).  Creates every axis
     group and the control group, and warms each group with one
     collective (NCCL builds its communicators lazily, and never inside a
     graph capture)."""
@@ -252,8 +256,10 @@ def init_mesh(shape, axes, *, backend: str = "nccl", device=None) -> Mesh:
             else torch.device("cuda", local)
         torch.cuda.set_device(dev)
     else:
-        dev = torch.device(device or "cpu")
+        dev = device_lib.resolve("cuda" if device is None else device)
         if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda", local % torch.cuda.device_count())
             torch.cuda.set_device(dev)
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method="env://", rank=rank,

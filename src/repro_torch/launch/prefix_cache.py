@@ -37,9 +37,11 @@ admission COPIES them into the admitted slot's private state, and
 decode mutates only that working copy.  The reference keeps host numpy
 so that its pool is mesh-free and survives an elastic re-plan; the
 port's is host-resident for the same reason.  `note_remesh` records
-the mesh a pool serves (info()'s `remeshes` and `mesh_fingerprint`);
-the port's engine refuses a prefix cache on a mesh so far (ROADMAP A8),
-so only a caller of its own feeds it.
+the mesh a pool serves (info()'s `remeshes` and `mesh_fingerprint`):
+the mesh-aware engine calls it at construction.  There every rank
+keeps a pool of the same entries -- the same scheduler looks up,
+inserts, pins and evicts them -- each page holding that rank's own
+heads (launch/engine.py `_prefix_admit_full`).
 
 Capacity is bounded in page units (1 per entry) with LRU eviction that
 skips pinned entries: an entry is pinned while any live slot was admitted

@@ -71,32 +71,6 @@ def largest_valid_dp(n_slots: int, max_dp: int) -> int:
     return d
 
 
-def validate_slot_sharding(n_slots: int, dp_size: int) -> None:
-    """Mesh-aware engines shard the slot axis over `dp_size` data shards:
-    every batch bucket must split evenly, so the bucket FLOOR becomes
-    dp_size and n_slots (the bucket cap, included verbatim in the bucket
-    set) must be a multiple of it.  dp_size must be a power of two so the
-    floored power-of-two bucket set stays shard-divisible throughout."""
-    if dp_size < 1 or dp_size & (dp_size - 1):
-        raise ValueError(
-            f"sharded serve needs a power-of-two data-shard count, got "
-            f"{dp_size} (mesh dp axes)")
-    if n_slots % dp_size:
-        raise ValueError(
-            f"n_slots {n_slots} is not a multiple of the data-shard count "
-            f"{dp_size}: the slot axis cannot split evenly over the mesh")
-
-
-def largest_valid_dp(n_slots: int, max_dp: int) -> int:
-    """Largest data-shard count that `validate_slot_sharding` accepts
-    with at most `max_dp` shards: a power of two dividing n_slots (>= 1);
-    what a degraded-mesh planner picks as the widest data extent."""
-    d = 1
-    while d * 2 <= max_dp and n_slots % (d * 2) == 0:
-        d *= 2
-    return d
-
-
 def bucket_set(minimum: int, maximum: int) -> tuple:
     """All buckets bucket_pow2 can produce in [minimum, maximum]: the
     powers of two in range plus the cap itself.  The compiled-graph count

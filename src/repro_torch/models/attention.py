@@ -27,8 +27,9 @@ for the whole generation.
 
 Under serve-time tensor parallelism (distributed/context.py `tp_scope`,
 entered by the mesh-aware engine) each rank projects only its block of
-heads -- wq / wk / wv column slices (`_tp_slice_cols`) -- attends over
-them, and all-gathers the head outputs before the merged wo
+heads -- the engine hands it wq / wk / wv already cut to its column
+slices (`_tp_slice_cols`, launch/engine.py `_place_params`) -- attends
+over them, and all-gathers the head outputs before the merged wo
 (`_tp_gather_heads`): the collective is an exact concat, never a
 partial-sum reduction, so sharded decode stays bit-identical to the
 single-device path.  Its KV cache holds the local heads.
@@ -77,14 +78,6 @@ def _tp_slice_cols(w, j: int, width: int):
     return w.narrow(-1, j * width, width)
 
 
-def _tp_cols(w, tp, width: int):
-    """This rank's `width` columns of w: w itself where the engine placed
-    the slice already (its logical width is `width`; the full width is
-    `size` times that), else the slice of the whole weight."""
-    n = w.scale.shape[-1] if isinstance(w, QTensor) else w.shape[-1]
-    return w if n == width else _tp_slice_cols(w, tp.index, width)
-
-
 def _tp_gather_heads(out):
     """All-gather the per-shard head outputs [..., h_loc * D] along the
     feature axis before the merged output projection: shard-major concat
@@ -98,12 +91,8 @@ def _tp_gather_heads(out):
 
 def _project_q(p, x, cfg: ModelConfig):
     tp = _attn_tp()
-    wq, bq, h = p["wq"], p.get("bq"), cfg.n_heads
-    if tp is not None:
-        h = cfg.n_heads // tp.size
-        wq = _tp_cols(wq, tp, h * cfg.head_dim)
-        if bq is not None:
-            bq = _tp_cols(bq, tp, h * cfg.head_dim)
+    wq, bq = p["wq"], p.get("bq")
+    h = cfg.n_heads if tp is None else cfg.n_heads // tp.size
     q = qmatmul(x, wq)
     if bq is not None:
         q = q + bq
@@ -114,13 +103,7 @@ def _project_q(p, x, cfg: ModelConfig):
 def _project_kv(p, x, cfg: ModelConfig):
     tp = _attn_tp()
     wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
-    kv = cfg.n_kv
-    if tp is not None:
-        kv = cfg.n_kv // tp.size
-        wk, wv = (_tp_cols(w, tp, kv * cfg.head_dim) for w in (wk, wv))
-        if bk is not None:
-            bk, bv = (_tp_cols(b_, tp, kv * cfg.head_dim)
-                      for b_ in (bk, bv))
+    kv = cfg.n_kv if tp is None else cfg.n_kv // tp.size
     k = qmatmul(x, wk)
     v = qmatmul(x, wv)
     if bk is not None:

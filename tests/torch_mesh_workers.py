@@ -67,6 +67,38 @@ def compaction_requests(cfg):
         for i, g in enumerate((2, 2, 12, 12))]
 
 
+def prefix_waves(cfg):
+    """Two waves of traffic for the prefix cache, the second sent once
+    the first is served, so that what hits does not depend on how fast
+    a step runs: three prompts and one with an 8-token shared prefix,
+    then the three prompts again (terminal hits, admitted on whichever
+    shard frees a slot) and three more behind the shared prefix (chain
+    hits on a chunked engine)."""
+    rng = np.random.default_rng(5)
+    heads = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+             for n in (6, 11, 9)]
+    shared = rng.integers(0, cfg.vocab, 8).astype(np.int32)
+    tails = [np.concatenate(
+        [shared, rng.integers(0, cfg.vocab, n).astype(np.int32)])
+        for n in (2, 4, 6, 3)]
+    prompts = heads + tails[:1] + tails[1:] + heads
+    gens = (4, 6, 3, 5, 2, 6, 4, 5, 3, 6)
+    reqs = [scheduler.Request(rid=i, prompt=p, max_new_tokens=g,
+                              arrival_time=0.0)
+            for i, (p, g) in enumerate(zip(prompts, gens))]
+    return reqs[:4], reqs[4:]
+
+
+def serve(eng, case: str, cfg) -> dict:
+    """The case's traffic through `eng.run`: its streams."""
+    clock = scheduler.FastForwardClock()
+    if case.startswith("prefix"):
+        first, second = prefix_waves(cfg)
+        eng.run(first, clock)
+        return streams(eng.run(second, clock))
+    return streams(eng.run(traffic(case, cfg), clock))
+
+
 def frontend_traffic(cfg):
     return scheduler.method_traffic(
         seed=19, n_requests=6, rate=200.0, prompt_lens=(4, 7, 12),
@@ -84,13 +116,19 @@ def engine_kwargs(case: str, cfg, dp: int = 1) -> dict:
         kw["prefill_chunk"] = 8
     elif case in ("compact", "spec", "frontend", "snapshot"):
         kw["n_slots"] = 4
+    elif case.startswith("prefix"):
+        kw.update(n_slots=4, prefix_cache=64)
+        if case == "prefix_chunked":
+            kw["prefill_chunk"] = 4
     return kw
 
 
 CASE_MODEL = {"w4a8": ("qwen", "w4a8"), "silvia": ("qwen", "w8a8"),
               "chunked": ("qwen", "w8a8"), "compact": ("qwen", "w8a8"),
               "spec": ("qwen", "w8a8"), "frontend": ("qwen", "w8a8"),
-              "snapshot": ("qwen", "w8a8")}
+              "snapshot": ("qwen", "w8a8"), "prefix": ("qwen", "w8a8"),
+              "prefix_chunked": ("qwen", "w8a8"),
+              "prefix_ssm": ("ssm", "w8a8")}
 
 
 def model_of(case: str):
@@ -179,6 +217,36 @@ def _mesh_info(eng) -> dict:
                               "n_devices", "backend", "captured")}
 
 
+def _shard_gather(mesh) -> dict:
+    """`shard_tree` then `gather_sharded` of reduced qwen1.5-0.5b's w4a8
+    tree under its `param_pspecs`: each block's shape, and the gathered
+    tree against the whole one, bit for bit.  Only rank 0 reports, but
+    every rank gathers (the gathers are collective)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.distributed import sharding as dshard
+    cfg, params = build("qwen", "w4a8")
+    specs = dshard.param_pspecs(params, mesh, cfg)
+    local = dshard.shard_tree(params, specs, mesh)
+    whole = pytree.tree_leaves(params)
+    flat_s = pytree.tree_leaves(specs, is_leaf=dshard._is_spec)
+    shapes_ok, n_sharded = True, 0
+    for w, b, sp in zip(whole, pytree.tree_leaves(local), flat_s):
+        want = list(w.shape)
+        for dim, entry in enumerate(sp):
+            if entry is not None:
+                want[dim] //= mesh.axis_size(entry)
+        shapes_ok &= list(b.shape) == want
+        n_sharded += tuple(b.shape) != tuple(w.shape)
+    back = pytree.tree_leaves(dshard.gather_sharded(local, specs, mesh))
+    return {"shapes_ok": bool(shapes_ok), "n_sharded": n_sharded,
+            "n_leaves": len(whole),
+            "equal": len(back) == len(whole) and all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(back, whole))}
+
+
 def run_case(case: str, mesh, snap_dir: str):
     """One case on every rank; rank 0's result (None elsewhere)."""
     shape = tuple(mesh.shape.values())
@@ -190,6 +258,18 @@ def run_case(case: str, mesh, snap_dir: str):
             try:
                 ServeEngine(params, cfg, n_slots=dp + 1, max_cache_len=64,
                             chaos=None, device="cpu")
+            except ValueError as e:
+                return str(e)
+        return None
+    if case == "shard_gather":
+        got = _shard_gather(mesh)           # collective: every rank
+        return got if leader else None
+    if case == "device":
+        cfg, params = build("qwen")
+        with dctx.mesh_scope(mesh, ("data",), "model"):
+            try:
+                ServeEngine(params, cfg, n_slots=max(2, dp),
+                            max_cache_len=64, chaos=None, device="cuda")
             except ValueError as e:
                 return str(e)
         return None
@@ -237,8 +317,7 @@ def run_case(case: str, mesh, snap_dir: str):
             res["outcomes"] = sorted({r.outcome for r in eng.finished})
             res["errors"] = eng.cache_info()["robustness"]["errors"]
         else:
-            res["streams"] = streams(eng.run(traffic(case, cfg),
-                                             scheduler.FastForwardClock()))
+            res["streams"] = serve(eng, case, cfg)
             info = eng.cache_info()
             res["outcomes"] = sorted({r.outcome for r in eng.finished})
             res["errors"] = info["robustness"]["errors"]
@@ -246,6 +325,8 @@ def run_case(case: str, mesh, snap_dir: str):
             res["graphs"] = (info["graphs"], info["graph_bound"])
             if case == "spec":
                 res["spec"] = info["spec_decode"]
+            if case.startswith("prefix"):
+                res["prefix"] = info["prefix_cache"]
         return res
     finally:
         eng.release()
@@ -253,7 +334,8 @@ def run_case(case: str, mesh, snap_dir: str):
 
 def run_group(rank: int, shape: tuple, cases: tuple, out: str,
               snap_dir: str) -> None:
-    mesh = mesh_lib.init_mesh(shape, ("data", "model"), backend="gloo")
+    mesh = mesh_lib.init_mesh(shape, ("data", "model"), backend="gloo",
+                              device="cpu")
     got = {case: run_case(case, mesh, snap_dir) for case in cases}
     if rank == 0:
         with open(out, "wb") as f:
