@@ -358,10 +358,17 @@ over):
    and 3 KV heads over 3; (c) mamba2-2.7b at SSM_LAYERS on (1, 2): SSD
    tensor parallelism, 80 heads over 2; (d) smollm-135m on a (1, 1)
    NCCL mesh in this process, its collectives captured inside the
-   steps' graphs.  (a)-(c) run in fresh processes (`mesh.spawn`, one
-   group per rank count: (a) and (c) share theirs; a rank that fails
-   fails the phase), their steps eager (gloo cannot be captured; its
-   CUDA collectives go through host copies).  Each case's main run --
+   steps' graphs; (e) elastic degraded-mesh serving: smollm-135m on
+   (1, 3) with attention tensor parallelism, chaos
+   `DeviceLossInjector.parse(ELASTIC_CHAOS)` losing rank 2 at
+   segment:1 and rank 1 at segment:3, (1, 3) -> (2, 1) -> (1, 1), the
+   survivors re-forming their process groups each time, over the first
+   ELASTIC_REQUESTS (6) of (a)'s requests (a cut for the run's time).
+   (a)-(c) and (e) run in fresh processes (`mesh.spawn`, one group per
+   rank count: (a) and (c) share theirs, (b) and (e) theirs; a rank
+   that fails fails the phase), their steps eager (gloo cannot be
+   captured; its CUDA collectives go through host copies).  Each case's
+   main run --
    every count from 0 just before it, read just after -- serves the 12
    (SHARD_REQUESTS; mamba2: 8) requests on rank 0, the other ranks
    following it.  Gates: every stream == the unsharded engine's (phase
@@ -369,11 +376,16 @@ over):
    tensor parallelism active in (b) and (c); steps captured in (d) alone;
    both GEMM kernels launched in the main run; in (d), whose main run
    is profiled, gemms_per_step GEMMs per replayed step in every
-   segment, as the unsharded engine launches.  Logged beside the card's
-   name and power limit: output tok/s and ms per step per case ((d)'s
-   under the profiler), each rank's bytes gathered per segment (eager
+   segment, as the unsharded engine launches; in (e), two degrades, two
+   faults injected, replayed tokens and no replay divergence, dead
+   ranks [2, 1] and the final shape (1, 1), and each lost rank out of
+   `follow()` at its own loss's site.  Logged beside the card's name
+   and power limit: output tok/s and ms per step per case ((d)'s under
+   the profiler), each rank's bytes gathered per segment (eager
    collectives), its resident weights (whole, but its attention column
-   slices) and slot state, and each case's seconds.
+   slices) and slot state, each case's seconds, and for (e) each
+   degrade's ms and every rank's resident bytes before and after it
+   (the host copy of the whole attention projections included).
 
 Then it prints the `kernels` JSON line (rows 1-2 with the other paths'
 launches, the MoE, SSM, hybrid, encdec and vlm paths' included, and
@@ -381,7 +393,7 @@ those paths' GEMM time per generate; the engine paths' launches and
 GEMM ms over the profiled runs: phase 13's trace, phase 14's chunked
 admission and whisper trace, phase 15's method trace, phase 16's
 same-draft spec trace; phase 17's training path launches none of the
-kernels and adds nothing to it; phase 18's four mesh cases' main runs),
+kernels and adds nothing to it; phase 18's five mesh cases' main runs),
 the nvidia-smi line and, last,
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, it exits nonzero and prints no result.
@@ -391,6 +403,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import gc
 import json
 import math
 import pathlib
@@ -6037,10 +6050,17 @@ def phase_train() -> None:
 SHARD_CASES = (("a", ENGINE_ARCH, (2, 1), "gloo"),
                ("b", ENGINE_ARCH, (1, 3), "gloo"),
                ("c", SSM_ARCH, (1, 2), "gloo"),
-               ("d", ENGINE_ARCH, (1, 1), "nccl"))
+               ("d", ENGINE_ARCH, (1, 1), "nccl"),
+               ("e", ENGINE_ARCH, (1, 3), "gloo"))
 # smollm-135m's cases serve phase 13's first this many requests but the
 # one cut to the cache's end
 SHARD_REQUESTS = 12
+# case (e), elastic degraded-mesh serving (distributed/elastic.py): the
+# losses -- a rank at segment:1 ((1, 3) -> (2, 1): rank 2 lost), another
+# at segment:3 ((2, 1) -> (1, 1): rank 1) -- and the first this many of
+# (a)'s requests (a cut for the run's time)
+ELASTIC_CHAOS = "lose@segment:1;lose@segment:3"
+ELASTIC_REQUESTS = 6
 
 
 def shard_trace(arch: str):
@@ -6061,7 +6081,7 @@ def shard_trace(arch: str):
     return cfg, [r for r in reqs if r is not cap][:SHARD_REQUESTS]
 
 
-def _shard_engine(mesh, cfg):
+def _shard_engine(mesh, cfg, chaos="env"):
     """A case's engine under its mesh (phase 13's slots, cache and
     segment), from the w4a8 weights of seed 0 on the rank's device."""
     from repro_torch.distributed import context as dctx
@@ -6070,10 +6090,43 @@ def _shard_engine(mesh, cfg):
     with dctx.mesh_scope(mesh, ("data",), "model"):
         eng = engine.ServeEngine(params, cfg, n_slots=ENGINE_SLOTS,
                                  max_cache_len=ENGINE_CACHE,
-                                 segment_len=ENGINE_SEGMENT)
+                                 segment_len=ENGINE_SEGMENT, chaos=chaos)
     del params
     torch.cuda.empty_cache()
     return eng
+
+
+def _resident(eng, mesh) -> dict:
+    """This rank's resident bytes: its weights on the card, its host copy
+    of the whole attention projections, its slot state, and what its
+    process holds allocated on the card."""
+    from repro_torch.launch import engine
+    info = eng.cache_info()["mesh"]
+    return dict(weights=0 if eng.params is None
+                else engine._nbytes(eng.params),
+                host=info["weights"].get("host_whole_attention", 0)
+                if eng.params is not None else 0,
+                state=info["state_bytes"],
+                allocated=torch.cuda.memory_allocated(mesh.device))
+
+
+def _timed_degrades(eng, mesh) -> list:
+    """Time each of `eng`'s degrades (synchronized): the list it appends
+    {site, ms, shape after (None on a rank that left), resident after}
+    to."""
+    seen, degrade = [], eng._degrade
+
+    def timed(exc):
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        degrade(exc)
+        torch.cuda.synchronize(mesh.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        left = eng._left_at is not None
+        seen.append(dict(site=exc.site, ms=ms, shape=None if left else tuple(
+            eng._plan.mesh.shape.values()), resident=_resident(eng, mesh)))
+    eng._degrade = timed
+    return seen
 
 
 def _shard_stats(eng, mesh, g0: int) -> dict:
@@ -6117,18 +6170,41 @@ def _shard_rank(rank: int, cases: tuple, out_dir: str) -> None:
         mesh = mesh_lib.init_mesh(shape, ("data", "model"),
                                   backend=backend, device="cuda:0")
         cfg, reqs = shard_trace(arch)
-        eng = _shard_engine(mesh, cfg)
+        chaos, stats, degrades = "env", {}, None
+        if label == "e":
+            from repro_torch.distributed import elastic
+            chaos = elastic.DeviceLossInjector.parse(ELASTIC_CHAOS)
+            reqs = reqs[:ELASTIC_REQUESTS]
+        eng = _shard_engine(mesh, cfg, chaos)
         g0 = mesh.gathered_bytes
-        stats = {}
+        if label == "e":
+            stats.update(before=_resident(eng, mesh),
+                         tp_before=eng.cache_info()["mesh"]["tp_attn"])
+            degrades = _timed_degrades(eng, mesh)
         if rank == 0:
             try:
-                stats = _shard_main_run(eng, reqs)
+                stats.update(_shard_main_run(eng, reqs))
             finally:
                 eng.release()
         else:
             eng.follow()
+        if degrades is not None:
+            # the old plans' tensors are garbage in reference cycles (a
+            # step's closure holds its state): collected, the process
+            # holds what the engine does
+            gc.collect()
+            info = eng.cache_info()
+            stats.update(degrades=degrades, after=_resident(eng, mesh),
+                         left_at=info["mesh"]["left_at"],
+                         robust=info["robustness"],
+                         dead=info["mesh"]["dead_devices"],
+                         final_shape=tuple(info["mesh"]["shape"].values()),
+                         reshard_s=info["mesh"]["reshard_s"],
+                         lost_sites=info["resilience"]["chaos"]
+                         ["lost_sites"])
         stats.update(_shard_stats(eng, mesh, g0))
         del eng
+        gc.collect()        # the next case starts from none of this one's
         torch.cuda.empty_cache()
         stats["secs"] = time.perf_counter() - t0
         with open(f"{out_dir}/{label}_{rank}.pkl", "wb") as f:
@@ -6170,6 +6246,57 @@ def _shard_nccl(label: str, arch: str, out_dir: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _elastic_gates(tag: str, ranks: list, smi: str) -> None:
+    """Case (e)'s gates and log lines: two degrades, (1, 3) -> (2, 1) ->
+    (1, 1), ranks 2 and 1 lost at their sites, the replay exact; each
+    degrade's ms and every rank's resident bytes before and after."""
+    lead = ranks[0]
+    rb = lead["robust"]
+    want_left = {1: "segment:3", 2: "segment:1"}
+    bad = []
+    if (rb["degraded"], rb["faults_injected"], rb["errors"]) != (2, 2, 0):
+        bad.append(f"degraded {rb['degraded']}, faults "
+                   f"{rb['faults_injected']}, errors {rb['errors']}")
+    if rb["replay_divergence"] or not rb["replayed_tokens"]:
+        bad.append(f"replay divergence {rb['replay_divergence']}, "
+                   f"replayed tokens {rb['replayed_tokens']}")
+    if lead["dead"] != [2, 1] or lead["final_shape"] != (1, 1):
+        bad.append(f"dead ranks {lead['dead']}, final shape "
+                   f"{lead['final_shape']}")
+    if lead["lost_sites"] != {"segment:1": 1, "segment:3": 1}:
+        bad.append(f"lost sites {lead['lost_sites']}")
+    if not lead["tp_before"]:
+        bad.append("attention tensor parallelism inactive before the loss")
+    left = {r: ranks[r]["left_at"] for r in range(len(ranks))}
+    if left != {0: None, **want_left}:
+        bad.append(f"ranks left follow() at {left}, want {want_left}")
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+
+    def mb(res):
+        return (f"weights {res['weights'] / 1e6:.1f} MB on the card + "
+                f"{res['host'] / 1e6:.1f} MB host copy of the whole "
+                f"attention projections, slot state "
+                f"{res['state'] / 1e6:.1f} MB, allocated "
+                f"{res['allocated'] / 1e6:.1f} MB")
+    log(f"{tag} ({smi}): degrades {[d['site'] for d in lead['degrades']]} "
+        f"took {[round(d['ms'], 3) for d in lead['degrades']]} ms on rank 0 "
+        f"(re-plan, groups re-formed, weights re-placed, state rebuilt; "
+        f"reshard_s {lead['reshard_s']:.4f} s) to shapes "
+        f"{[d['shape'] for d in lead['degrades']]}; dead ranks "
+        f"{lead['dead']}; replayed tokens {rb['replayed_tokens']}, "
+        f"divergence 0; ranks left follow() at {left}")
+    for st in ranks:
+        log(f"    rank {st['rank']} before: {mb(st['before'])}")
+        for d in st["degrades"]:
+            log(f"    rank {st['rank']} after {d['site']} "
+                f"({'left' if d['shape'] is None else d['shape']}, "
+                f"{d['ms']:.3f} ms; the failed launch's frame still holds "
+                f"the old state): {mb(d['resident'])}")
+        log(f"    rank {st['rank']} at the case's end, garbage collected: "
+            f"{mb(st['after'])}")
+
+
 def phase_sharded() -> dict:
     """Phase 18: mesh serving (module docstring).  Returns the cases' GEMM
     launches for the kernels line."""
@@ -6207,9 +6334,13 @@ def phase_sharded() -> dict:
             if backend != "nccl":
                 secs = lead["secs"]
             cfg, reqs = shard_trace(arch)
+            elastic = label == "e"
+            if elastic:
+                reqs = reqs[:ELASTIC_REQUESTS]
             tag = (f"sharded ({label}) {arch}"
                    f"{f' {SSM_LAYERS}L' if arch == SSM_ARCH else ''} w4a8 "
-                   f"mesh {shape} {backend}")
+                   f"mesh {shape}"
+                   f"{' -> (2, 1) -> (1, 1)' if elastic else ''} {backend}")
             want = want_of[arch]
             bad = [r.rid for r in reqs
                    if lead["streams"][r.rid] != list(want[r.rid])]
@@ -6222,6 +6353,8 @@ def phase_sharded() -> dict:
             if label in expect_tp and not m[expect_tp[label][0]]:
                 raise AssertionError(f"{tag}: tensor parallelism inactive "
                                      f"({m})")
+            if elastic:
+                _elastic_gates(tag, ranks, smi)
             if m["captured"] != (backend == "nccl"):
                 raise AssertionError(f"{tag}: captured {m['captured']}")
             name = _gemm_name("w4a8")
@@ -6272,7 +6405,9 @@ def phase_sharded() -> dict:
                     f"state {st['state'] / 1e6:.1f} MB, allocated "
                     f"{st['allocated'] / 1e6:.1f} MB")
             log(f"phase 18 ({label}): {secs:.1f} s")
-            paths[f"sharded ({label}) mesh {shape} {backend}"] = {
+            paths[f"sharded ({label}) mesh {shape}"
+                  f"{' -> (2, 1) -> (1, 1)' if elastic else ''} "
+                  f"{backend}"] = {
                 name: counts[name], small: counts[small], "segments": segs,
                 "counted_by": "the wrappers" + (
                     ": every launch (gloo steps run eagerly)"

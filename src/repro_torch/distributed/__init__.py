@@ -1,5 +1,5 @@
 """Distributed runtime (port of `repro/distributed`): fault injection,
 restart policy, straggler detection and heartbeats (`fault.py`), the
 serve-time distribution context (`context.py`) and the sharding rules
-(`sharding.py`) of mesh serving; the elastic paths (`elastic.py`) raise,
-naming ROADMAP A11."""
+(`sharding.py`) of mesh serving, and elastic degraded-mesh serving
+(`elastic.py`: the loss injector, the health registry, the planner)."""

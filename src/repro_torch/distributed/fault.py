@@ -14,9 +14,9 @@
   wall time; `StragglerDetector` flags hosts whose rolling median
   exceeds the fleet median by `threshold`x (simulated hosts on one
   card); `Heartbeat` is the controller's view of last-seen times.
-* **Elastic scaling** -- `elastic_remesh` re-shards a tree onto a new
-  device mesh: elastic degraded-mesh serving (ROADMAP A11); it raises
-  here.
+* **Elastic scaling** -- `elastic_remesh` gives this rank's placement
+  of a tree on a new (degraded) mesh under the sharding rules
+  (distributed/elastic.py plans the mesh).
 """
 from __future__ import annotations
 
@@ -121,10 +121,14 @@ class RestartPolicy:
 
 
 def elastic_remesh(tree: Any, new_mesh, cfg=None):
-    """Re-shard a tree onto a different device mesh: not ported."""
-    raise NotImplementedError(
-        "elastic_remesh: re-sharding onto a new device mesh is elastic "
-        "degraded-mesh serving (ROADMAP A11)")
+    """Re-shard a tree onto a different mesh (elastic scale up/down):
+    this rank's blocks of `tree` (whole tensors, or any that hold what
+    this rank needs) under `sharding.param_pspecs` on `new_mesh` -- the
+    rules re-derived for the new mesh, so divisibility re-validates.
+    The reference's `device_put` onto the new shardings."""
+    from repro_torch.distributed import sharding
+    return sharding.shard_tree(tree, sharding.param_pspecs(tree, new_mesh,
+                                                           cfg), new_mesh)
 
 
 class Heartbeat:

@@ -195,9 +195,23 @@ reach every rank of its model column by a dp all-gather of the prefill
 rows (`_every_row`), so a later repeat hits on any shard
 (tests/test_torch_sharded_prefix.py).  Host pages re-enter the state
 on the owning rank alone, so the port needs no counterpart of the
-reference's `_reshard_state`.  Not ported: the elastic paths -- a lost
-device's re-plan (`_degrade`) and chaos's `lose@` arms -- which raise
-naming ROADMAP A11.
+reference's `_reshard_state`.
+
+**Elastic degraded-mesh serving** (distributed/elastic.py).  A
+mesh-aware engine keeps a `DeviceHealthRegistry` over its mesh's world
+ranks.  A `DeviceLoss` (chaos's ``lose@site`` arms) fires at the same
+site on every rank, since every rank counts the same sites: `_recover`
+calls `_degrade` first, which kills the same ranks everywhere, plans the
+largest valid healthy sub-mesh, and has the survivors re-form their
+process groups among themselves (`launch.mesh.reform`).  A rank the
+plan leaves out leaves `follow()` and takes part in no collective after
+it; the survivors rebuild the engine on the new mesh (weights placed
+again from a source that holds no lost rank's slices, fresh slot state,
+buffers and steps) and replay the requeued requests, so every stream
+equals the fault-free run's bit for bit (tests/test_torch_elastic.py).
+The control plane follows the new mesh inside the call that degraded:
+the clocks and `follow()` read the engine's current control mesh.  Off
+a mesh a `DeviceLoss` is a plain fault.
 """
 from __future__ import annotations
 
@@ -205,6 +219,7 @@ import contextlib
 import dataclasses
 import functools
 import inspect
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -213,6 +228,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch import device as device_lib
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import elastic as delastic
 from repro_torch.distributed import sharding as dshard
 from repro_torch.kernels import registry
 from repro_torch.launch import methods as smethods
@@ -264,11 +280,13 @@ class _MeshPlan:
     @property
     def key(self) -> tuple:
         """Hashable mesh fingerprint for the decode-bundle LRU: two
-        engines share a bundle only when the mesh shape, axis roles,
-        this rank, its backend and device and the tp plan all agree."""
+        engines share a bundle only when the mesh shape, its world
+        ranks, axis roles, this rank, its backend and device and the tp
+        plan all agree."""
         m = self.mesh
-        return (tuple((n, m.shape[n]) for n in m.axis_names), m.rank,
-                m.backend, str(m.device), self.dp_axes, self.model_axis,
+        return (tuple((n, m.shape[n]) for n in m.axis_names), m.ranks,
+                m.rank, m.backend, str(m.device), self.dp_axes,
+                self.model_axis,
                 self.tp.size, self.tp.attn, self.tp.ssm, self.slot_axes,
                 self.tp_axes)
 
@@ -316,12 +334,37 @@ def _mesh_plan(cfg, spec: slot_state.SlotStateSpec,
                      state_treedef=spec.treedef)
 
 
-def _place_params(params, cfg, plan: _MeshPlan):
+_ATTN_COLS = ("wq", "bq", "wk", "wv", "bk", "bv")
+
+
+def _map_attention(params, fn):
+    """`params` with fn(name, leaf) applied to every attention mixer's
+    wq / wk / wv and biases (a dict holding both wq and wo)."""
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        if "wq" in node and "wo" in node:
+            return {k: fn(k, v) if k in _ATTN_COLS else v
+                    for k, v in node.items()}
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(params)
+
+
+def _to(w, device):
+    if isinstance(w, attention.QTensor):
+        return attention.QTensor(w.q.to(device), w.scale.to(device), w.fmt)
+    return w.to(device)
+
+
+def _place_params(params, cfg, plan: _MeshPlan, device):
     """This rank's copy of the weights on a mesh: the caller's whole
     weights as they are, but under attention tensor parallelism wq / wk
     / wv (and their biases), which are replaced by contiguous copies of
     this rank's column slices (`attention._tp_slice_cols`), made once
-    here, never per step.  Returns (params, {resident: bytes})."""
+    here, never per step.  Attention leaves held elsewhere (the host
+    copies a re-plan places from, `_host_attention`) are moved to
+    `device`.  Returns (params, {resident: bytes})."""
     if plan.tp.attn:
         j, size, d = plan.mesh.axis_index(plan.model_axis), plan.tp.size, \
             cfg.head_dim
@@ -330,23 +373,35 @@ def _place_params(params, cfg, plan: _MeshPlan):
         width.update({k: cfg.n_kv // size * d
                       for k in ("wk", "wv", "bk", "bv")})
 
-        def local_cols(w, n):
-            w = attention._tp_slice_cols(w, j, n)
+        def local_cols(k, w):
+            w = attention._tp_slice_cols(w, j, width[k])
             if isinstance(w, attention.QTensor):
-                return attention.QTensor(w.q.contiguous(),
-                                         w.scale.contiguous(), w.fmt)
-            return w.contiguous()
+                w = attention.QTensor(w.q.contiguous(),
+                                      w.scale.contiguous(), w.fmt)
+            else:
+                w = w.contiguous()
+            return _to(w, device)
 
-        def walk(node):
-            if not isinstance(node, dict):
-                return node
-            if "wq" in node and "wo" in node:
-                return {k: local_cols(v, width[k]) if k in width else v
-                        for k, v in node.items()}
-            return {k: walk(v) for k, v in node.items()}
-
-        params = walk(params)
+        params = _map_attention(params, local_cols)
+    else:
+        params = _map_attention(params, lambda k, w: _to(w, device))
     return params, {"resident": _nbytes(params)}
+
+
+def _attention_bytes(params) -> int:
+    """The bytes of `params`' attention projections (_ATTN_COLS)."""
+    leaves = []
+    _map_attention(params, lambda k, w: leaves.append(w) or w)
+    return _nbytes(leaves)
+
+
+def _host_attention(params):
+    """`params` with host copies of the whole wq / wk / wv (and biases),
+    the other leaves `params`' own tensors: what a rank that keeps only
+    its attention column slices places its weights from after a loss
+    (`ServeEngine._place`), since its slices hold no other shard's
+    heads, and a lost rank's slices go with it."""
+    return _map_attention(params, lambda k, w: _to(w, "cpu"))
 
 
 def _nbytes(tree) -> int:
@@ -414,14 +469,16 @@ class _Gather:
 
 class _LeaderClock:
     """Rank 0's clock inside a mirrored call: every reading is
-    broadcast to the followers (module docstring)."""
+    broadcast to the followers (module docstring) over the engine's
+    CURRENT control mesh, which a degrade inside the call replaces."""
 
-    def __init__(self, clock: scheduler.Clock, mesh):
-        self._clock, self._mesh = clock, mesh
+    def __init__(self, clock: scheduler.Clock, engine):
+        self._clock, self._engine = clock, engine
 
     def now(self) -> float:
         t = self._clock.now()
-        self._mesh.bcast_float(t)
+        if self._engine._ctl is not None:
+            self._engine._ctl.bcast_float(t)
         return t
 
     def wait_until(self, t: float) -> None:
@@ -429,13 +486,14 @@ class _LeaderClock:
 
 
 class _FollowerClock:
-    """A follower's clock: each reading is rank 0's, received."""
+    """A follower's clock: each reading is rank 0's, received over the
+    engine's current control mesh."""
 
-    def __init__(self, mesh):
-        self._mesh = mesh
+    def __init__(self, engine):
+        self._engine = engine
 
     def now(self) -> float:
-        return self._mesh.bcast_float()
+        return self._engine._ctl.bcast_float()
 
     def wait_until(self, t: float) -> None:
         pass
@@ -451,6 +509,10 @@ def _mirrored(fn):
 
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
+        if self._left_at is not None:
+            raise RuntimeError(
+                f"{fn.__name__}: this rank left the mesh at "
+                f"{self._left_at} (a degrade's plan left it out)")
         mesh = self._ctl
         if mesh is None or self._mirroring:
             return fn(self, *args, **kwargs)
@@ -465,7 +527,7 @@ def _mirrored(fn):
                            clock is not False))
         if clock is not False:
             bound.arguments["clock"] = _LeaderClock(
-                clock or scheduler.Clock(), mesh)
+                clock or scheduler.Clock(), self)
         self._mirroring = True
         try:
             return fn(self, **bound.arguments)
@@ -792,9 +854,8 @@ class ServeEngine:
         # mesh-aware serving: an ambient mesh_scope at construction makes
         # the engine one rank of a sharded engine (module docstring).  The
         # slot axis splits evenly over the dp shards, so the dp size is
-        # the batch-bucket floor (admission included)
-        self._plan = _mesh_plan(cfg, self._spec, init_kwargs)
-        plan = self._plan
+        # the batch-bucket floor (admission included; _set_plan)
+        plan = _mesh_plan(cfg, self._spec, init_kwargs)
         if plan is not None:
             # the mesh placed this rank (launch/mesh.py init_mesh): the
             # engine's device must name the same place, never replace it
@@ -815,33 +876,26 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk
         self.enc_len = enc_len
         self.min_len_bucket = min(min_len_bucket, max_cache_len)
-        self.min_batch_bucket = min(min_batch_bucket, n_slots)
-        self._adm_floor = 1
-        # this rank's dp shard: global slot s lives on shard s % dp at
-        # local row s // dp (one shard, every slot, with no mesh)
-        self._dp, self._d = 1, 0
-        # the leader / follower control plane (mirrored calls)
-        self._ctl = None
+        # the caller's floor, before the dp floor: re-applied when a
+        # degraded mesh shrinks the dp floor (_degrade)
+        self._user_min_batch = min(min_batch_bucket, n_slots)
+        self._init_kwargs = init_kwargs
+        # the leader / follower control plane (mirrored calls); the site
+        # at which a degrade left this rank out of the mesh
         self._mirroring = False
-        self._weight_bytes: Dict[str, int] = {}
-        if plan is not None:
-            dp = plan.dp_size
-            scheduler.validate_slot_sharding(n_slots, dp)
-            self.min_batch_bucket = min(max(self.min_batch_bucket, dp),
-                                        n_slots)
-            self._adm_floor = min(dp, n_slots)
-            self._dp, self._d = dp, plan.dp_index
-            if plan.mesh.size > 1:
-                self._ctl = plan.mesh
-        # steps with collectives are captured only where the backend can
-        # hold them in a graph (NCCL); over gloo every step runs eagerly
-        self._capture = plan is None or plan.mesh.captures_collectives
-        self._n_loc = n_slots // self._dp
+        self._left_at: Optional[str] = None
+        # elastic serving (distributed/elastic.py): the mesh's health
+        # registry, the time spent re-planning, the serving-clock times
+        # of the degrades
+        self._health = None if plan is None \
+            else delastic.DeviceHealthRegistry(plan.mesh.ranks)
+        self._reshard_s = 0.0
+        self._degrade_at: List[float] = []
+        self._lowerings = dict(registry.fingerprint(self.device))
+        self._set_plan(plan)
         # smallest prompt bucket: chunked prefill needs chunk-aligned
         # buckets; full prefill just avoids degenerate tiny shapes
         self.min_prompt_bucket = min(prefill_chunk or 8, max_cache_len)
-        self.batch_buckets = scheduler.bucket_set(self.min_batch_bucket,
-                                                  n_slots)
         self.len_buckets = scheduler.bucket_set(self.min_len_bucket,
                                                 max_cache_len) \
             if self._spec.has_length_axis else ()
@@ -852,43 +906,18 @@ class ServeEngine:
         # bit-identical to itself unpadded
         self.enc_buckets = scheduler.bucket_set(min(8, enc_len), enc_len) \
             if enc_len is not None else ()
-        self._lowerings = dict(registry.fingerprint(self.device))
-        self._bundle = _engine_bundle(cfg, silvia_passes, self.device, plan)
         self._queue = scheduler.RequestQueue()
+        self._weight_bytes: Dict[str, int] = {}
+        self.params = self._whole = params
         if plan is not None:
-            # weights: whole, but this rank's attention column slices
-            # (_place_params); slot state: this shard's slots and, under
-            # tensor parallelism, its heads
-            params, self._weight_bytes = _place_params(params, cfg, plan)
-        self.params = params
-        self._cache = self._init_state(self._spec, self._n_loc,
-                                       max_cache_len)
+            # weights: whole, but this rank's attention column slices;
+            # slot state: this shard's slots and, under tensor
+            # parallelism, its heads
+            self._place(plan)
         # per-slot sampling page, host-resident like _tok / _pos, shipped
         # [:bb] into the device buffers before each segment
         self._samp = sampling.host_page(n_slots)
-        dev, n_loc = self.device, self._n_loc
-        self._bufs = {
-            "tok": torch.zeros((n_loc, 1), dtype=torch.int64, device=dev),
-            "pos": torch.zeros((n_loc,), dtype=torch.int64, device=dev),
-            "act": torch.zeros((n_loc,), dtype=torch.bool, device=dev),
-            "samp": sampling.null_operand(n_loc, dev),
-            "toks": torch.zeros((n_loc, segment_len), dtype=torch.int32,
-                                device=dev),
-            "bad": torch.zeros((n_loc,), dtype=torch.bool, device=dev),
-            "step": torch.zeros((1,), dtype=torch.int64, device=dev),
-        }
-        # what the host reads a segment's results from: the buffers
-        # themselves, or on a mesh their all-gathered global copies
-        self._out = self._bufs if plan is None else {
-            "tok": torch.zeros((n_slots, 1), dtype=torch.int64, device=dev),
-            "pos": torch.zeros((n_slots,), dtype=torch.int64, device=dev),
-            "toks": torch.zeros((n_slots, segment_len), dtype=torch.int32,
-                                device=dev),
-            "bad": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
-        }
-        self._gathers: Dict[tuple, _Gather] = {}
-        self._segments: Dict[tuple, serve._CapturedStep] = {}
-        self._chunks: Dict[tuple, _ChunkStep] = {}
+        self._init_device_state()
         self._tok = np.zeros((n_slots, 1), np.int64)
         self._pos = np.zeros((n_slots,), np.int64)
         self._active = np.zeros((n_slots,), bool)
@@ -905,8 +934,6 @@ class ServeEngine:
         self._chaos = res.chaos_from_env() if chaos == "env" else chaos
         self._site_counts = {"segment": 0, "prefill": 0, "chunk": 0,
                              "embed": 0, "draft": 0, "verify": 0}
-        # the replay step per (bb, t_b) (`_replay_step_for`)
-        self._replays: Dict[tuple, _ChunkStep] = {}
         self.replay_steps = 0
         # per slot: the recorded tokens a recovered request still replays,
         # and the completion tokens a score request still teacher-forces
@@ -922,8 +949,8 @@ class ServeEngine:
             "shed", "expired_queued", "expired_inflight", "failed",
             "quarantined", "faults_injected", "errors", "recoveries",
             "replayed_tokens", "replay_divergence", "duplicate_rejects",
-            "snapshots", "restores", "drains", "cancelled_queued",
-            "cancelled_inflight")}
+            "snapshots", "restores", "drains", "degraded",
+            "cancelled_queued", "cancelled_inflight")}
         # -- cross-request prefix cache (launch/prefix_cache.py) --
         self._prefix: Optional[pfx.PrefixCache] = None
         if prefix_cache is not None:
@@ -951,10 +978,100 @@ class ServeEngine:
         self._sd = spec_decode
         self._spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0,
                             "emitted": 0, "target_dispatches": 0}
-        self._rounds: Dict[tuple, _SpecRound] = {}
-        self._dreplays: Dict[tuple, _ChunkStep] = {}
         if spec_decode is not None:
             self._init_draft(spec_decode)
+
+    def _set_plan(self, plan: Optional[_MeshPlan]) -> None:
+        """Lay the engine over `plan` (None: one device): this rank's dp
+        shard, the batch-bucket floors, the control plane, whether steps
+        are captured, and the decode bundle.  At construction and after
+        a degrade."""
+        self._plan = plan
+        n_slots = self.n_slots
+        self.min_batch_bucket = self._user_min_batch
+        self._adm_floor = 1
+        # this rank's dp shard: global slot s lives on shard s % dp at
+        # local row s // dp (one shard, every slot, with no mesh)
+        self._dp, self._d = 1, 0
+        self._ctl = None
+        if plan is not None:
+            dp = plan.dp_size
+            scheduler.validate_slot_sharding(n_slots, dp)
+            self.min_batch_bucket = min(max(self.min_batch_bucket, dp),
+                                        n_slots)
+            self._adm_floor = min(dp, n_slots)
+            self._dp, self._d = dp, plan.dp_index
+            if plan.mesh.size > 1:
+                self._ctl = plan.mesh
+        # steps with collectives are captured only where the backend can
+        # hold them in a graph (NCCL); over gloo every step runs eagerly
+        self._capture = plan is None or plan.mesh.captures_collectives
+        self._n_loc = n_slots // self._dp
+        self.batch_buckets = scheduler.bucket_set(self.min_batch_bucket,
+                                                  n_slots)
+        self._bundle = _engine_bundle(self.cfg, self.silvia_passes,
+                                      self.device, plan)
+
+    def _place(self, plan: _MeshPlan) -> None:
+        """This rank's weights under `plan` (`_place_params`) from
+        `_whole`, which then becomes what the next re-plan places from:
+        the weights themselves where they are whole on the device, else
+        them with host copies of the whole attention projections (whose
+        bytes `cache_info()` reports).  At construction and after a
+        degrade."""
+        self.params, self._weight_bytes = _place_params(
+            self._whole, self.cfg, plan, self.device)
+        self._whole = _host_attention(self._whole) if plan.tp.attn \
+            else self.params
+        self._weight_bytes["host_whole_attention"] = 0 \
+            if self._whole is self.params else _attention_bytes(self._whole)
+
+    def _init_device_state(self) -> None:
+        """The slot state, the per-slot device buffers, the gathered
+        copies the host reads on a mesh, and no captured step yet: all
+        shaped by this shard's slot count and, under tensor parallelism,
+        its heads.  At construction and after a degrade (the in-place
+        reset of `_recover` keeps them otherwise)."""
+        dev, n_loc, n_slots = self.device, self._n_loc, self.n_slots
+        seg = self.segment_len
+        self._cache = self._init_state(self._spec, n_loc,
+                                       self.max_cache_len)
+        self._bufs = {
+            "tok": torch.zeros((n_loc, 1), dtype=torch.int64, device=dev),
+            "pos": torch.zeros((n_loc,), dtype=torch.int64, device=dev),
+            "act": torch.zeros((n_loc,), dtype=torch.bool, device=dev),
+            "samp": sampling.null_operand(n_loc, dev),
+            "toks": torch.zeros((n_loc, seg), dtype=torch.int32,
+                                device=dev),
+            "bad": torch.zeros((n_loc,), dtype=torch.bool, device=dev),
+            "step": torch.zeros((1,), dtype=torch.int64, device=dev),
+        }
+        # what the host reads a segment's results from: the buffers
+        # themselves, or on a mesh their all-gathered global copies
+        self._out = self._bufs if self._plan is None else {
+            "tok": torch.zeros((n_slots, 1), dtype=torch.int64, device=dev),
+            "pos": torch.zeros((n_slots,), dtype=torch.int64, device=dev),
+            "toks": torch.zeros((n_slots, seg), dtype=torch.int32,
+                                device=dev),
+            "bad": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
+        }
+        self._gathers: Dict[tuple, _Gather] = {}
+        self._segments: Dict[tuple, serve._CapturedStep] = {}
+        self._chunks: Dict[tuple, _ChunkStep] = {}
+        # the replay step per (bb, t_b) (`_replay_step_for`)
+        self._replays: Dict[tuple, _ChunkStep] = {}
+        self._rounds: Dict[tuple, _SpecRound] = {}
+        self._dreplays: Dict[tuple, _ChunkStep] = {}
+
+    def _drop_device_state(self) -> None:
+        """Release every tensor shaped by the old plan before a degrade
+        builds the new one (or, on a rank the plan leaves out, for
+        good)."""
+        self._cache = self._bufs = self._out = None
+        self._gathers, self._segments, self._chunks = {}, {}, {}
+        self._replays, self._rounds, self._dreplays = {}, {}, {}
+        if self._sd is not None:
+            self._draft_cache = self._sbufs = self._draft_params = None
 
     def _init_draft(self, sd: SpecDecodeConfig) -> None:
         """The draft's decode function, its slot state (its own, in place
@@ -974,7 +1091,7 @@ class ServeEngine:
         self._draft_params = sd.draft_params
         if self._draft_plan is not None:
             self._draft_params, _ = _place_params(
-                sd.draft_params, sd.draft_cfg, self._draft_plan)
+                sd.draft_params, sd.draft_cfg, self._draft_plan, dev)
         self._draft_cache = self._init_state(
             self._draft_spec, n, self.max_cache_len, self._draft_plan)
 
@@ -2238,12 +2355,21 @@ class ServeEngine:
         recovery captures nothing.  Requeued requests re-enter through
         admission and replay their recorded tokens before generating new
         ones, so surviving streams stay bit-identical to a fault-free
-        run.  A request past its recovery budget is FAILED."""
+        run.  A request past its recovery budget is FAILED.  A rank's
+        loss (`DeviceLoss`) on a mesh re-plans first (`_degrade`); off a
+        mesh it is a plain fault."""
         if isinstance(exc, SimulatedFailure):
             self._robust["faults_injected"] += 1
         else:
             self._robust["errors"] += 1
         self._robust["recoveries"] += 1
+        if isinstance(exc, delastic.DeviceLoss) and self._plan is not None:
+            # a rank's loss re-plans the mesh FIRST, so that the state
+            # reset below and the replay both land on the new one
+            self._degrade_at.append(now)
+            self._degrade(exc)
+            if self._left_at is not None:
+                return
         victims = [r for r in self._slot_req if r is not None]
         seen = {id(r) for r in victims}
         victims += [r for r in self._admitting
@@ -2392,6 +2518,8 @@ class ServeEngine:
                 self._step_inner(clock, resume_only=True)
             except Exception as e:  # noqa: BLE001
                 self._recover(e, clock.now())
+                if self._left_at is not None:
+                    return      # a degrade left this rank out
                 continue
             if not self._active.any() and not any(
                     r.tokens or r.retries > 0
@@ -2406,8 +2534,9 @@ class ServeEngine:
         state is never serialized.  The snapshot is stamped with the
         current mesh (observability only): request state carries no mesh,
         so a snapshot taken on one mesh restores onto another, or onto
-        one device, with the same tokens.  On a mesh the leader writes
-        it (the host state it reads is every rank's)."""
+        one device, with the same tokens; the stamp names the world
+        ranks a degrade lost (`dead_devices`).  On a mesh the leader
+        writes it (the host state it reads is every rank's)."""
         reqs = [r for r in self._slot_req if r is not None] \
             + list(self._queue.pending())
         self._robust["snapshots"] += 1
@@ -2416,7 +2545,8 @@ class ServeEngine:
             p = self._plan
             extra = {"mesh": {
                 "shape": dict(p.mesh.shape), "dp_axes": list(p.dp_axes),
-                "model_axis": p.model_axis, "dead_devices": [],
+                "model_axis": p.model_axis,
+                "dead_devices": list(self._health.dead_ids),
             }}
         return res.snapshot_requests(ckpt_dir, step, reqs, extra=extra)
 
@@ -2481,12 +2611,64 @@ class ServeEngine:
                     break
         return {r.rid: np.asarray(r.tokens, np.int32) for r in self.finished}
 
-    def _degrade(self, exc: Exception) -> None:
-        """Re-plan onto the healthy sub-mesh after a device loss (the
-        reference's elastic path): not ported."""
-        raise NotImplementedError(
-            f"_degrade after {exc!r}: elastic degraded-mesh serving is not "
-            f"ported yet (ROADMAP A11)")
+    def _degrade(self, exc: "delastic.DeviceLoss") -> None:
+        """Elastic re-plan after a rank's loss (distributed/elastic.py).
+
+        SILVIA rebinds ops to fewer DSPs with identical results; this
+        rebinds slots to fewer ranks with identical tokens.  Every rank
+        raised the same `DeviceLoss` at the same site (the same scheduler
+        over the same site counters), so every rank kills the same ranks
+        in its health registry and plans the same sub-mesh: the largest
+        valid healthy one (dp floor and tp divisibility respected), whose
+        process groups the survivors create among themselves
+        (`plan_degraded_mesh`; a failed re-formation raises, and nothing
+        carries on with the old mesh).  A rank the plan leaves out --
+        lost, or healthy but unused -- releases its state and leaves:
+        `follow()` returns, and it takes part in no collective after.
+        The survivors rebuild the engine on the new mesh: a new plan (a
+        new bundle key), the re-bucketed admission floors, the weights
+        placed again from `_whole` (no lost rank's slices needed), fresh
+        slot state, buffers and gathers, no captured step, and the
+        draft's plan, weights, state and rounds.  The prefix pool keeps
+        its entries when each rank's heads are unchanged (a dp-only
+        loss: every dp peer pools every entry) and drops them when the
+        tensor-parallel layout changes (pages of a lost rank's heads
+        cannot be rebuilt; a miss recomputes).  `_recover` then requeues
+        the in-flight requests, which replay bit-exactly on the new
+        mesh."""
+        t0 = time.perf_counter()
+        self._health.kill(exc.n_lost)
+        old = self._plan
+        new_mesh = delastic.plan_degraded_mesh(
+            old.mesh, self._health.healthy(), dp_axes=old.dp_axes,
+            model_axis=old.model_axis, n_slots=self.n_slots, cfg=self.cfg)
+        self._robust["degraded"] += 1
+        self._graphs = set()
+        self._drop_device_state()
+        if new_mesh is None:
+            self._left_at = exc.site
+            self._ctl = None
+            self.params = self._whole = None
+            self._reshard_s += time.perf_counter() - t0
+            return
+        with dctx.mesh_scope(new_mesh, old.dp_axes, old.model_axis):
+            plan = _mesh_plan(self.cfg, self._spec, self._init_kwargs)
+            self._set_plan(plan)
+            self._place(plan)
+            self._init_device_state()
+            if self._sd is not None:
+                self._init_draft(self._sd)
+        if self._prefix is not None:
+            # rank-uniform: the plans are every rank's.  The survivors
+            # are a prefix of the old rank order (kill takes the last),
+            # so an unchanged model extent keeps each rank's heads
+            def heads(p):
+                return (p.tp.size, p.tp.attn, p.tp.ssm) if p.tp.active \
+                    else None
+            if heads(old) != heads(plan):
+                self._prefix.drop_all()
+            self._prefix.note_remesh(plan.key)
+        self._reshard_s += time.perf_counter() - t0
 
     # -- the mesh's control plane ------------------------------------------
 
@@ -2497,17 +2679,21 @@ class ServeEngine:
         ValueError -- what `submit` raises for a malformed request,
         before any launch -- is the leader's to report (it raised it too:
         the host state is the same); any other exception ends the loop
-        and the process."""
-        mesh = self._ctl
-        if mesh is None or mesh.rank == 0:
+        and the process.  A degrade that leaves this rank out of the new
+        mesh (lost, or healthy but unused) ends the loop at once: the
+        rank takes part in no collective after it
+        (`cache_info()["mesh"]["left_at"]`)."""
+        if self._ctl is None or self._ctl.rank == 0:
             raise RuntimeError("follow() runs on the ranks after rank 0 "
                                "of a mesh of more than one rank")
-        while True:
-            name, kwargs, clocked = mesh.bcast_object()
+        while self._left_at is None:
+            # the current control mesh: a degrade replaces it, and one
+            # that leaves this rank out ends the loop
+            name, kwargs, clocked = self._ctl.bcast_object()
             if name is None:
                 return
             if clocked:
-                kwargs["clock"] = _FollowerClock(mesh)
+                kwargs["clock"] = _FollowerClock(self)
             fn = getattr(type(self), name).__wrapped__
             self._mirroring = True
             try:
@@ -2698,6 +2884,12 @@ class ServeEngine:
                 },
             },
         }
+        chaos = info["resilience"]["chaos"]
+        if isinstance(self._chaos, delastic.DeviceLossInjector):
+            chaos["lose_at_sites"] = [list(x)
+                                      for x in self._chaos.lose_at_sites]
+            chaos["lose_rate"] = self._chaos.lose_rate
+            chaos["lost_sites"] = dict(self._chaos.lost_sites)
         if self._prefix is not None:
             info["prefix_cache"] = self._prefix.info()
         if self._plan is not None:
@@ -2711,8 +2903,15 @@ class ServeEngine:
                 "tp_attn": p.tp.attn,
                 "tp_ssm": p.tp.ssm,
                 "n_devices": p.mesh.size,
-                "dead_devices": [],
-                "degraded": 0,
+                "ranks": list(p.mesh.ranks),
+                "dead_devices": list(self._health.dead_ids),
+                "degraded": self._robust["degraded"],
+                "reshard_s": self._reshard_s,
+                "degrade_at": list(self._degrade_at),
+                # the site of the degrade that left this rank out of the
+                # mesh (None while it serves): its shape is the last one
+                # it served on
+                "left_at": self._left_at,
                 "rank": p.mesh.rank,
                 "backend": p.mesh.backend,
                 # steps with collectives in CUDA graphs (NCCL on CUDA), or
@@ -2720,8 +2919,8 @@ class ServeEngine:
                 "captured": self._capture and self.device.type == "cuda",
                 "gathered_bytes": p.mesh.gathered_bytes,
                 "weights": dict(self._weight_bytes),
-                "state_bytes": sum(t.numel() * t.element_size() for t in
-                                   pytree.tree_leaves(self._cache)),
+                "state_bytes": 0 if self._cache is None
+                else _nbytes(self._cache),
             }
         if self._sd is not None:
             sd = dict(self._spec_stats)

@@ -30,10 +30,22 @@ asked for with more ranks than cards.  Over NCCL a collective can be captured in
 through host copies (`_gather_gloo_cuda`): an explicit per-backend
 branch, not a fallback.
 
+A mesh may cover a subset of the world: `ranks` lists the world rank
+at each position (row-major), `coords` come from this rank's position,
+and world rank 0 is the leader wherever it sits.  `init_mesh`'s mesh
+covers the whole world in order; `reform(old, shape, ranks)` is the
+survivors' sub-mesh after a rank's loss (distributed/elastic.py): its
+groups and its control group are created by their members alone
+(`use_local_synchronization`), so no call, collective or store key
+waits on a rank outside it; axis sets with the same members share one
+group, the control group included (over NCCL one group carries both
+backends, "cpu:gloo,cuda:nccl").
+
 `spawn(fn, nprocs, *args)` starts `nprocs` rank processes on a free
 localhost port (one torch thread each) and raises if any rank fails:
 the tests and chip_smoke.py's sharded phase share it.  A collective
-waits at most `TIMEOUT` for its peers, then fails.
+waits at most the mesh's `timeout` (`TIMEOUT` unless `init_mesh` is
+given another) for its peers, then fails.
 """
 from __future__ import annotations
 
@@ -57,7 +69,9 @@ class Mesh:
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
                  rank: Optional[int] = None, backend: Optional[str] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 ranks: Optional[Sequence[int]] = None,
+                 timeout: Optional[datetime.timedelta] = None):
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {tuple(shape)} vs axes "
                              f"{tuple(axis_names)}")
@@ -65,9 +79,17 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               (int(n) for n in shape)))
         self.size = math.prod(self.shape.values())
+        # the world rank at each position, row-major
+        self.ranks = tuple(range(self.size)) if ranks is None \
+            else tuple(int(r) for r in ranks)
+        if len(self.ranks) != self.size:
+            raise ValueError(f"mesh shape {tuple(shape)} over ranks "
+                             f"{self.ranks}")
         self.rank, self.backend, self.device = rank, backend, device
+        self.timeout = TIMEOUT if timeout is None else timeout
         self.coords = None if rank is None else dict(zip(
-            self.axis_names, _unravel(rank, tuple(self.shape.values()))))
+            self.axis_names, _unravel(self.ranks.index(rank),
+                                      tuple(self.shape.values()))))
         self._groups: Dict[tuple, object] = {}
         self.ctrl = None
         # bytes this rank received through all_gather (eager calls only:
@@ -96,9 +118,10 @@ class Mesh:
 
     # -- groups and collectives ---------------------------------------------
 
-    def _make_groups(self) -> None:
-        """Every subset of the axes, every group of it: created on every
-        rank in the same order (dist.new_group is collective)."""
+    def _axis_groups(self):
+        """(axes, members, mine) for every group of every subset of the
+        axes, in one order on every rank: `members` the sorted world
+        ranks, `mine` whether this rank is one of them."""
         sizes = tuple(self.shape.values())
         names = self.axis_names
         for r in range(1, len(names) + 1):
@@ -111,15 +134,62 @@ class Mesh:
                             *(range(self.shape[a]) for a in sub)):
                         c = dict(zip(rest, fixed))
                         c.update(zip(sub, var))
-                        members.append(_ravel(
-                            tuple(c[a] for a in names), sizes))
-                    g = dist.new_group(sorted(members),
-                                       backend=self.backend,
-                                       timeout=TIMEOUT)
-                    if all(self.coords[a] == c for a, c in zip(rest, fixed)):
-                        self._groups[sub] = g
-        self.ctrl = dist.new_group(list(range(self.size)), backend="gloo",
-                                   timeout=TIMEOUT)
+                        members.append(self.ranks[_ravel(
+                            tuple(c[a] for a in names), sizes)])
+                    yield sub, tuple(sorted(members)), all(
+                        self.coords[a] == c for a, c in zip(rest, fixed))
+
+    def _make_groups(self) -> None:
+        """Every subset of the axes, every group of it: created on every
+        rank of the world in the same order (dist.new_group is
+        collective)."""
+        for sub, members, mine in self._axis_groups():
+            g = dist.new_group(list(members), backend=self.backend,
+                               timeout=self.timeout)
+            if mine:
+                self._groups[sub] = g
+        self.ctrl = dist.new_group(list(self.ranks), backend="gloo",
+                                   timeout=self.timeout)
+
+    def _make_local_groups(self) -> None:
+        """A re-formed mesh's groups (`reform`), created by their members
+        alone.  Torch names such a group by a hash of its ranks and of
+        the number of groups the creating process holds, so the members
+        of a group must hold equally many when they create it: the groups
+        are made one partition of the ranks at a time -- first the whole
+        mesh (the control group), then each axis set's groups -- and
+        every rank is in exactly one group of each partition.  A
+        partition equal to an earlier one (axes of size 1) reuses its
+        groups.  Meshes made by `init_mesh` and `reform` keep the counts
+        equal on every rank they span."""
+        backend = "gloo" if self.backend == "gloo" else "cpu:gloo,cuda:nccl"
+        whole = tuple(sorted(self.ranks))
+        parts = {(): {whole}}
+        mine = {(): whole}
+        for sub, members, is_mine in self._axis_groups():
+            parts.setdefault(sub, set()).add(members)
+            if is_mine:
+                mine[sub] = members
+        made: Dict[tuple, object] = {}
+        seen = []
+        for sub, part in parts.items():
+            if part in seen:
+                continue
+            seen.append(part)
+            made[mine[sub]] = dist.new_group(
+                list(mine[sub]), backend=backend, timeout=self.timeout,
+                use_local_synchronization=True)
+        self.ctrl = made[whole]
+        self._groups = {sub: made[m] for sub, m in mine.items() if sub}
+
+    def _warm(self) -> None:
+        """One collective on every group, outside any capture (NCCL
+        builds its communicators lazily, and never inside a graph
+        capture)."""
+        probe = torch.zeros((1,), device=self.device)
+        for sub in self._groups:
+            self.all_gather(probe, sub)
+        self.gathered_bytes = 0
 
     def group(self, axes):
         return self._groups[self._ordered(axes)]
@@ -149,7 +219,8 @@ class Mesh:
     def bcast_object(self, obj=None):
         """Rank 0's `obj` on every rank."""
         box = [obj]
-        dist.broadcast_object_list(box, src=0, group=self.ctrl)
+        dist.broadcast_object_list(box, src=0, group=self.ctrl,
+                                   device=torch.device("cpu"))
         return box[0]
 
     def bcast_float(self, x: float = 0.0) -> float:
@@ -225,7 +296,8 @@ def fsdp_axes(mesh) -> tuple:
 TIMEOUT = datetime.timedelta(seconds=300)
 
 
-def init_mesh(shape, axes, *, backend: str = "nccl", device=None) -> Mesh:
+def init_mesh(shape, axes, *, backend: str = "nccl", device=None,
+              timeout: Optional[datetime.timedelta] = None) -> Mesh:
     """This process's view of a mesh over the `torch.distributed` world
     (initialized here from $RANK, $WORLD_SIZE, $MASTER_ADDR and
     $MASTER_PORT when it is not yet; `spawn` sets them).  The world size
@@ -236,7 +308,8 @@ def init_mesh(shape, axes, *, backend: str = "nccl", device=None) -> Mesh:
     ("cpu" for ranks on the CPU).  Creates every axis
     group and the control group, and warms each group with one
     collective (NCCL builds its communicators lazily, and never inside a
-    graph capture)."""
+    graph capture).  `timeout` bounds every collective of the mesh and
+    of its re-formations (`TIMEOUT` by default)."""
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
     n = math.prod(int(x) for x in shape)
@@ -264,16 +337,32 @@ def init_mesh(shape, axes, *, backend: str = "nccl", device=None) -> Mesh:
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method="env://", rank=rank,
                                 world_size=int(os.environ.get(
-                                    "WORLD_SIZE", n)), timeout=TIMEOUT)
+                                    "WORLD_SIZE", n)),
+                                timeout=timeout or TIMEOUT)
     if dist.get_world_size() != n:
         raise ValueError(f"mesh {tuple(shape)} needs {n} ranks, the world "
                          f"has {dist.get_world_size()}")
-    mesh = Mesh(shape, axes, rank=rank, backend=backend, device=dev)
+    mesh = Mesh(shape, axes, rank=rank, backend=backend, device=dev,
+                timeout=timeout)
     mesh._make_groups()
-    probe = torch.zeros((1,), device=dev)
-    for sub in mesh._groups:
-        mesh.all_gather(probe, sub)
-    mesh.gathered_bytes = 0
+    mesh._warm()
+    return mesh
+
+
+def reform(old: Mesh, shape, ranks: Sequence[int]) -> Optional[Mesh]:
+    """The sub-mesh of `shape` over the world `ranks` (row-major), made
+    by its members after a loss (distributed/elastic.py
+    `plan_degraded_mesh`): this rank's view of it, with the old mesh's
+    axis names, backend, device and timeout, every group created by its
+    members alone and warmed; None on a rank outside it, which creates
+    nothing.  Raises if a group cannot form (a member that never joins
+    fails it at the timeout)."""
+    if old.rank not in ranks:
+        return None
+    mesh = Mesh(shape, old.axis_names, rank=old.rank, backend=old.backend,
+                device=old.device, ranks=ranks, timeout=old.timeout)
+    mesh._make_local_groups()
+    mesh._warm()
     return mesh
 
 

@@ -38,7 +38,9 @@ decode mutates only that working copy.  The reference keeps host numpy
 so that its pool is mesh-free and survives an elastic re-plan; the
 port's is host-resident for the same reason.  `note_remesh` records
 the mesh a pool serves (info()'s `remeshes` and `mesh_fingerprint`):
-the mesh-aware engine calls it at construction.  There every rank
+the mesh-aware engine calls it at construction and at every degrade,
+which drops the pool (`drop_all`) when the heads a rank holds change
+(launch/engine.py `_degrade`).  On a mesh every rank
 keeps a pool of the same entries -- the same scheduler looks up,
 inserts, pins and evicts them -- each page holding that rank's own
 heads (launch/engine.py `_prefix_admit_full`).
@@ -114,6 +116,7 @@ class PrefixCache:
         self.evicted = 0
         self.insertions = 0
         self.remeshes = 0
+        self.dropped = 0
         self.mesh_key = None
 
     # -- keys ---------------------------------------------------------------
@@ -282,6 +285,14 @@ class PrefixCache:
             self.remeshes += 1
         self.mesh_key = mesh_key
 
+    def drop_all(self) -> None:
+        """Drop every entry, pinned or not (counted in `pages_dropped`):
+        after a degrade that changes the heads a rank holds, no pooled
+        page fits its state, and the pages of a lost rank's heads cannot
+        be rebuilt.  A later miss recomputes, so the tokens stay exact."""
+        self.dropped += len(self._entries)
+        self._entries.clear()
+
     # -- observability ------------------------------------------------------
 
     def info(self) -> dict:
@@ -300,6 +311,7 @@ class PrefixCache:
                                 if e.refs > 0),
             "insertions": self.insertions,
             "remeshes": self.remeshes,
+            "pages_dropped": self.dropped,
             "mesh_fingerprint": None if self.mesh_key is None
             else hashlib.sha256(repr(self.mesh_key).encode()).hexdigest()[:12],
         }

@@ -42,9 +42,10 @@ the recovery path above, which regenerates it.  The layout is the
 reference's, so a snapshot written by either package restores in the
 other.
 
-Device loss (``lose@site`` arms, the reference's
-`distributed.elastic.DeviceLossInjector`) is elastic degraded-mesh
-serving, ROADMAP A11: it raises.
+Device loss: a spec with ``lose@site`` / ``lose_rate=`` arms parses
+into `distributed.elastic.DeviceLossInjector`, whose `DeviceLoss` a
+mesh-aware engine answers by re-planning onto the healthy ranks
+(launch/engine.py `_degrade`).
 """
 from __future__ import annotations
 
@@ -206,15 +207,16 @@ class ChaosSchedule(FailureInjector):
 
 def chaos_from_env() -> Optional[ChaosSchedule]:
     """The process-wide chaos schedule from $REPRO_CHAOS (None if unset),
-    read at engine construction.  Device-loss arms (``lose@site``,
-    ``lose_rate=``) need the mesh and raise."""
+    read at engine construction.  Specs with device-loss arms
+    (``lose@site``, ``lose_rate=``...) parse into a
+    `distributed.elastic.DeviceLossInjector` -- imported here, since
+    elastic builds on this module."""
     spec = os.environ.get("REPRO_CHAOS", "").strip()
     if not spec:
         return None
     if "lose" in spec:
-        raise NotImplementedError(
-            f"REPRO_CHAOS={spec!r}: device-loss arms are elastic "
-            f"degraded-mesh serving, not ported yet (ROADMAP.md A11)")
+        from repro_torch.distributed import elastic
+        return elastic.DeviceLossInjector.parse(spec)
     return ChaosSchedule.parse(spec)
 
 

@@ -22,7 +22,8 @@ Beyond the bare train loop:
 * restarts under a `RestartPolicy` (budget, backoff).
 
 The mesh (`--mesh` other than 1x1) is training's multi-rank half,
-ROADMAP A12, and elastic re-sharding is A11.  Training is bf16 on float weights: no quantized GEMM and no
+ROADMAP A12 (elastic re-sharding, `fault.elastic_remesh`, is ported
+with elastic serving).  Training is bf16 on float weights: no quantized GEMM and no
 hand-written kernel lies on this path (its products are torch.matmul,
 autograd supplies the backward).  The device defaults to "cuda" and is
 never swapped for the CPU behind the caller's back: without a GPU, pass

@@ -1225,3 +1225,32 @@ def test_cuda_sharded_engine_matches_unsharded(cuda, tmp_path, shape,
     assert (got["captured"] > 0) == (backend == "nccl")
     assert got["mesh"]["dp_size"] == shape[0]
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, backend", [((1, 2), "gloo"),
+                                            ((1, 1), "nccl")])
+def test_cuda_elastic_degrade_matches_unsharded(cuda, tmp_path, shape,
+                                                backend):
+    """chip_smoke.py phase 18 (e) at a reduced size: a loss at segment:1.
+    Two gloo ranks sharing the card lose rank 1, (1, 2) -> (1, 1), the
+    attention heads no longer split; one NCCL rank has none to lose and
+    re-forms (1, 1) over itself, its new group carrying gloo and NCCL,
+    its steps captured again.  Each stream == the unsharded engine's."""
+    import pickle
+
+    import torch_mesh_workers as W
+    from repro_torch.launch import mesh as mesh_lib
+    out = str(tmp_path / "out.pkl")
+    mesh_lib.spawn(W.run_card_elastic, shape[0] * shape[1], shape, backend,
+                   out)
+    with open(out, "rb") as f:
+        got = pickle.load(f)
+    rb = got["robustness"]
+    assert rb["errors"] == 0 and rb["degraded"] == 1
+    assert rb["faults_injected"] == 1 and rb["replay_divergence"] == 0
+    assert got["streams"] == _card_baseline()
+    assert got["mesh"]["shape"] == {"data": 1, "model": 1}
+    assert got["mesh"]["dead_devices"] == ([1] if backend == "gloo" else [])
+    assert got["tp_before"] == (backend == "gloo")
+    assert (got["captured"] > 0) == (backend == "nccl")

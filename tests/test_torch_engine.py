@@ -19,9 +19,9 @@ and its scheduler, against the port's static `generate` and against
   teacher-forced logits.
 * Inactive slots' pages stay bit-identical across a segment; the graph
   census stays within `graph_bound()` and warmup covers the traffic;
-  admission control (shedding, deadlines, cancellation) and the
-  refusals of what is not ported yet (chaos's device-loss arms) and of
-  a missing CUDA (the methods and chaos:
+  admission control (shedding, deadlines, cancellation), chaos's
+  device-loss arms parsed as the reference parses them, and the
+  refusal of a missing CUDA (the methods and chaos:
   tests/test_torch_engine_methods.py, tests/test_torch_resilience.py;
   speculative decoding and its refusals:
   tests/test_torch_spec_decode.py).
@@ -37,6 +37,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.launch import engine as jengine  # noqa: E402
+from repro.launch import resilience as jres  # noqa: E402
 from repro.launch import scheduler as jsched  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
@@ -452,13 +453,18 @@ def test_admission_control_and_cancel():
 
 def test_refusals_name_their_roadmap_item(monkeypatch):
     _, cfg, _, params = _setup("bfloat16", "w8a8")
-    # speculative decoding and the mesh are ported: spec_decode's refusals
-    # are the reference's (tests/test_torch_spec_decode.py).  A
-    # device-loss arm is elastic degraded-mesh serving and still raises,
-    # naming its item
+    # speculative decoding, the mesh and elastic serving are ported:
+    # spec_decode's refusals are the reference's
+    # (tests/test_torch_spec_decode.py), and a device-loss arm arms the
+    # engine with the injector the reference's engine gets
+    # (tests/test_torch_elastic.py holds its degrade)
     monkeypatch.setenv("REPRO_CHAOS", "segment:1;lose@segment:2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-        _engine(cfg, params)
+    chaos, ref = _engine(cfg, params)._chaos, jres.chaos_from_env()
+    assert type(chaos).__name__ == type(ref).__name__ == \
+        "DeviceLossInjector"
+    assert (chaos.fail_at_sites, chaos.lose_at_sites, chaos.arms_loss) \
+        == (ref.fail_at_sites, ref.lose_at_sites, ref.arms_loss) \
+        == (("segment:1",), (("segment:2", 1),), True)
     monkeypatch.delenv("REPRO_CHAOS")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

@@ -1,8 +1,9 @@
 """The port's fault injection and recovery (`repro_torch/launch/engine.py`
 slice 5, `launch/resilience.py`, `checkpoint/ckpt.py`,
 `distributed/fault.py`), unit for unit with tests/test_resilience.py
-(its elastic mesh test aside: elastic serving is ROADMAP A11; the
-`RestartPolicy` tests are in tests/test_torch_train.py).
+(its elastic mesh test aside: elastic serving's are in
+tests/test_torch_elastic.py; the `RestartPolicy` tests are in
+tests/test_torch_train.py).
 
 * Faults at segment, prefill, chunk and embed sites mid-traffic: every
   stream (tokens, a score request's logprobs, an embedding) equals the
@@ -482,9 +483,13 @@ def test_chaos_from_env(monkeypatch):
     want = run(engine(cfg, params, chaos=None), requests(cfg, n=2))
     assert_same_results(want, run(eng, requests(cfg, n=2)))
     assert eng.cache_info()["robustness"]["faults_injected"] == 1
+    # a device-loss arm parses into the reference's injector
     monkeypatch.setenv("REPRO_CHAOS", "lose@segment:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-        res.chaos_from_env()
+    mine, ref = res.chaos_from_env(), jres.chaos_from_env()
+    assert type(mine).__name__ == type(ref).__name__ == "DeviceLossInjector"
+    assert (mine.lose_at_sites, mine.fail_at_sites, mine.lose_rate) \
+        == (ref.lose_at_sites, ref.fail_at_sites, ref.lose_rate) \
+        == ((("segment:1", 1),), (), 0.0)
 
 
 @pytest.mark.parametrize("spec", [

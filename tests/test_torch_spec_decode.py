@@ -317,8 +317,8 @@ def test_spec_decode_config_validation():
 def test_chaos_sites_of_a_spec_engine(monkeypatch):
     """draft / verify sites parse in both packages to the same schedule,
     the port's engine counts them, a bad site is refused with the
-    reference's message, and a device-loss arm names elastic serving
-    (ROADMAP A11)."""
+    reference's message, and a device-loss arm parses as the reference's
+    (on one device its loss is a plain fault: the streams hold)."""
     spec = "draft:1;verify:2,rate=0.1,seed=3"
     assert res.ChaosSchedule.parse(spec).fail_at_sites == \
         jres.ChaosSchedule.parse(spec).fail_at_sites == ("draft:1",
@@ -335,8 +335,14 @@ def test_chaos_sites_of_a_spec_engine(monkeypatch):
                                                             "verify:2"]
     assert info["dispatch_sites"]["verify"] > 2
     monkeypatch.setenv("REPRO_CHAOS", "draft:1;lose@verify:2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-        engine(cfg, params, spec_decode=sd(params, cfg), chaos="env")
+    ref = jres.chaos_from_env()
+    eng = engine(cfg, params, spec_decode=sd(params, cfg), chaos="env")
+    assert (eng._chaos.fail_at_sites, eng._chaos.lose_at_sites) \
+        == (ref.fail_at_sites, ref.lose_at_sites) \
+        == (("draft:1",), (("verify:2", 1),))
+    assert_same(nonspec("dense"), run(eng, trace(cfg)))
+    assert eng.cache_info()["resilience"]["chaos"]["lost_sites"] \
+        == {"verify:2": 1}
 
 
 # ---------------------------------------------------------------------------

@@ -385,13 +385,32 @@ def test_heartbeat_dead_hosts():
 
 def test_refusals_name_roadmap_a8():
     """What ROADMAP A8 left out when it split: training's multi-rank half
-    (A12) and elastic re-sharding (A11)."""
+    (A12) raises; elastic re-sharding is ported, and re-shards as the
+    reference's rules say on the new mesh (here a (2, 2) mesh over world
+    ranks 0, 2, 3 and 5: "embed" splits over ("model", "data"), "w"
+    stays whole)."""
     g = {"w": torch.ones(3)}
     q, s, _ = tcomp.compress_grads(g)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tcomp.compressed_psum(q, s, "data")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tfault.elastic_remesh(g, None)
+    from jax.sharding import AbstractMesh
+    from repro.distributed import sharding as jshard
+    from repro_torch.launch import mesh as tmesh
+    tree = {"embed": torch.arange(32.0).reshape(8, 4), "w": torch.ones(3)}
+    specs = jshard.param_pspecs(
+        {k: jax.ShapeDtypeStruct(tuple(v.shape), jnp.float32)
+         for k, v in tree.items()}, AbstractMesh((2, 2), ("data", "model")))
+    assert tuple(specs["embed"]) == ("model", "data")
+    assert tuple(specs["w"]) == ()
+    ranks = (0, 2, 3, 5)
+    for pos, rank in enumerate(ranks):
+        mesh = tmesh.Mesh((2, 2), ("data", "model"), rank=rank,
+                          ranks=ranks)
+        d, m = divmod(pos, 2)
+        got = tfault.elastic_remesh(tree, mesh)
+        assert torch.equal(got["embed"], tree["embed"][4 * m:4 * m + 4,
+                                                       2 * d:2 * d + 2])
+        assert torch.equal(got["w"], tree["w"])
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         ttrain.main(["--arch", "smollm-135m", "--reduced", "--mesh", "2x1",
                      "--device", "cpu"])

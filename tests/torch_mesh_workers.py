@@ -378,3 +378,205 @@ def run_card_group(rank: int, shape: tuple, backend: str, out: str) -> None:
         pickle.dump({"streams": got, "mesh": info["mesh"],
                      "captured": info["captured"],
                      "errors": info["robustness"]["errors"]}, f)
+
+
+# ---------------------------------------------------------------------------
+# elastic degraded-mesh serving (tests/test_torch_elastic.py)
+# ---------------------------------------------------------------------------
+
+# label: (model, mesh (data, model), chaos spec).  Every rank parses the
+# same spec and counts the same sites, so every rank loses at the same
+# site; each site falls where in-flight requests have tokens to replay.
+# "prefix" serves two waves (`prefix_waves`: wave 1 runs segment:0-1)
+# and loses in wave 2, when the pool holds wave 1's entries
+ELASTIC_CASES = {
+    "dense": ("dense", (2, 1), "lose@segment:1"),
+    "encdec": ("encdec", (2, 1), "lose@segment:1"),
+    "qwen": ("qwen", (1, 2), "lose@segment:1"),
+    "ssm": ("ssm", (1, 2), "lose@segment:1"),
+    "prefix": ("qwen", (1, 2), "lose@segment:3"),
+    "prefix_dp": ("dense", (2, 1), "lose@segment:3"),
+    "spec": ("qwen", (1, 2), "lose@verify:4"),
+    "snapshot": ("dense", (2, 1), "lose@segment:0"),
+    "hybrid": ("hybrid", (2, 2), "lose@segment:1"),
+    "repeat": ("dense", (2, 2), "lose@segment:1;lose@segment:3=2"),
+}
+
+
+def elastic_model(label: str, weights: dict):
+    """(cfg, params) of a case: the saved weights where the test gave a
+    file for it (the JAX package's init, converted), else `build`'s."""
+    kind = ELASTIC_CASES[label][0]
+    if label in weights:
+        import torch
+        return torch.load(weights[label], weights_only=False)
+    return build(kind)
+
+
+def elastic_kwargs(label: str, cfg, dp: int = 1) -> dict:
+    kw = engine_kwargs(label, cfg, dp)
+    if label == "spec":
+        kw["spec_decode"] = SpecDecodeConfig(build("qwen", seed=1)[1], cfg,
+                                             k=3)
+    return kw
+
+
+def elastic_serve(eng, label: str, cfg) -> dict:
+    """A case's traffic through `eng.run`: its streams.  Every request
+    arrives at once (no arrival depends on how fast a step runs), so the
+    loss sites fall at the same point of the traffic in every run; the
+    prefix case serves its two waves."""
+    if label.startswith("prefix"):
+        return serve(eng, "prefix", cfg)
+    return streams(eng.run(requests(cfg, stagger=0.0),
+                           scheduler.FastForwardClock()))
+
+
+def elastic_baseline(label: str, weights: dict) -> dict:
+    """The port's unsharded engine, fault-free, on the case's traffic
+    (a speculative case against the NON-speculative engine)."""
+    cfg, params = elastic_model(label, weights)
+    kw = elastic_kwargs(label, cfg)
+    kw.pop("spec_decode", None)
+    eng = ServeEngine(params, cfg, **kw)
+    out = elastic_serve(eng, label, cfg)
+    assert {r.outcome for r in eng.finished} == {"ok"}, label
+    return out
+
+
+def _elastic_info(eng) -> dict:
+    info = eng.cache_info()
+    m = info["mesh"]
+    return {"shape": (m["shape"]["data"], m["shape"]["model"]),
+            "ranks": m["ranks"], "dead": m["dead_devices"],
+            "degraded": m["degraded"], "reshard_s": m["reshard_s"],
+            "degrade_at": m["degrade_at"], "left_at": m["left_at"],
+            "tp": (m["tp_attn"], m["tp_ssm"]),
+            "robustness": info["robustness"],
+            "chaos": info["resilience"]["chaos"],
+            "graphs": (info["graphs"], info["graph_bound"]),
+            "weights": m["weights"],
+            "prefix": info.get("prefix_cache")}
+
+
+def elastic_case(label: str, mesh, weights: dict, snap_dir: str):
+    """One case on every rank: rank 0 serves it, the others follow.
+    Returns this rank's result; a follower a degrade leaves out returns
+    as soon as `follow()` does."""
+    from repro_torch.distributed import elastic
+    _, shape, spec = ELASTIC_CASES[label]
+    cfg, params = elastic_model(label, weights)
+    kw = elastic_kwargs(label, cfg, shape[0])
+    kw["chaos"] = elastic.DeviceLossInjector.parse(spec)
+    with dctx.mesh_scope(mesh, ("data",), "model"):
+        eng = ServeEngine(params, cfg, **kw)
+    before = (eng.min_batch_bucket, eng._adm_floor, eng.batch_buckets,
+              eng.cache_info()["mesh"]["tp_attn"],
+              eng.cache_info()["mesh"]["tp_ssm"])
+    if mesh.rank != 0:
+        eng.follow()
+        return {"info": _elastic_info(eng)}
+    try:
+        res = {"before": before}
+        clock = scheduler.FastForwardClock()
+        if label == "snapshot":
+            # every request there at once; serve on past the degrade for
+            # one more step, then snapshot what is left
+            for r in requests(cfg, stagger=0.0):
+                eng.submit(r)
+            while not eng.cache_info()["robustness"]["degraded"]:
+                eng.step(clock)
+            eng.step(clock)
+            eng.snapshot(snap_dir)
+            res["done"] = streams({r.rid: r.tokens for r in eng.finished})
+        else:
+            res["streams"] = elastic_serve(eng, label, cfg)
+        res["outcomes"] = sorted({r.outcome for r in eng.finished})
+        res["after"] = (eng.min_batch_bucket, eng._adm_floor,
+                        eng.batch_buckets)
+        res["info"] = _elastic_info(eng)
+        if label == "spec":
+            res["spec"] = eng.cache_info()["spec_decode"]
+        return res
+    finally:
+        eng.release()
+
+
+def run_elastic_group(rank: int, labels: tuple, out_dir: str,
+                      weights: dict, timeout_s: float,
+                      exit_label: str) -> None:
+    """One rank of a group of elastic cases of one rank count: each case
+    on a fresh mesh of the whole world (gloo, CPU, collectives bounded
+    by `timeout_s`), its result pickled per rank to out_dir.  In the
+    case `exit_label` (the last), a rank the degrade leaves out exits
+    its process at once: the survivors must finish without it."""
+    import datetime
+    import os
+    timeout = datetime.timedelta(seconds=timeout_s)
+    got = {}
+
+    def dump():
+        with open(f"{out_dir}/{rank}.pkl", "wb") as f:
+            pickle.dump(got, f)
+
+    for label in labels:
+        shape = ELASTIC_CASES[label][1]
+        mesh = mesh_lib.init_mesh(shape, ("data", "model"), backend="gloo",
+                                  device="cpu", timeout=timeout)
+        got[label] = elastic_case(label, mesh, weights, f"{out_dir}/snap")
+        if label == exit_label and got[label]["info"]["left_at"]:
+            dump()
+            os._exit(0)
+    dump()
+
+
+def spawn_elastic(n: int, labels: tuple, out_dir: str, weights: dict,
+                  timeout_s: float = 300.0, exit_label: str = "") -> dict:
+    """{rank: {label: result}} of a group of `n` rank processes."""
+    mesh_lib.spawn(run_elastic_group, n, tuple(labels), out_dir, weights,
+                   timeout_s, exit_label)
+    out = {}
+    for r in range(n):
+        with open(f"{out_dir}/{r}.pkl", "rb") as f:
+            out[r] = pickle.load(f)
+    return out
+
+
+def run_card_elastic(rank: int, shape: tuple, backend: str,
+                     out: str) -> None:
+    """A card rank of an elastic case (tests/test_torch_cuda.py): reduced
+    qwen1.5-0.5b w4a8 on cuda:0, the requests all at once, a loss at
+    segment:1 -- on (1, 2) gloo, rank 1's ((1, 2) -> (1, 1), attention
+    tensor parallelism undone); on one NCCL rank, none to lose (a rank
+    always survives), so the survivor re-forms (1, 1) over itself, its
+    group carrying both backends.  Rank 0 pickles its streams and
+    counters to `out`."""
+    import torch
+
+    from repro_torch.distributed import elastic
+    mesh = mesh_lib.init_mesh(shape, ("data", "model"), backend=backend,
+                              device="cuda:0")
+    cfg = configs.get_reduced_config(FAMILIES["qwen"])
+    params = quantize_tree_for_serving(
+        lm.init_params(cfg, 0, device="cpu", max_seq=80), "w4a8", force=True)
+    params = torch.utils._pytree.tree_map(lambda t: t.to(mesh.device),
+                                          params)
+    kw = engine_kwargs("w4a8", cfg, shape[0])
+    kw.update(device="cuda",
+              chaos=elastic.DeviceLossInjector.parse("lose@segment:1"))
+    with dctx.mesh_scope(mesh, ("data",), "model"):
+        eng = ServeEngine(params, cfg, **kw)
+    tp_before = eng.cache_info()["mesh"]["tp_attn"]
+    if mesh.rank != 0:
+        eng.follow()
+        return
+    try:
+        got = streams(eng.run(requests(cfg, stagger=0.0),
+                              scheduler.FastForwardClock()))
+        info = eng.cache_info()
+    finally:
+        eng.release()
+    with open(out, "wb") as f:
+        pickle.dump({"streams": got, "mesh": info["mesh"],
+                     "tp_before": tp_before, "captured": info["captured"],
+                     "robustness": info["robustness"]}, f)
